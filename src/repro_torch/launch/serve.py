@@ -1,0 +1,105 @@
+"""Serving launcher of the port, real execution.
+
+Full-size llama3.2-3b in bf16 on the card, weights from a seed:
+    PYTHONPATH=src python -m repro_torch.launch.serve --requests 16
+
+Reduced config on the CPU:
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --requests 4 --isl 4 24 --osl 8 32
+"""
+from __future__ import annotations
+
+import argparse
+import json
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.registry import get_config, get_smoke_config
+from repro_torch.core.engine import EngineConfig, InferenceEngine
+from repro_torch.core.request import Request
+from repro_torch.core.runner import TorchRunner
+from repro_torch.models.transformer import Transformer
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def make_requests(vocab: int, n: int, isl: Tuple[int, int],
+                  osl: Tuple[int, int], seed: int) -> List[Tuple[List[int], int]]:
+    """n (prompt, max_new_tokens) pairs; lengths uniform in the inclusive
+    ranges, token ids uniform, all from ``seed``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        prompt = rng.integers(0, vocab, size=int(rng.integers(isl[0], isl[1] + 1)))
+        out.append((prompt.tolist(), int(rng.integers(osl[0], osl[1] + 1))))
+    return out
+
+
+def pages_to_hold(requests: Sequence[Tuple[List[int], int]],
+                  page_size: int = 16, reserve: float = 0.05) -> int:
+    """A pool that holds every request at its peak context at once, with
+    the kv-aware admission reserve left free."""
+    need = sum(-(-(len(p) + n + 1) // page_size) for p, n in requests)
+    return int(np.ceil(need / (1.0 - reserve))) + 1
+
+
+def build_engine(cfg: ModelConfig, n_pages: int, *, device="cuda",
+                 dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                 max_num_seqs: int = 16,
+                 admission_mode: str = "kv_aware") -> InferenceEngine:
+    """``InferenceEngine`` -> ``TorchRunner`` on a model whose weights are
+    seeded on ``device``, with a pool of ``n_pages`` pages."""
+    model = Transformer(cfg, device=device, dtype=dtype, seed=seed)
+    ecfg = EngineConfig(n_pages=n_pages, max_num_seqs=max_num_seqs,
+                        admission_mode=admission_mode)
+    return InferenceEngine(cfg, ecfg, TorchRunner(model, device=device),
+                           virtual_clock=False)
+
+
+def serve(cfg: ModelConfig, requests: Sequence[Tuple[List[int], int]], *,
+          device="cuda", dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+          max_num_seqs: int = 16,
+          admission_mode: str = "kv_aware") -> Tuple[InferenceEngine, List[Request]]:
+    """Serve ``requests`` to completion on a pool that holds them all."""
+    eng = build_engine(cfg, pages_to_hold(requests), device=device,
+                       dtype=dtype, seed=seed, max_num_seqs=max_num_seqs,
+                       admission_mode=admission_mode)
+    reqs = [eng.submit(p, n) for p, n in requests]
+    eng.run()
+    return eng, reqs
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-3b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="bfloat16")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--isl", type=int, nargs=2, default=(128, 1024))
+    ap.add_argument("--osl", type=int, nargs=2, default=(128, 256))
+    ap.add_argument("--max-num-seqs", type=int, default=16)
+    ap.add_argument("--admission", choices=["naive", "kv_aware"],
+                    default="kv_aware")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    requests = make_requests(cfg.vocab, args.requests, tuple(args.isl),
+                             tuple(args.osl), args.seed)
+    eng, _ = serve(cfg, requests, device=args.device,
+                   dtype=DTYPES[args.dtype], seed=args.seed,
+                   max_num_seqs=args.max_num_seqs,
+                   admission_mode=args.admission)
+    s = eng.metrics.summary()
+    print(json.dumps({k: v for k, v in s.items() if not isinstance(v, dict)},
+                     indent=1))
+    print(f"[serve] completed {s['n_finished']} requests, "
+          f"{s['gen_tokens']} tokens")
+
+
+if __name__ == "__main__":
+    main()

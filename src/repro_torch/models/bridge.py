@@ -1,0 +1,86 @@
+"""Weights between the JAX package's serve parameters and the port's model.
+
+The JAX side is a nested dict of arrays, as
+``repro.models.transformer.init_params(cfg, key, single_device_ctx(),
+mode="serve")`` returns it (any array type ``numpy.asarray`` accepts).
+``from_jax_params`` copies it into a ``Transformer``; ``to_jax_params``
+gives it back as numpy. ``numpy_params`` makes such a dict from a numpy
+seed, with the JAX package's layout and scales, where no JAX is at hand.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import Transformer, param_specs
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
+    out = {}
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            out.update(_flatten(val, name + "."))
+        else:
+            out[name] = val
+    return out
+
+
+def _nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for name, val in flat.items():
+        node = out
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = val
+    return out
+
+
+def from_jax_params(params: Mapping, cfg: ModelConfig, *, device="cuda",
+                    dtype: torch.dtype = torch.float32) -> Transformer:
+    """A ``Transformer`` holding ``params``, cast to ``dtype``."""
+    flat = {k: np.asarray(v) for k, v in _flatten(params).items()}
+    specs = param_specs(cfg)
+    if set(flat) != set(specs):
+        raise ValueError(f"parameter names differ: missing "
+                         f"{sorted(set(specs) - set(flat))}, unexpected "
+                         f"{sorted(set(flat) - set(specs))}")
+    for name, (shape, _, _) in specs.items():
+        if flat[name].shape != shape:
+            raise ValueError(f"{name}: shape {flat[name].shape}, want {shape}")
+    model = Transformer(cfg, device=device, dtype=dtype, seed=None)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(torch.from_numpy(np.require(flat[name], requirements="CW")))
+    return model
+
+
+def to_jax_params(model: Transformer) -> Dict[str, Any]:
+    """The model's weights as the JAX package's nested dict of numpy arrays
+    (fp32 for a bf16 model: numpy has no bf16)."""
+    flat = {}
+    for name, p in model.named_parameters():
+        t = p.detach().cpu()
+        flat[name] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return _nest(flat)
+
+
+def numpy_params(cfg: ModelConfig, seed: int,
+                 dtype=np.float32) -> Dict[str, Any]:
+    """Serve parameters drawn from ``numpy.random.default_rng(seed)``:
+    normal with std 1/sqrt(fan_in), norms ones, in the JAX layout."""
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for name, (shape, init, fan_in) in param_specs(cfg).items():
+        if init == "ones":
+            flat[name] = np.ones(shape, dtype)
+        else:
+            w = rng.standard_normal(shape, dtype=np.float32)
+            w /= math.sqrt(fan_in)
+            flat[name] = w.astype(dtype, copy=False)
+    return _nest(flat)

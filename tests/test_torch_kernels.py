@@ -1,0 +1,222 @@
+"""The port's attention kernels against the JAX package.
+
+On the CPU each wrapper runs its plain version, which is held against the
+JAX oracles (``flash_attention_ref``, ``paged_attention_ref``), a few
+interpret-mode Pallas runs, and the JAX model attention. The CUDA kernels
+themselves are held against the plain versions on the card in
+``tests/test_torch_kernels_gpu.py``. Tolerances: 2e-3 in fp32, 2e-2 in
+bf16, as ``tests/test_kernels.py`` states them.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash
+from repro.kernels.flash_attention.ref import flash_attention_ref as _flash_ref
+from repro.kernels.paged_attention.ops import paged_attention as jax_paged
+from repro.kernels.paged_attention.ref import paged_attention_ref as _paged_ref
+from repro.models import attention as jattn
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.models import attention as tattn
+
+# copied from tests/test_kernels.py
+FLASH_CASES = [
+    # B, Sq, Skv, H, KV, D, window, block_q, block_k
+    (1, 128, 128, 4, 4, 64, 0, 64, 64),        # MHA, square
+    (2, 128, 128, 8, 2, 32, 0, 32, 64),        # GQA 4:1
+    (2, 64, 256, 4, 4, 64, 0, 64, 64),         # kv longer than q (chunked ctx)
+    (1, 256, 256, 6, 2, 128, 0, 128, 128),     # MXU-aligned D
+    (2, 128, 128, 4, 1, 64, 0, 64, 32),        # MQA
+    (1, 256, 256, 4, 4, 64, 64, 64, 64),       # sliding window
+    (1, 192, 192, 4, 2, 64, 32, 64, 64),       # window + ragged tiles
+]
+PAGED_CASES = [
+    # B, KV, G, D, page, P, nblk
+    (2, 2, 4, 64, 16, 16, 4),
+    (3, 4, 1, 64, 16, 32, 6),       # MHA-style
+    (1, 1, 8, 128, 16, 8, 8),       # MQA, deep table
+    (4, 2, 2, 32, 16, 64, 3),
+]
+# jitted: one compile per shape instead of one per eager op
+flash_attention_ref = jax.jit(_flash_ref, static_argnames=("window",))
+paged_attention_ref = jax.jit(_paged_ref)
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-3),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _both(a, dtype):
+    """The same numpy array as a JAX and a torch tensor of one dtype."""
+    jdt, tdt, _ = DTYPES[dtype]
+    return jnp.asarray(a).astype(jdt), torch.from_numpy(a).to(tdt)
+
+
+def _close(out_t, ref_j, tol):
+    np.testing.assert_allclose(out_t.float().numpy(),
+                               np.asarray(ref_j, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def _flash_inputs(case, seed):
+    B, Sq, Skv, H, KV, D, window = case[:7]
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Sq, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, Skv, KV, D)).astype(np.float32)
+    v = rng.standard_normal((B, Skv, KV, D)).astype(np.float32)
+    lens = np.asarray([Skv] + [max(Skv // 2, 1)] * (B - 1), np.int32)
+    return q, k, v, lens, window
+
+
+def _paged_inputs(case, seed):
+    B, KV, G, D, page, P, nblk = case
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, KV, G, D)).astype(np.float32)
+    kp = rng.standard_normal((P, page, KV, D)).astype(np.float32)
+    vp = rng.standard_normal((P, page, KV, D)).astype(np.float32)
+    tables = rng.integers(0, P, size=(B, nblk)).astype(np.int32)
+    lens = np.asarray([nblk * page - 1] + [page // 2] * (B - 1), np.int32)
+    return q, kp, vp, tables, lens
+
+
+# ------------------------------------------------------------ K1 on the CPU
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_plain_vs_jax_ref(case, dtype):
+    q, k, v, lens, window = _flash_inputs(case, FLASH_CASES.index(case))
+    (qj, qt), (kj, kt), (vj, vt) = (_both(a, dtype) for a in (q, k, v))
+    ref = flash_attention_ref(qj, kj, vj, jnp.asarray(lens), window=window)
+    out = flash_ops.flash_attention(qt, kt, vt, torch.from_numpy(lens),
+                                    window=window)
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    _close(out, ref, DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("case", [FLASH_CASES[1], FLASH_CASES[6]])
+def test_flash_plain_vs_jax_interpret(case):
+    """The Pallas kernel itself, in interpret mode (fp32)."""
+    B, Sq, Skv, H, KV, D, window, bq, bk = case
+    q, k, v, lens, _ = _flash_inputs(case, 100 + FLASH_CASES.index(case))
+    ref = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    jnp.asarray(lens), window=window, block_q=bq, block_k=bk,
+                    interpret=True)
+    out = flash_ops.flash_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(lens), window=window)
+    _close(out, ref, 2e-3)
+
+
+@pytest.mark.parametrize("offset,window,kv_len", [(0, 0, 96), (32, 0, 80),
+                                                  (32, 24, 96)])
+def test_flash_prefill_matches_jax(offset, window, kv_len):
+    """Model-level prefill attention with chunk offsets, kv lengths and a
+    window, against ``repro.models.attention.flash_prefill``."""
+    rng = np.random.default_rng(offset + window)
+    B, Sq, Skv, H, KV, D = 2, 64, 96, 8, 2, 32
+    q = rng.standard_normal((B, Sq, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, Skv, KV, D)).astype(np.float32)
+    v = rng.standard_normal((B, Skv, KV, D)).astype(np.float32)
+    pos = (offset + np.arange(Sq, dtype=np.int32))[None]
+    kv_lens = np.asarray([kv_len, Skv], np.int32)
+    ref = jattn.flash_prefill(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              q_positions=jnp.asarray(pos),
+                              kv_lens=jnp.asarray(kv_lens), window=window,
+                              block_k=32)
+    out = tattn.flash_prefill(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v),
+                              q_positions=torch.from_numpy(pos),
+                              kv_lens=torch.from_numpy(kv_lens), window=window)
+    _close(out, ref, 2e-3)
+
+
+def test_flash_kernel_matches_model_prefill():
+    """The wrapper agrees with the model-level function it replaces, as
+    ``tests/test_kernels.py::test_flash_matches_model_flash_jnp``."""
+    rng = np.random.default_rng(7)
+    B, S, H, KV, D = 2, 128, 8, 4, 64
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+    pos = torch.arange(S, dtype=torch.int32)[None]
+    np.testing.assert_allclose(
+        flash_ops.flash_attention(q, k, v).numpy(),
+        tattn.flash_prefill(q, k, v, q_positions=pos).numpy(),
+        rtol=2e-3, atol=2e-3)
+
+
+# ------------------------------------------------------------ K2 on the CPU
+@pytest.mark.parametrize("case", PAGED_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_paged_plain_vs_jax_ref(case, dtype):
+    q, kp, vp, tables, lens = _paged_inputs(case, PAGED_CASES.index(case))
+    (qj, qt), (kj, kt), (vj, vt) = (_both(a, dtype) for a in (q, kp, vp))
+    ref = paged_attention_ref(qj, kj, vj, jnp.asarray(tables),
+                              jnp.asarray(lens))
+    out = paged_ops.paged_attention(qt, kt, vt, torch.from_numpy(tables),
+                                    torch.from_numpy(lens))
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    _close(out, ref, DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("case", [PAGED_CASES[0], PAGED_CASES[3]])
+def test_paged_plain_vs_jax_interpret(case):
+    """The Pallas kernel itself, in interpret mode (fp32), through its
+    (B,H,D) wrapper."""
+    q, kp, vp, tables, lens = _paged_inputs(case, 200 + PAGED_CASES.index(case))
+    B, KV, G, D = q.shape
+    ref = jax_paged(jnp.asarray(q.reshape(B, KV * G, D)), jnp.asarray(kp),
+                    jnp.asarray(vp), jnp.asarray(tables), jnp.asarray(lens),
+                    interpret=True)
+    out = paged_ops.paged_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(tables), torch.from_numpy(lens))
+    _close(out.reshape(B, KV * G, D), ref, 2e-3)
+
+
+def test_paged_matches_dense_decode():
+    """Identity page layout: the paged wrapper equals the port's dense
+    ``decode_attention``, which equals the JAX one."""
+    B, KV, G, D, page, nblk = 2, 2, 2, 32, 16, 4
+    H, S = KV * G, page * nblk
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((B, 1, H, D)).astype(np.float32)
+    kc = rng.standard_normal((B, S, KV, D)).astype(np.float32)
+    vc = rng.standard_normal((B, S, KV, D)).astype(np.float32)
+    lens = np.asarray([S - 1, 20], np.int32)
+    dense = tattn.decode_attention(*map(torch.from_numpy, (q, kc, vc, lens)))
+    jdense = jattn.decode_attention(*map(jnp.asarray, (q, kc, vc, lens)))
+    _close(dense, jdense, 2e-3)
+    tables = np.arange(B * nblk, dtype=np.int32).reshape(B, nblk)
+    paged = paged_ops.paged_attention(
+        torch.from_numpy(q).view(B, KV, G, D),
+        torch.from_numpy(kc).reshape(B * nblk, page, KV, D),
+        torch.from_numpy(vc).reshape(B * nblk, page, KV, D),
+        torch.from_numpy(tables), torch.from_numpy(lens))
+    np.testing.assert_allclose(paged.view(B, 1, H, D).numpy(), dense.numpy(),
+                               rtol=2e-3, atol=2e-3)
+
+
+def test_cpu_calls_launch_nothing():
+    flash_before = flash_ops.KERNEL.launches
+    paged_before = paged_ops.KERNEL.launches
+    q, k, v, lens, _ = _flash_inputs(FLASH_CASES[0], 0)
+    flash_ops.flash_attention(*map(torch.from_numpy, (q, k, v, lens)))
+    paged_ops.paged_attention(*map(torch.from_numpy,
+                                   _paged_inputs(PAGED_CASES[0], 0)))
+    assert flash_ops.KERNEL.launches == flash_before
+    assert paged_ops.KERNEL.launches == paged_before
+
+
+def test_non_cpu_tensors_never_take_the_plain_path():
+    """A tensor that is not on the CPU goes to the kernel's checks, which
+    refuse what is not on a CUDA device, rather than to the plain version."""
+    q = torch.empty((1, 16, 4, 64), device="meta")
+    k = torch.empty((1, 16, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="not cuda"):
+        flash_ops.flash_attention(q, k, k)
+    qd = torch.empty((1, 2, 2, 64), device="meta")
+    pages = torch.empty((4, 16, 2, 64), device="meta")
+    tables = torch.zeros((1, 2), dtype=torch.int32, device="meta")
+    lens = torch.zeros((1,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="not cuda"):
+        paged_ops.paged_attention(qd, pages, pages, tables, lens)
