@@ -7,15 +7,20 @@ Phases, each printed as one JSON line:
   1. the card (nvidia-smi name and power limit, torch and CUDA versions),
      then the build of both CUDA kernels from ``src/repro_torch/csrc``;
   2. each kernel against its plain PyTorch version on the card, fp32 and
-     bf16, on the kernel test cases and the main path's shapes;
-  3. each kernel's time at the main path's shapes beside its bound, its
-     plain version's time and one PyTorch library call's time;
+     bf16, on the kernel test cases, the edges of each kernel's tiling and
+     the main path's shapes;
+  3. each kernel's time in bf16 at the main path's shapes (K1 at S 137,
+     1000, 512 and 2048; K2 at one 2048-token sequence and at the decode
+     batch), eager and on the device alone, beside its bound and the share
+     of it reached, the wrapper's host time per call, its plain version's
+     time and one PyTorch library call's time;
   4. greedy tokens of a full-width 2-layer fp32 model served on the card
      equal those of the plain path on the CPU, with and without preemption;
   5. the main path: full-depth llama3.2-3b in bf16 serving 16 requests
      through ``InferenceEngine`` -> ``TorchRunner`` with seeded weights,
      then a shorter traced run of the same model (device busy share,
-     kernel times);
+     kernel times by device symbol: the bf16 tensor-core instances of K1
+     and K2 and K2's merge must show time, the fp32 instances none);
   6. the ``kernels`` line, then the card line, then as the last line
      ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero. It needs a CUDA card and fails
@@ -38,7 +43,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 # copied from tests/test_kernels.py
 FLASH_CASES = [
-    # B, Sq, Skv, H, KV, D, window
+    # B, Sq, Skv, H, KV, D, window[, lens]
     (1, 128, 128, 4, 4, 64, 0),
     (2, 128, 128, 8, 2, 32, 0),
     (2, 64, 256, 4, 4, 64, 0),
@@ -46,22 +51,47 @@ FLASH_CASES = [
     (2, 128, 128, 4, 1, 64, 0),
     (1, 256, 256, 4, 4, 64, 64),
     (1, 192, 192, 4, 2, 64, 32),
+    # edges of the bf16 tensor-core instance (128-row q tiles, 128-key tiles)
+    (1, 200, 200, 4, 2, 32, 0),              # D 32: 64-byte swizzle
+    (2, 200, 200, 4, 2, 64, 0),              # D 64, ragged, lens (200, 100)
+    (2, 100, 300, 4, 4, 128, 0),             # Skv > Sq
+    (1, 300, 300, 4, 2, 128, 0, [170]),      # lens < Skv, mid-tile
+    (2, 130, 130, 2, 2, 64, 0, [0, 65]),     # no valid key: zeros
+    (1, 1, 1, 4, 2, 64, 0),                  # one token
+    (1, 333, 333, 4, 2, 128, 100),           # window, ragged
+    (1, 260, 260, 4, 1, 32, 48, [250]),      # window, D 32, lens < Skv
 ]
 PAGED_CASES = [
-    # B, KV, G, D, page, P, nblk
+    # B, KV, G, D, page, P, nblk[, tokens of each sequence]
     (2, 2, 4, 64, 16, 16, 4),
     (3, 4, 1, 64, 16, 32, 6),
     (1, 1, 8, 128, 16, 8, 8),
     (4, 2, 2, 32, 16, 64, 3),
+    # partition edges of the split kernel (16 pages = 256 tokens), tables
+    # padded past each sequence's pages
+    (5, 2, 3, 128, 16, 512, 128, [1, 255, 256, 257, 2048]),
+    (1, 8, 3, 128, 16, 256, 128, [2048]),    # B=1, one long sequence
+    (3, 2, 1, 64, 16, 64, 40, [300, 17, 640]),   # G 1
+    (2, 1, 8, 128, 16, 64, 36, [513, 16]),   # G 8
 ]
 # the main path's shapes: llama3.2-3b has 24 q heads over 8 kv heads of 128
 MAIN_FLASH = [(1, S, S, 24, 8, 128, 0) for S in (512, 2048)]
 # served prompts are ragged (ISL 128-1024): partial q and kv tiles
 RAGGED_FLASH = [(1, S, S, 24, 8, 128, 0) for S in (1000, 137)]
 MAIN_PAGED = dict(B=16, KV=8, G=3, D=128, max_ctx=2048)
+# one sequence alone: the case the split over the sequence is for
+LONG_PAGED = dict(B=1, KV=8, G=3, D=128, max_ctx=2048)
 TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
-# the device kernel each wrapper launches, as the profiler names it
-KERNEL_SYMBOLS = {"flash_attention": "flash_fwd", "paged_attention": "paged_decode"}
+# limit on |out - ref|_2 / |ref|_2 over a whole output: bf16 roundings of
+# q*scale, P and out give about 3e-3, while a dropped key tile or sequence
+# partition shifts the rows it touches by far more than 1e-2
+REL_RMS = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
+# every device kernel each wrapper launches, as the profiler names it; a
+# bf16 run must show only the tensor-core instances
+KERNEL_SYMBOLS = {"flash_attention": ("flash_fwd_wgmma", "flash_fwd_simt"),
+                  "paged_attention": ("paged_split_mma", "paged_split_simt",
+                                      "paged_merge")}
+FP32_ONLY_SYMBOLS = ("flash_fwd_simt", "paged_split_simt")
 # H100 SXM published peaks (NVIDIA data sheet, dense): bf16 tensor cores,
 # fp32 outside the tensor cores, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -82,31 +112,32 @@ def nvidia_smi() -> str:
 
 # ------------------------------------------------------------------ inputs
 def flash_inputs(case, dtype, gen):
-    B, Sq, Skv, H, KV, D, window = case
+    B, Sq, Skv, H, KV, D, window = case[:7]
     dev = torch.device("cuda")
     q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
                for s in ((B, Sq, H, D), (B, Skv, KV, D), (B, Skv, KV, D)))
-    lens = torch.tensor([Skv] + [max(Skv // 2, 1)] * (B - 1),
-                        dtype=torch.int32, device=dev)
-    return q, k, v, lens, window
+    lens = case[7] if len(case) > 7 else [Skv] + [max(Skv // 2, 1)] * (B - 1)
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device=dev), window
 
 
 def paged_case_inputs(case, dtype, gen):
-    B, KV, G, D, page, P, nblk = case
+    B, KV, G, D, page, P, nblk = case[:7]
     dev = torch.device("cuda")
     q = torch.randn((B, KV, G, D), generator=gen, device=dev).to(dtype)
     kp, vp = (torch.randn((P, page, KV, D), generator=gen, device=dev).to(dtype)
               for _ in range(2))
     tables = torch.randint(0, P, (B, nblk), generator=gen, device=dev,
                            dtype=torch.int32)
-    lens = torch.tensor([nblk * page - 1] + [page // 2] * (B - 1),
-                        dtype=torch.int32, device=dev)
-    return q, kp, vp, tables, lens
+    if len(case) > 7:
+        lens = [n - 1 for n in case[7]]
+    else:
+        lens = [nblk * page - 1] + [page // 2] * (B - 1)
+    return q, kp, vp, tables, torch.tensor(lens, dtype=torch.int32, device=dev)
 
 
-def paged_main_inputs(dtype, gen):
-    """B sequences of up to max_ctx tokens in shuffled pages of one pool."""
-    m = MAIN_PAGED
+def paged_main_inputs(dtype, gen, m=MAIN_PAGED):
+    """B sequences of up to max_ctx tokens in shuffled pages of one pool
+    (the first holds max_ctx)."""
     B, KV, G, D, page = m["B"], m["KV"], m["G"], m["D"], 16
     rng = np.random.default_rng(1)
     ctx = rng.integers(128, m["max_ctx"] + 1, size=B)
@@ -134,49 +165,103 @@ def compare(fn, plain, args, kwargs, dtype):
     ref = plain(*args, **kwargs)
     diff = (out.float() - ref.float()).abs()
     tol = TOL[dtype]
+    where = [tuple(a.shape) for a in args[:3]]
     if not bool(torch.isfinite(out.float()).all()):
         raise AssertionError(f"{fn.__name__}: non-finite output")
     ok = bool((diff <= tol + tol * ref.float().abs()).all())
     err = float(diff.max())
     if not ok:
         raise AssertionError(f"{fn.__name__}: max abs err {err} beyond tol "
-                             f"{tol} at {[tuple(a.shape) for a in args[:3]]}")
-    return err
+                             f"{tol} at {where}")
+    rel = float(diff.norm() / ref.float().norm().clamp_min(1e-30))
+    if rel > REL_RMS[dtype]:
+        raise AssertionError(f"{fn.__name__}: relative rms err {rel} beyond "
+                             f"{REL_RMS[dtype]} at {where}")
+    return err, rel
 
 
 def check_kernels(flash_ops, paged_ops):
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {"flash_attention": [], "paged_attention": []}
+    rels = {"flash_attention": [], "paged_attention": []}
     for dtype in (torch.float32, torch.bfloat16):
         for case in FLASH_CASES + MAIN_FLASH + RAGGED_FLASH:
             q, k, v, lens, window = flash_inputs(case, dtype, gen)
-            errs["flash_attention"].append(compare(
+            err, rel = compare(
                 flash_ops.flash_attention, flash_ops.flash_attention_plain,
-                (q, k, v, lens), {"window": window}, dtype))
+                (q, k, v, lens), {"window": window}, dtype)
+            errs["flash_attention"].append(err)
+            rels["flash_attention"].append(rel)
         cases = [paged_case_inputs(c, dtype, gen) for c in PAGED_CASES]
-        for args in cases + [paged_main_inputs(dtype, gen)]:
-            errs["paged_attention"].append(compare(
+        for args in cases + [paged_main_inputs(dtype, gen),
+                             paged_main_inputs(dtype, gen, LONG_PAGED)]:
+            err, rel = compare(
                 paged_ops.paged_attention, paged_ops.paged_attention_plain,
-                args, {}, dtype))
+                args, {}, dtype)
+            errs["paged_attention"].append(err)
+            rels["paged_attention"].append(rel)
     for name, e in errs.items():
         emit("check", kernel=name, cases=len(e), max_abs_err=max(e),
-             errs=[float(f"{x:.3g}") for x in e])
+             max_rel_rms=max(rels[name]), errs=[float(f"{x:.3g}") for x in e],
+             rel_rms=[float(f"{x:.3g}") for x in rels[name]])
     return {name: max(e) for name, e in errs.items()}
 
 
 def time_ms(fn, iters, warmup=3):
-    """Mean device time of one call, by CUDA events around ``iters`` calls."""
+    """Mean time of one call, by CUDA events around ``iters`` eager calls
+    (device time, or the host's enqueue time where that is longer), and
+    the host's own time to make one call (the wrapper's checks, allocation
+    and launch), by the host's clock over the same calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     start.record()
     for _ in range(iters):
         fn()
     end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
     end.synchronize()
+    return start.elapsed_time(end) / iters, host_ms
+
+
+def device_ms(fn, iters, warmup=3):
+    """Mean device time of one call: ``iters`` calls captured in one CUDA
+    graph, replayed between CUDA events, so the host's per-call cost (the
+    wrapper's checks, allocation and launch) is not in it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
+
+
+def timed(kernel, library, iters, bound_ms):
+    """A kernel's and its library call's times, eager (``ms``,
+    ``library_ms``: what a caller of the wrapper waits for, and the
+    measure of earlier rows) and on the device alone (``device_ms``,
+    ``library_device_ms``), with the host's time per wrapper call and the
+    share of the bound reached by each measure."""
+    ms, host_ms = time_ms(kernel, iters)
+    dev = device_ms(kernel, iters)
+    return dict(ms=ms, device_ms=dev, host_ms=host_ms,
+                library_ms=time_ms(library, iters)[0],
+                library_device_ms=device_ms(library, iters),
+                bound_share=bound_ms / ms, device_bound_share=bound_ms / dev)
 
 
 def bound(flops, nbytes, dtype):
@@ -191,7 +276,7 @@ def nbytes(*tensors):
 def time_flash(flash_ops, case, dtype, gen):
     import torch.nn.functional as F
     q, k, v, lens, _ = flash_inputs(case, dtype, gen)
-    B, Sq, Skv, H, KV, D, _ = case
+    B, Sq, Skv, H, KV, D, _ = case[:7]
     lens_np = lens.cpu().numpy()
     # causal (q, k) pairs these inputs need: row i sees min(i+1, lens[b]) keys
     pairs = sum(int(np.minimum(np.arange(1, Sq + 1), lb).sum()) for lb in lens_np)
@@ -199,18 +284,21 @@ def time_flash(flash_ops, case, dtype, gen):
     out = flash_ops.flash_attention(q, k, v, lens)
     b_ms, b_by = bound(flops, nbytes(q, k, v, lens, out), dtype)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kernel = lambda: flash_ops.flash_attention(q, k, v, lens)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    t = timed(kernel, library, 20, b_ms)
     return dict(
-        shape=list(case[:6]), dtype=str(dtype).split(".")[-1],
-        ms=time_ms(lambda: flash_ops.flash_attention(q, k, v, lens), 20),
-        plain_ms=time_ms(lambda: flash_ops.flash_attention_plain(q, k, v, lens), 5),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 20),
-        bound_ms=b_ms, bound_by=b_by, flops=flops)
+        shape=list(case[:6]), dtype=str(dtype).split(".")[-1], **t,
+        bound_ms=b_ms, bound_by=b_by,
+        plain_ms=time_ms(lambda: flash_ops.flash_attention_plain(q, k, v, lens), 5)[0],
+        flops=flops, tflop_s=flops / t["ms"] / 1e9,
+        device_tflop_s=flops / t["device_ms"] / 1e9)
 
 
-def time_paged(paged_ops, dtype, gen):
+def time_paged(paged_ops, dtype, gen, m=MAIN_PAGED):
     import torch.nn.functional as F
-    q, kp, vp, tables, lens = paged_main_inputs(dtype, gen)
+    q, kp, vp, tables, lens = paged_main_inputs(dtype, gen, m)
     B, KV, G, D = q.shape
     tokens = int((lens.long() + 1).sum())
     flops = 4 * G * D * KV * tokens
@@ -226,15 +314,17 @@ def time_paged(paged_ops, dtype, gen):
     mask = (torch.arange(S, device=q.device)[None, :] <= lens[:, None].long())
     mask = mask[:, None, None, :]
     qh = q.reshape(B, KV * G, 1, D)
+    kernel = lambda: paged_ops.paged_attention(q, kp, vp, tables, lens)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qh, kc, vc, attn_mask=mask, enable_gqa=True)
+    t = timed(kernel, library, 50, b_ms)
     return dict(
         shape=[B, KV, G, D], contexts=(lens + 1).tolist(),
-        dtype=str(dtype).split(".")[-1],
-        ms=time_ms(lambda: paged_ops.paged_attention(q, kp, vp, tables, lens), 50),
+        dtype=str(dtype).split(".")[-1], **t, bound_ms=b_ms, bound_by=b_by,
         plain_ms=time_ms(lambda: paged_ops.paged_attention_plain(
-            q, kp, vp, tables, lens), 10),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qh, kc, vc, attn_mask=mask, enable_gqa=True), 50),
-        bound_ms=b_ms, bound_by=b_by, bytes=needed)
+            q, kp, vp, tables, lens), 10)[0],
+        bytes=needed, gb_s=needed / t["ms"] / 1e6,
+        device_gb_s=needed / t["device_ms"] / 1e6)
 
 
 def greedy_equality():
@@ -354,12 +444,14 @@ def profile_main_path(model):
                 + evt.time_range.elapsed_us() / 1e3
     groups = dict.fromkeys(("flash_attention", "paged_attention", "matmul",
                             "other"), 0.0)
+    by_symbol = {sym: 0.0 for syms in KERNEL_SYMBOLS.values() for sym in syms}
     for name, ms in by_name.items():
         low = name.lower()
-        kernel = [k for k, sym in KERNEL_SYMBOLS.items()
-                  if re.search(rf"(^|[\s:]){sym}<", name)]
-        if kernel:
-            groups[kernel[0]] += ms
+        hits = [(k, sym) for k, syms in KERNEL_SYMBOLS.items() for sym in syms
+                if re.search(rf"(^|[\s:]){sym}<", name)]
+        if hits:
+            groups[hits[0][0]] += ms
+            by_symbol[hits[0][1]] += ms
         elif any(t in low for t in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
             groups["matmul"] += ms
         else:
@@ -370,9 +462,14 @@ def profile_main_path(model):
     emit("profile", osl=32, steps=steps, wall_ms=wall_ms,
          step_ms=wall_ms / max(steps, 1), device_busy_ms=busy_ms,
          idle_share=1.0 - busy_ms / wall_ms if busy_ms else None,
-         device_ms_by_group=groups,
+         device_ms_by_group=groups, device_ms_by_symbol=by_symbol,
          top_kernels_ms=[[name[:100], ms] for name, ms in top])
-    missing = [k for k in KERNEL_SYMBOLS if groups[k] == 0.0]
+    wrong = [sym for sym in FP32_ONLY_SYMBOLS if by_symbol[sym] > 0.0]
+    if wrong:
+        raise AssertionError(f"the bf16 main path reached {wrong}, an fp32 "
+                             "instance")
+    missing = [sym for sym, ms in by_symbol.items()
+               if ms == 0.0 and sym not in FP32_ONLY_SYMBOLS]
     if missing:
         raise AssertionError(f"the trace shows no device time for {missing}; "
                              f"its kernels: {sorted(by_name)[:20]}")
@@ -394,19 +491,21 @@ def main():
          cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    logs = kbuild.build([flash_ops.KERNEL.name, paged_ops.KERNEL.name])
-    ptxas = {name: [ln.strip() for ln in text.splitlines()
+    built = kbuild.build([flash_ops.KERNEL.name, paged_ops.KERNEL.name])
+    ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
-             for name, text in logs.items()}
-    emit("build", seconds=time.perf_counter() - t0, built=sorted(logs),
-         ptxas=ptxas)
+             for name, log in built.items()}
+    emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
 
     max_err = check_kernels(flash_ops, paged_ops)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
+    # the kernels line takes the last row of each: K1 at S=2048, K2 at the
+    # main decode shape
     timings = {"flash_attention": [time_flash(flash_ops, c, torch.bfloat16, gen)
-                                   for c in MAIN_FLASH],
-               "paged_attention": [time_paged(paged_ops, torch.bfloat16, gen)]}
+                                   for c in RAGGED_FLASH[::-1] + MAIN_FLASH],
+               "paged_attention": [time_paged(paged_ops, torch.bfloat16, gen, m)
+                                   for m in (LONG_PAGED, MAIN_PAGED)]}
     for name, rows in timings.items():
         for row in rows:
             emit("timing", kernel=name, **row)
@@ -430,7 +529,9 @@ def main():
             "max_abs_err": max_err[name], "ms": row["ms"],
             "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"], "shape": row["shape"],
+            "library_ms": row["library_ms"], "device_ms": row["device_ms"],
+            "library_device_ms": row["library_device_ms"],
+            "host_ms": row["host_ms"], "shape": row["shape"],
             "dtype": row["dtype"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -11,67 +11,325 @@
 // Bound on this card: each cached token's k and v row is read once and used
 // for only 2*G*D multiply-adds, a few operations per byte against the ~295
 // the H100 needs to leave the memory roof, so it is bound by HBM bytes:
-// about sum_b (lens[b]+1)*KV*D*2*sizeof(elem) per layer.
+// about sum_b (lens[b]+1)*KV*D*2*sizeof(elem) per layer. Reaching that
+// bound takes many bytes in flight on every SM and few instructions per
+// byte.
 //
-// Design: one block per (kv head, batch) computes all G query rows of that
-// group, so each page is read from device memory once and reused for the G
-// queries; that reuse is the whole of GQA's saving in a bytes-bound kernel.
-// The page loop ends at ceil((lens[b]+1)/16), where the TPU kernel still
-// loaded every page up to max_blocks. The four warps split the pages
-// (warp w takes pages w, w+4, ...); in a warp, lane (t, half) dots token t's
-// k with the G queries over one half of the head dim (16-byte loads), the two
-// halves meet in one shuffle, and the online-softmax update of the page runs
-// across the 16 token lanes. For p.v each lane owns D/32 contiguous head-dim
-// elements and sums over the page's 16 tokens. The warps' partial
-// (m, l, acc) merge in shared memory at the end. Everything is fp32 with
-// operands rounded to the pool dtype as the TPU kernel's are. Splitting one
-// long sequence over several blocks, to fill the card at small batch, is
-// later work.
+// Design: split over the sequence. The split kernel runs one block per
+// (partition of 16 pages = 256 tokens, kv head, batch); a block whose
+// partition starts past ceil((lens[b]+1)/16) exits at once. The block
+// computes all G query rows of its kv head, so each page is read from
+// device memory once for the G queries (GQA's saving in a bytes-bound
+// kernel). Its four warps take the partition's pages in turn (warp w:
+// pages w, w+4, ...), each through its own 2-slot cp.async ring in shared
+// memory, so every warp has the next page's k and v in flight while it
+// computes the current one. The warps' (m, l, acc) merge in shared memory
+// and the block writes its partition's fp32 partial (m, l, acc[G][D]);
+// paged_merge then combines the partitions of each (batch, kv head) into
+// out. Softmax state is fp32; q*scale and the softmax weights are rounded
+// to the pool dtype before the products, as the TPU kernel's are.
+//
+// The page's products, by dtype (each dtype has one route):
+// - bf16, paged_split_mma: tensor cores, mma.sync m16n8k16. Scores are
+//   computed transposed, S^T = K Q^T, so the page's 16 tokens are the M
+//   rows and the (up to 8) queries of the group the N columns: no padding.
+//   K and V rows land in shared memory with their 16-byte chunks
+//   XOR-swizzled by token, so ldmatrix reads them without bank conflicts;
+//   V is read transposed for O^T += V^T P^T, with P passed through shared
+//   memory. A thread holds the scores, softmax state and outputs of the
+//   same two queries throughout.
+// - fp32, paged_split_simt: fp32 FMAs. Lane (t, half) dots token t's k
+//   with the G queries over one half of the head dim, and for p.v each lane
+//   owns D/32 contiguous head-dim elements.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace repro_torch;
+namespace hw = repro_torch::hopper;
 
 constexpr int PAGE = 16;
 constexpr int WARPS = 4;
-constexpr int GMAX = 8;  // most q heads per kv head the kernel takes
+constexpr int GMAX = 8;     // most q heads per kv head the kernel takes
+constexpr int PART = 16;    // pages per partition
+constexpr int STAGES = 2;   // pages in flight per warp
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <typename T, int D>
+struct PagedGeom {
+  static constexpr int ROW = D * (int)sizeof(T);     // bytes of a token's k (or v) row
+  static constexpr int CHUNKS = ROW / 16;            // 16-byte chunks per row
+  static constexpr int SWZ = CHUNKS < 8 ? CHUNKS - 1 : 7;  // chunk swizzle mask
+  static constexpr int PAGE_BYTES = PAGE * ROW;      // k (or v) of one page and kv head
+  static constexpr int RING = WARPS * STAGES * 2 * PAGE_BYTES;
+};
+
+__host__ __device__ constexpr int pages_used(int len, int max_blocks) {
+  return (len + PAGE) / PAGE < max_blocks ? (len + PAGE) / PAGE : max_blocks;
+}
+
+// The block's place in the sequence: its pages are page0 .. page0+n_pages-1.
+struct Partition {
+  int seq_len, page0, n_pages;
+};
+
+__device__ __forceinline__ Partition partition_of(const int* lens, int b, int max_blocks) {
+  const int n_used = pages_used(lens[b], max_blocks);
+  const int page0 = blockIdx.x * PART;
+  return {lens[b] + 1, page0, min(PART, n_used - page0)};
+}
+
+// Issues one warp's cp.async copies of a page's k and v rows of one kv head
+// into a ring slot (k at ks, v right after), chunk c of token t at chunk
+// c ^ (t & SWZ) where `swizzle` says so, and commits them as one group.
+template <typename T, int D>
+__device__ __forceinline__ void load_page(uint8_t* ks, const T* k_pages, const T* v_pages,
+                                          size_t page_base, size_t tok_stride, int lane,
+                                          bool swizzle_v) {
+  using P = PagedGeom<T, D>;
+  constexpr int CH = 16 / (int)sizeof(T);
+  uint8_t* vs = ks + P::PAGE_BYTES;
+#pragma unroll
+  for (int c = lane; c < PAGE * P::CHUNKS; c += 32) {
+    const int tok = c / P::CHUNKS, ch = c % P::CHUNKS;
+    const size_t src = page_base + tok * tok_stride + ch * CH;
+    const int sw = (ch ^ (tok & P::SWZ)) * 16;
+    hw::cp_async_16(ks + tok * P::ROW + sw, k_pages + src);
+    hw::cp_async_16(vs + tok * P::ROW + (swizzle_v ? sw : ch * 16), v_pages + src);
+  }
+  hw::cp_async_commit();
+}
+
+// Merges the four warps' (ms, ls, accs[w][g][d]) and writes the block's
+// partial: part_acc[pidx][g][d] and part_ml[pidx][g] = (m, l).
+template <int D>
+__device__ __forceinline__ void write_partial(const float (&ms)[WARPS][GMAX],
+                                              const float (&ls)[WARPS][GMAX],
+                                              const float* accs, int G, size_t pidx,
+                                              float* part_acc, float* part_ml) {
+  for (int i = threadIdx.x; i < G * D; i += WARPS * 32) {
+    const int g = i / D, d = i % D;
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, ms[w][g]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float f = expf(ms[w][g] - M);
+      L += ls[w][g] * f;
+      A += accs[(w * GMAX + g) * D + d] * f;
+    }
+    part_acc[pidx * G * D + i] = A;
+    if (d == 0) {
+      part_ml[(pidx * G + g) * 2] = M;
+      part_ml[(pidx * G + g) * 2 + 1] = L;
+    }
+  }
+}
+
+// ------------------------------------------------------- bf16: tensor cores
+template <int D>
 __global__ void __launch_bounds__(WARPS * 32)
-paged_decode(const T* __restrict__ q, const T* __restrict__ k_pages,
-             const T* __restrict__ v_pages, const int* __restrict__ tables,
-             const int* __restrict__ lens, T* __restrict__ out, int KV, int G,
-             int max_blocks, float scale) {
-  constexpr int E = D / 32;                  // p.v elements per lane
-  constexpr int HALF = D / 2;                // q.k elements per lane
-  constexpr int CH = 16 / (int)sizeof(T);    // elements per 16-byte load
-  constexpr int QLD = D + 1;                 // second half shifted one bank
-  __shared__ float qs[GMAX][QLD];
-  __shared__ float ps[WARPS][GMAX][PAGE];
+paged_split_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_pages,
+                const __nv_bfloat16* __restrict__ v_pages, const int* __restrict__ tables,
+                const int* __restrict__ lens, float* __restrict__ part_acc,
+                float* __restrict__ part_ml, int KV, int G, int max_blocks, int n_part,
+                float scale) {
+  using P = PagedGeom<__nv_bfloat16, D>;
+  constexpr int KS = D / 16;  // k-steps of q.k, m-tiles of p.v
+  __shared__ __align__(16) __nv_bfloat16 qs[GMAX][D];
+  __shared__ __align__(16) __nv_bfloat16 pw[WARPS][GMAX][PAGE];
   __shared__ float ms[WARPS][GMAX];
   __shared__ float ls[WARPS][GMAX];
-  __shared__ float accs[WARPS][GMAX][D];
+  extern __shared__ __align__(128) uint8_t ring[];  // the warps' rings, then their acc
 
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const Partition pt = partition_of(lens, b, max_blocks);
+  if (pt.n_pages <= 0) return;  // the whole block: past this sequence's pages
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gid = lane >> 2;   // mma row group
+  const int tig = lane & 3;    // thread in group: queries 2*tig, 2*tig + 1
+  const size_t q_off = ((size_t)b * KV + kvh) * G * D;
+  const size_t tok_stride = (size_t)KV * D;
+
+  const int n_mine = pt.n_pages > warp ? (pt.n_pages - warp + WARPS - 1) / WARPS : 0;
+  uint8_t* my_ring = ring + warp * STAGES * 2 * P::PAGE_BYTES;
+  auto issue = [&](int i) {
+    const int pg = pt.page0 + warp + WARPS * i;
+    const size_t page_base =
+        (size_t)tables[(size_t)b * max_blocks + pg] * PAGE * tok_stride + (size_t)kvh * D;
+    load_page<__nv_bfloat16, D>(my_ring + (i % STAGES) * 2 * P::PAGE_BYTES, k_pages, v_pages,
+                                page_base, tok_stride, lane, true);
+  };
+  if (n_mine > 0) issue(0);
+  if (n_mine > 1) issue(1);
+
+  // q*scale rounded to bf16; query rows G..7 are zeros
+  for (int i = tid; i < GMAX * D; i += WARPS * 32) {
+    const int g = i / D;
+    qs[g][i % D] = __float2bfloat16(g < G ? __bfloat162float(q[q_off + i]) * scale : 0.f);
+  }
+  __syncthreads();
+  // Q^T as the B operand of every k-step: column gid is query gid
+  uint32_t qb[KS][2];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    qb[kk][0] = *reinterpret_cast<const uint32_t*>(&qs[gid][16 * kk + 2 * tig]);
+    qb[kk][1] = *reinterpret_cast<const uint32_t*>(&qs[gid][16 * kk + 8 + 2 * tig]);
+  }
+
+  // o[mt][r]: head dim 16*mt + gid + 8*(r >> 1), query 2*tig + (r & 1)
+  float o[KS][4];
+#pragma unroll
+  for (int mt = 0; mt < KS; ++mt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) o[mt][r] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  // ldmatrix row addresses: lane gives row lane % 8 of matrix lane / 8
+  const int mi = lane >> 3;
+  const int k_tok = (lane & 7) + 8 * (mi & 1);   // K: matrices (tokens 0-7 | 8-15) x chunk
+  const int v_tok = (lane & 7) + 8 * (mi >> 1);  // V^T: matrices chunk x (tokens 0-7 | 8-15)
+
+  for (int i = 0; i < n_mine; ++i) {
+    if (i + 1 < n_mine) hw::cp_async_wait<1>(); else hw::cp_async_wait<0>();
+    __syncwarp();  // every lane's copies of page i have landed
+    const int j = pt.page0 + warp + WARPS * i;  // page index in the sequence
+    uint8_t* ks = my_ring + (i % STAGES) * 2 * P::PAGE_BYTES;
+    uint8_t* vs = ks + P::PAGE_BYTES;
+    const int n_valid = min(PAGE, pt.seq_len - j * PAGE);
+    if (n_valid < PAGE) {  // the last page: zero v past the sequence (p is 0 there)
+      for (int c = lane; c < (PAGE - n_valid) * P::CHUNKS; c += 32)
+        reinterpret_cast<uint4*>(vs + n_valid * P::ROW)[c] = make_uint4(0, 0, 0, 0);
+      __syncwarp();
+    }
+
+    // S^T (16 tokens x 8 queries) = K Q^T; sc[r]: token gid + 8*(r >> 1),
+    // query 2*tig + (r & 1)
+    float sc[4] = {0.f, 0.f, 0.f, 0.f};
+    const uint32_t k_row = hw::smem_addr(ks) + k_tok * P::ROW;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const int ch = 2 * kk + (mi >> 1);
+      uint32_t a[4];
+      hw::ldmatrix_x4(a, k_row + ((ch ^ (k_tok & P::SWZ)) << 4));
+      hw::mma_16816(sc, a, qb[kk]);
+    }
+
+    const bool valid0 = gid < n_valid, valid1 = gid + 8 < n_valid;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      // a query's 16 scores lie in the 8 lanes of one tig, two each
+      float mx = fmaxf(valid0 ? sc[e] : NEG_INF, valid1 ? sc[2 + e] : NEG_INF);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+      const float m_new = fmaxf(m[e], mx);
+      const float alpha = exp2f((m[e] - m_new) * LOG2E);
+      const float p0 = valid0 ? exp2f((sc[e] - m_new) * LOG2E) : 0.f;
+      const float p1 = valid1 ? exp2f((sc[2 + e] - m_new) * LOG2E) : 0.f;
+      float rs = p0 + p1;
+      rs += __shfl_xor_sync(0xffffffffu, rs, 4);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 8);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 16);
+      l[e] = l[e] * alpha + rs;
+      m[e] = m_new;
+#pragma unroll
+      for (int mt = 0; mt < KS; ++mt) {
+        o[mt][e] *= alpha;
+        o[mt][2 + e] *= alpha;
+      }
+      pw[warp][2 * tig + e][gid] = __float2bfloat16(p0);
+      pw[warp][2 * tig + e][gid + 8] = __float2bfloat16(p1);
+    }
+    __syncwarp();
+    // P^T as the B operand: column gid is query gid, rows are tokens
+    const uint32_t pb[2] = {*reinterpret_cast<const uint32_t*>(&pw[warp][gid][2 * tig]),
+                            *reinterpret_cast<const uint32_t*>(&pw[warp][gid][8 + 2 * tig])};
+
+    // O^T (D x 8 queries) += V^T P^T, 16 head dims at a time
+    const uint32_t v_row = hw::smem_addr(vs) + v_tok * P::ROW;
+#pragma unroll
+    for (int mt = 0; mt < KS; ++mt) {
+      const int ch = 2 * mt + (mi & 1);
+      uint32_t a[4];
+      hw::ldmatrix_x4_trans(a, v_row + ((ch ^ (v_tok & P::SWZ)) << 4));
+      hw::mma_16816(o[mt], a, pb);
+    }
+    __syncwarp();  // pw and this ring slot are rewritten next
+    if (i + 2 < n_mine) issue(i + 2);
+  }
+
+  __syncthreads();  // every warp is done with its ring: it now holds the accs
+  float* accs = reinterpret_cast<float*>(ring);  // [WARPS][GMAX][D]
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int g = 2 * tig + e;
+    if (gid == 0) {
+      ms[warp][g] = m[e];
+      ls[warp][g] = l[e];
+    }
+#pragma unroll
+    for (int mt = 0; mt < KS; ++mt) {
+      accs[(warp * GMAX + g) * D + 16 * mt + gid] = o[mt][e];
+      accs[(warp * GMAX + g) * D + 16 * mt + gid + 8] = o[mt][2 + e];
+    }
+  }
+  __syncthreads();
+  write_partial<D>(ms, ls, accs, G, ((size_t)b * KV + kvh) * n_part + blockIdx.x, part_acc,
+                   part_ml);
+}
+
+// --------------------------------------------------------------- fp32: SIMT
+template <int D>
+__global__ void __launch_bounds__(WARPS * 32)
+paged_split_simt(const float* __restrict__ q, const float* __restrict__ k_pages,
+                 const float* __restrict__ v_pages, const int* __restrict__ tables,
+                 const int* __restrict__ lens, float* __restrict__ part_acc,
+                 float* __restrict__ part_ml, int KV, int G, int max_blocks, int n_part,
+                 float scale) {
+  using P = PagedGeom<float, D>;
+  constexpr int E = D / 32;    // p.v elements per lane
+  constexpr int HALF = D / 2;  // q.k elements per lane
+  constexpr int CH = 4;        // fp32 elements per 16-byte chunk
+  __shared__ __align__(16) float qs[GMAX][D];
+  __shared__ __align__(16) float ps[WARPS][GMAX][PAGE];
+  __shared__ float ms[WARPS][GMAX];
+  __shared__ float ls[WARPS][GMAX];
+  extern __shared__ __align__(128) uint8_t ring[];  // the warps' rings, then their acc
+
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const Partition pt = partition_of(lens, b, max_blocks);
+  if (pt.n_pages <= 0) return;  // the whole block: past this sequence's pages
+
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int t = lane & 15;
   const int half = lane >> 4;
   const size_t q_off = ((size_t)b * KV + kvh) * G * D;
-
-  for (int i = tid; i < G * D; i += WARPS * 32) {
-    const int g = i / D, d = i % D;
-    qs[g][d + (d >= HALF ? 1 : 0)] = round_to<T>(to_f(q[q_off + i]) * scale);
-  }
-  __syncthreads();
-
-  const int seq_len = lens[b] + 1;
-  const int n_used = min((seq_len + PAGE - 1) / PAGE, max_blocks);
   const size_t tok_stride = (size_t)KV * D;
+
+  const int n_mine = pt.n_pages > warp ? (pt.n_pages - warp + WARPS - 1) / WARPS : 0;
+  uint8_t* my_ring = ring + warp * STAGES * 2 * P::PAGE_BYTES;
+  auto issue = [&](int i) {
+    const int pg = pt.page0 + warp + WARPS * i;
+    const size_t page_base =
+        (size_t)tables[(size_t)b * max_blocks + pg] * PAGE * tok_stride + (size_t)kvh * D;
+    load_page<float, D>(my_ring + (i % STAGES) * 2 * P::PAGE_BYTES, k_pages, v_pages,
+                        page_base, tok_stride, lane, false);
+  };
+  if (n_mine > 0) issue(0);
+  if (n_mine > 1) issue(1);
+
+  for (int i = tid; i < G * D; i += WARPS * 32) qs[i / D][i % D] = q[q_off + i] * scale;
+  __syncthreads();
 
   float m[GMAX], l[GMAX], acc[GMAX][E];
 #pragma unroll
@@ -82,29 +340,33 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ k_pages,
     for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
   }
 
-  for (int j = warp; j < n_used; j += WARPS) {
-    const size_t page_base =
-        (size_t)tables[(size_t)b * max_blocks + j] * PAGE * tok_stride + (size_t)kvh * D;
-
-    const T* kr = k_pages + page_base + t * tok_stride + half * HALF;
-    const float* qh = &qs[0][half * (HALF + 1)];
+  for (int i = 0; i < n_mine; ++i) {
+    if (i + 1 < n_mine) hw::cp_async_wait<1>(); else hw::cp_async_wait<0>();
+    __syncwarp();  // every lane's copies of page i have landed
+    const int j = pt.page0 + warp + WARPS * i;  // page index in the sequence
+    const uint8_t* ks = my_ring + (i % STAGES) * 2 * P::PAGE_BYTES;
+    const float* krow = reinterpret_cast<const float*>(ks + t * P::ROW);
+    const float* qh = &qs[0][half * HALF];  // a broadcast within each half
     float s[GMAX];
 #pragma unroll
     for (int g = 0; g < GMAX; ++g) s[g] = 0.f;
 #pragma unroll
     for (int c = 0; c < HALF; c += CH) {
-      float kf[CH];
-      load_f<CH>(kr + c, kf);
+      const int ch = (half * HALF + c) / CH;
+      const float4 k4 = *reinterpret_cast<const float4*>(krow + (ch ^ (t & P::SWZ)) * CH);
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) {
         if (g < G) {
-#pragma unroll
-          for (int e = 0; e < CH; ++e) s[g] = fmaf(qh[g * QLD + c + e], kf[e], s[g]);
+          const float4 q4 = *reinterpret_cast<const float4*>(qh + g * D + c);
+          s[g] = fmaf(q4.x, k4.x, s[g]);
+          s[g] = fmaf(q4.y, k4.y, s[g]);
+          s[g] = fmaf(q4.z, k4.z, s[g]);
+          s[g] = fmaf(q4.w, k4.w, s[g]);
         }
       }
     }
 
-    const bool valid = j * PAGE + t < seq_len;
+    const bool valid = j * PAGE + t < pt.seq_len;
 #pragma unroll
     for (int g = 0; g < GMAX; ++g) {
       if (g < G) {  // G is the same in every lane: the shuffles stay converged
@@ -125,28 +387,34 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ k_pages,
         m[g] = m_new;
 #pragma unroll
         for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
-        if (half == 0) ps[warp][g][t] = round_to<T>(p);
+        if (half == 0) ps[warp][g][t] = p;
       }
     }
     __syncwarp();
 
-    const T* vr = v_pages + page_base + lane * E;
+    const float* vrow = reinterpret_cast<const float*>(ks + P::PAGE_BYTES) + lane * E;
+    const int n_valid = min(PAGE, pt.seq_len - j * PAGE);
 #pragma unroll 4
     for (int tt = 0; tt < PAGE; ++tt) {
-      float vf[E];
-      load_f<E>(vr + tt * tok_stride, vf);
+      if (tt < n_valid) {
+        float vf[E];
+        load_f<E>(vrow + tt * D, vf);
 #pragma unroll
-      for (int g = 0; g < GMAX; ++g) {
-        if (g < G) {
-          const float p = ps[warp][g][tt];
+        for (int g = 0; g < GMAX; ++g) {
+          if (g < G) {
+            const float p = ps[warp][g][tt];
 #pragma unroll
-          for (int e = 0; e < E; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+            for (int e = 0; e < E; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+          }
         }
       }
     }
-    __syncwarp();  // ps is rewritten by this warp's next page
+    __syncwarp();  // ps and this ring slot are rewritten next
+    if (i + 2 < n_mine) issue(i + 2);
   }
 
+  __syncthreads();  // every warp is done with its ring: it now holds the accs
+  float* accs = reinterpret_cast<float*>(ring);  // [WARPS][GMAX][D]
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
     if (g < G) {
@@ -155,68 +423,108 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ k_pages,
         ls[warp][g] = l[g];
       }
 #pragma unroll
-      for (int e = 0; e < E; ++e) accs[warp][g][lane * E + e] = acc[g][e];
+      for (int e = 0; e < E; ++e) accs[(warp * GMAX + g) * D + lane * E + e] = acc[g][e];
     }
   }
   __syncthreads();
+  write_partial<D>(ms, ls, accs, G, ((size_t)b * KV + kvh) * n_part + blockIdx.x, part_acc,
+                   part_ml);
+}
 
-  for (int i = tid; i < G * D; i += WARPS * 32) {
-    const int g = i / D, d = i % D;
+// Combines the partitions of one (kv head, batch): out = sum_p acc_p e^(m_p - M)
+// / sum_p l_p e^(m_p - M) with M the largest m_p.
+template <typename T, int D>
+__global__ void __launch_bounds__(128)
+paged_merge(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+            const int* __restrict__ lens, T* __restrict__ out, int KV, int G,
+            int max_blocks, int n_part) {
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int np = (pages_used(lens[b], max_blocks) + PART - 1) / PART;
+  const size_t p0 = ((size_t)b * KV + kvh) * n_part;
+  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
+    const int g = i / D;
     float M = NEG_INF;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, ms[w][g]);
+#pragma unroll 4
+    for (int p = 0; p < np; ++p) M = fmaxf(M, part_ml[((p0 + p) * G + g) * 2]);
     float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float f = expf(ms[w][g] - M);
-      L += ls[w][g] * f;
-      A += accs[w][g][d] * f;
+#pragma unroll 4
+    for (int p = 0; p < np; ++p) {
+      const float f = expf(part_ml[((p0 + p) * G + g) * 2] - M);
+      L += part_ml[((p0 + p) * G + g) * 2 + 1] * f;
+      A += part_acc[(p0 + p) * G * D + i] * f;
     }
-    out[q_off + i] = from_f<T>(L > 0.f ? A / L : 0.f);
+    out[((size_t)b * KV + kvh) * G * D + i] = from_f<T>(L > 0.f ? A / L : 0.f);
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const void* tables, const void* lens, void* out, int B,
-                   int KV, int G, int max_blocks, float scale,
+                   const void* tables, const void* lens, void* out, void* scratch,
+                   int B, int KV, int G, int max_blocks, float scale,
                    cudaStream_t stream) {
-  const dim3 grid(KV, B);
-  paged_decode<T, D><<<grid, WARPS * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), static_cast<const int*>(tables),
-      static_cast<const int*>(lens), static_cast<T*>(out), KV, G, max_blocks,
-      scale);
+  constexpr bool BF16 = sizeof(T) == 2;
+  constexpr int RING = PagedGeom<T, D>::RING;
+  const auto split = BF16 ? (void*)paged_split_mma<D> : (void*)paged_split_simt<D>;
+  static bool attr_set = false;  // the opt-in above 48 KB, once per instance
+  if (!attr_set) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(split, cudaFuncAttributeMaxDynamicSharedMemorySize, RING);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const int n_part = (max_blocks + PART - 1) / PART;
+  float* part_acc = static_cast<float*>(scratch);
+  float* part_ml = part_acc + (size_t)B * KV * n_part * G * D;
+  const dim3 grid(n_part, KV, B);
+  if constexpr (BF16)
+    paged_split_mma<D><<<grid, WARPS * 32, RING, stream>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
+        static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(tables),
+        static_cast<const int*>(lens), part_acc, part_ml, KV, G, max_blocks, n_part, scale);
+  else
+    paged_split_simt<D><<<grid, WARPS * 32, RING, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(kp),
+        static_cast<const float*>(vp), static_cast<const int*>(tables),
+        static_cast<const int*>(lens), part_acc, part_ml, KV, G, max_blocks, n_part, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  paged_merge<T, D><<<dim3(KV, B), 128, 0, stream>>>(
+      part_acc, part_ml, static_cast<const int*>(lens), static_cast<T*>(out), KV, G,
+      max_blocks, n_part);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* kp, const void* vp,
-                       const void* tables, const void* lens, void* out, int B,
-                       int KV, int G, int max_blocks, float scale,
+                       const void* tables, const void* lens, void* out, void* scratch,
+                       int B, int KV, int G, int max_blocks, float scale,
                        cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(q, kp, vp, tables, lens, out, B, KV, G, max_blocks, scale, stream);
-    case 64: return launch<T, 64>(q, kp, vp, tables, lens, out, B, KV, G, max_blocks, scale, stream);
-    case 128: return launch<T, 128>(q, kp, vp, tables, lens, out, B, KV, G, max_blocks, scale, stream);
+    case 32: return launch<T, 32>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks, scale, stream);
+    case 64: return launch<T, 64>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks, scale, stream);
+    case 128: return launch<T, 128>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16. Returns cudaGetLastError() after the launch.
+// dtype: 0 = fp32 (SIMT split kernel), 1 = bf16 (tensor-core split kernel).
+// scratch holds B*KV*ceil(max_blocks/16)*G*(D+2) fp32 values (the
+// partitions' acc, then their (m, l)). Returns cudaGetLastError() after the
+// merge launch (or after the split launch, if that failed).
 extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
                                    const void* v_pages, const void* tables,
-                                   const void* lens, void* out, int B, int KV,
-                                   int G, int D, int max_blocks, float scale,
-                                   int dtype, void* stream) {
+                                   const void* lens, void* out, void* scratch,
+                                   int B, int KV, int G, int D, int max_blocks,
+                                   float scale, int dtype, void* stream) {
   if (B == 0 || KV == 0) return 0;
   if (G < 1 || G > GMAX || max_blocks < 1) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<float>(D, q, k_pages, v_pages, tables, lens, out, B, KV, G, max_blocks, scale, s);
+    return dispatch_d<float>(D, q, k_pages, v_pages, tables, lens, out, scratch, B, KV, G, max_blocks, scale, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k_pages, v_pages, tables, lens, out, B, KV, G, max_blocks, scale, s);
+    return dispatch_d<__nv_bfloat16>(D, q, k_pages, v_pages, tables, lens, out, scratch, B, KV, G, max_blocks, scale, s);
   return cudaErrorInvalidValue;
 }

@@ -2,7 +2,8 @@
 (``csrc/flash_attention.cu``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. ``KERNEL.launches`` counts the launches.
+raises. bf16 runs on the tensor-core (wgmma) instance, fp32 on the SIMT
+instance; the dtype alone chooses. ``KERNEL.launches`` counts the launches.
 """
 from __future__ import annotations
 
@@ -67,3 +68,8 @@ def _check(q, k, v, lens):
             raise ValueError(f"flash_attention: {name} on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} is not contiguous")
+    if q.dtype == torch.bfloat16:
+        # the wgmma instance reads q, k and v through TMA tensor maps
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention: bf16 {name} is not 16-byte aligned")

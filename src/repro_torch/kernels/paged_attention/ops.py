@@ -2,7 +2,11 @@
 (``csrc/paged_attention.cu``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. ``KERNEL.launches`` counts the launches.
+raises. One call runs two kernels on the caller's stream: a split over the
+sequence that writes each 16-page partition's fp32 partial into scratch
+this wrapper allocates, and a merge into the output. bf16 runs the
+tensor-core split kernel, fp32 the SIMT one; the dtype alone chooses.
+``KERNEL.launches`` counts the calls.
 """
 from __future__ import annotations
 
@@ -17,11 +21,12 @@ __all__ = ["KERNEL", "paged_attention", "paged_attention_plain"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("paged_attention", "paged_attention_fwd",
-                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      ctypes.c_float, _I, _P])
 HEAD_DIMS = (32, 64, 128)
 PAGE = 16       # tokens per page, fixed in the kernel
 MAX_GROUP = 8   # most q heads per kv head the kernel takes
+PART = 16       # pages per partition of the split kernel, fixed in the kernel
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -35,10 +40,15 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         return paged_attention_plain(q, k_pages, v_pages, block_tables, lens)
     _check(q, k_pages, v_pages, block_tables, lens)
     B, KV, G, D = q.shape
+    max_blocks = block_tables.shape[1]
     out = torch.empty_like(q)
+    # each partition's fp32 acc (G, D) and (m, l) per query row
+    n_part = -(-max_blocks // PART)
+    scratch = torch.empty(B * KV * n_part * G * (D + 2), dtype=torch.float32,
+                          device=q.device)
     KERNEL.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                   block_tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                  B, KV, G, D, block_tables.shape[1], D ** -0.5,
+                  scratch.data_ptr(), B, KV, G, D, max_blocks, D ** -0.5,
                   DTYPE_CODES[q.dtype],
                   torch.cuda.current_stream(q.device).cuda_stream)
     return out

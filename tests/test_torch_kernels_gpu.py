@@ -2,7 +2,10 @@
 
 Marked ``gpu``: they skip on a machine without a CUDA card, where a kernel
 cannot run. This file imports no JAX, so it runs on a card machine without
-it (see README.md). Tolerances: 2e-3 in fp32, 2e-2 in bf16.
+it (see README.md). Tolerances: 2e-3 in fp32, 2e-2 in bf16, elementwise;
+over the whole output, |out - ref|_2 / |ref|_2 at most 1e-3 in fp32 and
+1e-2 in bf16, so a dropped key tile or partition fails where its rows'
+values are small.
 """
 import numpy as np
 import pytest
@@ -22,6 +25,17 @@ FLASH_CASES = [
     (1, 256, 256, 4, 4, 64, 64, 64, 64),       # sliding window
     (1, 192, 192, 4, 2, 64, 32, 64, 64),       # window + ragged tiles
     (1, 1000, 1000, 24, 8, 128, 0, 0, 0),      # llama3.2-3b prompt, ragged
+    # edges of the bf16 tensor-core instance (128-row q tiles, 128-key
+    # tiles); the last field, where present, is lens
+    (1, 137, 137, 24, 8, 128, 0, 0, 0),        # served prompt, one partial q tile
+    (1, 200, 200, 4, 2, 32, 0, 0, 0),          # D 32: 64-byte swizzle
+    (2, 200, 200, 4, 2, 64, 0, 0, 0),          # D 64, ragged, lens (200, 100)
+    (2, 100, 300, 4, 4, 128, 0, 0, 0),         # Skv > Sq
+    (1, 300, 300, 4, 2, 128, 0, 0, 0, [170]),  # lens < Skv, mid-tile
+    (2, 130, 130, 2, 2, 64, 0, 0, 0, [0, 65]),  # no valid key: zeros
+    (1, 1, 1, 4, 2, 64, 0, 0, 0),              # one token
+    (1, 333, 333, 4, 2, 128, 100, 0, 0),       # window, ragged
+    (1, 260, 260, 4, 1, 32, 48, 0, 0, [250]),  # window, D 32, lens < Skv
 ]
 PAGED_CASES = [
     # B, KV, G, D, page, P, nblk
@@ -30,8 +44,22 @@ PAGED_CASES = [
     (1, 1, 8, 128, 16, 8, 8),       # MQA, deep table
     (4, 2, 2, 32, 16, 64, 3),
     (16, 8, 3, 128, 16, 1024, 64),  # llama3.2-3b decode batch
+    # partition edges of the split kernel (16 pages = 256 tokens); the last
+    # field is each sequence's token count, tables padded past its pages
+    (5, 2, 3, 128, 16, 512, 128, [1, 255, 256, 257, 2048]),
+    (1, 8, 3, 128, 16, 256, 128, [2048]),         # B=1, one long sequence
+    (3, 2, 1, 64, 16, 64, 40, [300, 17, 640]),    # G 1
+    (2, 1, 8, 128, 16, 64, 36, [513, 16]),        # G 8
+    (2, 4, 8, 32, 16, 64, 20, [1, 320]),          # G 8, D 32
 ]
 DTYPES = {"float32": (torch.float32, 2e-3), "bfloat16": (torch.bfloat16, 2e-2)}
+REL_RMS = {"float32": 1e-3, "bfloat16": 1e-2}
+
+
+def _assert_close(out, ref, tol, rel_rms):
+    out, ref = out.float().cpu().numpy(), ref.float().cpu().numpy()
+    np.testing.assert_allclose(out, ref, rtol=tol, atol=tol)
+    assert np.linalg.norm(out - ref) <= rel_rms * np.linalg.norm(ref)
 
 
 def _flash_inputs(case, seed):
@@ -40,18 +68,24 @@ def _flash_inputs(case, seed):
     q = rng.standard_normal((B, Sq, H, D)).astype(np.float32)
     k = rng.standard_normal((B, Skv, KV, D)).astype(np.float32)
     v = rng.standard_normal((B, Skv, KV, D)).astype(np.float32)
-    lens = np.asarray([Skv] + [max(Skv // 2, 1)] * (B - 1), np.int32)
+    if len(case) > 9:
+        lens = np.asarray(case[9], np.int32)
+    else:
+        lens = np.asarray([Skv] + [max(Skv // 2, 1)] * (B - 1), np.int32)
     return q, k, v, lens, window
 
 
 def _paged_inputs(case, seed):
-    B, KV, G, D, page, P, nblk = case
+    B, KV, G, D, page, P, nblk = case[:7]
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, KV, G, D)).astype(np.float32)
     kp = rng.standard_normal((P, page, KV, D)).astype(np.float32)
     vp = rng.standard_normal((P, page, KV, D)).astype(np.float32)
     tables = rng.integers(0, P, size=(B, nblk)).astype(np.int32)
-    lens = np.asarray([nblk * page - 1] + [page // 2] * (B - 1), np.int32)
+    if len(case) > 7:
+        lens = np.asarray(case[7], np.int32) - 1
+    else:
+        lens = np.asarray([nblk * page - 1] + [page // 2] * (B - 1), np.int32)
     return q, kp, vp, tables, lens
 
 
@@ -77,8 +111,7 @@ def test_flash_kernel_vs_plain(cuda, case, dtype):
     torch.cuda.synchronize()
     assert flash_ops.KERNEL.launches == before + 1
     ref = flash_ops.flash_attention_plain(qt, kt, vt, lt, window=window)
-    np.testing.assert_allclose(out.float().cpu().numpy(),
-                               ref.float().cpu().numpy(), rtol=tol, atol=tol)
+    _assert_close(out, ref, tol, REL_RMS[dtype])
 
 
 @pytest.mark.gpu
@@ -94,5 +127,18 @@ def test_paged_kernel_vs_plain(cuda, case, dtype):
     torch.cuda.synchronize()
     assert paged_ops.KERNEL.launches == before + 1
     ref = paged_ops.paged_attention_plain(qt, kt, vt, tt, lt)
-    np.testing.assert_allclose(out.float().cpu().numpy(),
-                               ref.float().cpu().numpy(), rtol=tol, atol=tol)
+    _assert_close(out, ref, tol, REL_RMS[dtype])
+
+
+@pytest.mark.gpu
+def test_flash_bf16_misaligned_raises(cuda):
+    """The bf16 instance reads through TMA, which needs 16-byte aligned
+    bases: the wrapper refuses a q that starts 2 bytes into its storage."""
+    shape = (1, 64, 2, 64)
+    n = int(np.prod(shape))
+    q = torch.zeros(n + 1, dtype=torch.bfloat16, device=cuda)[1:].view(shape)
+    k = torch.zeros(shape, dtype=torch.bfloat16, device=cuda)
+    before = flash_ops.KERNEL.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_ops.flash_attention(q, k, k)
+    assert flash_ops.KERNEL.launches == before
