@@ -8,7 +8,7 @@ Phases, each printed as one JSON line:
      then the build of both CUDA kernels from ``src/repro_torch/csrc``;
   2. each kernel against its plain PyTorch version on the card, fp32 and
      bf16, on the kernel test cases, the edges of each kernel's tiling and
-     the main path's shapes;
+     the main paths' shapes (llama3.2-3b's G=3, phi3.5-moe's G=4);
   3. each kernel's time in bf16 at the main path's shapes (K1 at S 137,
      1000, 512 and 2048; K2 at one 2048-token sequence and at the decode
      batch), eager and on the device alone, beside its bound and the share
@@ -21,7 +21,16 @@ Phases, each printed as one JSON line:
      then a shorter traced run of the same model (device busy share,
      kernel times by device symbol: the bf16 tensor-core instances of K1
      and K2 and K2's merge must show time, the fp32 instances none);
-  6. the ``kernels`` line, then the card line, then as the last line
+  6. the MoE family: greedy tokens of DeepSeek-R1 at full width (2 layers,
+     16 of its 256 experts, fp32) on the card equal those of a CPU copy
+     under forced preemption (``greedy_equality_moe``); DeepSeek-R1 at
+     full width, 5 layers and all 256 experts, and phi3.5-moe at full
+     width and 8 layers, in bf16, each serving its requests on the main
+     path (``main_path``; R1's MLA launches neither kernel, phi's GQA
+     both); a traced run of R1's decode steps (``profile``: device busy
+     share, time in matmuls, in the MoE dispatch ranges and elsewhere,
+     top kernels);
+  7. the ``kernels`` line, then the card line, then as the last line
      ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero. It needs a CUDA card and fails
 without one.
@@ -29,6 +38,7 @@ without one.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -79,6 +89,10 @@ MAIN_FLASH = [(1, S, S, 24, 8, 128, 0) for S in (512, 2048)]
 # served prompts are ragged (ISL 128-1024): partial q and kv tiles
 RAGGED_FLASH = [(1, S, S, 24, 8, 128, 0) for S in (1000, 137)]
 MAIN_PAGED = dict(B=16, KV=8, G=3, D=128, max_ctx=2048)
+# phi3.5-moe's main path: 32 q heads over 8 kv heads of 128 (G=4), 8
+# requests of up to 1024 + 128 tokens
+PHI_FLASH = [(1, S, S, 32, 8, 128, 0) for S in (1000, 137)]
+PHI_PAGED = dict(B=8, KV=8, G=4, D=128, max_ctx=1152)
 # one sequence alone: the case the split over the sequence is for
 LONG_PAGED = dict(B=1, KV=8, G=3, D=128, max_ctx=2048)
 TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
@@ -97,6 +111,13 @@ FP32_ONLY_SYMBOLS = ("flash_fwd_simt", "paged_split_simt")
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 SERVE_REQUESTS = dict(n=16, isl=(128, 1024), osl=(128, 256), seed=0)
+# the MoE family's main path: DeepSeek-R1 at full width with its depth cut
+# to the 3 leading dense layers and 2 MoE layers (about 53 GB of bf16
+# weights), and phi3.5-moe at full width and 8 of its 32 layers, with
+# fewer and shorter requests to keep the run short
+R1_LAYERS = 5
+PHI_LAYERS = 8
+PHI_REQUESTS = dict(n=8, isl=(128, 1024), osl=(64, 128), seed=0)
 
 
 def emit(phase: str, **kw):
@@ -185,7 +206,7 @@ def check_kernels(flash_ops, paged_ops):
     errs = {"flash_attention": [], "paged_attention": []}
     rels = {"flash_attention": [], "paged_attention": []}
     for dtype in (torch.float32, torch.bfloat16):
-        for case in FLASH_CASES + MAIN_FLASH + RAGGED_FLASH:
+        for case in FLASH_CASES + MAIN_FLASH + RAGGED_FLASH + PHI_FLASH:
             q, k, v, lens, window = flash_inputs(case, dtype, gen)
             err, rel = compare(
                 flash_ops.flash_attention, flash_ops.flash_attention_plain,
@@ -194,7 +215,8 @@ def check_kernels(flash_ops, paged_ops):
             rels["flash_attention"].append(rel)
         cases = [paged_case_inputs(c, dtype, gen) for c in PAGED_CASES]
         for args in cases + [paged_main_inputs(dtype, gen),
-                             paged_main_inputs(dtype, gen, LONG_PAGED)]:
+                             paged_main_inputs(dtype, gen, LONG_PAGED),
+                             paged_main_inputs(dtype, gen, PHI_PAGED)]:
             err, rel = compare(
                 paged_ops.paged_attention, paged_ops.paged_attention_plain,
                 args, {}, dtype)
@@ -367,12 +389,25 @@ def greedy_equality():
     return result
 
 
-def main_path(flash_ops, paged_ops):
+def decode_weight_bytes(model) -> int:
+    """Bytes of the weights one decode step reads: all of them, but for an
+    untied head the embedding, of which it gathers only the batch's rows."""
+    return sum(p.numel() * p.element_size()
+               for name, p in model.named_parameters()
+               if name != "embed" or model.cfg.tie_embeddings)
+
+
+def main_path(flash_ops, paged_ops, cfg=None, traffic=SERVE_REQUESTS,
+              reduced=None):
+    """Serve ``traffic`` on ``cfg`` (default: full-depth llama3.2-3b) in
+    bf16 through the entry point, with the kernels' launch counts set to 0
+    just before and read just after. A GQA model must launch both kernels;
+    an MLA model neither (its attention is PyTorch ops)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import make_requests, serve
 
-    cfg = get_config("llama3.2-3b")
-    r = SERVE_REQUESTS
+    cfg = cfg or get_config("llama3.2-3b")
+    r = traffic
     requests = make_requests(cfg.vocab, r["n"], r["isl"], r["osl"], r["seed"])
     torch.cuda.reset_peak_memory_stats()
     flash_ops.KERNEL.launches = 0
@@ -389,33 +424,65 @@ def main_path(flash_ops, paged_ops):
             raise AssertionError(f"request {req.rid}: {len(req.output)} of {n} tokens")
         if not all(0 <= t < cfg.vocab for t in req.output):
             raise AssertionError(f"request {req.rid}: token out of range")
-    if min(launches.values()) == 0:
+    if cfg.attention == "mla":
+        if max(launches.values()) != 0:
+            raise AssertionError(f"an MLA model launched a GQA kernel: {launches}")
+    elif min(launches.values()) == 0:
         raise AssertionError(f"a kernel was not on the main path: {launches}")
+    peak = torch.cuda.max_memory_allocated()
     # the served model still answers: finite logits whose argmax is the
     # first token the engine produced for request 0
-    logits, _, _ = eng.runner.model.prefill(
-        torch.tensor([requests[0][0]], device="cuda"))
+    logits = eng.runner.model.prefill(
+        torch.tensor([requests[0][0]], device="cuda"))[0]
     if not bool(torch.isfinite(logits.float()).all()):
         raise AssertionError("non-finite logits")
     if int(logits[0].argmax()) != reqs[0].output[0]:
         raise AssertionError("prefill argmax differs from the served first token")
     s = eng.metrics.summary()
-    emit("main_path", model=cfg.name, layers=cfg.n_layers, dtype="bfloat16",
+    weight_bytes = decode_weight_bytes(eng.runner.model)
+    extra = {}
+    if cfg.moe is not None:
+        from repro_torch.models.moe import capacity
+        # slots per expert at a full decode batch
+        extra = dict(experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+                     capacity_factor=cfg.moe.capacity_factor,
+                     decode_capacity=capacity(cfg, min(r["n"], 16)))
+    emit("main_path", model=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, attention=cfg.attention, dtype="bfloat16",
+         reduced=reduced or {}, **extra,
+         params=sum(p.numel() for p in eng.runner.model.parameters()),
          n_requests=len(requests), n_finished=s["n_finished"],
          gen_tokens=s["gen_tokens"], gen_tok_s=s["gen_throughput_tok_s"],
          ttft_p50_s=s["ttft_s"]["p50"], tpot_mean_s=s["tpot_s"]["mean"],
          preemptions=s["preemptions"], engine_s=s["duration_s"],
-         wall_s_with_weight_init=wall,
-         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         wall_s_with_weight_init=wall, max_memory_allocated=peak,
+         decode_weight_bytes=weight_bytes,
+         tpot_weight_bound_ms=weight_bytes / PEAK_BYTES * 1e3,
          launches=launches)
     return launches, eng.runner.model
 
 
-def profile_main_path(model):
-    """A traced run of the main path's model, on a fresh engine and pool,
-    with 32 output tokens a request. Tracing slows the host, so its step
-    times are not the main path's; it gives the device's busy share and the
-    kernels that take the device time."""
+MOE_RANGES = ("moe_dispatch", "moe_combine")
+
+
+def free_card():
+    """Return the memory of dropped models and pools to the card: an
+    engine holds reference cycles, so collect them first."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def profile_main_path(model, traffic=SERVE_REQUESTS, decode_only=False):
+    """A traced run of a main path's model, on a fresh engine and pool,
+    with 32 output tokens a request; with ``decode_only`` the engine first
+    runs untraced until every request has its first token, so the trace
+    holds decode steps alone. Tracing slows the host, so its step times
+    are not the main path's; it gives the device's busy share and the
+    kernels that take the device time. For a GQA model the kernels of K1
+    and K2 are found by device symbol and must show time (bf16 instances
+    only); for an MoE model the device time of the kernels under the
+    ``moe_dispatch`` and ``moe_combine`` ranges (``models/moe.py``) is its
+    own group."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.engine import EngineConfig, InferenceEngine
@@ -423,14 +490,16 @@ def profile_main_path(model):
     from repro_torch.launch.serve import make_requests, pages_to_hold
 
     cfg = model.cfg
-    r = SERVE_REQUESTS
+    r = traffic
     requests = make_requests(cfg.vocab, r["n"], r["isl"], (32, 32), r["seed"] + 1)
     ecfg = EngineConfig(n_pages=pages_to_hold(requests), max_num_seqs=16,
                         admission_mode="kv_aware")
     eng = InferenceEngine(cfg, ecfg, TorchRunner(model, device="cuda"),
                           virtual_clock=False)
-    for prompt, n in requests:
-        eng.submit(prompt, n)
+    reqs = [eng.submit(prompt, n) for prompt, n in requests]
+    while decode_only and not all(r.output for r in reqs):
+        eng.step()
+    steps_before = len(eng.metrics.timeline)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -438,12 +507,20 @@ def profile_main_path(model):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
+    moe_ms = 0.0
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        if evt.name in MOE_RANGES:
+            # the CPU range sums its kernels' device time; its device-side
+            # copy spans first to last kernel, gaps included: not a kernel
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                moe_ms += evt.device_time_total / 1e3
+        elif evt.device_type == torch.autograd.DeviceType.CUDA:
             by_name[evt.name] = by_name.get(evt.name, 0.0) \
                 + evt.time_range.elapsed_us() / 1e3
-    groups = dict.fromkeys(("flash_attention", "paged_attention", "matmul",
-                            "other"), 0.0)
+    gqa = cfg.attention != "mla"
+    groups = dict.fromkeys(("flash_attention", "paged_attention")
+                           if gqa else (), 0.0)
+    groups.update(matmul=0.0, other=0.0)
     by_symbol = {sym: 0.0 for syms in KERNEL_SYMBOLS.values() for sym in syms}
     for name, ms in by_name.items():
         low = name.lower()
@@ -456,14 +533,25 @@ def profile_main_path(model):
             groups["matmul"] += ms
         else:
             groups["other"] += ms
+    if cfg.moe is not None:
+        # the ranges hold no matmul: their kernels are all in "other"
+        groups["moe_dispatch"] = moe_ms
+        groups["other"] -= moe_ms
     busy_ms = sum(by_name.values())
-    steps = len(eng.metrics.timeline)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    emit("profile", osl=32, steps=steps, wall_ms=wall_ms,
-         step_ms=wall_ms / max(steps, 1), device_busy_ms=busy_ms,
+    steps = len(eng.metrics.timeline) - steps_before
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    emit("profile", model=cfg.name, layers=cfg.n_layers, osl=32,
+         decode_only=decode_only, steps=steps,
+         wall_ms=wall_ms, step_ms=wall_ms / max(steps, 1),
+         device_busy_ms=busy_ms,
          idle_share=1.0 - busy_ms / wall_ms if busy_ms else None,
-         device_ms_by_group=groups, device_ms_by_symbol=by_symbol,
+         device_ms_by_group=groups,
+         **({"device_ms_by_symbol": by_symbol} if gqa else {}),
          top_kernels_ms=[[name[:100], ms] for name, ms in top])
+    if not busy_ms:
+        raise AssertionError("the trace shows no device time")
+    if not gqa:
+        return
     wrong = [sym for sym in FP32_ONLY_SYMBOLS if by_symbol[sym] > 0.0]
     if wrong:
         raise AssertionError(f"the bf16 main path reached {wrong}, an fp32 "
@@ -473,6 +561,73 @@ def profile_main_path(model):
     if missing:
         raise AssertionError(f"the trace shows no device time for {missing}; "
                              f"its kernels: {sorted(by_name)[:20]}")
+
+
+def moe_configs():
+    """DeepSeek-R1 and phi3.5-moe at full width with their depth cut, and
+    the cuts, as the main path serves them."""
+    from repro_torch.configs.registry import get_config
+
+    r1 = get_config("deepseek-r1-671b")
+    phi = get_config("phi3.5-moe-42b-a6.6b")
+    return [(dataclasses.replace(r1, n_layers=R1_LAYERS),
+             {"n_layers": [r1.n_layers, R1_LAYERS]}, SERVE_REQUESTS),
+            (dataclasses.replace(phi, n_layers=PHI_LAYERS),
+             {"n_layers": [phi.n_layers, PHI_LAYERS]}, PHI_REQUESTS)]
+
+
+def greedy_equality_moe():
+    """DeepSeek-R1 at full width (d_model, MLA, dense d_ff, expert d_ff,
+    vocab) with 2 layers (1 dense, 1 MoE) and 16 experts, fp32, seeded on
+    the card; its CPU copy is filled parameter by parameter from the card.
+    Four 30-token prompts, 20 new tokens each, on a 7-page pool: the
+    engine preempts, decode batches of up to 4 give each expert 2 slots,
+    so assignments drop on both sides alike."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.engine import EngineConfig, InferenceEngine
+    from repro_torch.core.runner import TorchRunner
+    from repro_torch.models.transformer import Transformer
+
+    full = get_config("deepseek-r1-671b")
+    cfg = dataclasses.replace(full, n_layers=2, moe=dataclasses.replace(
+        full.moe, n_experts=16, first_dense_layers=1))
+    card = Transformer(cfg, device="cuda", dtype=torch.float32, seed=1)
+    host = Transformer(cfg, device="cpu", dtype=torch.float32, seed=None)
+    on_card = dict(card.named_parameters())
+    with torch.no_grad():
+        for name, p in host.named_parameters():
+            p.copy_(on_card[name])
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, size=30).tolist() for _ in range(4)]
+    n_new = 20
+    outs, preempts = {}, {}
+    for dev, model in (("cuda", card), ("cpu", host)):
+        ecfg = EngineConfig(n_pages=7, max_num_seqs=4,
+                            max_num_batched_tokens=512, chunk_size=192,
+                            admission_mode="naive")
+        eng = InferenceEngine(cfg, ecfg, TorchRunner(model, device=dev),
+                              virtual_clock=False)
+        reqs = [eng.submit(p, n_new) for p in prompts]
+        t0 = time.perf_counter()
+        eng.run(max_steps=5000)
+        outs[dev] = [r.output for r in reqs]
+        preempts[dev] = dict(preemptions=sum(r.n_preemptions for r in reqs),
+                             steps=len(eng.metrics.timeline),
+                             seconds=time.perf_counter() - t0)
+        if any(len(o) != n_new for o in outs[dev]):
+            raise AssertionError(f"moe/{dev}: unfinished requests")
+    if outs["cuda"] != outs["cpu"]:
+        raise AssertionError(f"moe: card tokens {outs['cuda']} differ from "
+                             f"CPU plain-path tokens {outs['cpu']}")
+    if preempts["cuda"]["preemptions"] == 0:
+        raise AssertionError("moe: the small pool forced no preemption")
+    return dict(model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+                dtype="float32", reduced={
+                    "n_layers": [full.n_layers, 2],
+                    "first_dense_layers": [full.moe.first_dense_layers, 1],
+                    "n_experts": [full.moe.n_experts, 16]},
+                params=sum(p.numel() for p in card.parameters()),
+                tokens_equal=True, runs=preempts)
 
 
 def main():
@@ -511,9 +666,20 @@ def main():
             emit("timing", kernel=name, **row)
 
     emit("greedy_equality", **greedy_equality())
+    free_card()
     launches, model = main_path(flash_ops, paged_ops)
     profile_main_path(model)
     del model
+    free_card()
+
+    emit("greedy_equality_moe", **greedy_equality_moe())
+    free_card()
+    for cfg, reduced, traffic in moe_configs():
+        _, model = main_path(flash_ops, paged_ops, cfg, traffic, reduced)
+        if cfg.attention == "mla":
+            profile_main_path(model, traffic, decode_only=True)
+        del model
+        free_card()
 
     replaces = {
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:99",

@@ -3,9 +3,15 @@
 Full-size llama3.2-3b in bf16 on the card, weights from a seed:
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 16
 
+``--arch`` picks any model of ``repro_torch.configs.registry`` (llama3.2-3b,
+phi3.5-moe-42b-a6.6b, deepseek-r1-671b, the ds-distill models); a full
+MoE model needs more memory than one card has, so it is served at full
+width on the card with its depth cut by ``dataclasses.replace`` (as
+``chip_smoke.py`` does) through ``serve()``.
+
 Reduced config on the CPU:
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
-        --requests 4 --isl 4 24 --osl 8 32
+        --arch deepseek-r1-671b --requests 4 --isl 4 24 --osl 8 32
 """
 from __future__ import annotations
 

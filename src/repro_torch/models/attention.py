@@ -5,14 +5,21 @@ prompt, with absolute ``q_positions`` and an exclusive valid kv length.
 ``decode_attention`` — one-token attention against a dense cache, where
 ``lens`` is the inclusive index of the newest token.
 
-These are the functions the CUDA kernels (``repro_torch.kernels``) are held
-against; the model calls the kernels' wrappers, never these.
+These two are the functions the CUDA kernels (``repro_torch.kernels``) are
+held against; the model calls the kernels' wrappers, never these.
+
+``mla_*`` — Multi-Head Latent Attention (DeepSeek-R1): prefill, the
+*absorbed* decode whose cache is the (kv_rank + rope) latent of each token,
+and that decode over a paged latent pool. The JAX package has no kernel
+for them either; the model calls these.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from repro_torch.models.common import rmsnorm, rope
 
 NEG_INF = -1e30
 
@@ -68,3 +75,85 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
     return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+# --------------------------------------------------------------------- MLA
+def _mla_scale(ml) -> float:
+    return (ml.qk_nope_head_dim + ml.qk_rope_head_dim) ** -0.5
+
+
+def _mla_q(x, p, cfg, positions):
+    """Query of every head, split into its no-rope and roped parts."""
+    ml = cfg.mla
+    cq = rmsnorm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    qs = torch.einsum("bsr,rhe->bshe", cq, p["w_uq"])
+    q_pe = rope(qs[..., ml.qk_nope_head_dim:], positions, cfg.rope_theta)
+    return qs[..., :ml.qk_nope_head_dim], q_pe
+
+
+def mla_latents(x, p, cfg, positions):
+    """The decode cache entries of x (B,S,d) at positions (B|1,S): the
+    normed latent ckv (B,S,kv_rank) and the roped key kpe (B,S,rope)."""
+    ckv = rmsnorm(x @ p["w_dkv"], p["kv_norm"], cfg.norm_eps)
+    kpe = rope((x @ p["w_kr"])[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return ckv, kpe
+
+
+def mla_prefill(x, p, cfg, positions, kv_lens=None):
+    """x (B,S,d), already normed; positions (S,) or (B|1,S); kv_lens (B,)
+    exclusive valid length. Returns (out (B,S,d), (ckv, kpe)), the latents
+    being the decode cache. Scores are formed in x's dtype, masked and
+    soft-maxed in fp32, and the weights cast back to x's dtype before the
+    value product, as in the reference. Materialises (B,H,S,S) scores."""
+    ml = cfg.mla
+    S = x.shape[1]
+    qp = positions.reshape(1, S) if positions.ndim == 1 else positions
+    q_nope, q_pe = _mla_q(x, p, cfg, qp)
+    ckv, kpe = mla_latents(x, p, cfg, qp)
+    k_nope = torch.einsum("bsr,rhe->bshe", ckv, p["w_uk"])
+    vv = torch.einsum("bsr,rhe->bshe", ckv, p["w_uv"])
+    s = (torch.einsum("bqhe,bkhe->bhqk", q_nope, k_nope)
+         + torch.einsum("bqhe,bke->bhqk", q_pe, kpe)) * _mla_scale(ml)
+    s = s.float()
+    kpos = torch.arange(S, device=x.device)
+    valid = kpos[None, None, :] <= qp.long()[:, :, None]
+    if kv_lens is not None:
+        valid = valid & (kpos[None, None, :] < kv_lens.long()[:, None, None])
+    s = torch.where(valid[:, None], s, NEG_INF)
+    w = torch.softmax(s, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhqk,bkhe->bqhe", w, vv)
+    out = torch.einsum("bqhe,hed->bqd", ctx, p["w_o"])
+    return out, (ckv, kpe)
+
+
+def mla_decode(x, p, cfg, ckv_cache, kpe_cache, lens):
+    """Absorbed MLA decode. x (B,1,d), already normed; caches (B,S,kv_rank)
+    and (B,S,rope) holding the new token at ``lens`` (B,), the inclusive
+    index of the newest token. Returns (B,1,d)."""
+    ml = cfg.mla
+    pos = lens.long()
+    q_nope, q_pe = _mla_q(x, p, cfg, pos[:, None])
+    q_lat = torch.einsum("bshe,rhe->bshr", q_nope, p["w_uk"])      # absorb w_uk
+    s = (torch.einsum("bshr,btr->bhst", q_lat, ckv_cache)
+         + torch.einsum("bshe,bte->bhst", q_pe, kpe_cache)) * _mla_scale(ml)
+    s = s.float()[:, :, 0, :]                                      # (B,H,S)
+    t = torch.arange(ckv_cache.shape[1], device=x.device)
+    valid = t[None, :] <= pos[:, None]
+    s = torch.where(valid[:, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1).to(x.dtype)
+    ctx_lat = torch.einsum("bht,btr->bhr", w, ckv_cache)
+    ctx = torch.einsum("bhr,rhe->bhe", ctx_lat, p["w_uv"])         # absorb w_uv
+    return torch.einsum("bhe,hed->bd", ctx, p["w_o"])[:, None, :]
+
+
+def mla_decode_paged(x, p, cfg, ckv_pool, kpe_pool, block_tables, lens):
+    """``mla_decode`` over a paged latent pool: ckv_pool (P,page,kv_rank),
+    kpe_pool (P,page,rope); block_tables (B,max_blocks) page ids whose
+    pages cover positions 0..lens (every entry a valid page). The table's
+    pages are gathered into a dense cache; positions past ``lens`` are
+    masked."""
+    B, nblk = block_tables.shape
+    pages = block_tables.long()
+    ckv = ckv_pool[pages].reshape(B, nblk * ckv_pool.shape[1], -1)
+    kpe = kpe_pool[pages].reshape(B, nblk * kpe_pool.shape[1], -1)
+    return mla_decode(x, p, cfg, ckv, kpe, lens)

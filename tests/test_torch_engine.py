@@ -2,7 +2,10 @@
 
 Greedy tokens of the engine on the paged path equal the JAX straight-line
 greedy decode on bridged weights, with and without forced preemption (the
-two cases of ``tests/test_engine.py``). Under the virtual clock the port's
+two cases of ``tests/test_engine.py``), for the smoke configs of each
+served family: llama3.2-3b, DeepSeek-R1 (MLA + MoE), phi3.5-moe and the R1
+Llama distill. Their MoE capacity factor is 8, so no assignment drops and
+a batched decode equals each request's own. Under the virtual clock the port's
 engine copy and the JAX engine make identical schedules. The port imports
 neither JAX nor the JAX package, and never runs on the CPU unasked.
 """
@@ -30,14 +33,16 @@ from repro_torch.models.transformer import Transformer
 
 CTX = single_device_ctx()
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+ARCHS = ["llama3.2-3b", "deepseek-r1-671b", "phi3.5-moe-42b-a6.6b",
+         "ds-distill-8b"]
 
 
-@pytest.fixture(scope="module")
-def bridged():
-    jcfg = jax_smoke_config("llama3.2-3b")
+@pytest.fixture(scope="module", params=ARCHS)
+def bridged(request):
+    jcfg = jax_smoke_config(request.param)
     params = T.init_params(jcfg, jax.random.PRNGKey(0), CTX, mode="serve",
                            dtype=jnp.float32)
-    cfg = get_smoke_config("llama3.2-3b")
+    cfg = get_smoke_config(request.param)
     model = from_jax_params(jax.tree_util.tree_map(np.asarray, params), cfg,
                             device="cpu")
     prefill = jax.jit(lambda p, t: T.prefill(p, t, jcfg, CTX, max_len=192,
@@ -136,8 +141,9 @@ def test_engine_copy_schedules_like_jax_engine(admission):
     assert ev_port == ev_jax
 
 
-def test_serve_entry_point_finishes_every_request():
-    cfg = get_smoke_config("llama3.2-3b")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_entry_point_finishes_every_request(arch):
+    cfg = get_smoke_config(arch)
     requests = make_requests(cfg.vocab, 5, (4, 24), (8, 16), seed=3)
     eng, reqs = serve(cfg, requests, device="cpu", dtype=torch.float32,
                       max_num_seqs=4)

@@ -1,7 +1,12 @@
-"""The port's model against ``repro.models.transformer`` on bridged weights
-(smoke llama3.2-3b, fp32): the bridge round-trips exactly, and prefill plus
-paged decode steps give the JAX logits (atol 1e-4)."""
+"""The port's model against ``repro.models.transformer`` on bridged weights,
+at the smoke size of each served family in fp32: llama3.2-3b (dense GQA,
+tied head), DeepSeek-R1 (MLA, a dense then an MoE layer with a shared
+expert, untied head), phi3.5-moe (GQA, every layer MoE) and the R1 Llama
+distill (dense GQA, untied head). The configs equal the JAX package's, the
+bridge round-trips exactly, and prefill plus paged decode steps give the
+JAX logits (atol 1e-4, float32 roundings of the same products)."""
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -13,33 +18,53 @@ from repro.configs.registry import get_config as jax_config
 from repro.configs.registry import get_smoke_config as jax_smoke_config
 from repro.models import transformer as T
 from repro.parallel.sharding import single_device_ctx
-from repro_torch.configs.registry import get_config, get_smoke_config
+from repro_torch.configs.registry import ALL_MODELS, get_config, get_smoke_config
+from repro_torch.models import transformer as TT
 from repro_torch.models.bridge import from_jax_params, numpy_params, to_jax_params
+from repro_torch.models.transformer import Transformer, check_supported
 
 CTX = single_device_ctx()
 ATOL = 1e-4
+ARCHS = ["llama3.2-3b", "deepseek-r1-671b", "phi3.5-moe-42b-a6.6b",
+         "ds-distill-8b"]
 
 
-@pytest.fixture(scope="module")
-def jax_params():
-    cfg = jax_smoke_config("llama3.2-3b")
+@pytest.fixture(scope="module", params=ARCHS)
+def jax_params(request):
+    cfg = jax_smoke_config(request.param)
     params = T.init_params(cfg, jax.random.PRNGKey(0), CTX, mode="serve",
                            dtype=jnp.float32)
-    return cfg, jax.tree_util.tree_map(np.asarray, params)
+    return request.param, cfg, jax.tree_util.tree_map(np.asarray, params)
 
 
+@pytest.mark.parametrize("arch", sorted(ALL_MODELS))
 @pytest.mark.parametrize("smoke", [False, True])
-def test_configs_agree_with_jax(smoke):
-    mine = (get_smoke_config if smoke else get_config)("llama3.2-3b")
-    ref = (jax_smoke_config if smoke else jax_config)("llama3.2-3b")
+def test_configs_agree_with_jax(arch, smoke):
+    mine = (get_smoke_config if smoke else get_config)(arch)
+    ref = (jax_smoke_config if smoke else jax_config)(arch)
     assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
     assert mine.param_count() == ref.param_count()
+    assert mine.kv_bytes_per_token() == ref.kv_bytes_per_token()
+
+
+@pytest.mark.parametrize("arch", sorted(ALL_MODELS))
+def test_param_specs_equal_jax_serve_specs(arch):
+    """Names, shapes, inits and fan-ins of every served model at full size
+    equal ``build_param_specs`` in serve mode on one device."""
+    def flat(tree, prefix=""):
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                yield from flat(val, f"{prefix}{key}.")
+            else:
+                yield f"{prefix}{key}", (val.shape, val.init, val.fan_in)
+
+    ref = dict(flat(T.build_param_specs(jax_config(arch), CTX, "serve")))
+    assert TT.param_specs(get_config(arch)) == ref
 
 
 def test_bridge_round_trips_bit_for_bit(jax_params):
-    _, params = jax_params
-    model = from_jax_params(params, get_smoke_config("llama3.2-3b"),
-                            device="cpu")
+    arch, _, params = jax_params
+    model = from_jax_params(params, get_smoke_config(arch), device="cpu")
     back = to_jax_params(model)
     flat, tree = jax.tree_util.tree_flatten(params)
     flat_back, tree_back = jax.tree_util.tree_flatten(back)
@@ -50,19 +75,20 @@ def test_bridge_round_trips_bit_for_bit(jax_params):
 
 
 def test_numpy_params_have_the_jax_layout(jax_params):
-    _, params = jax_params
-    mine = numpy_params(get_smoke_config("llama3.2-3b"), seed=0)
+    arch, _, params = jax_params
+    mine = numpy_params(get_smoke_config(arch), seed=0)
     shapes = jax.tree_util.tree_map(lambda a: (a.shape, a.dtype), params)
     assert jax.tree_util.tree_map(lambda a: (a.shape, a.dtype), mine) == shapes
 
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_prefill_and_paged_decode_match_jax(jax_params, seed):
-    """Two prompts prefilled together, their k/v scattered into shuffled
-    pages, then 8 greedy paged decode steps; every step's logits match
-    ``T.prefill`` + ``T.decode_step`` (dense cache)."""
-    jcfg, params = jax_params
-    cfg = get_smoke_config("llama3.2-3b")
+    """Two prompts prefilled together, their cache entries (k/v, or the
+    MLA latents) scattered into shuffled pages, then 8 greedy paged decode
+    steps; every step's logits match ``T.prefill`` + ``T.decode_step``
+    (dense cache)."""
+    arch, jcfg, params = jax_params
+    cfg = get_smoke_config(arch)
     model = from_jax_params(params, cfg, device="cpu")
     rng = np.random.default_rng(seed)
     B, S, n_steps, page = 2, 13, 8, 16
@@ -72,29 +98,68 @@ def test_prefill_and_paged_decode_match_jax(jax_params, seed):
         p, t, jcfg, CTX, max_len=S + n_steps, cache_dtype=jnp.float32))
     jdecode = jax.jit(lambda p, st, t: T.decode_step(p, st, t, jcfg, CTX))
     jlast, state = jprefill(params, jnp.asarray(tokens))
-    last, ks, vs = model.prefill(torch.from_numpy(tokens).long())
+    last, caches = model.prefill(torch.from_numpy(tokens).long())
     np.testing.assert_allclose(last.numpy(), np.asarray(jlast), rtol=0,
                                atol=ATOL)
 
     nblk = -(-(S + n_steps) // page)
     n_pages = 3 * B * nblk
     tables = rng.permutation(n_pages)[:B * nblk].reshape(B, nblk).astype(np.int32)
-    L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
-    k_pool = torch.zeros((L, n_pages, page, KV, hd))
-    v_pool = torch.zeros_like(k_pool)
+    pools = [torch.zeros(s) for s in model.pool_shapes(n_pages, page)]
     pos = np.arange(S)
     for b in range(B):
         pages = torch.from_numpy(tables[b, pos // page]).long()
         slots = torch.from_numpy(pos % page)
-        k_pool[:, pages, slots] = torch.stack(ks)[:, b]
-        v_pool[:, pages, slots] = torch.stack(vs)[:, b]
+        for j, pool in enumerate(pools):
+            pool[:, pages, slots] = torch.stack([c[j] for c in caches])[:, b]
 
     nxt = np.array(jnp.argmax(jlast, axis=-1), np.int32)
     for i in range(n_steps):
         jlogits, state = jdecode(params, state, jnp.asarray(nxt[:, None]))
         logits = model.decode_step(
             torch.from_numpy(nxt).long(), torch.full((B,), S + i),
-            k_pool, v_pool, torch.from_numpy(tables))
+            pools, torch.from_numpy(tables))
         np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits[:, 0]),
                                    rtol=0, atol=ATOL)
         nxt = np.array(jnp.argmax(jlogits[:, 0], axis=-1), np.int32)
+
+
+@pytest.mark.parametrize("change", [dict(qk_norm=True),
+                                    dict(attention="swa", swa_window=16),
+                                    dict(family="hybrid", attn_every=2),
+                                    dict(family="ssm"), dict(family="vlm")])
+def test_check_supported_refuses_unported_kinds(change):
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-3b"), **change)
+    with pytest.raises(NotImplementedError):
+        check_supported(cfg)
+    with pytest.raises(NotImplementedError):
+        Transformer(cfg, device="cpu", seed=None)
+
+
+def test_seeded_init_draws_in_pieces_with_the_documented_scale(monkeypatch):
+    """With pieces far smaller than a weight, every normal weight still
+    has mean 0 and std 1/sqrt(fan_in) (pooled over the model, within 2%),
+    no two experts or layers are drawn alike, and the norms are ones."""
+    monkeypatch.setattr(TT, "INIT_CHUNK", 1000)
+    cfg = dataclasses.replace(get_smoke_config("deepseek-r1-671b"),
+                              n_layers=3)
+    model = Transformer(cfg, device="cpu", dtype=torch.float32, seed=0)
+    params = dict(model.named_parameters())
+    scaled = []
+    for name, (_, init, fan_in) in model.specs.items():
+        p = params[name]
+        if init == "ones":
+            assert bool((p == 1).all()), name
+        else:
+            scaled.append(p.reshape(-1) * math.sqrt(fan_in))
+    z = torch.cat(scaled)
+    assert z.numel() > 100_000
+    assert abs(float(z.std()) - 1.0) < 0.02
+    assert abs(float(z.mean())) < 0.02
+    we = params["moe_stack.we_gate"]
+    assert we.shape[0] == 2 and we.shape[1] == cfg.moe.n_experts
+    assert not torch.equal(we[0, 0], we[0, 1])
+    assert not torch.equal(we[0, 0], we[1, 0])
+    again = Transformer(cfg, device="cpu", dtype=torch.float32, seed=0)
+    for name, p in again.named_parameters():
+        assert torch.equal(p, params[name]), name
