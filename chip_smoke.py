@@ -8,12 +8,19 @@ Phases, each printed as one JSON line:
      then the build of both CUDA kernels from ``src/repro_torch/csrc``;
   2. each kernel against its plain PyTorch version on the card, fp32 and
      bf16, on the kernel test cases, the edges of each kernel's tiling and
-     the main paths' shapes (llama3.2-3b's G=3, phi3.5-moe's G=4);
-  3. each kernel's time in bf16 at the main path's shapes (K1 at S 137,
-     1000, 512 and 2048; K2 at one 2048-token sequence and at the decode
-     batch), eager and on the device alone, beside its bound and the share
-     of it reached, the wrapper's host time per call, its plain version's
-     time and one PyTorch library call's time;
+     the main paths' shapes (llama3.2-3b's G=3, phi3.5-moe's G=4, qwen3's
+     G=5, kimi-k2's D=112, h2o-danube's D=120 with its window of 4096,
+     llama3-405b's G=16), and the window's edges inside and on K2's
+     256-token partitions;
+  3. each kernel's time in bf16 at the main paths' shapes (K1 at S 137,
+     1000, 512 and 2048, and at the prompts of qwen3-14b, h2o-danube (S
+     5000, window 4096), kimi-k2 and llama3-405b; K2 at one 2048-token
+     sequence and at the decode batches of llama3.2-3b, h2o-danube with
+     its window, kimi-k2 and llama3-405b), eager and on the device alone,
+     beside its bound and the share of it reached, the wrapper's host time
+     per call, its plain version's time and one PyTorch library call's time
+     (for a window, SDPA with a boolean mask; the line names the kernels
+     the library ran);
   4. greedy tokens of a full-width 2-layer fp32 model served on the card
      equal those of the plain path on the CPU, with and without preemption;
   5. the main path: full-depth llama3.2-3b in bf16 serving 16 requests
@@ -30,7 +37,16 @@ Phases, each printed as one JSON line:
      both); a traced run of R1's decode steps (``profile``: device busy
      share, time in matmuls, in the MoE dispatch ranges and elsewhere,
      top kernels);
-  7. the ``kernels`` line, then the card line, then as the last line
+  7. the rest of the attention decoders: greedy tokens of h2o-danube-3-4b
+     at full width (2 layers, fp32) on the card equal those of a CPU copy
+     for two 4200-token prompts, so its window binds in K1 and in K2
+     (``greedy_equality_swa``); then ``main_path`` in bf16 for qwen3-14b
+     (qk-norm, full depth), h2o-danube-3-4b (full depth, prompts of
+     4096-6144 tokens), kimi-k2 (full width, 2 layers: 1 dense, 1 MoE of
+     all 384 experts) and llama3-405b (full width, 8 layers), each
+     launching both kernels;
+  8. the ``kernels`` line (launches summed over every main path, and by
+     model), then the card line, then as the last line
      ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero. It needs a CUDA card and fails
 without one.
@@ -70,6 +86,11 @@ FLASH_CASES = [
     (1, 1, 1, 4, 2, 64, 0),                  # one token
     (1, 333, 333, 4, 2, 128, 100),           # window, ragged
     (1, 260, 260, 4, 1, 32, 48, [250]),      # window, D 32, lens < Skv
+    # the padded head dims (TMA zero-fills columns D..127 in bf16)
+    (1, 300, 300, 8, 2, 112, 0),             # D 112, ragged
+    (2, 333, 333, 4, 1, 120, 0),             # D 120, lens (333, 166)
+    (1, 400, 400, 8, 8, 112, 100, [390]),    # D 112, window, lens < Skv
+    (1, 300, 300, 4, 2, 120, 130),           # D 120, window
 ]
 PAGED_CASES = [
     # B, KV, G, D, page, P, nblk[, tokens of each sequence]
@@ -83,6 +104,15 @@ PAGED_CASES = [
     (1, 8, 3, 128, 16, 256, 128, [2048]),    # B=1, one long sequence
     (3, 2, 1, 64, 16, 64, 40, [300, 17, 640]),   # G 1
     (2, 1, 8, 128, 16, 64, 36, [513, 16]),   # G 8
+    # the padded head dims, the second query tile (G 9..16) and the window
+    # (last field), its edge inside a partition or on a partition boundary
+    (2, 2, 9, 128, 16, 64, 40, [513, 40]),             # G 9: half a second tile
+    (2, 2, 5, 128, 16, 64, 40, [600, 100]),            # qwen3-14b: G 5
+    (2, 2, 16, 112, 16, 128, 40, [600, 300], 100),     # edges inside partitions
+    (2, 2, 4, 120, 16, 128, 40, [513, 40], 257),       # edge on a boundary;
+                                                       # window > sequence
+    (1, 1, 9, 120, 16, 64, 40, [620], 108),            # edge on a boundary
+    (2, 2, 3, 64, 16, 64, 40, [384, 17], 1000),        # window past every sequence
 ]
 # the main path's shapes: llama3.2-3b has 24 q heads over 8 kv heads of 128
 MAIN_FLASH = [(1, S, S, 24, 8, 128, 0) for S in (512, 2048)]
@@ -95,6 +125,20 @@ PHI_FLASH = [(1, S, S, 32, 8, 128, 0) for S in (1000, 137)]
 PHI_PAGED = dict(B=8, KV=8, G=4, D=128, max_ctx=1152)
 # one sequence alone: the case the split over the sequence is for
 LONG_PAGED = dict(B=1, KV=8, G=3, D=128, max_ctx=2048)
+# the rest of the attention decoders: qwen3-14b (40 q / 8 kv heads of 128),
+# h2o-danube-3-4b (32 / 8 of 120, window 4096), kimi-k2 (64 / 8 of 112) and
+# llama3-405b (128 / 8 of 128); prompts as served, decode batches of 16 at
+# the contexts their traffic reaches
+DANUBE_WINDOW = 4096
+GQA_FLASH = [(1, 1000, 1000, 40, 8, 128, 0),
+             (1, 5000, 5000, 32, 8, 120, DANUBE_WINDOW),
+             (1, 1000, 1000, 64, 8, 112, 0),
+             (1, 1000, 1000, 128, 8, 128, 0)]
+DANUBE_PAGED = dict(B=16, KV=8, G=4, D=120, min_ctx=4096, max_ctx=6400,
+                    window=DANUBE_WINDOW)
+KIMI_PAGED = dict(B=16, KV=8, G=8, D=112, max_ctx=1280)
+L405_PAGED = dict(B=16, KV=8, G=16, D=128, max_ctx=1280)
+GQA_PAGED = [DANUBE_PAGED, KIMI_PAGED, L405_PAGED]
 TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 # limit on |out - ref|_2 / |ref|_2 over a whole output: bf16 roundings of
 # q*scale, P and out give about 3e-3, while a dropped key tile or sequence
@@ -118,6 +162,14 @@ SERVE_REQUESTS = dict(n=16, isl=(128, 1024), osl=(128, 256), seed=0)
 R1_LAYERS = 5
 PHI_LAYERS = 8
 PHI_REQUESTS = dict(n=8, isl=(128, 1024), osl=(64, 128), seed=0)
+# h2o-danube's prompts are longer than its window of 4096, so the window
+# binds in every prefill and decode step
+DANUBE_REQUESTS = dict(n=16, isl=(4096, 6144), osl=(128, 256), seed=0)
+# kimi-k2 at full width cut to its dense layer and one MoE layer of all 384
+# experts (about 40 GB of bf16 weights); llama3-405b at full width cut to 8
+# of its 126 layers (about 59 GB)
+KIMI_LAYERS = 2
+L405_LAYERS = 8
 
 
 def emit(phase: str, **kw):
@@ -142,6 +194,7 @@ def flash_inputs(case, dtype, gen):
 
 
 def paged_case_inputs(case, dtype, gen):
+    """q, pages, tables, lens, and the window (0: none)."""
     B, KV, G, D, page, P, nblk = case[:7]
     dev = torch.device("cuda")
     q = torch.randn((B, KV, G, D), generator=gen, device=dev).to(dtype)
@@ -153,15 +206,17 @@ def paged_case_inputs(case, dtype, gen):
         lens = [n - 1 for n in case[7]]
     else:
         lens = [nblk * page - 1] + [page // 2] * (B - 1)
-    return q, kp, vp, tables, torch.tensor(lens, dtype=torch.int32, device=dev)
+    window = case[8] if len(case) > 8 else 0
+    return (q, kp, vp, tables, torch.tensor(lens, dtype=torch.int32, device=dev),
+            window)
 
 
 def paged_main_inputs(dtype, gen, m=MAIN_PAGED):
-    """B sequences of up to max_ctx tokens in shuffled pages of one pool
-    (the first holds max_ctx)."""
+    """B sequences of min_ctx (default 128) to max_ctx tokens in shuffled
+    pages of one pool (the first holds max_ctx)."""
     B, KV, G, D, page = m["B"], m["KV"], m["G"], m["D"], 16
     rng = np.random.default_rng(1)
-    ctx = rng.integers(128, m["max_ctx"] + 1, size=B)
+    ctx = rng.integers(m.get("min_ctx", 128), m["max_ctx"] + 1, size=B)
     ctx[0] = m["max_ctx"]
     n_blocks = -(-ctx // page)
     P = int(n_blocks.sum()) + 64
@@ -206,7 +261,7 @@ def check_kernels(flash_ops, paged_ops):
     errs = {"flash_attention": [], "paged_attention": []}
     rels = {"flash_attention": [], "paged_attention": []}
     for dtype in (torch.float32, torch.bfloat16):
-        for case in FLASH_CASES + MAIN_FLASH + RAGGED_FLASH + PHI_FLASH:
+        for case in FLASH_CASES + MAIN_FLASH + RAGGED_FLASH + PHI_FLASH + GQA_FLASH:
             q, k, v, lens, window = flash_inputs(case, dtype, gen)
             err, rel = compare(
                 flash_ops.flash_attention, flash_ops.flash_attention_plain,
@@ -214,12 +269,12 @@ def check_kernels(flash_ops, paged_ops):
             errs["flash_attention"].append(err)
             rels["flash_attention"].append(rel)
         cases = [paged_case_inputs(c, dtype, gen) for c in PAGED_CASES]
-        for args in cases + [paged_main_inputs(dtype, gen),
-                             paged_main_inputs(dtype, gen, LONG_PAGED),
-                             paged_main_inputs(dtype, gen, PHI_PAGED)]:
+        mains = [(*paged_main_inputs(dtype, gen, m), m.get("window", 0))
+                 for m in (MAIN_PAGED, LONG_PAGED, PHI_PAGED, *GQA_PAGED)]
+        for *args, window in cases + mains:
             err, rel = compare(
                 paged_ops.paged_attention, paged_ops.paged_attention_plain,
-                args, {}, dtype)
+                tuple(args), {"window": window}, dtype)
             errs["paged_attention"].append(err)
             rels["paged_attention"].append(rel)
     for name, e in errs.items():
@@ -295,25 +350,49 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def library_kernels(fn):
+    """Names of the device kernels one call of ``fn`` runs (which backend a
+    library call took), from a trace of that call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({evt.name[:80] for evt in prof.events()
+                   if evt.device_type == torch.autograd.DeviceType.CUDA})
+
+
 def time_flash(flash_ops, case, dtype, gen):
     import torch.nn.functional as F
-    q, k, v, lens, _ = flash_inputs(case, dtype, gen)
+    q, k, v, lens, window = flash_inputs(case, dtype, gen)
     B, Sq, Skv, H, KV, D, _ = case[:7]
     lens_np = lens.cpu().numpy()
-    # causal (q, k) pairs these inputs need: row i sees min(i+1, lens[b]) keys
-    pairs = sum(int(np.minimum(np.arange(1, Sq + 1), lb).sum()) for lb in lens_np)
+    # causal (q, k) pairs these inputs need: row i sees the keys from
+    # max(0, i - window + 1) to min(i, lens[b] - 1)
+    rows = np.arange(Sq)
+    first = np.maximum(0, rows - window + 1) if window > 0 else np.zeros_like(rows)
+    pairs = sum(int(np.maximum(np.minimum(rows + 1, lb) - first, 0).sum())
+                for lb in lens_np)
     flops = 4 * D * H * pairs
-    out = flash_ops.flash_attention(q, k, v, lens)
+    out = flash_ops.flash_attention(q, k, v, lens, window=window)
     b_ms, b_by = bound(flops, nbytes(q, k, v, lens, out), dtype)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    kernel = lambda: flash_ops.flash_attention(q, k, v, lens)  # noqa: E731
-    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True, enable_gqa=True)
+    kernel = lambda: flash_ops.flash_attention(q, k, v, lens, window=window)  # noqa: E731
+    if window > 0:  # every sequence is whole here (B 1, lens = Skv)
+        pos = torch.arange(Skv, device=q.device)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    else:
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
     t = timed(kernel, library, 20, b_ms)
     return dict(
-        shape=list(case[:6]), dtype=str(dtype).split(".")[-1], **t,
-        bound_ms=b_ms, bound_by=b_by,
-        plain_ms=time_ms(lambda: flash_ops.flash_attention_plain(q, k, v, lens), 5)[0],
+        shape=list(case[:6]), window=window, dtype=str(dtype).split(".")[-1], **t,
+        bound_ms=b_ms, bound_by=b_by, library_kernels=library_kernels(library),
+        plain_ms=time_ms(lambda: flash_ops.flash_attention_plain(
+            q, k, v, lens, window=window), 5)[0],
         flops=flops, tflop_s=flops / t["ms"] / 1e9,
         device_tflop_s=flops / t["device_ms"] / 1e9)
 
@@ -321,10 +400,18 @@ def time_flash(flash_ops, case, dtype, gen):
 def time_paged(paged_ops, dtype, gen, m=MAIN_PAGED):
     import torch.nn.functional as F
     q, kp, vp, tables, lens = paged_main_inputs(dtype, gen, m)
+    window = m.get("window", 0)
     B, KV, G, D = q.shape
-    tokens = int((lens.long() + 1).sum())
+    # the tokens these inputs need: each sequence's last min(lens + 1, window)
+    counted = lens.long() + 1
+    if window > 0:
+        counted = counted.clamp(max=window)
+    tokens = int(counted.sum())
     flops = 4 * G * D * KV * tokens
-    out = paged_ops.paged_attention(q, kp, vp, tables, lens)
+    # no window argument where there is none: tools/ab_main_path.py times
+    # wrappers of trees that take none
+    kw = {"window": window} if window else {}
+    out = paged_ops.paged_attention(q, kp, vp, tables, lens, **kw)
     elem = q.element_size()
     needed = 2 * tokens * KV * D * elem + nbytes(q, out, tables, lens)
     b_ms, b_by = bound(flops, needed, dtype)
@@ -333,18 +420,23 @@ def time_paged(paged_ops, dtype, gen, m=MAIN_PAGED):
     S = tables.shape[1] * kp.shape[1]
     kc, vc = (p[tables.long()].reshape(B, S, KV, D).transpose(1, 2).contiguous()
               for p in (kp, vp))
-    mask = (torch.arange(S, device=q.device)[None, :] <= lens[:, None].long())
+    pos = torch.arange(S, device=q.device)[None, :]
+    mask = pos <= lens[:, None].long()
+    if window > 0:
+        mask = mask & (pos > lens[:, None].long() - window)
     mask = mask[:, None, None, :]
     qh = q.reshape(B, KV * G, 1, D)
-    kernel = lambda: paged_ops.paged_attention(q, kp, vp, tables, lens)  # noqa: E731
+    kernel = lambda: paged_ops.paged_attention(  # noqa: E731
+        q, kp, vp, tables, lens, **kw)
     library = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qh, kc, vc, attn_mask=mask, enable_gqa=True)
     t = timed(kernel, library, 50, b_ms)
     return dict(
-        shape=[B, KV, G, D], contexts=(lens + 1).tolist(),
+        shape=[B, KV, G, D], window=window, contexts=(lens + 1).tolist(),
         dtype=str(dtype).split(".")[-1], **t, bound_ms=b_ms, bound_by=b_by,
+        library_kernels=library_kernels(library),
         plain_ms=time_ms(lambda: paged_ops.paged_attention_plain(
-            q, kp, vp, tables, lens), 10)[0],
+            q, kp, vp, tables, lens, **kw), 10)[0],
         bytes=needed, gb_s=needed / t["ms"] / 1e6,
         device_gb_s=needed / t["device_ms"] / 1e6)
 
@@ -576,58 +668,105 @@ def moe_configs():
              {"n_layers": [phi.n_layers, PHI_LAYERS]}, PHI_REQUESTS)]
 
 
-def greedy_equality_moe():
-    """DeepSeek-R1 at full width (d_model, MLA, dense d_ff, expert d_ff,
-    vocab) with 2 layers (1 dense, 1 MoE) and 16 experts, fp32, seeded on
-    the card; its CPU copy is filled parameter by parameter from the card.
-    Four 30-token prompts, 20 new tokens each, on a 7-page pool: the
-    engine preempts, decode batches of up to 4 give each expert 2 slots,
-    so assignments drop on both sides alike."""
-    from repro_torch.configs.registry import get_config
+def greedy_on_card_and_cpu(cfg, requests, label, **engine):
+    """Greedy tokens of ``requests`` served by an fp32 model seeded on the
+    card and by its CPU copy, filled parameter by parameter from the card,
+    each through ``InferenceEngine`` with ``EngineConfig(**engine)``. Fails
+    unless every request finishes and the tokens are equal; returns the
+    number of parameters and each side's preemptions, steps and seconds."""
     from repro_torch.core.engine import EngineConfig, InferenceEngine
     from repro_torch.core.runner import TorchRunner
     from repro_torch.models.transformer import Transformer
 
-    full = get_config("deepseek-r1-671b")
-    cfg = dataclasses.replace(full, n_layers=2, moe=dataclasses.replace(
-        full.moe, n_experts=16, first_dense_layers=1))
     card = Transformer(cfg, device="cuda", dtype=torch.float32, seed=1)
     host = Transformer(cfg, device="cpu", dtype=torch.float32, seed=None)
     on_card = dict(card.named_parameters())
     with torch.no_grad():
         for name, p in host.named_parameters():
             p.copy_(on_card[name])
-    rng = np.random.default_rng(2)
-    prompts = [rng.integers(0, cfg.vocab, size=30).tolist() for _ in range(4)]
-    n_new = 20
-    outs, preempts = {}, {}
+    outs, runs = {}, {}
     for dev, model in (("cuda", card), ("cpu", host)):
-        ecfg = EngineConfig(n_pages=7, max_num_seqs=4,
-                            max_num_batched_tokens=512, chunk_size=192,
-                            admission_mode="naive")
-        eng = InferenceEngine(cfg, ecfg, TorchRunner(model, device=dev),
-                              virtual_clock=False)
-        reqs = [eng.submit(p, n_new) for p in prompts]
+        eng = InferenceEngine(cfg, EngineConfig(**engine),
+                              TorchRunner(model, device=dev), virtual_clock=False)
+        reqs = [eng.submit(p, n) for p, n in requests]
         t0 = time.perf_counter()
         eng.run(max_steps=5000)
         outs[dev] = [r.output for r in reqs]
-        preempts[dev] = dict(preemptions=sum(r.n_preemptions for r in reqs),
-                             steps=len(eng.metrics.timeline),
-                             seconds=time.perf_counter() - t0)
-        if any(len(o) != n_new for o in outs[dev]):
-            raise AssertionError(f"moe/{dev}: unfinished requests")
+        runs[dev] = dict(preemptions=sum(r.n_preemptions for r in reqs),
+                         steps=len(eng.metrics.timeline),
+                         seconds=time.perf_counter() - t0)
+        if any(len(r.output) != n for (_, n), r in zip(requests, reqs)):
+            raise AssertionError(f"{label}/{dev}: unfinished requests")
     if outs["cuda"] != outs["cpu"]:
-        raise AssertionError(f"moe: card tokens {outs['cuda']} differ from "
+        raise AssertionError(f"{label}: card tokens {outs['cuda']} differ from "
                              f"CPU plain-path tokens {outs['cpu']}")
-    if preempts["cuda"]["preemptions"] == 0:
+    return sum(p.numel() for p in card.parameters()), runs
+
+
+def greedy_equality_moe():
+    """DeepSeek-R1 at full width (d_model, MLA, dense d_ff, expert d_ff,
+    vocab) with 2 layers (1 dense, 1 MoE) and 16 experts, on the card and
+    on a CPU copy. Four 30-token prompts, 20 new tokens each, on a 7-page
+    pool: the engine preempts, decode batches of up to 4 give each expert
+    2 slots, so assignments drop on both sides alike."""
+    from repro_torch.configs.registry import get_config
+
+    full = get_config("deepseek-r1-671b")
+    cfg = dataclasses.replace(full, n_layers=2, moe=dataclasses.replace(
+        full.moe, n_experts=16, first_dense_layers=1))
+    rng = np.random.default_rng(2)
+    requests = [(rng.integers(0, cfg.vocab, size=30).tolist(), 20)
+                for _ in range(4)]
+    params, runs = greedy_on_card_and_cpu(
+        cfg, requests, "moe", n_pages=7, max_num_seqs=4,
+        max_num_batched_tokens=512, chunk_size=192, admission_mode="naive")
+    if runs["cuda"]["preemptions"] == 0:
         raise AssertionError("moe: the small pool forced no preemption")
     return dict(model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
                 dtype="float32", reduced={
                     "n_layers": [full.n_layers, 2],
                     "first_dense_layers": [full.moe.first_dense_layers, 1],
                     "n_experts": [full.moe.n_experts, 16]},
-                params=sum(p.numel() for p in card.parameters()),
-                tokens_equal=True, runs=preempts)
+                params=params, tokens_equal=True, runs=runs)
+
+
+def greedy_equality_swa():
+    """h2o-danube-3-4b at full width (d_model 3840, 32 q / 8 kv heads of
+    120, window 4096, vocab 32000) with 2 layers, on the card and on a CPU
+    copy. Two 4200-token prompts, 16 new tokens each: prompt rows past 4096
+    lose their first keys in K1, and every decode step's window in K2
+    starts past position 0."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import pages_to_hold
+
+    full = get_config("h2o-danube-3-4b")
+    cfg = dataclasses.replace(full, n_layers=2)
+    rng = np.random.default_rng(3)
+    requests = [(rng.integers(0, cfg.vocab, size=4200).tolist(), 16)
+                for _ in range(2)]
+    params, runs = greedy_on_card_and_cpu(
+        cfg, requests, "swa", n_pages=pages_to_hold(requests), max_num_seqs=2)
+    return dict(model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+                head_dim=cfg.head_dim, window=cfg.swa_window, dtype="float32",
+                reduced={"n_layers": [full.n_layers, 2]},
+                prompt_tokens=[len(p) for p, _ in requests],
+                params=params, tokens_equal=True, runs=runs)
+
+
+def gqa_configs():
+    """The rest of the attention decoders, as the main path serves them:
+    qwen3-14b and h2o-danube-3-4b whole, kimi-k2 and llama3-405b at full
+    width with their depth cut, with the cuts and their traffic."""
+    from repro_torch.configs.registry import get_config
+
+    kimi = get_config("kimi-k2-1t-a32b")
+    l405 = get_config("llama3-405b")
+    return [(get_config("qwen3-14b"), {}, SERVE_REQUESTS),
+            (get_config("h2o-danube-3-4b"), {}, DANUBE_REQUESTS),
+            (dataclasses.replace(kimi, n_layers=KIMI_LAYERS),
+             {"n_layers": [kimi.n_layers, KIMI_LAYERS]}, SERVE_REQUESTS),
+            (dataclasses.replace(l405, n_layers=L405_LAYERS),
+             {"n_layers": [l405.n_layers, L405_LAYERS]}, SERVE_REQUESTS)]
 
 
 def main():
@@ -655,19 +794,23 @@ def main():
     max_err = check_kernels(flash_ops, paged_ops)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    # the kernels line takes the last row of each: K1 at S=2048, K2 at the
-    # main decode shape
     timings = {"flash_attention": [time_flash(flash_ops, c, torch.bfloat16, gen)
-                                   for c in RAGGED_FLASH[::-1] + MAIN_FLASH],
+                                   for c in RAGGED_FLASH[::-1] + MAIN_FLASH
+                                   + GQA_FLASH],
                "paged_attention": [time_paged(paged_ops, torch.bfloat16, gen, m)
-                                   for m in (LONG_PAGED, MAIN_PAGED)]}
+                                   for m in (LONG_PAGED, MAIN_PAGED, *GQA_PAGED)]}
+    # the kernels line takes K1 at S=2048 and K2 at llama3.2-3b's decode batch
+    main_row = {"flash_attention": len(RAGGED_FLASH) + len(MAIN_FLASH) - 1,
+                "paged_attention": 1}
     for name, rows in timings.items():
         for row in rows:
             emit("timing", kernel=name, **row)
 
     emit("greedy_equality", **greedy_equality())
     free_card()
+    by_model = {}
     launches, model = main_path(flash_ops, paged_ops)
+    by_model[model.cfg.name] = launches
     profile_main_path(model)
     del model
     free_card()
@@ -675,9 +818,18 @@ def main():
     emit("greedy_equality_moe", **greedy_equality_moe())
     free_card()
     for cfg, reduced, traffic in moe_configs():
-        _, model = main_path(flash_ops, paged_ops, cfg, traffic, reduced)
+        by_model[cfg.name], model = main_path(flash_ops, paged_ops, cfg,
+                                              traffic, reduced)
         if cfg.attention == "mla":
             profile_main_path(model, traffic, decode_only=True)
+        del model
+        free_card()
+
+    emit("greedy_equality_swa", **greedy_equality_swa())
+    free_card()
+    for cfg, reduced, traffic in gqa_configs():
+        by_model[cfg.name], model = main_path(flash_ops, paged_ops, cfg,
+                                              traffic, reduced)
         del model
         free_card()
 
@@ -687,11 +839,14 @@ def main():
     }
     kernels = []
     for name in ("flash_attention", "paged_attention"):
-        row = timings[name][-1]     # flash at S=2048; paged at its main shape
+        # flash at S=2048; paged at llama3.2-3b's decode batch
+        row = timings[name][main_row[name]]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": replaces[name], "launches": launches[name],
+            "replaces": replaces[name],
+            "launches": sum(n[name] for n in by_model.values()),
+            "launches_by_model": {m: n[name] for m, n in by_model.items()},
             "max_abs_err": max_err[name], "ms": row["ms"],
             "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

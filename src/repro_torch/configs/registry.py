@@ -2,21 +2,25 @@
 
 ``get_config(arch_id)`` resolves a full-size config and
 ``get_smoke_config(arch_id)`` its family-preserving reduced form for CPU
-tests. The port serves dense and MoE decoders with full (GQA) or latent
-(MLA) attention: llama3.2-3b, phi3.5-moe and the paper's own models (the
-DeepSeek-R1 distills and DeepSeek-R1-671B).
+tests. The port serves dense and MoE decoders with full or sliding-window
+(GQA, optionally with qk-norm) or latent (MLA) attention: llama3.2-3b,
+qwen3-14b, h2o-danube-3-4b, llama3-405b, phi3.5-moe, kimi-k2 and the
+paper's own models (the DeepSeek-R1 distills and DeepSeek-R1-671B).
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import llama3_2_3b, phi3_5_moe_42b
+from repro_torch.configs import (h2o_danube_3_4b, kimi_k2_1t, llama3_2_3b,
+                                  llama3_405b, phi3_5_moe_42b, qwen3_14b)
 from repro_torch.configs.base import ModelConfig, reduced
 from repro_torch.configs.paper_models import PAPER_MODELS
 
+_SERVED = (llama3_2_3b, qwen3_14b, h2o_danube_3_4b, llama3_405b,
+           phi3_5_moe_42b, kimi_k2_1t)
+
 ALL_MODELS: Dict[str, ModelConfig] = {
-    llama3_2_3b.ARCH_ID: llama3_2_3b.CONFIG,
-    phi3_5_moe_42b.ARCH_ID: phi3_5_moe_42b.CONFIG,
+    **{m.ARCH_ID: m.CONFIG for m in _SERVED},
     **PAPER_MODELS,
 }
 

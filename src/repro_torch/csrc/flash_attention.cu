@@ -43,6 +43,15 @@
 // fp32, flash_fwd_simt (the fp32 checks): one block of 256 threads per
 // (64-row q tile, q head, batch); k and v tiles are staged in shared memory
 // and both products run on the fp32 FMA units, with the same loop bounds.
+//
+// Head dims: 32, 64 and 128, and the padded instances 112 and 120. A
+// padded instance runs the wgmma kernel on the 128 geometry: its tensor
+// maps keep the real D as the inner extent (rows of 224 or 240 bytes,
+// multiples of 16), so TMA zero-fills columns D..127 of the second
+// 64-column box of q, k and v; the zero columns add nothing to Q K^T, P V
+// computes 128 output columns and the epilogue stores D of them. The scale
+// is the real D's. The SIMT kernel takes any D (its output columns are
+// masked past D).
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -70,7 +79,7 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
                float scale) {
   constexpr int LD = D + 1;   // padded row of the q/k/v tiles
   constexpr int LP = BK + 1;  // padded row of the probability tile
-  constexpr int DC = D / 16;  // output columns per thread
+  constexpr int DC = (D + 15) / 16;  // output columns per thread (past D: none)
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + BQ * LD;
@@ -179,7 +188,8 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < BK; ++c) {
       float vv[DC];
 #pragma unroll
-      for (int j = 0; j < DC; ++j) vv[j] = Vs[c * LD + tx + 16 * j];
+      for (int j = 0; j < DC; ++j)
+        vv[j] = D % 16 == 0 || tx + 16 * j < D ? Vs[c * LD + tx + 16 * j] : 0.f;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = Ps[(4 * ty + i) * LP + c];
@@ -195,7 +205,8 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
     if (qp >= Sq) continue;
     float* o = out + (((size_t)b * Sq + qp) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < DC; ++j) o[tx + 16 * j] = l[i] > 0.f ? acc[i][j] / l[i] : 0.f;
+    for (int j = 0; j < DC; ++j)
+      if (D % 16 == 0 || tx + 16 * j < D) o[tx + 16 * j] = l[i] > 0.f ? acc[i][j] / l[i] : 0.f;
   }
 }
 
@@ -228,16 +239,19 @@ constexpr int TC_THREADS = 128 * TC_WGS + 32;  // + one producer warp
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared-memory geometry of one head dim. A tile of rows x D is stored as
-// D/CE column blocks of rows x CE bf16, each row SW bytes in TMA's swizzle.
+// DP/CE column blocks of rows x CE bf16, each row SW bytes in TMA's
+// swizzle; DP is D, or D rounded up to whole 64-column blocks (112, 120 ->
+// 128), the columns past D zero-filled by TMA.
 template <int D>
 struct TcTile {
-  static constexpr int SW = D * 2 >= 128 ? 128 : D * 2;  // swizzle row, bytes
+  static constexpr int DP = D <= 64 ? D : (D + 63) / 64 * 64;  // head dim in shared memory
+  static constexpr int SW = DP * 2 >= 128 ? 128 : DP * 2;  // swizzle row, bytes
   static constexpr int CE = SW / 2;                      // bf16 per row of a block
-  static constexpr int NCB = D / CE;                     // column blocks
+  static constexpr int NCB = DP / CE;                    // column blocks
   static constexpr int Q_BLOCK = TC_BQ * SW;             // bytes of one q column block
   static constexpr int KV_BLOCK = TC_BK * SW;            // bytes of one k/v column block
-  static constexpr int Q_BYTES = TC_BQ * D * 2;
-  static constexpr int KV_BYTES = TC_BK * D * 2;
+  static constexpr int Q_BYTES = TC_BQ * DP * 2;
+  static constexpr int KV_BYTES = TC_BK * DP * 2;
   static constexpr int BARS = 1 + 3 * TC_STAGES;
   // 1024 bytes of slack to align the tiles to the swizzle pattern's period
   static constexpr size_t SMEM = 1024 + Q_BYTES + 2 * TC_STAGES * KV_BYTES + 8 * BARS;
@@ -345,9 +359,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t k_addr = hw::smem_addr(Ks);
   const uint32_t v_addr = hw::smem_addr(Vs);
 
-  float o[D / 2];
+  constexpr int DP = T::DP;
+  float o[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
   for (int j = 0; j < n_tiles; ++j) {
@@ -357,13 +372,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     hw::mbar_wait(&k_full[s], parity);
     const bool skip = k0 >= k_end_w || (window > 0 && k0 + TC_BK - 1 <= wq0 - window);
     if (!skip) {
-      // S = Q K^T over D, 16 at a time
+      // S = Q K^T over DP, 16 at a time
       float sc[TC_BK / 2];
 #pragma unroll
       for (int i = 0; i < TC_BK / 2; ++i) sc[i] = 0.f;
       hw::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DP / 16; ++kk) {
         const int cb = kk * 16 / T::CE;                   // column block
         const uint32_t off = ((kk * 16) % T::CE) * 2;      // bytes into its rows
         const uint64_t da = hw::make_desc(q_addr + cb * T::Q_BLOCK + off, 16, 8 * T::SW, T::SW);
@@ -419,7 +434,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
         l[r] = l[r] * alpha[r] + rs[r];
       }
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i)
+      for (int i = 0; i < DP / 8; ++i)
 #pragma unroll
         for (int t = 0; t < 4; ++t) o[4 * i + t] *= alpha[t >> 1];
 
@@ -442,7 +457,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
         const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
         const uint64_t db = hw::make_desc(v_addr + s * T::KV_BYTES + kk * 16 * T::SW,
                                           T::KV_BLOCK, 8 * T::SW, T::SW);
-        hw::WgmmaRS<D>::run(o, a, db, 1);
+        hw::WgmmaRS<DP>::run(o, a, db, 1);
       }
       hw::wgmma_commit();
       hw::wgmma_wait<0>();
@@ -453,7 +468,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     hw::mbar_arrive(&empty[s]);
   }
 
-  // o[4i + t]: row r_lo + 8*(t >> 1), column 8i + 2*quad + (t & 1)
+  // o[4i + t]: row r_lo + 8*(t >> 1), column 8i + 2*quad + (t & 1); the
+  // columns past D (i >= D/8) are the pad's
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r_lo + 8 * r;
@@ -509,6 +525,8 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
   switch (D) {
     case 32: return launch<BF16, 32>(q, k, v, lens, out, B, Sq, Skv, H, KV, window, scale, stream);
     case 64: return launch<BF16, 64>(q, k, v, lens, out, B, Sq, Skv, H, KV, window, scale, stream);
+    case 112: return launch<BF16, 112>(q, k, v, lens, out, B, Sq, Skv, H, KV, window, scale, stream);
+    case 120: return launch<BF16, 120>(q, k, v, lens, out, B, Sq, Skv, H, KV, window, scale, stream);
     case 128: return launch<BF16, 128>(q, k, v, lens, out, B, Sq, Skv, H, KV, window, scale, stream);
     default: return cudaErrorInvalidValue;
   }

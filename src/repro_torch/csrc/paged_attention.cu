@@ -6,7 +6,10 @@
 // Computes one-token attention over a block-table-indexed paged KV pool.
 // q (B,KV,G,D); k/v pages (P,16,KV,D); block_tables (B,max_blocks) int32
 // page ids; lens[b] is the INCLUSIVE index of the newest token, so the
-// sequence holds lens[b]+1 tokens; out (B,KV,G,D); fp32 or bf16.
+// sequence holds lens[b]+1 tokens; out (B,KV,G,D); fp32 or bf16. With
+// window > 0 only the keys at lens[b] - window < pos <= lens[b] count (the
+// JAX model's sliding-window decode_attention; the Pallas kernel has no
+// window). G is 1..16; D is 32, 64, 112, 120 or 128.
 //
 // Bound on this card: each cached token's k and v row is read once and used
 // for only 2*G*D multiply-adds, a few operations per byte against the ~295
@@ -17,7 +20,10 @@
 //
 // Design: split over the sequence. The split kernel runs one block per
 // (partition of 16 pages = 256 tokens, kv head, batch); a block whose
-// partition starts past ceil((lens[b]+1)/16) exits at once. The block
+// partition starts past ceil((lens[b]+1)/16), or ends at or left of the
+// window's edge lens[b] - window, exits at once; the partition that
+// straddles the edge starts at the edge's page and masks the tokens left
+// of it, and the merge reads only the partitions inside the window. The block
 // computes all G query rows of its kv head, so each page is read from
 // device memory once for the G queries (GQA's saving in a bytes-bound
 // kernel). Its four warps take the partition's pages in turn (warp w:
@@ -29,15 +35,22 @@
 // out. Softmax state is fp32; q*scale and the softmax weights are rounded
 // to the pool dtype before the products, as the TPU kernel's are.
 //
+// Head dims 112 and 120 (rows of 224 and 240 bytes in bf16, whole 16-byte
+// chunks) take the 128 instance's shared-memory geometry: cp.async copies
+// only a row's D*sizeof(T) bytes, the pad chunks of every ring slot and
+// the pad of q are zeroed once, so they add nothing to q.k or p.v, and
+// only D outputs are written. The scale is the real D's.
+//
 // The page's products, by dtype (each dtype has one route):
 // - bf16, paged_split_mma: tensor cores, mma.sync m16n8k16. Scores are
 //   computed transposed, S^T = K Q^T, so the page's 16 tokens are the M
-//   rows and the (up to 8) queries of the group the N columns: no padding.
+//   rows and the queries of the group the N columns of one n8 tile (G <= 8)
+//   or two (G 9..16; each k fragment then feeds two products).
 //   K and V rows land in shared memory with their 16-byte chunks
 //   XOR-swizzled by token, so ldmatrix reads them without bank conflicts;
 //   V is read transposed for O^T += V^T P^T, with P passed through shared
 //   memory. A thread holds the scores, softmax state and outputs of the
-//   same two queries throughout.
+//   same two queries of each n tile throughout.
 // - fp32, paged_split_simt: fp32 FMAs. Lane (t, half) dots token t's k
 //   with the G queries over one half of the head dim, and for p.v each lane
 //   owns D/32 contiguous head-dim elements.
@@ -52,33 +65,66 @@ namespace hw = repro_torch::hopper;
 
 constexpr int PAGE = 16;
 constexpr int WARPS = 4;
-constexpr int GMAX = 8;     // most q heads per kv head the kernel takes
+constexpr int GMAX = 16;    // most q heads per kv head the kernel takes
+constexpr int NTILE = 8;    // queries per n tile of m16n8k16
 constexpr int PART = 16;    // pages per partition
 constexpr int STAGES = 2;   // pages in flight per warp
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <typename T, int D>
 struct PagedGeom {
-  static constexpr int ROW = D * (int)sizeof(T);     // bytes of a token's k (or v) row
+  static constexpr int DP = (D + 31) / 32 * 32;      // head dim in shared memory
+  static constexpr int ROW = DP * (int)sizeof(T);    // bytes of a token's k (or v) row
   static constexpr int CHUNKS = ROW / 16;            // 16-byte chunks per row
+  static constexpr int CHUNKS_D = D * (int)sizeof(T) / 16;  // chunks copied from the pool
   static constexpr int SWZ = CHUNKS < 8 ? CHUNKS - 1 : 7;  // chunk swizzle mask
   static constexpr int PAGE_BYTES = PAGE * ROW;      // k (or v) of one page and kv head
   static constexpr int RING = WARPS * STAGES * 2 * PAGE_BYTES;
+  static_assert(D * sizeof(T) % 16 == 0, "a row must be whole 16-byte chunks");
 };
 
 __host__ __device__ constexpr int pages_used(int len, int max_blocks) {
   return (len + PAGE) / PAGE < max_blocks ? (len + PAGE) / PAGE : max_blocks;
 }
 
-// The block's place in the sequence: its pages are page0 .. page0+n_pages-1.
+// First key position inside the window of a sequence whose newest token is
+// at len (0 without a window).
+__host__ __device__ constexpr int window_start(int len, int window) {
+  return window > 0 && len - window + 1 > 0 ? len - window + 1 : 0;
+}
+
+// The block's place in the sequence: its pages are page0 .. page0+n_pages-1,
+// keys lo .. seq_len-1 count.
 struct Partition {
-  int seq_len, page0, n_pages;
+  int seq_len, lo, page0, n_pages;
 };
 
-__device__ __forceinline__ Partition partition_of(const int* lens, int b, int max_blocks) {
-  const int n_used = pages_used(lens[b], max_blocks);
-  const int page0 = blockIdx.x * PART;
-  return {lens[b] + 1, page0, min(PART, n_used - page0)};
+__device__ __forceinline__ Partition partition_of(const int* lens, int b, int max_blocks,
+                                                  int window) {
+  const int len = lens[b];
+  const int lo = window_start(len, window);
+  const int page0 = max((int)blockIdx.x * PART, lo / PAGE);
+  const int end = min(((int)blockIdx.x + 1) * PART, pages_used(len, max_blocks));
+  return {len + 1, lo, page0, end - page0};
+}
+
+// Zeroes the pad chunks (head dims D..DP-1) of k and v in every slot of one
+// warp's ring, where cp.async never writes, so they add nothing to q.k and
+// p.v; k's chunks are swizzled, v's where `swizzle_v` says so.
+template <typename T, int D>
+__device__ __forceinline__ void zero_pads(uint8_t* ring, int lane, bool swizzle_v) {
+  using P = PagedGeom<T, D>;
+  constexpr int NP = P::CHUNKS - P::CHUNKS_D;
+  if constexpr (NP > 0) {
+    for (int i = lane; i < STAGES * PAGE * NP; i += 32) {
+      const int slot = i / (PAGE * NP), tok = i / NP % PAGE, ch = P::CHUNKS_D + i % NP;
+      uint8_t* ks = ring + slot * 2 * P::PAGE_BYTES + tok * P::ROW;
+      const int sw = ch ^ (tok & P::SWZ);
+      *reinterpret_cast<uint4*>(ks + sw * 16) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(ks + P::PAGE_BYTES + (swizzle_v ? sw : ch) * 16) =
+          make_uint4(0, 0, 0, 0);
+    }
+  }
 }
 
 // Issues one warp's cp.async copies of a page's k and v rows of one kv head
@@ -92,8 +138,8 @@ __device__ __forceinline__ void load_page(uint8_t* ks, const T* k_pages, const T
   constexpr int CH = 16 / (int)sizeof(T);
   uint8_t* vs = ks + P::PAGE_BYTES;
 #pragma unroll
-  for (int c = lane; c < PAGE * P::CHUNKS; c += 32) {
-    const int tok = c / P::CHUNKS, ch = c % P::CHUNKS;
+  for (int c = lane; c < PAGE * P::CHUNKS_D; c += 32) {
+    const int tok = c / P::CHUNKS_D, ch = c % P::CHUNKS_D;
     const size_t src = page_base + tok * tok_stride + ch * CH;
     const int sw = (ch ^ (tok & P::SWZ)) * 16;
     hw::cp_async_16(ks + tok * P::ROW + sw, k_pages + src);
@@ -102,11 +148,23 @@ __device__ __forceinline__ void load_page(uint8_t* ks, const T* k_pages, const T
   hw::cp_async_commit();
 }
 
+// Zeroes v's rows of the tokens of a ring slot that do not count (before
+// n_skip: left of the window; from n_valid: past the sequence), whose p is
+// 0 but whose bytes may not be finite.
+template <typename T, int D>
+__device__ __forceinline__ void zero_v_rows(uint8_t* vs, int n_skip, int n_valid, int lane) {
+  using P = PagedGeom<T, D>;
+  uint4* rows = reinterpret_cast<uint4*>(vs);
+  for (int c = lane; c < n_skip * P::CHUNKS; c += 32) rows[c] = make_uint4(0, 0, 0, 0);
+  for (int c = n_valid * P::CHUNKS + lane; c < PAGE * P::CHUNKS; c += 32)
+    rows[c] = make_uint4(0, 0, 0, 0);
+}
+
 // Merges the four warps' (ms, ls, accs[w][g][d]) and writes the block's
 // partial: part_acc[pidx][g][d] and part_ml[pidx][g] = (m, l).
-template <int D>
-__device__ __forceinline__ void write_partial(const float (&ms)[WARPS][GMAX],
-                                              const float (&ls)[WARPS][GMAX],
+template <int D, int DP, int GM>
+__device__ __forceinline__ void write_partial(const float (&ms)[WARPS][GM],
+                                              const float (&ls)[WARPS][GM],
                                               const float* accs, int G, size_t pidx,
                                               float* part_acc, float* part_ml) {
   for (int i = threadIdx.x; i < G * D; i += WARPS * 32) {
@@ -119,7 +177,7 @@ __device__ __forceinline__ void write_partial(const float (&ms)[WARPS][GMAX],
     for (int w = 0; w < WARPS; ++w) {
       const float f = expf(ms[w][g] - M);
       L += ls[w][g] * f;
-      A += accs[(w * GMAX + g) * D + d] * f;
+      A += accs[(w * GM + g) * DP + d] * f;
     }
     part_acc[pidx * G * D + i] = A;
     if (d == 0) {
@@ -130,31 +188,35 @@ __device__ __forceinline__ void write_partial(const float (&ms)[WARPS][GMAX],
 }
 
 // ------------------------------------------------------- bf16: tensor cores
-template <int D>
+// NT n tiles of 8 queries: G <= 8 * NT.
+template <int D, int NT>
 __global__ void __launch_bounds__(WARPS * 32)
 paged_split_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_pages,
                 const __nv_bfloat16* __restrict__ v_pages, const int* __restrict__ tables,
                 const int* __restrict__ lens, float* __restrict__ part_acc,
                 float* __restrict__ part_ml, int KV, int G, int max_blocks, int n_part,
-                float scale) {
+                int window, float scale) {
   using P = PagedGeom<__nv_bfloat16, D>;
-  constexpr int KS = D / 16;  // k-steps of q.k, m-tiles of p.v
-  __shared__ __align__(16) __nv_bfloat16 qs[GMAX][D];
-  __shared__ __align__(16) __nv_bfloat16 pw[WARPS][GMAX][PAGE];
-  __shared__ float ms[WARPS][GMAX];
-  __shared__ float ls[WARPS][GMAX];
+  constexpr int DP = P::DP;
+  constexpr int KS = DP / 16;  // k-steps of q.k, m-tiles of p.v
+  constexpr int GM = NTILE * NT;
+  static_assert(WARPS * GM * DP * 4 <= P::RING, "the warps' acc must fit in the ring");
+  __shared__ __align__(16) __nv_bfloat16 qs[GM][DP];
+  __shared__ __align__(16) __nv_bfloat16 pw[WARPS][GM][PAGE];
+  __shared__ float ms[WARPS][GM];
+  __shared__ float ls[WARPS][GM];
   extern __shared__ __align__(128) uint8_t ring[];  // the warps' rings, then their acc
 
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
-  const Partition pt = partition_of(lens, b, max_blocks);
-  if (pt.n_pages <= 0) return;  // the whole block: past this sequence's pages
+  const Partition pt = partition_of(lens, b, max_blocks, window);
+  if (pt.n_pages <= 0) return;  // the whole block: past the pages or left of the window
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int gid = lane >> 2;   // mma row group
-  const int tig = lane & 3;    // thread in group: queries 2*tig, 2*tig + 1
+  const int tig = lane & 3;    // thread in group: queries 2*tig, 2*tig + 1 of each n tile
   const size_t q_off = ((size_t)b * KV + kvh) * G * D;
   const size_t tok_stride = (size_t)KV * D;
 
@@ -167,30 +229,44 @@ paged_split_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
     load_page<__nv_bfloat16, D>(my_ring + (i % STAGES) * 2 * P::PAGE_BYTES, k_pages, v_pages,
                                 page_base, tok_stride, lane, true);
   };
+  zero_pads<__nv_bfloat16, D>(my_ring, lane, true);
   if (n_mine > 0) issue(0);
   if (n_mine > 1) issue(1);
 
-  // q*scale rounded to bf16; query rows G..7 are zeros
-  for (int i = tid; i < GMAX * D; i += WARPS * 32) {
-    const int g = i / D;
-    qs[g][i % D] = __float2bfloat16(g < G ? __bfloat162float(q[q_off + i]) * scale : 0.f);
+  // q*scale rounded to bf16; query rows G..GM-1 and head dims D..DP-1 are zeros
+  for (int i = tid; i < GM * DP; i += WARPS * 32) {
+    const int g = i / DP, d = i % DP;
+    qs[g][d] = __float2bfloat16(
+        g < G && d < D ? __bfloat162float(q[q_off + g * D + d]) * scale : 0.f);
   }
   __syncthreads();
-  // Q^T as the B operand of every k-step: column gid is query gid
-  uint32_t qb[KS][2];
+  // Q^T as the B operand of every k-step: column gid of n tile nt is query 8*nt + gid
+  uint32_t qb[NT][KS][2];
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    qb[kk][0] = *reinterpret_cast<const uint32_t*>(&qs[gid][16 * kk + 2 * tig]);
-    qb[kk][1] = *reinterpret_cast<const uint32_t*>(&qs[gid][16 * kk + 8 + 2 * tig]);
-  }
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      qb[nt][kk][0] = *reinterpret_cast<const uint32_t*>(&qs[NTILE * nt + gid][16 * kk + 2 * tig]);
+      qb[nt][kk][1] =
+          *reinterpret_cast<const uint32_t*>(&qs[NTILE * nt + gid][16 * kk + 8 + 2 * tig]);
+    }
 
-  // o[mt][r]: head dim 16*mt + gid + 8*(r >> 1), query 2*tig + (r & 1)
-  float o[KS][4];
+  // o[nt][mt][r]: head dim 16*mt + gid + 8*(r >> 1), query 8*nt + 2*tig + (r & 1)
+  float o[NT][KS][4];
 #pragma unroll
-  for (int mt = 0; mt < KS; ++mt)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) o[mt][r] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    for (int mt = 0; mt < KS; ++mt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) o[nt][mt][r] = 0.f;
+  float m[NT][2], l[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      m[nt][e] = NEG_INF;
+      l[nt][e] = 0.f;
+    }
   // ldmatrix row addresses: lane gives row lane % 8 of matrix lane / 8
   const int mi = lane >> 3;
   const int k_tok = (lane & 7) + 8 * (mi & 1);   // K: matrices (tokens 0-7 | 8-15) x chunk
@@ -202,111 +278,130 @@ paged_split_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
     const int j = pt.page0 + warp + WARPS * i;  // page index in the sequence
     uint8_t* ks = my_ring + (i % STAGES) * 2 * P::PAGE_BYTES;
     uint8_t* vs = ks + P::PAGE_BYTES;
-    const int n_valid = min(PAGE, pt.seq_len - j * PAGE);
-    if (n_valid < PAGE) {  // the last page: zero v past the sequence (p is 0 there)
-      for (int c = lane; c < (PAGE - n_valid) * P::CHUNKS; c += 32)
-        reinterpret_cast<uint4*>(vs + n_valid * P::ROW)[c] = make_uint4(0, 0, 0, 0);
+    const int n_valid = min(PAGE, pt.seq_len - j * PAGE);  // tokens in the sequence
+    const int n_skip = max(0, pt.lo - j * PAGE);           // tokens left of the window
+    if (n_valid < PAGE || n_skip > 0) {  // an edge page: zero v where p is 0
+      zero_v_rows<__nv_bfloat16, D>(vs, n_skip, n_valid, lane);
       __syncwarp();
     }
 
-    // S^T (16 tokens x 8 queries) = K Q^T; sc[r]: token gid + 8*(r >> 1),
-    // query 2*tig + (r & 1)
-    float sc[4] = {0.f, 0.f, 0.f, 0.f};
+    // S^T (16 tokens x 8 queries of each n tile) = K Q^T; sc[nt][r]: token
+    // gid + 8*(r >> 1), query 8*nt + 2*tig + (r & 1)
+    float sc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) sc[nt][r] = 0.f;
     const uint32_t k_row = hw::smem_addr(ks) + k_tok * P::ROW;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       const int ch = 2 * kk + (mi >> 1);
       uint32_t a[4];
       hw::ldmatrix_x4(a, k_row + ((ch ^ (k_tok & P::SWZ)) << 4));
-      hw::mma_16816(sc, a, qb[kk]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) hw::mma_16816(sc[nt], a, qb[nt][kk]);
     }
 
-    const bool valid0 = gid < n_valid, valid1 = gid + 8 < n_valid;
+    const bool valid0 = gid >= n_skip && gid < n_valid;
+    const bool valid1 = gid + 8 >= n_skip && gid + 8 < n_valid;
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      // a query's 16 scores lie in the 8 lanes of one tig, two each
-      float mx = fmaxf(valid0 ? sc[e] : NEG_INF, valid1 ? sc[2 + e] : NEG_INF);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
-      const float m_new = fmaxf(m[e], mx);
-      const float alpha = exp2f((m[e] - m_new) * LOG2E);
-      const float p0 = valid0 ? exp2f((sc[e] - m_new) * LOG2E) : 0.f;
-      const float p1 = valid1 ? exp2f((sc[2 + e] - m_new) * LOG2E) : 0.f;
-      float rs = p0 + p1;
-      rs += __shfl_xor_sync(0xffffffffu, rs, 4);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 8);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 16);
-      l[e] = l[e] * alpha + rs;
-      m[e] = m_new;
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int mt = 0; mt < KS; ++mt) {
-        o[mt][e] *= alpha;
-        o[mt][2 + e] *= alpha;
+      for (int e = 0; e < 2; ++e) {
+        // a query's 16 scores lie in the 8 lanes of one tig, two each
+        float mx = fmaxf(valid0 ? sc[nt][e] : NEG_INF, valid1 ? sc[nt][2 + e] : NEG_INF);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        const float m_new = fmaxf(m[nt][e], mx);
+        const float alpha = exp2f((m[nt][e] - m_new) * LOG2E);
+        const float p0 = valid0 ? exp2f((sc[nt][e] - m_new) * LOG2E) : 0.f;
+        const float p1 = valid1 ? exp2f((sc[nt][2 + e] - m_new) * LOG2E) : 0.f;
+        float rs = p0 + p1;
+        rs += __shfl_xor_sync(0xffffffffu, rs, 4);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 8);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 16);
+        l[nt][e] = l[nt][e] * alpha + rs;
+        m[nt][e] = m_new;
+#pragma unroll
+        for (int mt = 0; mt < KS; ++mt) {
+          o[nt][mt][e] *= alpha;
+          o[nt][mt][2 + e] *= alpha;
+        }
+        pw[warp][NTILE * nt + 2 * tig + e][gid] = __float2bfloat16(p0);
+        pw[warp][NTILE * nt + 2 * tig + e][gid + 8] = __float2bfloat16(p1);
       }
-      pw[warp][2 * tig + e][gid] = __float2bfloat16(p0);
-      pw[warp][2 * tig + e][gid + 8] = __float2bfloat16(p1);
-    }
     __syncwarp();
-    // P^T as the B operand: column gid is query gid, rows are tokens
-    const uint32_t pb[2] = {*reinterpret_cast<const uint32_t*>(&pw[warp][gid][2 * tig]),
-                            *reinterpret_cast<const uint32_t*>(&pw[warp][gid][8 + 2 * tig])};
+    // P^T as the B operand: column gid of n tile nt is query 8*nt + gid, rows are tokens
+    uint32_t pb[NT][2];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      pb[nt][0] = *reinterpret_cast<const uint32_t*>(&pw[warp][NTILE * nt + gid][2 * tig]);
+      pb[nt][1] = *reinterpret_cast<const uint32_t*>(&pw[warp][NTILE * nt + gid][8 + 2 * tig]);
+    }
 
-    // O^T (D x 8 queries) += V^T P^T, 16 head dims at a time
+    // O^T (DP x 8 queries of each n tile) += V^T P^T, 16 head dims at a time
     const uint32_t v_row = hw::smem_addr(vs) + v_tok * P::ROW;
 #pragma unroll
     for (int mt = 0; mt < KS; ++mt) {
       const int ch = 2 * mt + (mi & 1);
       uint32_t a[4];
       hw::ldmatrix_x4_trans(a, v_row + ((ch ^ (v_tok & P::SWZ)) << 4));
-      hw::mma_16816(o[mt], a, pb);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) hw::mma_16816(o[nt][mt], a, pb[nt]);
     }
     __syncwarp();  // pw and this ring slot are rewritten next
     if (i + 2 < n_mine) issue(i + 2);
   }
 
   __syncthreads();  // every warp is done with its ring: it now holds the accs
-  float* accs = reinterpret_cast<float*>(ring);  // [WARPS][GMAX][D]
+  float* accs = reinterpret_cast<float*>(ring);  // [WARPS][GM][DP]
 #pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int g = 2 * tig + e;
-    if (gid == 0) {
-      ms[warp][g] = m[e];
-      ls[warp][g] = l[e];
-    }
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int mt = 0; mt < KS; ++mt) {
-      accs[(warp * GMAX + g) * D + 16 * mt + gid] = o[mt][e];
-      accs[(warp * GMAX + g) * D + 16 * mt + gid + 8] = o[mt][2 + e];
+    for (int e = 0; e < 2; ++e) {
+      const int g = NTILE * nt + 2 * tig + e;
+      if (gid == 0) {
+        ms[warp][g] = m[nt][e];
+        ls[warp][g] = l[nt][e];
+      }
+#pragma unroll
+      for (int mt = 0; mt < KS; ++mt) {
+        accs[(warp * GM + g) * DP + 16 * mt + gid] = o[nt][mt][e];
+        accs[(warp * GM + g) * DP + 16 * mt + gid + 8] = o[nt][mt][2 + e];
+      }
     }
-  }
   __syncthreads();
-  write_partial<D>(ms, ls, accs, G, ((size_t)b * KV + kvh) * n_part + blockIdx.x, part_acc,
-                   part_ml);
+  write_partial<D, DP, GM>(ms, ls, accs, G, ((size_t)b * KV + kvh) * n_part + blockIdx.x,
+                           part_acc, part_ml);
 }
 
 // --------------------------------------------------------------- fp32: SIMT
-template <int D>
+// G <= 8 * NT query rows.
+template <int D, int NT>
 __global__ void __launch_bounds__(WARPS * 32)
 paged_split_simt(const float* __restrict__ q, const float* __restrict__ k_pages,
                  const float* __restrict__ v_pages, const int* __restrict__ tables,
                  const int* __restrict__ lens, float* __restrict__ part_acc,
                  float* __restrict__ part_ml, int KV, int G, int max_blocks, int n_part,
-                 float scale) {
+                 int window, float scale) {
   using P = PagedGeom<float, D>;
-  constexpr int E = D / 32;    // p.v elements per lane
-  constexpr int HALF = D / 2;  // q.k elements per lane
-  constexpr int CH = 4;        // fp32 elements per 16-byte chunk
-  __shared__ __align__(16) float qs[GMAX][D];
-  __shared__ __align__(16) float ps[WARPS][GMAX][PAGE];
-  __shared__ float ms[WARPS][GMAX];
-  __shared__ float ls[WARPS][GMAX];
+  constexpr int DP = P::DP;
+  constexpr int E = DP / 32;    // p.v elements per lane
+  constexpr int HALF = DP / 2;  // q.k elements per lane
+  constexpr int CH = 4;         // fp32 elements per 16-byte chunk
+  constexpr int GM = NTILE * NT;
+  static_assert(WARPS * GM * DP * 4 <= P::RING, "the warps' acc must fit in the ring");
+  __shared__ __align__(16) float qs[GM][DP];
+  __shared__ __align__(16) float ps[WARPS][GM][PAGE];
+  __shared__ float ms[WARPS][GM];
+  __shared__ float ls[WARPS][GM];
   extern __shared__ __align__(128) uint8_t ring[];  // the warps' rings, then their acc
 
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
-  const Partition pt = partition_of(lens, b, max_blocks);
-  if (pt.n_pages <= 0) return;  // the whole block: past this sequence's pages
+  const Partition pt = partition_of(lens, b, max_blocks, window);
+  if (pt.n_pages <= 0) return;  // the whole block: past the pages or left of the window
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -325,15 +420,19 @@ paged_split_simt(const float* __restrict__ q, const float* __restrict__ k_pages,
     load_page<float, D>(my_ring + (i % STAGES) * 2 * P::PAGE_BYTES, k_pages, v_pages,
                         page_base, tok_stride, lane, false);
   };
+  zero_pads<float, D>(my_ring, lane, false);
   if (n_mine > 0) issue(0);
   if (n_mine > 1) issue(1);
 
-  for (int i = tid; i < G * D; i += WARPS * 32) qs[i / D][i % D] = q[q_off + i] * scale;
+  for (int i = tid; i < GM * DP; i += WARPS * 32) {
+    const int g = i / DP, d = i % DP;
+    qs[g][d] = g < G && d < D ? q[q_off + g * D + d] * scale : 0.f;
+  }
   __syncthreads();
 
-  float m[GMAX], l[GMAX], acc[GMAX][E];
+  float m[GM], l[GM], acc[GM][E];
 #pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
+  for (int g = 0; g < GM; ++g) {
     m[g] = NEG_INF;
     l[g] = 0.f;
 #pragma unroll
@@ -347,17 +446,17 @@ paged_split_simt(const float* __restrict__ q, const float* __restrict__ k_pages,
     const uint8_t* ks = my_ring + (i % STAGES) * 2 * P::PAGE_BYTES;
     const float* krow = reinterpret_cast<const float*>(ks + t * P::ROW);
     const float* qh = &qs[0][half * HALF];  // a broadcast within each half
-    float s[GMAX];
+    float s[GM];
 #pragma unroll
-    for (int g = 0; g < GMAX; ++g) s[g] = 0.f;
+    for (int g = 0; g < GM; ++g) s[g] = 0.f;
 #pragma unroll
     for (int c = 0; c < HALF; c += CH) {
       const int ch = (half * HALF + c) / CH;
       const float4 k4 = *reinterpret_cast<const float4*>(krow + (ch ^ (t & P::SWZ)) * CH);
 #pragma unroll
-      for (int g = 0; g < GMAX; ++g) {
+      for (int g = 0; g < GM; ++g) {
         if (g < G) {
-          const float4 q4 = *reinterpret_cast<const float4*>(qh + g * D + c);
+          const float4 q4 = *reinterpret_cast<const float4*>(qh + g * DP + c);
           s[g] = fmaf(q4.x, k4.x, s[g]);
           s[g] = fmaf(q4.y, k4.y, s[g]);
           s[g] = fmaf(q4.z, k4.z, s[g]);
@@ -366,9 +465,11 @@ paged_split_simt(const float* __restrict__ q, const float* __restrict__ k_pages,
       }
     }
 
-    const bool valid = j * PAGE + t < pt.seq_len;
+    const int n_valid = min(PAGE, pt.seq_len - j * PAGE);  // tokens in the sequence
+    const int n_skip = max(0, pt.lo - j * PAGE);           // tokens left of the window
+    const bool valid = t >= n_skip && t < n_valid;
 #pragma unroll
-    for (int g = 0; g < GMAX; ++g) {
+    for (int g = 0; g < GM; ++g) {
       if (g < G) {  // G is the same in every lane: the shuffles stay converged
         float sg = s[g] + __shfl_xor_sync(0xffffffffu, s[g], 16);
         if (!valid) sg = NEG_INF;
@@ -393,14 +494,13 @@ paged_split_simt(const float* __restrict__ q, const float* __restrict__ k_pages,
     __syncwarp();
 
     const float* vrow = reinterpret_cast<const float*>(ks + P::PAGE_BYTES) + lane * E;
-    const int n_valid = min(PAGE, pt.seq_len - j * PAGE);
 #pragma unroll 4
     for (int tt = 0; tt < PAGE; ++tt) {
-      if (tt < n_valid) {
+      if (tt >= n_skip && tt < n_valid) {
         float vf[E];
-        load_f<E>(vrow + tt * D, vf);
+        load_f<E>(vrow + tt * DP, vf);
 #pragma unroll
-        for (int g = 0; g < GMAX; ++g) {
+        for (int g = 0; g < GM; ++g) {
           if (g < G) {
             const float p = ps[warp][g][tt];
 #pragma unroll
@@ -414,42 +514,44 @@ paged_split_simt(const float* __restrict__ q, const float* __restrict__ k_pages,
   }
 
   __syncthreads();  // every warp is done with its ring: it now holds the accs
-  float* accs = reinterpret_cast<float*>(ring);  // [WARPS][GMAX][D]
+  float* accs = reinterpret_cast<float*>(ring);  // [WARPS][GM][DP]
 #pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
+  for (int g = 0; g < GM; ++g) {
     if (g < G) {
       if (lane == 0) {
         ms[warp][g] = m[g];
         ls[warp][g] = l[g];
       }
 #pragma unroll
-      for (int e = 0; e < E; ++e) accs[(warp * GMAX + g) * D + lane * E + e] = acc[g][e];
+      for (int e = 0; e < E; ++e) accs[(warp * GM + g) * DP + lane * E + e] = acc[g][e];
     }
   }
   __syncthreads();
-  write_partial<D>(ms, ls, accs, G, ((size_t)b * KV + kvh) * n_part + blockIdx.x, part_acc,
-                   part_ml);
+  write_partial<D, DP, GM>(ms, ls, accs, G, ((size_t)b * KV + kvh) * n_part + blockIdx.x,
+                           part_acc, part_ml);
 }
 
-// Combines the partitions of one (kv head, batch): out = sum_p acc_p e^(m_p - M)
-// / sum_p l_p e^(m_p - M) with M the largest m_p.
+// Combines the partitions of one (kv head, batch) that the split kernel
+// wrote (those inside the window): out = sum_p acc_p e^(m_p - M) /
+// sum_p l_p e^(m_p - M) with M the largest m_p.
 template <typename T, int D>
 __global__ void __launch_bounds__(128)
 paged_merge(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
             const int* __restrict__ lens, T* __restrict__ out, int KV, int G,
-            int max_blocks, int n_part) {
+            int max_blocks, int n_part, int window) {
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
   const int np = (pages_used(lens[b], max_blocks) + PART - 1) / PART;
+  const int p_first = window_start(lens[b], window) / PAGE / PART;
   const size_t p0 = ((size_t)b * KV + kvh) * n_part;
   for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
     const int g = i / D;
     float M = NEG_INF;
 #pragma unroll 4
-    for (int p = 0; p < np; ++p) M = fmaxf(M, part_ml[((p0 + p) * G + g) * 2]);
+    for (int p = p_first; p < np; ++p) M = fmaxf(M, part_ml[((p0 + p) * G + g) * 2]);
     float L = 0.f, A = 0.f;
 #pragma unroll 4
-    for (int p = 0; p < np; ++p) {
+    for (int p = p_first; p < np; ++p) {
       const float f = expf(part_ml[((p0 + p) * G + g) * 2] - M);
       L += part_ml[((p0 + p) * G + g) * 2 + 1] * f;
       A += part_acc[(p0 + p) * G * D + i] * f;
@@ -458,14 +560,14 @@ paged_merge(const float* __restrict__ part_acc, const float* __restrict__ part_m
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int NT>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const void* tables, const void* lens, void* out, void* scratch,
-                   int B, int KV, int G, int max_blocks, float scale,
+                   int B, int KV, int G, int max_blocks, int window, float scale,
                    cudaStream_t stream) {
   constexpr bool BF16 = sizeof(T) == 2;
   constexpr int RING = PagedGeom<T, D>::RING;
-  const auto split = BF16 ? (void*)paged_split_mma<D> : (void*)paged_split_simt<D>;
+  const auto split = BF16 ? (void*)paged_split_mma<D, NT> : (void*)paged_split_simt<D, NT>;
   static bool attr_set = false;  // the opt-in above 48 KB, once per instance
   if (!attr_set) {
     const cudaError_t e =
@@ -478,32 +580,47 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   float* part_ml = part_acc + (size_t)B * KV * n_part * G * D;
   const dim3 grid(n_part, KV, B);
   if constexpr (BF16)
-    paged_split_mma<D><<<grid, WARPS * 32, RING, stream>>>(
+    paged_split_mma<D, NT><<<grid, WARPS * 32, RING, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
         static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(tables),
-        static_cast<const int*>(lens), part_acc, part_ml, KV, G, max_blocks, n_part, scale);
+        static_cast<const int*>(lens), part_acc, part_ml, KV, G, max_blocks, n_part, window,
+        scale);
   else
-    paged_split_simt<D><<<grid, WARPS * 32, RING, stream>>>(
+    paged_split_simt<D, NT><<<grid, WARPS * 32, RING, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(kp),
         static_cast<const float*>(vp), static_cast<const int*>(tables),
-        static_cast<const int*>(lens), part_acc, part_ml, KV, G, max_blocks, n_part, scale);
+        static_cast<const int*>(lens), part_acc, part_ml, KV, G, max_blocks, n_part, window,
+        scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   paged_merge<T, D><<<dim3(KV, B), 128, 0, stream>>>(
       part_acc, part_ml, static_cast<const int*>(lens), static_cast<T*>(out), KV, G,
-      max_blocks, n_part);
+      max_blocks, n_part, window);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t dispatch_g(const void* q, const void* kp, const void* vp, const void* tables,
+                       const void* lens, void* out, void* scratch, int B, int KV, int G,
+                       int max_blocks, int window, float scale, cudaStream_t stream) {
+  if (G <= NTILE)
+    return launch<T, D, 1>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks,
+                           window, scale, stream);
+  return launch<T, D, 2>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks,
+                         window, scale, stream);
 }
 
 template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* kp, const void* vp,
                        const void* tables, const void* lens, void* out, void* scratch,
-                       int B, int KV, int G, int max_blocks, float scale,
+                       int B, int KV, int G, int max_blocks, int window, float scale,
                        cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks, scale, stream);
-    case 64: return launch<T, 64>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks, scale, stream);
-    case 128: return launch<T, 128>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks, scale, stream);
+    case 32: return dispatch_g<T, 32>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks, window, scale, stream);
+    case 64: return dispatch_g<T, 64>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks, window, scale, stream);
+    case 112: return dispatch_g<T, 112>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks, window, scale, stream);
+    case 120: return dispatch_g<T, 120>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks, window, scale, stream);
+    case 128: return dispatch_g<T, 128>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks, window, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -511,20 +628,21 @@ cudaError_t dispatch_d(int D, const void* q, const void* kp, const void* vp,
 }  // namespace
 
 // dtype: 0 = fp32 (SIMT split kernel), 1 = bf16 (tensor-core split kernel).
-// scratch holds B*KV*ceil(max_blocks/16)*G*(D+2) fp32 values (the
-// partitions' acc, then their (m, l)). Returns cudaGetLastError() after the
-// merge launch (or after the split launch, if that failed).
+// window <= 0: no window. scratch holds B*KV*ceil(max_blocks/16)*G*(D+2)
+// fp32 values (the partitions' acc, then their (m, l)). Returns
+// cudaGetLastError() after the merge launch (or after the split launch, if
+// that failed).
 extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
                                    const void* v_pages, const void* tables,
                                    const void* lens, void* out, void* scratch,
                                    int B, int KV, int G, int D, int max_blocks,
-                                   float scale, int dtype, void* stream) {
+                                   int window, float scale, int dtype, void* stream) {
   if (B == 0 || KV == 0) return 0;
   if (G < 1 || G > GMAX || max_blocks < 1) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<float>(D, q, k_pages, v_pages, tables, lens, out, scratch, B, KV, G, max_blocks, scale, s);
+    return dispatch_d<float>(D, q, k_pages, v_pages, tables, lens, out, scratch, B, KV, G, max_blocks, window, scale, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k_pages, v_pages, tables, lens, out, scratch, B, KV, G, max_blocks, scale, s);
+    return dispatch_d<__nv_bfloat16>(D, q, k_pages, v_pages, tables, lens, out, scratch, B, KV, G, max_blocks, window, scale, s);
   return cudaErrorInvalidValue;
 }

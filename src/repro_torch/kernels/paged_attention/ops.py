@@ -6,6 +6,8 @@ raises. One call runs two kernels on the caller's stream: a split over the
 sequence that writes each 16-page partition's fp32 partial into scratch
 this wrapper allocates, and a merge into the output. bf16 runs the
 tensor-core split kernel, fp32 the SIMT one; the dtype alone chooses.
+Head dims 112 and 120 run on the 128 instance's geometry with the pad
+zeroed; a group of 9 to 16 q heads takes a second tile of queries.
 ``KERNEL.launches`` counts the calls.
 """
 from __future__ import annotations
@@ -21,23 +23,25 @@ __all__ = ["KERNEL", "paged_attention", "paged_attention_plain"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("paged_attention", "paged_attention_fwd",
-                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      ctypes.c_float, _I, _P])
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 120, 128)
 PAGE = 16       # tokens per page, fixed in the kernel
-MAX_GROUP = 8   # most q heads per kv head the kernel takes
+MAX_GROUP = 16  # most q heads per kv head the kernel takes
 PART = 16       # pages per partition of the split kernel, fixed in the kernel
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_tables: torch.Tensor,
-                    lens: torch.Tensor) -> torch.Tensor:
+                    lens: torch.Tensor, *, window: int = 0) -> torch.Tensor:
     """One-token decode attention. q (B,KV,G,D) kv-major; k/v_pages
     (P,16,KV,D); block_tables (B,max_blocks) int32 page ids, every entry a
-    valid page; lens (B,) int32 inclusive index of the newest token.
-    Scores are scaled by D ** -0.5. Returns (B,KV,G,D) in q's dtype."""
+    valid page; lens (B,) int32 inclusive index of the newest token; a
+    window > 0 keeps the keys at ``lens - window < pos <= lens``. Scores
+    are scaled by D ** -0.5. Returns (B,KV,G,D) in q's dtype."""
     if q.device.type == "cpu":
-        return paged_attention_plain(q, k_pages, v_pages, block_tables, lens)
+        return paged_attention_plain(q, k_pages, v_pages, block_tables, lens,
+                                     window=window)
     _check(q, k_pages, v_pages, block_tables, lens)
     B, KV, G, D = q.shape
     max_blocks = block_tables.shape[1]
@@ -48,7 +52,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                           device=q.device)
     KERNEL.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                   block_tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                  scratch.data_ptr(), B, KV, G, D, max_blocks, D ** -0.5,
+                  scratch.data_ptr(), B, KV, G, D, max_blocks, int(window),
+                  D ** -0.5,
                   DTYPE_CODES[q.dtype],
                   torch.cuda.current_stream(q.device).cuda_stream)
     return out

@@ -3,15 +3,18 @@
 Full-size llama3.2-3b in bf16 on the card, weights from a seed:
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 16
 
-``--arch`` picks any model of ``repro_torch.configs.registry`` (llama3.2-3b,
-phi3.5-moe-42b-a6.6b, deepseek-r1-671b, the ds-distill models); a full
-MoE model needs more memory than one card has, so it is served at full
-width on the card with its depth cut by ``dataclasses.replace`` (as
-``chip_smoke.py`` does) through ``serve()``.
+``--arch`` picks any model of ``repro_torch.configs.registry``:
+llama3.2-3b, qwen3-14b (qk-norm), h2o-danube-3-4b (sliding window 4096,
+head dim 120), llama3-405b, phi3.5-moe-42b-a6.6b, kimi-k2-1t-a32b (head dim
+112, 384 experts), deepseek-r1-671b and the ds-distill models. A model
+that needs more memory than one card has (llama3-405b, kimi-k2, the full
+MoE models) is served at full width on the card with its depth cut by
+``dataclasses.replace`` (as ``chip_smoke.py`` does) through ``serve()``.
 
-Reduced config on the CPU:
+Reduced config on the CPU (the sliding window is 16 there, so prompts
+of up to 24 tokens and outputs of up to 32 cross it):
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
-        --arch deepseek-r1-671b --requests 4 --isl 4 24 --osl 8 32
+        --arch h2o-danube-3-4b --requests 4 --isl 4 24 --osl 8 32
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.configs.registry import get_config, get_smoke_config
+from repro_torch.configs.registry import ALL_MODELS, get_config, get_smoke_config
 from repro_torch.core.engine import EngineConfig, InferenceEngine
 from repro_torch.core.request import Request
 from repro_torch.core.runner import TorchRunner
@@ -80,7 +83,7 @@ def serve(cfg: ModelConfig, requests: Sequence[Tuple[List[int], int]], *,
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-3b")
+    ap.add_argument("--arch", choices=sorted(ALL_MODELS), default="llama3.2-3b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bfloat16")

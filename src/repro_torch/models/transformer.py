@@ -8,10 +8,14 @@ and, for an untied head, ``lm_head (d,V)``; stacked layers under
 ``first_dense_layers`` of an MoE one) and ``moe_stack`` (the rest).
 
 Attention is GQA — ``wq (d,H,hd)``, ``wk``/``wv (d,KV,hd)``,
-``wo (H,hd,d)``, kv-major heads (q head h reads kv head h // (H/KV)) — or
-MLA, DeepSeek's latent attention, whose cache is a ``kv_lora_rank`` latent
-and a ``qk_rope_head_dim`` roped key per token. GQA prefill runs the CUDA
-flash kernel and GQA decode the CUDA paged kernel; MLA, the MoE FFN
+``wo (H,hd,d)``, kv-major heads (q head h reads kv head h // (H/KV)), with
+qk-norm (``qn``/``kn (hd,)``, rmsnorms of q and k before rope) where the
+config has it and a sliding window where its attention is "swa" — or MLA,
+DeepSeek's latent attention, whose cache is a ``kv_lora_rank`` latent and
+a ``qk_rope_head_dim`` roped key per token. GQA prefill runs the CUDA
+flash kernel and GQA decode the CUDA paged kernel, both with the window;
+the paged pool keeps every page of a sequence, as the engine's accounting
+does; MLA, the MoE FFN
 (``models/moe.py``), the projections and the dense MLP are PyTorch ops, as
 the JAX package leaves them to XLA outside any Pallas kernel.
 """
@@ -60,13 +64,17 @@ def _attn_specs(cfg: ModelConfig) -> Dict[str, Spec]:
             "attn_norm": ((d,), "ones", 1),
         }
     KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    return {
+    s = {
         "attn_norm": ((d,), "ones", 1),
         "wq": ((d, H, hd), "normal", d),
         "wk": ((d, KV, hd), "normal", d),
         "wv": ((d, KV, hd), "normal", d),
         "wo": ((H, hd, d), "normal", H * hd),
     }
+    if cfg.qk_norm:
+        s["qn"] = ((hd,), "ones", 1)
+        s["kn"] = ((hd,), "ones", 1)
+    return s
 
 
 def _mlp_specs(cfg: ModelConfig) -> Dict[str, Spec]:
@@ -124,10 +132,10 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Spec]:
 
 def check_supported(cfg: ModelConfig):
     if (cfg.family not in ("dense", "moe")
-            or cfg.attention not in ("full", "mla") or cfg.qk_norm):
+            or cfg.attention not in ("full", "swa", "mla")):
         raise NotImplementedError(
             f"{cfg.name}: the port serves dense and MoE decoders with full "
-            "(GQA) or latent (MLA) attention and no qk-norm only")
+            "or sliding-window (GQA) or latent (MLA) attention only")
 
 
 class Transformer(nn.Module):
@@ -142,6 +150,7 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.specs = param_specs(cfg)
         self.mla = cfg.attention == "mla"
+        self.window = cfg.swa_window if cfg.attention == "swa" else 0
         stacks = {"dense_stack": {}, "moe_stack": {}}
         for name, (shape, _, _) in self.specs.items():
             p = nn.Parameter(torch.empty(shape, dtype=dtype, device=dev),
@@ -212,6 +221,9 @@ class Transformer(nn.Module):
         q = (h @ p["wq"].reshape(d, -1)).view(B, S, cfg.n_heads, hd)
         k = (h @ p["wk"].reshape(d, -1)).view(B, S, cfg.n_kv_heads, hd)
         v = (h @ p["wv"].reshape(d, -1)).view(B, S, cfg.n_kv_heads, hd)
+        if cfg.qk_norm:
+            q = rmsnorm(q, p["qn"], cfg.norm_eps)
+            k = rmsnorm(k, p["kn"], cfg.norm_eps)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
         return q, k, v
@@ -251,7 +263,8 @@ class Transformer(nn.Module):
                 x = x + y
             else:
                 q, k, v = self._qkv(x, p, positions)
-                x = self._out(x, flash_attention(q, k, v), p)
+                x = self._out(x, flash_attention(q, k, v, window=self.window),
+                              p)
                 cache = (k, v)
             x = self._mlp(x, p)
             caches.append(cache)
@@ -290,7 +303,8 @@ class Transformer(nn.Module):
                 pool_b[l, pages, slots] = b[:, 0]
                 g = cfg.n_heads // cfg.n_kv_heads
                 o = paged_attention(q.view(B, cfg.n_kv_heads, g, -1),
-                                    pool_a[l], pool_b[l], block_tables, lens)
+                                    pool_a[l], pool_b[l], block_tables, lens,
+                                    window=self.window)
                 x = self._out(x, o.view(B, 1, cfg.n_heads, -1), p)
             x = self._mlp(x, p)
         return self._head(x[:, 0])

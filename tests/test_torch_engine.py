@@ -3,8 +3,10 @@
 Greedy tokens of the engine on the paged path equal the JAX straight-line
 greedy decode on bridged weights, with and without forced preemption (the
 two cases of ``tests/test_engine.py``), for the smoke configs of each
-served family: llama3.2-3b, DeepSeek-R1 (MLA + MoE), phi3.5-moe and the R1
-Llama distill. Their MoE capacity factor is 8, so no assignment drops and
+served family: llama3.2-3b, DeepSeek-R1 (MLA + MoE), phi3.5-moe, the R1
+Llama distill, qwen3-14b (qk-norm), h2o-danube-3-4b (sliding window 16;
+its prompts are longer than the window), kimi-k2 (GQA + MoE) and
+llama3-405b. Their MoE capacity factor is 8, so no assignment drops and
 a batched decode equals each request's own. Under the virtual clock the port's
 engine copy and the JAX engine make identical schedules. The port imports
 neither JAX nor the JAX package, and never runs on the CPU unasked.
@@ -34,7 +36,8 @@ from repro_torch.models.transformer import Transformer
 CTX = single_device_ctx()
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 ARCHS = ["llama3.2-3b", "deepseek-r1-671b", "phi3.5-moe-42b-a6.6b",
-         "ds-distill-8b"]
+         "ds-distill-8b", "qwen3-14b", "h2o-danube-3-4b", "kimi-k2-1t-a32b",
+         "llama3-405b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -75,7 +78,9 @@ def _run_engine(cfg, model, prompts, n_new, n_pages):
 def test_engine_matches_greedy(bridged):
     cfg, model, greedy = bridged
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, size=n).tolist() for n in (7, 11, 5)]
+    extra = cfg.swa_window if cfg.attention == "swa" else 0
+    prompts = [rng.integers(0, cfg.vocab, size=n + extra).tolist()
+               for n in (7, 11, 5)]
     n_new = [6, 4, 8]
     reqs = _run_engine(cfg, model, prompts, n_new, n_pages=64)
     for p, n, r in zip(prompts, n_new, reqs):

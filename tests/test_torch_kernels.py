@@ -2,7 +2,11 @@
 
 On the CPU each wrapper runs its plain version, which is held against the
 JAX oracles (``flash_attention_ref``, ``paged_attention_ref``), a few
-interpret-mode Pallas runs, and the JAX model attention. The CUDA kernels
+interpret-mode Pallas runs, and the JAX model attention; the paged version
+with a sliding window, which the Pallas kernel lacks, is held to the JAX
+model's ``decode_attention(window=)`` on the cache gathered from the pages.
+The head dims 112 and 120 and groups of up to 16 q heads per kv head are
+the kernels' padded instances and second query tile. The CUDA kernels
 themselves are held against the plain versions on the card in
 ``tests/test_torch_kernels_gpu.py``. Tolerances: 2e-3 in fp32, 2e-2 in
 bf16, as ``tests/test_kernels.py`` states them.
@@ -39,6 +43,29 @@ PAGED_CASES = [
     (3, 4, 1, 64, 16, 32, 6),       # MHA-style
     (1, 1, 8, 128, 16, 8, 8),       # MQA, deep table
     (4, 2, 2, 32, 16, 64, 3),
+]
+# the port's padded head dims (kimi-k2's 112, h2o-danube's 120) and groups
+# past one query tile of the bf16 kernel (llama3-405b's 16)
+PADDED_FLASH_CASES = [
+    # B, Sq, Skv, H, KV, D, window, block_q, block_k
+    (1, 128, 128, 8, 2, 120, 0, 64, 64),       # D 120, GQA 4:1
+    (1, 200, 200, 4, 2, 112, 64, 64, 64),      # D 112, window, ragged tiles
+    (2, 160, 160, 4, 1, 120, 48, 32, 32),      # D 120, window, lens (160, 80)
+]
+PADDED_PAGED_CASES = [
+    # B, KV, G, D, page, P, nblk
+    (2, 2, 16, 128, 16, 32, 5),     # G 16
+    (2, 1, 9, 112, 16, 32, 4),      # G 9, D 112
+    (3, 2, 4, 120, 16, 32, 3),      # D 120
+]
+# windowed decode: B, KV, G, D, nblk, tokens of each sequence, window; the
+# kernel splits sequences into partitions of 256 tokens
+WINDOW_PAGED_CASES = [
+    (2, 2, 16, 128, 40, [600, 300], 100),   # edges inside partitions 1 and 0
+    (2, 2, 3, 112, 40, [513, 40], 257),     # edge on a partition boundary;
+                                            # a window past the sequence
+    (1, 1, 4, 120, 40, [620], 108),         # edge on a boundary, D 120
+    (3, 2, 9, 120, 24, [384, 17, 200], 1000),  # window past every sequence
 ]
 # jitted: one compile per shape instead of one per eager op
 flash_attention_ref = jax.jit(_flash_ref, static_argnames=("window",))
@@ -81,10 +108,14 @@ def _paged_inputs(case, seed):
 
 
 # ------------------------------------------------------------ K1 on the CPU
-@pytest.mark.parametrize("case", FLASH_CASES)
+ALL_FLASH = FLASH_CASES + PADDED_FLASH_CASES
+ALL_PAGED = PAGED_CASES + PADDED_PAGED_CASES
+
+
+@pytest.mark.parametrize("case", ALL_FLASH)
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_flash_plain_vs_jax_ref(case, dtype):
-    q, k, v, lens, window = _flash_inputs(case, FLASH_CASES.index(case))
+    q, k, v, lens, window = _flash_inputs(case, ALL_FLASH.index(case))
     (qj, qt), (kj, kt), (vj, vt) = (_both(a, dtype) for a in (q, k, v))
     ref = flash_attention_ref(qj, kj, vj, jnp.asarray(lens), window=window)
     out = flash_ops.flash_attention(qt, kt, vt, torch.from_numpy(lens),
@@ -93,11 +124,12 @@ def test_flash_plain_vs_jax_ref(case, dtype):
     _close(out, ref, DTYPES[dtype][2])
 
 
-@pytest.mark.parametrize("case", [FLASH_CASES[1], FLASH_CASES[6]])
+@pytest.mark.parametrize("case", [FLASH_CASES[1], FLASH_CASES[6],
+                                  PADDED_FLASH_CASES[2]])
 def test_flash_plain_vs_jax_interpret(case):
     """The Pallas kernel itself, in interpret mode (fp32)."""
     B, Sq, Skv, H, KV, D, window, bq, bk = case
-    q, k, v, lens, _ = _flash_inputs(case, 100 + FLASH_CASES.index(case))
+    q, k, v, lens, _ = _flash_inputs(case, 100 + ALL_FLASH.index(case))
     ref = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                     jnp.asarray(lens), window=window, block_q=bq, block_k=bk,
                     interpret=True)
@@ -145,10 +177,10 @@ def test_flash_kernel_matches_model_prefill():
 
 
 # ------------------------------------------------------------ K2 on the CPU
-@pytest.mark.parametrize("case", PAGED_CASES)
+@pytest.mark.parametrize("case", ALL_PAGED)
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_paged_plain_vs_jax_ref(case, dtype):
-    q, kp, vp, tables, lens = _paged_inputs(case, PAGED_CASES.index(case))
+    q, kp, vp, tables, lens = _paged_inputs(case, ALL_PAGED.index(case))
     (qj, qt), (kj, kt), (vj, vt) = (_both(a, dtype) for a in (q, kp, vp))
     ref = paged_attention_ref(qj, kj, vj, jnp.asarray(tables),
                               jnp.asarray(lens))
@@ -173,6 +205,33 @@ def test_paged_plain_vs_jax_interpret(case):
     _close(out.reshape(B, KV * G, D), ref, 2e-3)
 
 
+@pytest.mark.parametrize("case", WINDOW_PAGED_CASES)
+def test_paged_plain_window_vs_jax_decode_attention(case):
+    """The window of ``repro.models.attention.decode_attention`` (fp32) on
+    the dense cache gathered from shuffled pages, and that the window
+    changes the output wherever it binds."""
+    B, KV, G, D, nblk, tokens, window = case
+    page = 16
+    rng = np.random.default_rng(500 + WINDOW_PAGED_CASES.index(case))
+    P = B * nblk + 8
+    q = rng.standard_normal((B, KV, G, D)).astype(np.float32)
+    kp = rng.standard_normal((P, page, KV, D)).astype(np.float32)
+    vp = rng.standard_normal((P, page, KV, D)).astype(np.float32)
+    tables = rng.permutation(P)[:B * nblk].reshape(B, nblk).astype(np.int32)
+    lens = np.asarray(tokens, np.int32) - 1
+    kc, vc = (x[tables].reshape(B, nblk * page, KV, D) for x in (kp, vp))
+    ref = jattn.decode_attention(jnp.asarray(q.reshape(B, 1, KV * G, D)),
+                                 jnp.asarray(kc), jnp.asarray(vc),
+                                 jnp.asarray(lens), window=window)
+    args = [torch.from_numpy(a) for a in (q, kp, vp, tables, lens)]
+    out = paged_ops.paged_attention(*args, window=window)
+    _close(out.reshape(B, 1, KV * G, D), ref, 2e-3)
+    full = paged_ops.paged_attention(*args)
+    binds = torch.from_numpy(lens + 1 > window)
+    differs = (out - full).abs().amax(dim=(1, 2, 3)) > 1e-3
+    assert torch.equal(differs, binds)
+
+
 def test_paged_matches_dense_decode():
     """Identity page layout: the paged wrapper equals the port's dense
     ``decode_attention``, which equals the JAX one."""
@@ -194,6 +253,21 @@ def test_paged_matches_dense_decode():
         torch.from_numpy(tables), torch.from_numpy(lens))
     np.testing.assert_allclose(paged.view(B, 1, H, D).numpy(), dense.numpy(),
                                rtol=2e-3, atol=2e-3)
+
+
+def test_model_windowed_decode_matches_jax():
+    """The port's dense ``decode_attention`` with a window, as the JAX one."""
+    B, KV, G, D, S, window = 2, 2, 4, 120, 80, 24
+    rng = np.random.default_rng(13)
+    q = rng.standard_normal((B, 1, KV * G, D)).astype(np.float32)
+    kc, vc = (rng.standard_normal((B, S, KV, D)).astype(np.float32)
+              for _ in range(2))
+    lens = np.asarray([S - 1, 20], np.int32)
+    out = tattn.decode_attention(*map(torch.from_numpy, (q, kc, vc, lens)),
+                                 window=window)
+    ref = jattn.decode_attention(*map(jnp.asarray, (q, kc, vc, lens)),
+                                 window=window)
+    _close(out, ref, 2e-3)
 
 
 def test_cpu_calls_launch_nothing():

@@ -36,9 +36,18 @@ FLASH_CASES = [
     (1, 1, 1, 4, 2, 64, 0, 0, 0),              # one token
     (1, 333, 333, 4, 2, 128, 100, 0, 0),       # window, ragged
     (1, 260, 260, 4, 1, 32, 48, 0, 0, [250]),  # window, D 32, lens < Skv
+    # the padded head dims (TMA zero-fills columns D..127 in bf16)
+    (1, 300, 300, 8, 2, 112, 0, 0, 0),         # D 112, ragged
+    (2, 333, 333, 4, 1, 120, 0, 0, 0),         # D 120, lens (333, 166)
+    (1, 400, 400, 8, 8, 112, 100, 0, 0, [390]),  # D 112, window, lens < Skv
+    (1, 300, 300, 4, 2, 120, 130, 0, 0),       # D 120, window
+    (1, 1000, 1000, 40, 8, 128, 0, 0, 0),      # qwen3-14b prompt
+    (1, 1000, 1000, 64, 8, 112, 0, 0, 0),      # kimi-k2 prompt
+    (1, 600, 600, 128, 8, 128, 0, 0, 0),       # llama3-405b heads
+    (1, 5000, 5000, 32, 8, 120, 4096, 0, 0),   # h2o-danube prompt, window binds
 ]
 PAGED_CASES = [
-    # B, KV, G, D, page, P, nblk
+    # B, KV, G, D, page, P, nblk[, tokens of each sequence[, window]]
     (2, 2, 4, 64, 16, 16, 4),
     (3, 4, 1, 64, 16, 32, 6),       # MHA-style
     (1, 1, 8, 128, 16, 8, 8),       # MQA, deep table
@@ -51,6 +60,19 @@ PAGED_CASES = [
     (3, 2, 1, 64, 16, 64, 40, [300, 17, 640]),    # G 1
     (2, 1, 8, 128, 16, 64, 36, [513, 16]),        # G 8
     (2, 4, 8, 32, 16, 64, 20, [1, 320]),          # G 8, D 32
+    # the padded head dims, the second query tile (G 9..16) and the window;
+    # a partition is 256 tokens
+    (3, 8, 8, 112, 16, 256, 80, [1280, 17, 700]),     # kimi-k2: D 112, G 8
+    (3, 8, 4, 120, 16, 256, 80, [1280, 255, 600]),    # h2o-danube: D 120
+    (2, 8, 16, 128, 16, 256, 80, [1280, 300]),        # llama3-405b: G 16
+    (2, 2, 9, 128, 16, 64, 40, [513, 40]),            # G 9: half a second tile
+    (2, 2, 5, 128, 16, 64, 40, [600, 100]),           # qwen3-14b: G 5
+    (2, 2, 16, 112, 16, 128, 40, [600, 300], 100),    # edges inside partitions
+    (2, 2, 4, 120, 16, 128, 40, [513, 40], 257),      # edge on a partition
+                                                      # boundary; window > seq
+    (1, 1, 9, 120, 16, 64, 40, [620], 108),           # edge on a boundary
+    (3, 8, 4, 120, 16, 1024, 400, [6400, 4096, 4500], 4096),  # danube decode
+    (2, 2, 3, 64, 16, 64, 40, [384, 17], 1000),       # window past every sequence
 ]
 DTYPES = {"float32": (torch.float32, 2e-3), "bfloat16": (torch.bfloat16, 2e-2)}
 REL_RMS = {"float32": 1e-3, "bfloat16": 1e-2}
@@ -76,6 +98,7 @@ def _flash_inputs(case, seed):
 
 
 def _paged_inputs(case, seed):
+    """q, pages, tables, lens and the window (0: none)."""
     B, KV, G, D, page, P, nblk = case[:7]
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, KV, G, D)).astype(np.float32)
@@ -86,7 +109,8 @@ def _paged_inputs(case, seed):
         lens = np.asarray(case[7], np.int32) - 1
     else:
         lens = np.asarray([nblk * page - 1] + [page // 2] * (B - 1), np.int32)
-    return q, kp, vp, tables, lens
+    window = case[8] if len(case) > 8 else 0
+    return q, kp, vp, tables, lens, window
 
 
 @pytest.fixture
@@ -118,16 +142,42 @@ def test_flash_kernel_vs_plain(cuda, case, dtype):
 @pytest.mark.parametrize("case", PAGED_CASES)
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_paged_kernel_vs_plain(cuda, case, dtype):
-    q, kp, vp, tables, lens = _paged_inputs(case, 400 + PAGED_CASES.index(case))
+    q, kp, vp, tables, lens, window = _paged_inputs(case, 400 + PAGED_CASES.index(case))
     tdt, tol = DTYPES[dtype]
     qt, kt, vt = (torch.from_numpy(a).to(cuda, tdt) for a in (q, kp, vp))
     tt, lt = torch.from_numpy(tables).to(cuda), torch.from_numpy(lens).to(cuda)
     before = paged_ops.KERNEL.launches
-    out = paged_ops.paged_attention(qt, kt, vt, tt, lt)
+    out = paged_ops.paged_attention(qt, kt, vt, tt, lt, window=window)
     torch.cuda.synchronize()
     assert paged_ops.KERNEL.launches == before + 1
-    ref = paged_ops.paged_attention_plain(qt, kt, vt, tt, lt)
+    ref = paged_ops.paged_attention_plain(qt, kt, vt, tt, lt, window=window)
     _assert_close(out, ref, tol, REL_RMS[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,G", [(96, 4), (128, 17), (130, 4)])
+def test_paged_refuses_what_the_kernel_lacks(cuda, D, G):
+    """A head dim without an instance, or more than 16 q heads per kv head,
+    raises before any launch."""
+    q = torch.zeros((1, 2, G, D), device=cuda)
+    pages = torch.zeros((4, 16, 2, D), device=cuda)
+    tables = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    lens = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    before = paged_ops.KERNEL.launches
+    with pytest.raises(ValueError, match="head dim|group"):
+        paged_ops.paged_attention(q, pages, pages, tables, lens)
+    assert paged_ops.KERNEL.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [96, 130])
+def test_flash_refuses_head_dims_without_an_instance(cuda, D):
+    q = torch.zeros((1, 16, 4, D), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((1, 16, 2, D), dtype=torch.bfloat16, device=cuda)
+    before = flash_ops.KERNEL.launches
+    with pytest.raises(ValueError, match="head dim"):
+        flash_ops.flash_attention(q, k, k)
+    assert flash_ops.KERNEL.launches == before
 
 
 @pytest.mark.gpu

@@ -1,10 +1,14 @@
 """The port's model against ``repro.models.transformer`` on bridged weights,
 at the smoke size of each served family in fp32: llama3.2-3b (dense GQA,
 tied head), DeepSeek-R1 (MLA, a dense then an MoE layer with a shared
-expert, untied head), phi3.5-moe (GQA, every layer MoE) and the R1 Llama
-distill (dense GQA, untied head). The configs equal the JAX package's, the
-bridge round-trips exactly, and prefill plus paged decode steps give the
-JAX logits (atol 1e-4, float32 roundings of the same products)."""
+expert, untied head), phi3.5-moe (GQA, every layer MoE), the R1 Llama
+distill (dense GQA, untied head), qwen3-14b (qk-norm), h2o-danube-3-4b
+(sliding window 16 at smoke size; its prompts are longer than the window,
+so it binds in prefill and in paged decode), kimi-k2 (GQA, a dense then an
+MoE layer with a shared expert) and llama3-405b (dense GQA, untied head).
+The configs equal the JAX package's, the bridge round-trips exactly, and
+prefill plus paged decode steps give the JAX logits (atol 1e-4, float32
+roundings of the same products)."""
 import dataclasses
 import math
 
@@ -26,7 +30,13 @@ from repro_torch.models.transformer import Transformer, check_supported
 CTX = single_device_ctx()
 ATOL = 1e-4
 ARCHS = ["llama3.2-3b", "deepseek-r1-671b", "phi3.5-moe-42b-a6.6b",
-         "ds-distill-8b"]
+         "ds-distill-8b", "qwen3-14b", "h2o-danube-3-4b", "kimi-k2-1t-a32b",
+         "llama3-405b"]
+
+
+def window_of(cfg) -> int:
+    """The sliding window a config's attention binds at (0: none)."""
+    return cfg.swa_window if cfg.attention == "swa" else 0
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -86,12 +96,12 @@ def test_prefill_and_paged_decode_match_jax(jax_params, seed):
     """Two prompts prefilled together, their cache entries (k/v, or the
     MLA latents) scattered into shuffled pages, then 8 greedy paged decode
     steps; every step's logits match ``T.prefill`` + ``T.decode_step``
-    (dense cache)."""
+    (dense cache). A windowed model's prompts are longer than its window."""
     arch, jcfg, params = jax_params
     cfg = get_smoke_config(arch)
     model = from_jax_params(params, cfg, device="cpu")
     rng = np.random.default_rng(seed)
-    B, S, n_steps, page = 2, 13, 8, 16
+    B, S, n_steps, page = 2, 13 + window_of(cfg), 8, 16
     tokens = rng.integers(0, cfg.vocab, size=(B, S)).astype(np.int32)
 
     jprefill = jax.jit(lambda p, t: T.prefill(
@@ -124,8 +134,8 @@ def test_prefill_and_paged_decode_match_jax(jax_params, seed):
         nxt = np.array(jnp.argmax(jlogits[:, 0], axis=-1), np.int32)
 
 
-@pytest.mark.parametrize("change", [dict(qk_norm=True),
-                                    dict(attention="swa", swa_window=16),
+@pytest.mark.parametrize("change", [dict(family="audio"),
+                                    dict(attention="none"),
                                     dict(family="hybrid", attn_every=2),
                                     dict(family="ssm"), dict(family="vlm")])
 def test_check_supported_refuses_unported_kinds(change):
