@@ -10,13 +10,14 @@ Phases, each printed as one JSON line:
      bf16, on the kernel test cases, the edges of each kernel's tiling and
      the main paths' shapes (llama3.2-3b's G=3, phi3.5-moe's G=4, qwen3's
      G=5, kimi-k2's D=112, h2o-danube's D=120 with its window of 4096,
-     llama3-405b's G=16), and the window's edges inside and on K2's
-     256-token partitions;
+     llama3-405b's G=16, zamba2's D=80 at G=1), and the window's edges
+     inside and on K2's 256-token partitions;
   3. each kernel's time in bf16 at the main paths' shapes (K1 at S 137,
      1000, 512 and 2048, and at the prompts of qwen3-14b, h2o-danube (S
-     5000, window 4096), kimi-k2 and llama3-405b; K2 at one 2048-token
-     sequence and at the decode batches of llama3.2-3b, h2o-danube with
-     its window, kimi-k2 and llama3-405b), eager and on the device alone,
+     5000, window 4096), kimi-k2, llama3-405b and zamba2-2.7b; K2 at one
+     2048-token sequence and at the decode batches of llama3.2-3b,
+     h2o-danube with its window, kimi-k2, llama3-405b and zamba2-2.7b),
+     eager and on the device alone,
      beside its bound and the share of it reached, the wrapper's host time
      per call, its plain version's time and one PyTorch library call's time
      (for a window, SDPA with a boolean mask; the line names the kernels
@@ -45,7 +46,18 @@ Phases, each printed as one JSON line:
      4096-6144 tokens), kimi-k2 (full width, 2 layers: 1 dense, 1 MoE of
      all 384 experts) and llama3-405b (full width, 8 layers), each
      launching both kernels;
-  8. the ``kernels`` line (launches summed over every main path, and by
+  8. the recurrent-state families: greedy tokens of zamba2-2.7b at full
+     width (12 layers: 2 groups of its shared attention block, head dim
+     80, MHA; fp32) and of xlstm-350m at full width (8 blocks: 7 mLSTM, 1
+     sLSTM; fp32) on the card equal those of a CPU copy, each under a
+     forced preemption that recomputes the state
+     (``greedy_equality_hybrid``, ``greedy_equality_xlstm``); then
+     ``main_path`` in bf16 for zamba2-2.7b (full depth: 54 Mamba2 layers,
+     9 invocations of the shared block, so K1 and K2 launch in multiples
+     of 9) and xlstm-350m (full depth: 21 mLSTM and 3 sLSTM blocks, which
+     launch neither kernel), each with its state slot's bytes; and a
+     traced run of zamba2's decode steps (``profile``);
+  9. the ``kernels`` line (launches summed over every main path, and by
      model), then the card line, then as the last line
      ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero. It needs a CUDA card and fails
@@ -91,6 +103,8 @@ FLASH_CASES = [
     (2, 333, 333, 4, 1, 120, 0),             # D 120, lens (333, 166)
     (1, 400, 400, 8, 8, 112, 100, [390]),    # D 112, window, lens < Skv
     (1, 300, 300, 4, 2, 120, 130),           # D 120, window
+    (2, 300, 300, 4, 2, 80, 0),              # D 80, G 2, lens (300, 150)
+    (1, 333, 333, 4, 4, 80, 100, [250]),     # D 80, MHA, window, lens < Skv
 ]
 PAGED_CASES = [
     # B, KV, G, D, page, P, nblk[, tokens of each sequence]
@@ -113,6 +127,9 @@ PAGED_CASES = [
                                                        # window > sequence
     (1, 1, 9, 120, 16, 64, 40, [620], 108),            # edge on a boundary
     (2, 2, 3, 64, 16, 64, 40, [384, 17], 1000),        # window past every sequence
+    (4, 32, 1, 80, 16, 512, 80, [1280, 256, 257, 17]),  # D 80, G 1: partition edges
+    (3, 2, 2, 80, 16, 64, 40, [513, 40, 256]),         # D 80, G 2
+    (2, 2, 1, 80, 16, 64, 40, [600, 300], 100),        # D 80, window
 ]
 # the main path's shapes: llama3.2-3b has 24 q heads over 8 kv heads of 128
 MAIN_FLASH = [(1, S, S, 24, 8, 128, 0) for S in (512, 2048)]
@@ -139,6 +156,11 @@ DANUBE_PAGED = dict(B=16, KV=8, G=4, D=120, min_ctx=4096, max_ctx=6400,
 KIMI_PAGED = dict(B=16, KV=8, G=8, D=112, max_ctx=1280)
 L405_PAGED = dict(B=16, KV=8, G=16, D=128, max_ctx=1280)
 GQA_PAGED = [DANUBE_PAGED, KIMI_PAGED, L405_PAGED]
+# zamba2-2.7b's shared attention block: 32 q heads over 32 kv heads of 80
+# (MHA, G 1); a served prompt, and its decode batch of 16 at contexts of
+# 128-1280 tokens
+ZAMBA_FLASH = [(1, 1000, 1000, 32, 32, 80, 0)]
+ZAMBA_PAGED = dict(B=16, KV=32, G=1, D=80, max_ctx=1280)
 TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 # limit on |out - ref|_2 / |ref|_2 over a whole output: bf16 roundings of
 # q*scale, P and out give about 3e-3, while a dropped key tile or sequence
@@ -170,6 +192,10 @@ DANUBE_REQUESTS = dict(n=16, isl=(4096, 6144), osl=(128, 256), seed=0)
 # of its 126 layers (about 59 GB)
 KIMI_LAYERS = 2
 L405_LAYERS = 8
+# xlstm-350m's prefill is a loop over every token of every block (about a
+# dozen small kernels a token a block, bound by the host), so it serves
+# phi3.5-moe's fewer and shorter requests
+XLSTM_REQUESTS = PHI_REQUESTS
 
 
 def emit(phase: str, **kw):
@@ -261,7 +287,8 @@ def check_kernels(flash_ops, paged_ops):
     errs = {"flash_attention": [], "paged_attention": []}
     rels = {"flash_attention": [], "paged_attention": []}
     for dtype in (torch.float32, torch.bfloat16):
-        for case in FLASH_CASES + MAIN_FLASH + RAGGED_FLASH + PHI_FLASH + GQA_FLASH:
+        for case in (FLASH_CASES + MAIN_FLASH + RAGGED_FLASH + PHI_FLASH
+                     + GQA_FLASH + ZAMBA_FLASH):
             q, k, v, lens, window = flash_inputs(case, dtype, gen)
             err, rel = compare(
                 flash_ops.flash_attention, flash_ops.flash_attention_plain,
@@ -270,7 +297,8 @@ def check_kernels(flash_ops, paged_ops):
             rels["flash_attention"].append(rel)
         cases = [paged_case_inputs(c, dtype, gen) for c in PAGED_CASES]
         mains = [(*paged_main_inputs(dtype, gen, m), m.get("window", 0))
-                 for m in (MAIN_PAGED, LONG_PAGED, PHI_PAGED, *GQA_PAGED)]
+                 for m in (MAIN_PAGED, LONG_PAGED, PHI_PAGED, *GQA_PAGED,
+                           ZAMBA_PAGED)]
         for *args, window in cases + mains:
             err, rel = compare(
                 paged_ops.paged_attention, paged_ops.paged_attention_plain,
@@ -493,8 +521,9 @@ def main_path(flash_ops, paged_ops, cfg=None, traffic=SERVE_REQUESTS,
               reduced=None):
     """Serve ``traffic`` on ``cfg`` (default: full-depth llama3.2-3b) in
     bf16 through the entry point, with the kernels' launch counts set to 0
-    just before and read just after. A GQA model must launch both kernels;
-    an MLA model neither (its attention is PyTorch ops)."""
+    just before and read just after. A GQA model must launch both kernels,
+    a hybrid in multiples of its shared block's invocations; an MLA model
+    neither (its attention is PyTorch ops), nor an attention-free one."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import make_requests, serve
 
@@ -516,11 +545,17 @@ def main_path(flash_ops, paged_ops, cfg=None, traffic=SERVE_REQUESTS,
             raise AssertionError(f"request {req.rid}: {len(req.output)} of {n} tokens")
         if not all(0 <= t < cfg.vocab for t in req.output):
             raise AssertionError(f"request {req.rid}: token out of range")
-    if cfg.attention == "mla":
+    if cfg.attention in ("mla", "none"):
         if max(launches.values()) != 0:
-            raise AssertionError(f"an MLA model launched a GQA kernel: {launches}")
+            raise AssertionError(f"an {cfg.attention} model launched a GQA "
+                                 f"kernel: {launches}")
     elif min(launches.values()) == 0:
         raise AssertionError(f"a kernel was not on the main path: {launches}")
+    if cfg.family == "hybrid":
+        groups = cfg.n_layers // cfg.attn_every
+        if any(n % groups for n in launches.values()):
+            raise AssertionError(f"launches {launches} are not multiples of "
+                                 f"the shared block's {groups} invocations")
     peak = torch.cuda.max_memory_allocated()
     # the served model still answers: finite logits whose argmax is the
     # first token the engine produced for request 0
@@ -539,6 +574,14 @@ def main_path(flash_ops, paged_ops, cfg=None, traffic=SERVE_REQUESTS,
         extra = dict(experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
                      capacity_factor=cfg.moe.capacity_factor,
                      decode_capacity=capacity(cfg, min(r["n"], 16)))
+    states = eng.runner.states
+    if states:
+        # one sequence's slot across the runner's state buffers, beside the
+        # reference config's count of a sequence's state (fp32)
+        extra = dict(state_slots=states[0].shape[1],
+                     state_slot_bytes=sum(b.numel() // b.shape[1] * b.element_size()
+                                          for b in states),
+                     state_bytes_per_seq_cfg=cfg.state_bytes_per_seq(4))
     emit("main_path", model=cfg.name, layers=cfg.n_layers,
          d_model=cfg.d_model, attention=cfg.attention, dtype="bfloat16",
          reduced=reduced or {}, **extra,
@@ -574,7 +617,11 @@ def profile_main_path(model, traffic=SERVE_REQUESTS, decode_only=False):
     and K2 are found by device symbol and must show time (bf16 instances
     only); for an MoE model the device time of the kernels under the
     ``moe_dispatch`` and ``moe_combine`` ranges (``models/moe.py``) is its
-    own group."""
+    own group; for a model with recurrent state the index and copy kernels
+    that read and write its slots (and the rest of the copies) are a group
+    of theirs, ``copies``, and ``other`` is then the elementwise rest (a
+    hybrid's SSD steps, norms and activations). A decode-only trace need
+    show no K1 time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.engine import EngineConfig, InferenceEngine
@@ -609,10 +656,13 @@ def profile_main_path(model, traffic=SERVE_REQUESTS, decode_only=False):
         elif evt.device_type == torch.autograd.DeviceType.CUDA:
             by_name[evt.name] = by_name.get(evt.name, 0.0) \
                 + evt.time_range.elapsed_us() / 1e3
-    gqa = cfg.attention != "mla"
+    gqa = cfg.attention not in ("mla", "none")
+    stateful = cfg.family in ("hybrid", "ssm")
     groups = dict.fromkeys(("flash_attention", "paged_attention")
                            if gqa else (), 0.0)
     groups.update(matmul=0.0, other=0.0)
+    if stateful:
+        groups["copies"] = 0.0
     by_symbol = {sym: 0.0 for syms in KERNEL_SYMBOLS.values() for sym in syms}
     for name, ms in by_name.items():
         low = name.lower()
@@ -623,6 +673,8 @@ def profile_main_path(model, traffic=SERVE_REQUESTS, decode_only=False):
             by_symbol[hits[0][1]] += ms
         elif any(t in low for t in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
             groups["matmul"] += ms
+        elif stateful and any(t in low for t in ("index", "copy", "cat")):
+            groups["copies"] += ms
         else:
             groups["other"] += ms
     if cfg.moe is not None:
@@ -649,7 +701,8 @@ def profile_main_path(model, traffic=SERVE_REQUESTS, decode_only=False):
         raise AssertionError(f"the bf16 main path reached {wrong}, an fp32 "
                              "instance")
     missing = [sym for sym, ms in by_symbol.items()
-               if ms == 0.0 and sym not in FP32_ONLY_SYMBOLS]
+               if ms == 0.0 and sym not in FP32_ONLY_SYMBOLS
+               and not (decode_only and sym in KERNEL_SYMBOLS["flash_attention"])]
     if missing:
         raise AssertionError(f"the trace shows no device time for {missing}; "
                              f"its kernels: {sorted(by_name)[:20]}")
@@ -753,6 +806,56 @@ def greedy_equality_swa():
                 params=params, tokens_equal=True, runs=runs)
 
 
+def greedy_equality_hybrid():
+    """zamba2-2.7b at full width (d_model 2560, Mamba2 of 80 heads of 64
+    with state 64, the shared block's 32 heads of 80, MHA) with 12 layers
+    (2 groups), on the card and on a CPU copy. Two prompts of 270 and 300
+    tokens (two 128-token chunks of the scan and a remainder), 16 new
+    tokens each, on a 36-page pool: one request is preempted and resumes
+    by recomputing its state in a fresh slot."""
+    from repro_torch.configs.registry import get_config
+
+    full = get_config("zamba2-2.7b")
+    cfg = dataclasses.replace(full, n_layers=12)
+    rng = np.random.default_rng(4)
+    requests = [(rng.integers(0, cfg.vocab, size=n).tolist(), 16)
+                for n in (270, 300)]
+    params, runs = greedy_on_card_and_cpu(
+        cfg, requests, "hybrid", n_pages=36, max_num_seqs=2,
+        max_num_batched_tokens=2048, chunk_size=512, admission_mode="naive")
+    if runs["cuda"]["preemptions"] == 0:
+        raise AssertionError("hybrid: the small pool forced no preemption")
+    return dict(model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+                head_dim=cfg.head_dim, dtype="float32",
+                reduced={"n_layers": [full.n_layers, 12]},
+                prompt_tokens=[len(p) for p, _ in requests],
+                params=params, tokens_equal=True, runs=runs)
+
+
+def greedy_equality_xlstm():
+    """xlstm-350m at full width (d_model 1024, mLSTM heads of 512, sLSTM
+    FFN 1344) with 8 blocks (7 mLSTM, 1 sLSTM), on the card and on a CPU
+    copy. Two prompts of 100 and 120 tokens, 16 new tokens each, on a
+    15-page pool (the engine's page accounting; xLSTM has no pool): one
+    request is preempted and recomputes its state."""
+    from repro_torch.configs.registry import get_config
+
+    full = get_config("xlstm-350m")
+    cfg = dataclasses.replace(full, n_layers=8)
+    rng = np.random.default_rng(5)
+    requests = [(rng.integers(0, cfg.vocab, size=n).tolist(), 16)
+                for n in (100, 120)]
+    params, runs = greedy_on_card_and_cpu(
+        cfg, requests, "xlstm", n_pages=15, max_num_seqs=2,
+        max_num_batched_tokens=2048, chunk_size=512, admission_mode="naive")
+    if runs["cuda"]["preemptions"] == 0:
+        raise AssertionError("xlstm: the small pool forced no preemption")
+    return dict(model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+                dtype="float32", reduced={"n_layers": [full.n_layers, 8]},
+                prompt_tokens=[len(p) for p, _ in requests],
+                params=params, tokens_equal=True, runs=runs)
+
+
 def gqa_configs():
     """The rest of the attention decoders, as the main path serves them:
     qwen3-14b and h2o-danube-3-4b whole, kimi-k2 and llama3-405b at full
@@ -796,9 +899,10 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(1)
     timings = {"flash_attention": [time_flash(flash_ops, c, torch.bfloat16, gen)
                                    for c in RAGGED_FLASH[::-1] + MAIN_FLASH
-                                   + GQA_FLASH],
+                                   + GQA_FLASH + ZAMBA_FLASH],
                "paged_attention": [time_paged(paged_ops, torch.bfloat16, gen, m)
-                                   for m in (LONG_PAGED, MAIN_PAGED, *GQA_PAGED)]}
+                                   for m in (LONG_PAGED, MAIN_PAGED, *GQA_PAGED,
+                                             ZAMBA_PAGED)]}
     # the kernels line takes K1 at S=2048 and K2 at llama3.2-3b's decode batch
     main_row = {"flash_attention": len(RAGGED_FLASH) + len(MAIN_FLASH) - 1,
                 "paged_attention": 1}
@@ -830,6 +934,20 @@ def main():
     for cfg, reduced, traffic in gqa_configs():
         by_model[cfg.name], model = main_path(flash_ops, paged_ops, cfg,
                                               traffic, reduced)
+        del model
+        free_card()
+
+    emit("greedy_equality_hybrid", **greedy_equality_hybrid())
+    free_card()
+    emit("greedy_equality_xlstm", **greedy_equality_xlstm())
+    free_card()
+    from repro_torch.configs.registry import get_config
+    for cfg, traffic in ((get_config("zamba2-2.7b"), SERVE_REQUESTS),
+                         (get_config("xlstm-350m"), XLSTM_REQUESTS)):
+        by_model[cfg.name], model = main_path(flash_ops, paged_ops, cfg,
+                                              traffic)
+        if cfg.family == "hybrid":
+            profile_main_path(model, traffic, decode_only=True)
         del model
         free_card()
 

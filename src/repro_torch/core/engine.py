@@ -52,8 +52,9 @@ class InferenceEngine:
         self.alloc = PagedAllocator(ecfg.n_pages, ecfg.page_size)
         if not virtual_clock:
             # the runner's device pool is indexed by this allocator's page
-            # ids: page i of every table is page i of the pool
-            runner.bind(self.alloc)
+            # ids: page i of every table is page i of the pool; recurrent
+            # state takes one slot per running sequence
+            runner.bind(self.alloc, ecfg.max_num_seqs)
         self.sched = Scheduler(
             SchedulerConfig(ecfg.max_num_seqs, ecfg.max_num_batched_tokens,
                             ecfg.chunk_size, prefill_only=ecfg.prefill_only),

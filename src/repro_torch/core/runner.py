@@ -1,18 +1,24 @@
 """``TorchRunner``: real execution of the port's ``Transformer`` behind the
 engine, the counterpart of ``repro.core.runner.JaxRunner``.
 
-The decode cache is two paged pools in the model's dtype, of the shapes
+The decode cache is paged pools in the model's dtype, of the shapes
 ``Transformer.pool_shapes`` gives: k and v ``(L, n_pages, page, KV, hd)``
-for GQA, the latent ``ckv (L, n_pages, page, kv_rank)`` and the roped key
-``kpe (L, n_pages, page, rope)`` for MLA. Their page ids are the engine's
-``PagedAllocator`` page ids (the engine hands its allocator over with
-``bind``), so the scheduler's block tables index the pools directly:
-there are no slots and nothing to free on the device — the allocator frees
-a request's pages on preemption and on finish.
+for GQA (L the shared block's groups in a hybrid), the latent
+``ckv (L, n_pages, page, kv_rank)`` and the roped key
+``kpe (L, n_pages, page, rope)`` for MLA, none for xLSTM. Their page ids
+are the engine's ``PagedAllocator`` page ids (the engine hands its
+allocator over with ``bind``), so the scheduler's block tables index the
+pools directly; the allocator frees a request's pages on preemption and on
+finish. A model with recurrent state (the hybrid and ssm families) also
+has the buffers of ``Transformer.state_shapes`` with one slot per running
+sequence, as ``JaxRunner``'s slots: prefill takes a free slot and writes
+the request's fresh state there, decode reads and writes the batch's
+slots, and ``release`` (on finish and on preemption) returns the slot, so
+a resumed request recomputes its state from its prompt and output.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -31,13 +37,22 @@ class TorchRunner:
         self.model = model
         self.alloc = None
         self.pools = ()
+        self.states = ()
+        self._free_slots: List[int] = []
+        self._slot_of: Dict[int, int] = {}
 
-    def bind(self, alloc: PagedAllocator):
-        """Allocate the device pools for ``alloc``: pool page i is
-        allocator page i."""
+    def bind(self, alloc: PagedAllocator, n_slots: int):
+        """Allocate the device pools for ``alloc`` (pool page i is
+        allocator page i) and the state buffers of ``n_slots`` sequences,
+        the engine's ``max_num_seqs``."""
         self.pools = tuple(
             torch.zeros(shape, dtype=self.model.dtype, device=self.device)
             for shape in self.model.pool_shapes(alloc.n_pages, alloc.page_size))
+        self.states = tuple(
+            torch.zeros(shape, dtype=dtype, device=self.device)
+            for shape, dtype in self.model.state_shapes(n_slots))
+        self._free_slots = list(range(n_slots))[::-1]
+        self._slot_of = {}
         self.alloc = alloc
 
     def _to_device(self, a) -> torch.Tensor:
@@ -47,17 +62,28 @@ class TorchRunner:
     def prefill(self, req: Request, chunk: int) -> int:
         """Whole prefill target (prompt + regenerated prefix after a
         preemption) at the completing chunk; its cache entries go into the
-        pages of the request's table, which the scheduler grew to cover it.
-        Returns the first token."""
+        pages of the request's table, which the scheduler grew to cover it,
+        and its state into its slot. Returns the first token."""
         toks = req.prompt + req.output[:req.resume_extra]
         tokens = self._to_device(np.asarray([toks], np.int64))
-        logits, caches = self.model.prefill(tokens)
-        pos = np.arange(len(toks))
-        table = np.asarray(self.alloc.table(req.rid), np.int64)
-        pages = self._to_device(table[pos // self.alloc.page_size])
-        slots = self._to_device(pos % self.alloc.page_size)
-        for j, pool in enumerate(self.pools):
-            pool[:, pages, slots] = torch.stack([c[j] for c in caches])[:, 0]
+        logits, caches, states = self.model.prefill(tokens)
+        if self.pools:
+            pos = np.arange(len(toks))
+            table = np.asarray(self.alloc.table(req.rid), np.int64)
+            pages = self._to_device(table[pos // self.alloc.page_size])
+            slots = self._to_device(pos % self.alloc.page_size)
+            for j, pool in enumerate(self.pools):
+                pool[:, pages, slots] = torch.stack([c[j] for c in caches])[:, 0]
+        if self.states:
+            if req.rid not in self._slot_of:
+                if not self._free_slots:
+                    raise RuntimeError(
+                        f"request {req.rid}: every one of the "
+                        f"{self.states[0].shape[1]} state slots is taken")
+                self._slot_of[req.rid] = self._free_slots.pop()
+            slot = self._slot_of[req.rid]
+            for buf, st in zip(self.states, states):
+                buf[:, slot] = st[:, 0]
         return int(logits[0].argmax())
 
     def decode(self, reqs: List[Request]) -> List[int]:
@@ -72,12 +98,18 @@ class TorchRunner:
         tokens = self._to_device(np.asarray([r.output[-1] for r in reqs], np.int64))
         positions = self._to_device(
             np.asarray([r.context_len - 1 for r in reqs], np.int64))
+        rows = self._to_device(np.asarray(
+            [self._slot_of[r.rid] for r in reqs], np.int64)) if self.states else None
         logits = self.model.decode_step(tokens, positions, self.pools,
-                                        self._to_device(padded))
+                                        self._to_device(padded), self.states,
+                                        rows)
         return logits.argmax(dim=-1).tolist()
 
     def release(self, req: Request):
-        pass
+        """The request finished or was preempted: its state slot is free."""
+        slot = self._slot_of.pop(req.rid, None)
+        if slot is not None:
+            self._free_slots.append(slot)
 
     def iteration_time(self, prefill_tokens, decode_reqs):
         return None, {}   # real mode: the engine uses the wall clock

@@ -44,9 +44,9 @@
 // (64-row q tile, q head, batch); k and v tiles are staged in shared memory
 // and both products run on the fp32 FMA units, with the same loop bounds.
 //
-// Head dims: 32, 64 and 128, and the padded instances 112 and 120. A
+// Head dims: 32, 64 and 128, and the padded instances 80, 112 and 120. A
 // padded instance runs the wgmma kernel on the 128 geometry: its tensor
-// maps keep the real D as the inner extent (rows of 224 or 240 bytes,
+// maps keep the real D as the inner extent (rows of 160, 224 or 240 bytes,
 // multiples of 16), so TMA zero-fills columns D..127 of the second
 // 64-column box of q, k and v; the zero columns add nothing to Q K^T, P V
 // computes 128 output columns and the epilogue stores D of them. The scale
@@ -240,8 +240,8 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared-memory geometry of one head dim. A tile of rows x D is stored as
 // DP/CE column blocks of rows x CE bf16, each row SW bytes in TMA's
-// swizzle; DP is D, or D rounded up to whole 64-column blocks (112, 120 ->
-// 128), the columns past D zero-filled by TMA.
+// swizzle; DP is D, or D rounded up to whole 64-column blocks (80, 112,
+// 120 -> 128), the columns past D zero-filled by TMA.
 template <int D>
 struct TcTile {
   static constexpr int DP = D <= 64 ? D : (D + 63) / 64 * 64;  // head dim in shared memory
@@ -525,6 +525,7 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
   switch (D) {
     case 32: return launch<BF16, 32>(q, k, v, lens, out, B, Sq, Skv, H, KV, window, scale, stream);
     case 64: return launch<BF16, 64>(q, k, v, lens, out, B, Sq, Skv, H, KV, window, scale, stream);
+    case 80: return launch<BF16, 80>(q, k, v, lens, out, B, Sq, Skv, H, KV, window, scale, stream);
     case 112: return launch<BF16, 112>(q, k, v, lens, out, B, Sq, Skv, H, KV, window, scale, stream);
     case 120: return launch<BF16, 120>(q, k, v, lens, out, B, Sq, Skv, H, KV, window, scale, stream);
     case 128: return launch<BF16, 128>(q, k, v, lens, out, B, Sq, Skv, H, KV, window, scale, stream);

@@ -9,7 +9,7 @@
 // sequence holds lens[b]+1 tokens; out (B,KV,G,D); fp32 or bf16. With
 // window > 0 only the keys at lens[b] - window < pos <= lens[b] count (the
 // JAX model's sliding-window decode_attention; the Pallas kernel has no
-// window). G is 1..16; D is 32, 64, 112, 120 or 128.
+// window). G is 1..16; D is 32, 64, 80, 112, 120 or 128.
 //
 // Bound on this card: each cached token's k and v row is read once and used
 // for only 2*G*D multiply-adds, a few operations per byte against the ~295
@@ -35,11 +35,12 @@
 // out. Softmax state is fp32; q*scale and the softmax weights are rounded
 // to the pool dtype before the products, as the TPU kernel's are.
 //
-// Head dims 112 and 120 (rows of 224 and 240 bytes in bf16, whole 16-byte
-// chunks) take the 128 instance's shared-memory geometry: cp.async copies
-// only a row's D*sizeof(T) bytes, the pad chunks of every ring slot and
-// the pad of q are zeroed once, so they add nothing to q.k or p.v, and
-// only D outputs are written. The scale is the real D's.
+// Head dims 80, 112 and 120 (rows of 160, 224 and 240 bytes in bf16,
+// whole 16-byte chunks) take the 128 instance's shared-memory geometry
+// (a row of whole 8-chunk swizzle groups): cp.async copies only a row's
+// D*sizeof(T) bytes, the pad chunks of every ring slot and the pad of q
+// are zeroed once, so they add nothing to q.k or p.v, and only D outputs
+// are written. The scale is the real D's.
 //
 // The page's products, by dtype (each dtype has one route):
 // - bf16, paged_split_mma: tensor cores, mma.sync m16n8k16. Scores are
@@ -73,7 +74,9 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <typename T, int D>
 struct PagedGeom {
-  static constexpr int DP = (D + 31) / 32 * 32;      // head dim in shared memory
+  // head dim in shared memory: 32, 64 or 128, so that a row past 128
+  // bytes is whole groups of the 8-chunk swizzle
+  static constexpr int DP = D <= 32 ? 32 : D <= 64 ? 64 : 128;
   static constexpr int ROW = DP * (int)sizeof(T);    // bytes of a token's k (or v) row
   static constexpr int CHUNKS = ROW / 16;            // 16-byte chunks per row
   static constexpr int CHUNKS_D = D * (int)sizeof(T) / 16;  // chunks copied from the pool
@@ -81,6 +84,7 @@ struct PagedGeom {
   static constexpr int PAGE_BYTES = PAGE * ROW;      // k (or v) of one page and kv head
   static constexpr int RING = WARPS * STAGES * 2 * PAGE_BYTES;
   static_assert(D * sizeof(T) % 16 == 0, "a row must be whole 16-byte chunks");
+  static_assert(D <= 128, "the widest geometry is 128");
 };
 
 __host__ __device__ constexpr int pages_used(int len, int max_blocks) {
@@ -618,6 +622,7 @@ cudaError_t dispatch_d(int D, const void* q, const void* kp, const void* vp,
   switch (D) {
     case 32: return dispatch_g<T, 32>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks, window, scale, stream);
     case 64: return dispatch_g<T, 64>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks, window, scale, stream);
+    case 80: return dispatch_g<T, 80>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks, window, scale, stream);
     case 112: return dispatch_g<T, 112>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks, window, scale, stream);
     case 120: return dispatch_g<T, 120>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks, window, scale, stream);
     case 128: return dispatch_g<T, 128>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks, window, scale, stream);

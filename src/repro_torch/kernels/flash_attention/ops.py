@@ -3,8 +3,8 @@
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. bf16 runs on the tensor-core (wgmma) instance, fp32 on the SIMT
-instance; the dtype alone chooses. Head dims 112 and 120 run the bf16
-instance on the 128 geometry, their pad columns zero-filled by TMA.
+instance; the dtype alone chooses. Head dims 80, 112 and 120 run the
+bf16 instance on the 128 geometry, their pad columns zero-filled by TMA.
 ``KERNEL.launches`` counts the launches.
 """
 from __future__ import annotations
@@ -23,7 +23,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("flash_attention", "flash_attention_fwd",
                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                      ctypes.c_float, _I, _P])
-HEAD_DIMS = (32, 64, 112, 120, 128)
+HEAD_DIMS = (32, 64, 80, 112, 120, 128)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -6,8 +6,8 @@ raises. One call runs two kernels on the caller's stream: a split over the
 sequence that writes each 16-page partition's fp32 partial into scratch
 this wrapper allocates, and a merge into the output. bf16 runs the
 tensor-core split kernel, fp32 the SIMT one; the dtype alone chooses.
-Head dims 112 and 120 run on the 128 instance's geometry with the pad
-zeroed; a group of 9 to 16 q heads takes a second tile of queries.
+Head dims 80, 112 and 120 run on the 128 instance's geometry with the
+pad zeroed; a group of 9 to 16 q heads takes a second tile of queries.
 ``KERNEL.launches`` counts the calls.
 """
 from __future__ import annotations
@@ -25,7 +25,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("paged_attention", "paged_attention_fwd",
                     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      ctypes.c_float, _I, _P])
-HEAD_DIMS = (32, 64, 112, 120, 128)
+HEAD_DIMS = (32, 64, 80, 112, 120, 128)
 PAGE = 16       # tokens per page, fixed in the kernel
 MAX_GROUP = 16  # most q heads per kv head the kernel takes
 PART = 16       # pages per partition of the split kernel, fixed in the kernel

@@ -6,7 +6,10 @@ Full-size llama3.2-3b in bf16 on the card, weights from a seed:
 ``--arch`` picks any model of ``repro_torch.configs.registry``:
 llama3.2-3b, qwen3-14b (qk-norm), h2o-danube-3-4b (sliding window 4096,
 head dim 120), llama3-405b, phi3.5-moe-42b-a6.6b, kimi-k2-1t-a32b (head dim
-112, 384 experts), deepseek-r1-671b and the ds-distill models. A model
+112, 384 experts), deepseek-r1-671b, the ds-distill models, zamba2-2.7b
+(Mamba2 layers and a shared attention block of head dim 80) and
+xlstm-350m (mLSTM and sLSTM blocks, no attention; its engine keeps the
+page accounting, with no pool behind it). A model
 that needs more memory than one card has (llama3-405b, kimi-k2, the full
 MoE models) is served at full width on the card with its depth cut by
 ``dataclasses.replace`` (as ``chip_smoke.py`` does) through ``serve()``.
@@ -15,6 +18,8 @@ Reduced config on the CPU (the sliding window is 16 there, so prompts
 of up to 24 tokens and outputs of up to 32 cross it):
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --arch h2o-danube-3-4b --requests 4 --isl 4 24 --osl 8 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --dtype float32 --arch zamba2-2.7b --requests 4 --isl 4 24 --osl 8 32
 """
 from __future__ import annotations
 

@@ -73,12 +73,15 @@ def to_jax_params(model: Transformer) -> Dict[str, Any]:
 def numpy_params(cfg: ModelConfig, seed: int,
                  dtype=np.float32) -> Dict[str, Any]:
     """Serve parameters drawn from ``numpy.random.default_rng(seed)``:
-    normal with std 1/sqrt(fan_in), norms ones, in the JAX layout."""
+    normal with std 1/sqrt(fan_in), norms ones, the Mamba2 ``A_log`` and
+    ``dt_bias`` zeros, in the JAX layout."""
     rng = np.random.default_rng(seed)
     flat = {}
     for name, (shape, init, fan_in) in param_specs(cfg).items():
         if init == "ones":
             flat[name] = np.ones(shape, dtype)
+        elif init == "zeros":
+            flat[name] = np.zeros(shape, dtype)
         else:
             w = rng.standard_normal(shape, dtype=np.float32)
             w /= math.sqrt(fan_in)

@@ -18,6 +18,16 @@ the paged pool keeps every page of a sequence, as the engine's accounting
 does; MLA, the MoE FFN
 (``models/moe.py``), the projections and the dense MLP are PyTorch ops, as
 the JAX package leaves them to XLA outside any Pallas kernel.
+
+The hybrid family (zamba2) is ``mamba_stack``, its Mamba2 layers stacked
+(L, ...), and ``shared_attn``, one attention+MLP block whose weights every
+group of ``attn_every`` layers runs first, each group with its own paged
+cache; the attention goes through the same two kernels. The ssm family
+(xLSTM) is ``mlstm_stack`` (groups, slstm_every - 1, ...) and
+``slstm_stack`` (groups, ...): no attention and no pool. Their recurrent
+state lives in slot buffers of ``state_shapes``; prefill returns each
+layer's final state from its own pass, and a decode step reads and writes
+the batch's rows of the buffers.
 """
 from __future__ import annotations
 
@@ -36,9 +46,15 @@ from repro_torch.models.attention import (mla_decode_paged, mla_latents,
                                           mla_prefill)
 from repro_torch.models.common import rmsnorm, rope
 from repro_torch.models.moe import moe_ffn
+from repro_torch.models.ssm import (init_mamba_state, mamba2_decode,
+                                    mamba2_forward)
+from repro_torch.models.xlstm import (_mlstm_dims, init_mlstm_state,
+                                      init_slstm_state, mlstm_decode,
+                                      mlstm_forward, slstm_decode,
+                                      slstm_forward)
 
-# name -> (shape, init, fan_in); init is "normal" (std 1/sqrt(fan_in)) or
-# "ones", as ``build_param_specs`` gives them
+# name -> (shape, init, fan_in); init is "normal" (std 1/sqrt(fan_in)),
+# "ones" or "zeros", as ``build_param_specs`` gives them
 Spec = Tuple[Tuple[int, ...], str, int]
 # the most elements one fp32 draw of ``init_weights`` holds (256 MiB)
 INIT_CHUNK = 1 << 26
@@ -105,12 +121,86 @@ def _moe_specs(cfg: ModelConfig) -> Dict[str, Spec]:
     return s
 
 
-def stack_depths(cfg: ModelConfig) -> Dict[str, int]:
-    """Layers in each stack, in the order the layers run."""
+def _mamba_specs(cfg: ModelConfig) -> Dict[str, Spec]:
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.expand * d
+    nh = di // s.head_dim
+    ds, cw = s.d_state, s.conv_width
+    return {
+        "norm": ((d,), "ones", 1),
+        "w_z": ((d, di), "normal", d),
+        "w_x": ((d, di), "normal", d),
+        "w_B": ((d, ds), "normal", d),
+        "w_C": ((d, ds), "normal", d),
+        "w_dt": ((d, nh), "normal", d),
+        "conv_x": ((cw, di), "normal", cw),
+        "conv_B": ((cw, ds), "normal", cw),
+        "conv_C": ((cw, ds), "normal", cw),
+        "A_log": ((nh,), "zeros", 1),
+        "D": ((nh,), "ones", 1),
+        "dt_bias": ((nh,), "zeros", 1),
+        "gnorm": ((di,), "ones", 1),
+        "out_proj": ((di, d), "normal", di),
+    }
+
+
+def _mlstm_specs(cfg: ModelConfig) -> Dict[str, Spec]:
+    d = cfg.d_model
+    di, nh, _ = _mlstm_dims(cfg)
+    return {
+        "norm": ((d,), "ones", 1),
+        "w_up": ((d, 2 * di), "normal", d),
+        "conv": ((4, di), "normal", 4),
+        "w_q": ((di, di), "normal", di),
+        "w_k": ((di, di), "normal", di),
+        "w_v": ((di, di), "normal", di),
+        "w_if": ((di, 2 * nh), "normal", di),
+        "gnorm": ((di,), "ones", 1),
+        "w_down": ((di, d), "normal", di),
+        "skip": ((di, di), "normal", di),
+    }
+
+
+def slstm_ff(cfg: ModelConfig) -> int:
+    return int(round(4 * cfg.d_model / 3 / 64)) * 64 or 64
+
+
+def _slstm_specs(cfg: ModelConfig) -> Dict[str, Spec]:
+    d, nh = cfg.d_model, cfg.n_heads
+    hd, ff = d // nh, slstm_ff(cfg)
+    return {
+        "norm": ((d,), "ones", 1),
+        "w_gates": ((d, 4 * d), "normal", d),
+        "r_gates": ((4, nh, hd, hd), "normal", hd),
+        "gnorm": ((d,), "ones", 1),
+        "w_up": ((d, 2 * ff), "normal", d),
+        "w_down": ((ff, d), "normal", ff),
+    }
+
+
+def stack_depths(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """The leading (layer) dims of each stack's parameters; () is a block
+    stored once (zamba2's shared attention)."""
+    if cfg.family == "hybrid":
+        return {"shared_attn": (), "mamba_stack": (cfg.n_layers,)}
+    if cfg.family == "ssm":
+        groups = cfg.n_layers // cfg.slstm_every
+        return {"mlstm_stack": (groups, cfg.slstm_every - 1),
+                "slstm_stack": (groups,)}
     if cfg.moe is not None and cfg.moe.n_experts:
         nd = cfg.moe.first_dense_layers
-        return {"dense_stack": nd, "moe_stack": cfg.n_layers - nd}
-    return {"dense_stack": cfg.n_layers, "moe_stack": 0}
+        return {"dense_stack": (nd,), "moe_stack": (cfg.n_layers - nd,)}
+    return {"dense_stack": (cfg.n_layers,), "moe_stack": (0,)}
+
+
+def _stack_specs(cfg: ModelConfig, stack: str) -> Dict[str, Spec]:
+    if stack in ("dense_stack", "shared_attn"):
+        return {**_attn_specs(cfg), **_mlp_specs(cfg)}
+    if stack == "moe_stack":
+        return {**_attn_specs(cfg), **_moe_specs(cfg)}
+    return {"mamba_stack": _mamba_specs, "mlstm_stack": _mlstm_specs,
+            "slstm_stack": _slstm_specs}[stack](cfg)
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Spec]:
@@ -120,22 +210,37 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Spec]:
                               "final_norm": ((d,), "ones", 1)}
     if not cfg.tie_embeddings:
         specs["lm_head"] = ((d, V), "normal", d)
-    layer = {"dense_stack": {**_attn_specs(cfg), **_mlp_specs(cfg)},
-             "moe_stack": ({**_attn_specs(cfg), **_moe_specs(cfg)}
-                           if cfg.moe is not None else {})}
-    for stack, n in stack_depths(cfg).items():
-        if n:
-            for name, (shape, init, fan_in) in layer[stack].items():
-                specs[f"{stack}.{name}"] = ((n, *shape), init, fan_in)
+    for stack, lead in stack_depths(cfg).items():
+        if all(lead):
+            for name, (shape, init, fan_in) in _stack_specs(cfg, stack).items():
+                specs[f"{stack}.{name}"] = ((*lead, *shape), init, fan_in)
     return specs
 
 
 def check_supported(cfg: ModelConfig):
-    if (cfg.family not in ("dense", "moe")
-            or cfg.attention not in ("full", "swa", "mla")):
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves dense and MoE decoders with full "
-            "or sliding-window (GQA) or latent (MLA) attention only")
+    """Raise unless the port can build ``cfg``: a dense or MoE decoder with
+    full, sliding-window or latent attention; a hybrid with an ssm config
+    and a full-attention shared block every ``attn_every`` layers; or an
+    ssm (xLSTM) stack with an sLSTM block every ``slstm_every``."""
+    if cfg.family in ("dense", "moe"):
+        if cfg.attention in ("full", "swa", "mla"):
+            return
+        why = (f"attention {cfg.attention!r}: a {cfg.family} decoder needs "
+               "full, sliding-window (GQA) or latent (MLA) attention")
+    elif cfg.family == "hybrid":
+        if (cfg.ssm is not None and cfg.attention == "full" and cfg.attn_every
+                and cfg.n_layers % cfg.attn_every == 0):
+            return
+        why = ("a hybrid needs an ssm config, full attention in its shared "
+               "block and n_layers a multiple of attn_every > 0")
+    elif cfg.family == "ssm":
+        if cfg.slstm_every and cfg.n_layers % cfg.slstm_every == 0:
+            return
+        why = ("an ssm (xLSTM) stack needs slstm_every > 0 dividing "
+               "n_layers")
+    else:
+        why = f"family {cfg.family!r} is not ported"
+    raise NotImplementedError(f"{cfg.name}: {why}")
 
 
 class Transformer(nn.Module):
@@ -151,7 +256,8 @@ class Transformer(nn.Module):
         self.specs = param_specs(cfg)
         self.mla = cfg.attention == "mla"
         self.window = cfg.swa_window if cfg.attention == "swa" else 0
-        stacks = {"dense_stack": {}, "moe_stack": {}}
+        stacks: Dict[str, Dict[str, nn.Parameter]] = {
+            stack: {} for stack in stack_depths(cfg)}
         for name, (shape, _, _) in self.specs.items():
             p = nn.Parameter(torch.empty(shape, dtype=dtype, device=dev),
                              requires_grad=False)
@@ -160,11 +266,13 @@ class Transformer(nn.Module):
                 stacks[stack][leaf] = p
             else:
                 setattr(self, name, p)
-        self.dense_stack = nn.ParameterDict(stacks["dense_stack"])
-        self.moe_stack = nn.ParameterDict(stacks["moe_stack"])
-        # (stack, index in it) of each layer, in the order the layers run
-        self.layers = [(stack, i) for stack, n in stack_depths(cfg).items()
-                       for i in range(n)]
+        for stack, params in stacks.items():
+            setattr(self, stack, nn.ParameterDict(params))
+        # (stack, index in it) of each layer of a dense or MoE model, in the
+        # order the layers run
+        self.layers = [] if cfg.family in ("hybrid", "ssm") else [
+            (stack, i) for stack, (n,) in stack_depths(cfg).items()
+            for i in range(n)]
         if seed is not None:
             self.init_weights(seed)
 
@@ -178,17 +286,18 @@ class Transformer(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, seed: int):
-        """Normal weights with std 1/sqrt(fan_in), norms ones. Each weight
-        is drawn in fp32 in consecutive pieces of its memory of at most
-        ``INIT_CHUNK`` elements (256 MiB), so the draws of a full-width MoE
-        stack fit beside its weights on the card (at 5 layers, R1's
-        ``we_gate`` alone is 7.5 G elements)."""
+        """Normal weights with std 1/sqrt(fan_in), norms ones (and the
+        Mamba2 ``A_log`` and ``dt_bias`` zeros). Each weight is drawn in
+        fp32 in consecutive pieces of its memory of at most ``INIT_CHUNK``
+        elements (256 MiB), so the draws of a full-width MoE stack fit
+        beside its weights on the card (at 5 layers, R1's ``we_gate`` alone
+        is 7.5 G elements)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params = dict(self.named_parameters())
         for name, (_, init, fan_in) in self.specs.items():
             flat = params[name].view(-1)
-            if init == "ones":
-                flat.fill_(1.0)
+            if init != "normal":
+                flat.fill_(1.0 if init == "ones" else 0.0)
                 continue
             for start in range(0, flat.numel(), INIT_CHUNK):
                 piece = flat[start:start + INIT_CHUNK]
@@ -197,19 +306,47 @@ class Transformer(nn.Module):
                     dtype=torch.float32).div_(math.sqrt(fan_in)))
 
     def pool_shapes(self, n_pages: int, page: int) -> List[Tuple[int, ...]]:
-        """Shapes of the two paged decode-cache pools: k and v
-        (L,P,page,KV,hd) for GQA; ckv (L,P,page,kv_rank) and kpe
-        (L,P,page,rope) for MLA."""
+        """Shapes of the paged decode-cache pools: k and v
+        (L,P,page,KV,hd) for GQA, with L the shared block's groups in a
+        hybrid; ckv (L,P,page,kv_rank) and kpe (L,P,page,rope) for MLA;
+        none for the ssm family."""
         cfg = self.cfg
+        if cfg.family == "ssm":
+            return []
         L = cfg.n_layers
         if self.mla:
             return [(L, n_pages, page, cfg.mla.kv_lora_rank),
                     (L, n_pages, page, cfg.mla.qk_rope_head_dim)]
+        if cfg.family == "hybrid":
+            L = cfg.n_layers // cfg.attn_every
         shape = (L, n_pages, page, cfg.n_kv_heads, cfg.resolved_head_dim)
         return [shape, shape]
 
+    def state_shapes(self, n_slots: int
+                     ) -> List[Tuple[Tuple[int, ...], torch.dtype]]:
+        """(shape, dtype) of each recurrent-state buffer of ``n_slots``
+        sequences: a layer axis, then the slot axis, then one sequence's
+        state as ``init_mamba_state`` / ``init_mlstm_state`` /
+        ``init_slstm_state`` give it. For a hybrid h (L,n,nh,hd,ds) fp32
+        and the conv states of x, B and C (L,n,cw-1,width) in the model's
+        dtype; for xLSTM the mLSTM C, n, m (fp32) and conv, over its blocks
+        in the order they run, then the sLSTM c, n, h, m (G,n,d) fp32;
+        none for the other families."""
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            h, cs = init_mamba_state(cfg, 1, self.dtype, device="meta")
+            per_layer = [(cfg.n_layers, t) for t in (h, *cs)]
+        elif cfg.family == "ssm":
+            (G, per), _ = stack_depths(cfg).values()
+            per_layer = ([(G * per, t) for t in init_mlstm_state(
+                cfg, 1, self.dtype, device="meta")]
+                + [(G, t) for t in init_slstm_state(cfg, 1, device="meta")])
+        else:
+            return []
+        return [((L, n_slots, *t.shape[1:]), t.dtype) for L, t in per_layer]
+
     # ------------------------------------------------------------ layers
-    def _layer(self, stack: str, i: int) -> Dict[str, torch.Tensor]:
+    def _layer(self, stack: str, *i: int) -> Dict[str, torch.Tensor]:
         return {k: v[i] for k, v in getattr(self, stack).items()}
 
     def _qkv(self, x, p, positions):
@@ -243,68 +380,164 @@ class Transformer(nn.Module):
         h = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         return h @ (self.embed.t() if self.cfg.tie_embeddings else self.lm_head)
 
+    def _gqa_prefill(self, x, p, positions):
+        """One attention+MLP layer over whole prompts through K1; returns
+        x and the layer's (k, v)."""
+        q, k, v = self._qkv(x, p, positions)
+        x = self._out(x, flash_attention(q, k, v, window=self.window), p)
+        return self._mlp(x, p), (k, v)
+
+    def _gqa_decode(self, x, p, pool_k, pool_v, at, block_tables):
+        """One attention+MLP layer for one token per sequence: writes the
+        token's k and v into the pools at ``at`` = (positions, pages,
+        offsets in the pages, positions as int32), then attends through
+        K2."""
+        cfg = self.cfg
+        B = x.shape[0]
+        pos, pages, offs, lens = at
+        q, a, b = self._qkv(x, p, pos[:, None])
+        pool_k[pages, offs] = a[:, 0]
+        pool_v[pages, offs] = b[:, 0]
+        g = cfg.n_heads // cfg.n_kv_heads
+        o = paged_attention(q.view(B, cfg.n_kv_heads, g, -1), pool_k, pool_v,
+                            block_tables, lens, window=self.window)
+        return self._mlp(self._out(x, o.view(B, 1, cfg.n_heads, -1), p), p)
+
     # ------------------------------------------------------------ serving
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor
-                ) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
+                ) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]],
+                           List[torch.Tensor]]:
         """Run whole prompts from position 0. tokens (B,S). Returns the last
-        position's logits (B,V) and each layer's decode cache: (k, v)
-        (B,S,KV,hd) for GQA, (ckv, kpe) (B,S,kv_rank) and (B,S,rope) for
-        MLA."""
+        position's logits (B,V); each attention layer's decode cache:
+        (k, v) (B,S,KV,hd) for GQA (one per shared-block group in a
+        hybrid), (ckv, kpe) (B,S,kv_rank) and (B,S,rope) for MLA; and the
+        final recurrent state, one tensor for each buffer of
+        ``state_shapes`` with the batch in place of the slots."""
         x = self.embed[tokens]
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
-        caches = []
-        for stack, i in self.layers:
-            p = self._layer(stack, i)
-            if self.mla:
-                y, cache = mla_prefill(
-                    rmsnorm(x, p["attn_norm"], self.cfg.norm_eps), p,
-                    self.cfg, positions)
+        if self.cfg.family == "hybrid":
+            x, caches, states = self._hybrid_prefill(x, positions)
+        elif self.cfg.family == "ssm":
+            x, caches, states = self._xlstm_prefill(x)
+        else:
+            caches, states = [], []
+            for stack, i in self.layers:
+                p = self._layer(stack, i)
+                if self.mla:
+                    y, cache = mla_prefill(
+                        rmsnorm(x, p["attn_norm"], self.cfg.norm_eps), p,
+                        self.cfg, positions)
+                    x = self._mlp(x + y, p)
+                else:
+                    x, cache = self._gqa_prefill(x, p, positions)
+                caches.append(cache)
+        return self._head(x[:, -1]), caches, states
+
+    def _hybrid_prefill(self, x, positions):
+        """Per group: the shared block (window 0), then ``attn_every``
+        Mamba2 layers, each layer's final (h, conv states) kept from this
+        pass."""
+        cfg = self.cfg
+        shared = dict(self.shared_attn)
+        caches, states = [], [[] for _ in range(4)]
+        for g in range(cfg.n_layers // cfg.attn_every):
+            x, kv = self._gqa_prefill(x, shared, positions)
+            caches.append(kv)
+            for l in range(g * cfg.attn_every, (g + 1) * cfg.attn_every):
+                y, (h, cs) = mamba2_forward(x, self._layer("mamba_stack", l), cfg)
                 x = x + y
-            else:
-                q, k, v = self._qkv(x, p, positions)
-                x = self._out(x, flash_attention(q, k, v, window=self.window),
-                              p)
-                cache = (k, v)
-            x = self._mlp(x, p)
-            caches.append(cache)
-        return self._head(x[:, -1]), caches
+                for acc, t in zip(states, (h, *cs)):
+                    acc.append(t)
+        return x, caches, [torch.stack(acc) for acc in states]
+
+    def _xlstm_prefill(self, x):
+        """Per group: ``slstm_every - 1`` mLSTM blocks, then one sLSTM
+        block, each block's final state kept from this pass."""
+        cfg = self.cfg
+        (G, per), _ = stack_depths(cfg).values()
+        mst, sst = [[] for _ in range(4)], [[] for _ in range(4)]
+        for g in range(G):
+            for j in range(per):
+                x, st = mlstm_forward(x, self._layer("mlstm_stack", g, j), cfg)
+                for acc, t in zip(mst, st):
+                    acc.append(t)
+            x, st = slstm_forward(x, self._layer("slstm_stack", g), cfg)
+            for acc, t in zip(sst, st):
+                acc.append(t)
+        return x, [], [torch.stack(acc) for acc in mst + sst]
 
     @torch.inference_mode()
     def decode_step(self, tokens: torch.Tensor, positions: torch.Tensor,
                     pools: Sequence[torch.Tensor],
-                    block_tables: torch.Tensor) -> torch.Tensor:
+                    block_tables: torch.Tensor,
+                    states: Sequence[torch.Tensor] = (),
+                    rows: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One token per sequence. tokens (B,) at ``positions`` (B,);
-        ``pools`` the two pools of ``pool_shapes``; block_tables
-        (B,max_blocks) int32 covering each position. Writes the new token's
-        cache entries into the pools in place, then attends; returns logits
-        (B,V)."""
+        ``pools`` the pools of ``pool_shapes``; block_tables
+        (B,max_blocks) int32 covering each position; ``states`` the
+        buffers of ``state_shapes`` and ``rows`` (B,) int64 each
+        sequence's slot in them. Writes the new token's cache entries into
+        the pools and the new states into the slots, in place; returns
+        logits (B,V)."""
         cfg = self.cfg
-        B = tokens.shape[0]
-        pool_a, pool_b = pools
-        page = pool_a.shape[2]
         pos = positions.long()
-        pages = block_tables.long().gather(1, (pos // page)[:, None])[:, 0]
-        slots = pos % page
-        lens = pos.to(torch.int32)
         x = self.embed[tokens][:, None]
+        if cfg.family == "ssm":
+            return self._head(self._xlstm_decode(x, states, rows)[:, 0])
+        page = pools[0].shape[2]
+        pages = block_tables.long().gather(1, (pos // page)[:, None])[:, 0]
+        offs, lens = pos % page, pos.to(torch.int32)
+        at = (pos, pages, offs, lens)
+        if cfg.family == "hybrid":
+            return self._head(self._hybrid_decode(x, pools, block_tables, at,
+                                                  states, rows)[:, 0])
+        pool_a, pool_b = pools
         for l, (stack, i) in enumerate(self.layers):
             p = self._layer(stack, i)
             if self.mla:
                 h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
                 a, b = mla_latents(h, p, cfg, pos[:, None])
-                pool_a[l, pages, slots] = a[:, 0]
-                pool_b[l, pages, slots] = b[:, 0]
-                x = x + mla_decode_paged(h, p, cfg, pool_a[l], pool_b[l],
-                                         block_tables, lens)
+                pool_a[l, pages, offs] = a[:, 0]
+                pool_b[l, pages, offs] = b[:, 0]
+                x = self._mlp(x + mla_decode_paged(
+                    h, p, cfg, pool_a[l], pool_b[l], block_tables, lens), p)
             else:
-                q, a, b = self._qkv(x, p, pos[:, None])
-                pool_a[l, pages, slots] = a[:, 0]
-                pool_b[l, pages, slots] = b[:, 0]
-                g = cfg.n_heads // cfg.n_kv_heads
-                o = paged_attention(q.view(B, cfg.n_kv_heads, g, -1),
-                                    pool_a[l], pool_b[l], block_tables, lens,
-                                    window=self.window)
-                x = self._out(x, o.view(B, 1, cfg.n_heads, -1), p)
-            x = self._mlp(x, p)
+                x = self._gqa_decode(x, p, pool_a[l], pool_b[l], at,
+                                     block_tables)
         return self._head(x[:, 0])
+
+    def _hybrid_decode(self, x, pools, block_tables, at, states, rows):
+        """Per group g: the shared block on pool g through K2, then its
+        Mamba2 layers on the batch's rows of the state buffers."""
+        cfg = self.cfg
+        shared = dict(self.shared_attn)
+        pool_k, pool_v = pools
+        for g in range(cfg.n_layers // cfg.attn_every):
+            x = self._gqa_decode(x, shared, pool_k[g], pool_v[g], at,
+                                 block_tables)
+            for l in range(g * cfg.attn_every, (g + 1) * cfg.attn_every):
+                h, *cs = (buf[l].index_select(0, rows) for buf in states)
+                y, new = mamba2_decode(x, self._layer("mamba_stack", l), cfg,
+                                       (h, tuple(cs)))
+                x = x + y
+                for buf, t in zip(states, (new[0], *new[1])):
+                    buf[l].index_copy_(0, rows, t)
+        return x
+
+    def _xlstm_decode(self, x, states, rows):
+        cfg = self.cfg
+        (G, per), _ = stack_depths(cfg).values()
+        mst, sst = states[:4], states[4:]
+        for g in range(G):
+            for j in range(per):
+                l = g * per + j
+                st = tuple(buf[l].index_select(0, rows) for buf in mst)
+                x, new = mlstm_decode(x, self._layer("mlstm_stack", g, j), cfg, st)
+                for buf, t in zip(mst, new):
+                    buf[l].index_copy_(0, rows, t)
+            st = tuple(buf[g].index_select(0, rows) for buf in sst)
+            x, new = slstm_decode(x, self._layer("slstm_stack", g), cfg, st)
+            for buf, t in zip(sst, new):
+                buf[g].index_copy_(0, rows, t)
+        return x

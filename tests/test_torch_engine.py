@@ -5,9 +5,12 @@ greedy decode on bridged weights, with and without forced preemption (the
 two cases of ``tests/test_engine.py``), for the smoke configs of each
 served family: llama3.2-3b, DeepSeek-R1 (MLA + MoE), phi3.5-moe, the R1
 Llama distill, qwen3-14b (qk-norm), h2o-danube-3-4b (sliding window 16;
-its prompts are longer than the window), kimi-k2 (GQA + MoE) and
-llama3-405b. Their MoE capacity factor is 8, so no assignment drops and
-a batched decode equals each request's own. Under the virtual clock the port's
+its prompts are longer than the window), kimi-k2 (GQA + MoE),
+llama3-405b, zamba2-2.7b (Mamba2 + shared attention) and xlstm-350m
+(mLSTM + sLSTM, no attention); the recurrent families keep their state in
+the runner's slots, and a preempted request gives its slot back and
+recomputes its state when it resumes. Their MoE capacity factor is 8, so
+no assignment drops and a batched decode equals each request's own. Under the virtual clock the port's
 engine copy and the JAX engine make identical schedules. The port imports
 neither JAX nor the JAX package, and never runs on the CPU unasked.
 """
@@ -24,6 +27,7 @@ import torch
 from repro.configs.registry import get_smoke_config as jax_smoke_config
 from repro.core.engine import EngineConfig as JaxEngineConfig
 from repro.core.engine import InferenceEngine as JaxEngine
+from repro.core.runner import JaxRunner
 from repro.models import transformer as T
 from repro.parallel.sharding import single_device_ctx
 from repro_torch.configs.registry import get_smoke_config
@@ -37,7 +41,7 @@ CTX = single_device_ctx()
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 ARCHS = ["llama3.2-3b", "deepseek-r1-671b", "phi3.5-moe-42b-a6.6b",
          "ds-distill-8b", "qwen3-14b", "h2o-danube-3-4b", "kimi-k2-1t-a32b",
-         "llama3-405b"]
+         "llama3-405b", "zamba2-2.7b", "xlstm-350m"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -61,11 +65,24 @@ def bridged(request):
             out.append(int(jnp.argmax(logits[0, -1])))
         return out
 
-    return cfg, model, greedy
+    def jax_engine(prompts, n_new, n_pages, max_num_seqs):
+        """Outputs of the JAX engine on ``JaxRunner`` (its slots are
+        ``max_num_seqs``), configured as ``_run_engine``."""
+        runner = JaxRunner(jcfg, params, CTX, max_slots=max_num_seqs,
+                           max_len=192)
+        ecfg = JaxEngineConfig(n_pages=n_pages, max_num_seqs=max_num_seqs,
+                               max_num_batched_tokens=512, chunk_size=192,
+                               admission_mode="naive")
+        eng = JaxEngine(jcfg, ecfg, runner, virtual_clock=False)
+        reqs = [eng.submit(p, n) for p, n in zip(prompts, n_new)]
+        eng.run(max_steps=2000)
+        return [r.output for r in reqs], sum(r.n_preemptions for r in reqs)
+
+    return cfg, model, greedy, jax_engine
 
 
-def _run_engine(cfg, model, prompts, n_new, n_pages):
-    ecfg = EngineConfig(n_pages=n_pages, max_num_seqs=4,
+def _run_engine(cfg, model, prompts, n_new, n_pages, max_num_seqs=4):
+    ecfg = EngineConfig(n_pages=n_pages, max_num_seqs=max_num_seqs,
                         max_num_batched_tokens=512, chunk_size=192,
                         admission_mode="naive")
     eng = InferenceEngine(cfg, ecfg, TorchRunner(model, device="cpu"),
@@ -76,7 +93,7 @@ def _run_engine(cfg, model, prompts, n_new, n_pages):
 
 
 def test_engine_matches_greedy(bridged):
-    cfg, model, greedy = bridged
+    cfg, model, greedy, _ = bridged
     rng = np.random.default_rng(0)
     extra = cfg.swa_window if cfg.attention == "swa" else 0
     prompts = [rng.integers(0, cfg.vocab, size=n + extra).tolist()
@@ -90,14 +107,28 @@ def test_engine_matches_greedy(bridged):
 def test_engine_preemption_preserves_outputs(bridged):
     """A pool of 7 pages forces preemption and recompute; freed pages are
     reused by other requests at once, so a stale pool entry read through a
-    new table would change the tokens."""
-    cfg, model, greedy = bridged
+    new table would change the tokens; a recurrent model's slots are
+    reused the same way.
+
+    xLSTM's reference is the JAX engine on ``JaxRunner`` under the same
+    preemptions, not straight-line greedy: the JAX package's mLSTM decode
+    step returns the stabiliser m it was given while its prefill returns
+    the updated one, so a request resumed by recompute leaves the
+    straight-line tokens there too. Its runners have 5 slots, a count
+    ``JaxRunner`` can tell from every dim of the xLSTM state."""
+    cfg, model, greedy, jax_engine = bridged
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, size=30).tolist() for _ in range(3)]
     n_new = [20, 20, 20]
-    reqs = _run_engine(cfg, model, prompts, n_new, n_pages=7)
-    assert sum(r.n_preemptions for r in reqs) > 0, \
-        "pool was sized to force preemption"
+    seqs = 5 if cfg.family == "ssm" else 4
+    reqs = _run_engine(cfg, model, prompts, n_new, n_pages=7, max_num_seqs=seqs)
+    preempted = sum(r.n_preemptions for r in reqs)
+    assert preempted > 0, "pool was sized to force preemption"
+    if cfg.family == "ssm":
+        ref, ref_preempted = jax_engine(prompts, n_new, 7, seqs)
+        assert ref_preempted == preempted
+        assert [r.output for r in reqs] == ref
+        return
     for p, n, r in zip(prompts, n_new, reqs):
         assert r.output == greedy(p, n)
 
@@ -162,7 +193,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys\n"
             "import repro_torch, repro_torch.core.engine, "
             "repro_torch.core.runner, repro_torch.launch.serve, "
-            "repro_torch.models.bridge\n"
+            "repro_torch.models.bridge, repro_torch.models.ssm, "
+            "repro_torch.models.xlstm\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.'))\n"

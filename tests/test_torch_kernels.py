@@ -5,8 +5,9 @@ JAX oracles (``flash_attention_ref``, ``paged_attention_ref``), a few
 interpret-mode Pallas runs, and the JAX model attention; the paged version
 with a sliding window, which the Pallas kernel lacks, is held to the JAX
 model's ``decode_attention(window=)`` on the cache gathered from the pages.
-The head dims 112 and 120 and groups of up to 16 q heads per kv head are
-the kernels' padded instances and second query tile. The CUDA kernels
+The head dims 80, 112 and 120 and groups of up to 16 q heads per kv head
+are the kernels' padded instances and second query tile; head dim 80 runs
+at G 1 (zamba2-2.7b's MHA) and G 2. The CUDA kernels
 themselves are held against the plain versions on the card in
 ``tests/test_torch_kernels_gpu.py``. Tolerances: 2e-3 in fp32, 2e-2 in
 bf16, as ``tests/test_kernels.py`` states them.
@@ -51,12 +52,16 @@ PADDED_FLASH_CASES = [
     (1, 128, 128, 8, 2, 120, 0, 64, 64),       # D 120, GQA 4:1
     (1, 200, 200, 4, 2, 112, 64, 64, 64),      # D 112, window, ragged tiles
     (2, 160, 160, 4, 1, 120, 48, 32, 32),      # D 120, window, lens (160, 80)
+    (1, 160, 160, 4, 4, 80, 0, 64, 64),        # D 80, MHA (G 1), ragged tile
+    (2, 96, 96, 4, 2, 80, 0, 32, 32),          # D 80, G 2, lens (96, 48)
 ]
 PADDED_PAGED_CASES = [
     # B, KV, G, D, page, P, nblk
     (2, 2, 16, 128, 16, 32, 5),     # G 16
     (2, 1, 9, 112, 16, 32, 4),      # G 9, D 112
     (3, 2, 4, 120, 16, 32, 3),      # D 120
+    (2, 4, 1, 80, 16, 32, 4),       # D 80, G 1
+    (3, 2, 2, 80, 16, 32, 3),       # D 80, G 2
 ]
 # windowed decode: B, KV, G, D, nblk, tokens of each sequence, window; the
 # kernel splits sequences into partitions of 256 tokens
@@ -125,7 +130,8 @@ def test_flash_plain_vs_jax_ref(case, dtype):
 
 
 @pytest.mark.parametrize("case", [FLASH_CASES[1], FLASH_CASES[6],
-                                  PADDED_FLASH_CASES[2]])
+                                  PADDED_FLASH_CASES[2], PADDED_FLASH_CASES[3],
+                                  PADDED_FLASH_CASES[4]])
 def test_flash_plain_vs_jax_interpret(case):
     """The Pallas kernel itself, in interpret mode (fp32)."""
     B, Sq, Skv, H, KV, D, window, bq, bk = case
@@ -190,11 +196,12 @@ def test_paged_plain_vs_jax_ref(case, dtype):
     _close(out, ref, DTYPES[dtype][2])
 
 
-@pytest.mark.parametrize("case", [PAGED_CASES[0], PAGED_CASES[3]])
+@pytest.mark.parametrize("case", [PAGED_CASES[0], PAGED_CASES[3],
+                                  PADDED_PAGED_CASES[3], PADDED_PAGED_CASES[4]])
 def test_paged_plain_vs_jax_interpret(case):
     """The Pallas kernel itself, in interpret mode (fp32), through its
     (B,H,D) wrapper."""
-    q, kp, vp, tables, lens = _paged_inputs(case, 200 + PAGED_CASES.index(case))
+    q, kp, vp, tables, lens = _paged_inputs(case, 200 + ALL_PAGED.index(case))
     B, KV, G, D = q.shape
     ref = jax_paged(jnp.asarray(q.reshape(B, KV * G, D)), jnp.asarray(kp),
                     jnp.asarray(vp), jnp.asarray(tables), jnp.asarray(lens),

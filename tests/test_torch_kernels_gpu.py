@@ -45,6 +45,10 @@ FLASH_CASES = [
     (1, 1000, 1000, 64, 8, 112, 0, 0, 0),      # kimi-k2 prompt
     (1, 600, 600, 128, 8, 128, 0, 0, 0),       # llama3-405b heads
     (1, 5000, 5000, 32, 8, 120, 4096, 0, 0),   # h2o-danube prompt, window binds
+    # head dim 80 (zamba2-2.7b's shared attention: 32 heads, MHA)
+    (1, 1000, 1000, 32, 32, 80, 0, 0, 0),      # zamba2 prompt, G 1
+    (2, 300, 300, 4, 2, 80, 0, 0, 0),          # G 2, lens (300, 150)
+    (1, 333, 333, 4, 4, 80, 100, 0, 0, [250]),  # window, lens < Skv
 ]
 PAGED_CASES = [
     # B, KV, G, D, page, P, nblk[, tokens of each sequence[, window]]
@@ -73,6 +77,11 @@ PAGED_CASES = [
     (1, 1, 9, 120, 16, 64, 40, [620], 108),           # edge on a boundary
     (3, 8, 4, 120, 16, 1024, 400, [6400, 4096, 4500], 4096),  # danube decode
     (2, 2, 3, 64, 16, 64, 40, [384, 17], 1000),       # window past every sequence
+    # head dim 80 (zamba2-2.7b's decode: 32 kv heads, G 1)
+    (16, 32, 1, 80, 16, 1024, 64),                    # zamba2 decode batch
+    (4, 32, 1, 80, 16, 512, 80, [1280, 256, 257, 17]),  # partition edges, G 1
+    (3, 2, 2, 80, 16, 64, 40, [513, 40, 256]),        # G 2
+    (2, 2, 1, 80, 16, 64, 40, [600, 300], 100),       # window, G 1
 ]
 DTYPES = {"float32": (torch.float32, 2e-3), "bfloat16": (torch.bfloat16, 2e-2)}
 REL_RMS = {"float32": 1e-3, "bfloat16": 1e-2}
