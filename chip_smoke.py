@@ -10,13 +10,16 @@ Phases, each printed as one JSON line:
      bf16, on the kernel test cases, the edges of each kernel's tiling and
      the main paths' shapes (llama3.2-3b's G=3, phi3.5-moe's G=4, qwen3's
      G=5, kimi-k2's D=112, h2o-danube's D=120 with its window of 4096,
-     llama3-405b's G=16, zamba2's D=80 at G=1), and the window's edges
-     inside and on K2's 256-token partitions;
+     llama3-405b's G=16, zamba2's D=80 at G=1, musicgen's D=64 at G=1 over
+     24 kv heads, internvl2's G=8 at D=128 and its prefix plus text), and
+     the window's edges inside and on K2's 256-token partitions;
   3. each kernel's time in bf16 at the main paths' shapes (K1 at S 137,
      1000, 512 and 2048, and at the prompts of qwen3-14b, h2o-danube (S
-     5000, window 4096), kimi-k2, llama3-405b and zamba2-2.7b; K2 at one
+     5000, window 4096), kimi-k2, llama3-405b, zamba2-2.7b, musicgen-medium
+     and internvl2-76b (S 1000, and S 456: its prefix and text); K2 at one
      2048-token sequence and at the decode batches of llama3.2-3b,
-     h2o-danube with its window, kimi-k2, llama3-405b and zamba2-2.7b),
+     h2o-danube with its window, kimi-k2, llama3-405b, zamba2-2.7b,
+     musicgen-medium and internvl2-76b),
      eager and on the device alone,
      beside its bound and the share of it reached, the wrapper's host time
      per call, its plain version's time and one PyTorch library call's time
@@ -57,11 +60,25 @@ Phases, each printed as one JSON line:
      of 9) and xlstm-350m (full depth: 21 mLSTM and 3 sLSTM blocks, which
      launch neither kernel), each with its state slot's bytes; and a
      traced run of zamba2's decode steps (``profile``);
-  9. the ``kernels`` line (launches summed over every main path, and by
+  9. the vlm and audio families: internvl2-76b at full width (2 layers,
+     fp32) with a prefix of 256 embeddings before 200 text tokens, its
+     prefill logits on the card against a CPU copy's, then 8 paged decode
+     steps with equal tokens (``prefix_equality``); ``main_path`` in bf16
+     for musicgen-medium (full depth: 48 layers, MHA at head dim 64) and
+     internvl2-76b (full width, 24 of its 80 layers), each launching both
+     kernels;
+ 10. the capacity-bound regime (``capacity``): full-depth llama3.2-3b in
+     bf16 on half the pool its requests need, with naive and with kv-aware
+     admission and the engine's sanitizer on, each beside the port's
+     ``SimRunner`` on H100 constants for the same requests and engine
+     config: the same steps and preemptions on both sides, naive
+     preempting and kv-aware not, and the measured TPOT over the sim's;
+ 11. the ``kernels`` line (launches summed over every main path, and by
      model), then the card line, then as the last line
      ``{"ok": true, "device": {...}}``.
-Any failure raises and exits non-zero. It needs a CUDA card and fails
-without one.
+Each line's ``t_s`` is the seconds since the script started. Any
+failure raises and exits non-zero. It needs a CUDA card and fails without
+one.
 """
 from __future__ import annotations
 
@@ -161,6 +178,17 @@ GQA_PAGED = [DANUBE_PAGED, KIMI_PAGED, L405_PAGED]
 # 128-1280 tokens
 ZAMBA_FLASH = [(1, 1000, 1000, 32, 32, 80, 0)]
 ZAMBA_PAGED = dict(B=16, KV=32, G=1, D=80, max_ctx=1280)
+# the vlm and audio backbones: musicgen-medium (24 q / 24 kv heads of 64,
+# MHA) and internvl2-76b (64 / 8 heads of 128, G 8) at a served prompt, and
+# internvl2 at its 256 prefix embeddings plus 200 text tokens; their
+# decode batches of 16 at contexts of 128-1280 tokens
+INTERNVL_PREFIX, INTERNVL_TEXT = 256, 200
+VLM_AUDIO_FLASH = [(1, 1000, 1000, 24, 24, 64, 0),
+                   (1, 1000, 1000, 64, 8, 128, 0),
+                   (1, INTERNVL_PREFIX + INTERNVL_TEXT,
+                    INTERNVL_PREFIX + INTERNVL_TEXT, 64, 8, 128, 0)]
+MUSICGEN_PAGED = dict(B=16, KV=24, G=1, D=64, max_ctx=1280)
+INTERNVL_PAGED = dict(B=16, KV=8, G=8, D=128, max_ctx=1280)
 TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 # limit on |out - ref|_2 / |ref|_2 over a whole output: bf16 roundings of
 # q*scale, P and out give about 3e-3, while a dropped key tile or sequence
@@ -196,10 +224,24 @@ L405_LAYERS = 8
 # dozen small kernels a token a block, bound by the host), so it serves
 # phi3.5-moe's fewer and shorter requests
 XLSTM_REQUESTS = PHI_REQUESTS
+STARTED = time.perf_counter()
+# internvl2-76b at full width cut to 24 of its 80 layers (about 45.3 GB of
+# bf16 weights); musicgen-medium whole
+INTERNVL_LAYERS = 24
+# prefix_equality: internvl2 at full width and 2 layers in fp32; its
+# prefill logits on the card (K1) against the CPU plain path within
+# PREFIX_ATOL times the largest logit (fp32 sums over d 8192 and d_ff 28672
+# taken in another order differ by about 1e-5 of it)
+PREFIX_LAYERS = 2
+PREFIX_DECODE_STEPS = 8
+PREFIX_ATOL = 1e-3
 
 
 def emit(phase: str, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line; ``t_s`` is the seconds since the script
+    started, so the lines show where the run's time goes."""
+    print(json.dumps({"phase": phase, **kw,
+                      "t_s": time.perf_counter() - STARTED}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -288,7 +330,7 @@ def check_kernels(flash_ops, paged_ops):
     rels = {"flash_attention": [], "paged_attention": []}
     for dtype in (torch.float32, torch.bfloat16):
         for case in (FLASH_CASES + MAIN_FLASH + RAGGED_FLASH + PHI_FLASH
-                     + GQA_FLASH + ZAMBA_FLASH):
+                     + GQA_FLASH + ZAMBA_FLASH + VLM_AUDIO_FLASH):
             q, k, v, lens, window = flash_inputs(case, dtype, gen)
             err, rel = compare(
                 flash_ops.flash_attention, flash_ops.flash_attention_plain,
@@ -298,7 +340,7 @@ def check_kernels(flash_ops, paged_ops):
         cases = [paged_case_inputs(c, dtype, gen) for c in PAGED_CASES]
         mains = [(*paged_main_inputs(dtype, gen, m), m.get("window", 0))
                  for m in (MAIN_PAGED, LONG_PAGED, PHI_PAGED, *GQA_PAGED,
-                           ZAMBA_PAGED)]
+                           ZAMBA_PAGED, MUSICGEN_PAGED, INTERNVL_PAGED)]
         for *args, window in cases + mains:
             err, rel = compare(
                 paged_ops.paged_attention, paged_ops.paged_attention_plain,
@@ -872,6 +914,169 @@ def gqa_configs():
              {"n_layers": [l405.n_layers, L405_LAYERS]}, SERVE_REQUESTS)]
 
 
+def prefix_equality():
+    """internvl2-76b at full width (d_model 8192, 64 q / 8 kv heads of 128,
+    d_ff 28672, vocab 128256) with 2 layers in fp32, seeded on the card,
+    and its CPU copy filled from the card. A seeded prefix of 256
+    embeddings (normal, at the embedding's scale 1/sqrt(d)) before 200
+    text tokens: the prefill logits of the card (K1 over all 456 tokens)
+    and of the CPU (the plain path) agree within ``PREFIX_ATOL`` of the
+    largest and have the same argmax; then 8 greedy decode steps through
+    K2 on a paged pool holding the prefix's and the text's k/v, from
+    position 456, give the same argmax on both sides."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import Transformer
+
+    full = get_config("internvl2-76b")
+    cfg = dataclasses.replace(full, n_layers=PREFIX_LAYERS)
+    card = Transformer(cfg, device="cuda", dtype=torch.float32, seed=1)
+    host = Transformer(cfg, device="cpu", dtype=torch.float32, seed=None)
+    on_card = dict(card.named_parameters())
+    with torch.no_grad():
+        for name, p in host.named_parameters():
+            p.copy_(on_card[name])
+    rng = np.random.default_rng(6)
+    prefix = torch.from_numpy((rng.standard_normal(
+        (1, INTERNVL_PREFIX, cfg.d_model)) / np.sqrt(cfg.d_model)).astype(np.float32))
+    text = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, INTERNVL_TEXT)))
+    n = INTERNVL_PREFIX + INTERNVL_TEXT
+    page = 16
+    n_pages = -(-(n + PREFIX_DECODE_STEPS) // page)
+    table = torch.arange(n_pages, dtype=torch.int32)[None]
+    logits, tokens, seconds = {}, {}, {}
+    for dev, model in (("cuda", card), ("cpu", host)):
+        t0 = time.perf_counter()
+        last, caches, _ = model.prefill(text.to(dev), prefix.to(dev))
+        pools = [torch.zeros(s, device=dev) for s in model.pool_shapes(n_pages, page)]
+        pos = torch.arange(n, device=dev)
+        for j, pool in enumerate(pools):
+            pool[:, pos // page, pos % page] = torch.stack(
+                [c[j] for c in caches])[:, 0]
+        steps = [last]
+        for i in range(PREFIX_DECODE_STEPS):
+            nxt = steps[-1].argmax(dim=-1)
+            steps.append(model.decode_step(
+                nxt, torch.full((1,), n + i, device=dev), pools, table.to(dev)))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        seconds[dev] = time.perf_counter() - t0
+        logits[dev] = [t.float().cpu() for t in steps]
+        tokens[dev] = [int(t[0].argmax()) for t in steps]
+        del caches, pools
+    scale = max(1.0, float(logits["cpu"][0].abs().max()))
+    prefill_err = float((logits["cuda"][0] - logits["cpu"][0]).abs().max())
+    decode_err = max(float((a - b).abs().max())
+                     for a, b in zip(logits["cuda"][1:], logits["cpu"][1:]))
+    if not all(bool(torch.isfinite(t).all()) for t in logits["cuda"]):
+        raise AssertionError("prefix: non-finite logits on the card")
+    if prefill_err > PREFIX_ATOL * scale:
+        raise AssertionError(f"prefix: prefill logits differ by {prefill_err}, "
+                             f"beyond {PREFIX_ATOL} x {scale}")
+    if tokens["cuda"] != tokens["cpu"]:
+        raise AssertionError(f"prefix: card tokens {tokens['cuda']} differ from "
+                             f"CPU plain-path tokens {tokens['cpu']}")
+    return dict(model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+                head_dim=cfg.head_dim, dtype="float32",
+                reduced={"n_layers": [full.n_layers, PREFIX_LAYERS]},
+                prefix_embeds=INTERNVL_PREFIX, text_tokens=INTERNVL_TEXT,
+                decode_steps=PREFIX_DECODE_STEPS,
+                params=sum(p.numel() for p in card.parameters()),
+                prefill_max_abs_logit_diff=prefill_err,
+                decode_max_abs_logit_diff=decode_err, logit_scale=scale,
+                tolerance=PREFIX_ATOL * scale, tokens=tokens["cuda"],
+                tokens_equal=True, seconds=seconds)
+
+
+def vlm_audio_configs():
+    """musicgen-medium whole and internvl2-76b at full width with its depth
+    cut, as the main path serves them, with the cuts and their traffic."""
+    from repro_torch.configs.registry import get_config
+
+    vlm = get_config("internvl2-76b")
+    return [(get_config("musicgen-medium"), {}, SERVE_REQUESTS),
+            (dataclasses.replace(vlm, n_layers=INTERNVL_LAYERS),
+             {"n_layers": [vlm.n_layers, INTERNVL_LAYERS]}, SERVE_REQUESTS)]
+
+
+def capacity(flash_ops, paged_ops):
+    """The capacity-bound regime on the card: full-depth llama3.2-3b in bf16
+    serves ``SERVE_REQUESTS`` with 16 sequences at most on half the pool
+    that holds them all, once with naive and once with kv-aware admission,
+    the engine's sanitizer on. Beside each run, the port's ``SimRunner``
+    with H100 constants serves the same lengths behind the same
+    ``EngineConfig``. Every request arrives at t=0 and the scheduler reads
+    no clock, so the card and the sim must take the same steps and preempt
+    alike; naive admission must preempt and kv-aware must not. Returns the
+    kernels' launches of each card run."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import perf_model as pm
+    from repro_torch.core.engine import EngineConfig, InferenceEngine
+    from repro_torch.core.runner import SimRunner, TorchRunner
+    from repro_torch.launch.serve import make_requests, pages_to_hold
+    from repro_torch.models.transformer import Transformer
+
+    cfg = get_config("llama3.2-3b")
+    r = SERVE_REQUESTS
+    requests = make_requests(cfg.vocab, r["n"], r["isl"], r["osl"], r["seed"])
+    n_pages = pages_to_hold(requests) // 2
+    model = Transformer(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    launches, preempted = {}, {}
+    for admission in ("naive", "kv_aware"):
+        ecfg = EngineConfig(n_pages=n_pages, max_num_seqs=16,
+                            admission_mode=admission, sanitize=True)
+        runs = {}
+        for side in ("card", "sim"):
+            if side == "card":
+                eng = InferenceEngine(cfg, ecfg, TorchRunner(model, device="cuda"),
+                                      virtual_clock=False)
+                reqs = [eng.submit(p, n) for p, n in requests]
+                flash_ops.KERNEL.launches = 0
+                paged_ops.KERNEL.launches = 0
+            else:
+                eng = InferenceEngine(cfg, ecfg, SimRunner(
+                    cfg, pm.ParallelismPlan(), pm.H100))
+                reqs = [eng.submit(len(p), n) for p, n in requests]
+            t0 = time.perf_counter()
+            eng.run()
+            if side == "card":
+                torch.cuda.synchronize()
+                launches[admission] = {
+                    "flash_attention": flash_ops.KERNEL.launches,
+                    "paged_attention": paged_ops.KERNEL.launches}
+            wall = time.perf_counter() - t0
+            for (_, n), req in zip(requests, reqs):
+                if len(req.output) != n or req.t_finished is None:
+                    raise AssertionError(f"capacity/{admission}/{side}: request "
+                                         f"{req.rid} has {len(req.output)} of {n}")
+            s = eng.metrics.summary()
+            runs[side] = dict(
+                steps=len(eng.metrics.timeline), preemptions=s["preemptions"],
+                recomputed_tokens=s["recomputed_tokens"],
+                gen_tok_s=s["gen_throughput_tok_s"], ttft_p50_s=s["ttft_s"]["p50"],
+                tpot_mean_s=s["tpot_s"]["mean"], engine_s=s["duration_s"],
+                peak_kv_util=s["peak_kv_util"], host_wall_s=wall,
+                preempted_rids=[q.rid for q in reqs if q.n_preemptions])
+        card, sim = runs["card"], runs["sim"]
+        emit("capacity", model=cfg.name, layers=cfg.n_layers, dtype="bfloat16",
+             admission=admission, n_pages=n_pages,
+             pages_to_hold=pages_to_hold(requests), max_num_seqs=16,
+             sanitize=True, sim_hw=pm.H100.name, card=card, sim=sim,
+             tpot_measured_over_predicted=card["tpot_mean_s"] / sim["tpot_mean_s"],
+             launches=launches[admission])
+        for key in ("steps", "preemptions", "recomputed_tokens", "preempted_rids"):
+            if card[key] != sim[key]:
+                raise AssertionError(f"capacity/{admission}: card {key} "
+                                     f"{card[key]} differ from the sim's {sim[key]}")
+        if min(launches[admission].values()) == 0:
+            raise AssertionError(f"capacity/{admission}: a kernel was not on "
+                                 f"the path: {launches[admission]}")
+        preempted[admission] = card["preemptions"]
+    if preempted["naive"] < 1 or preempted["kv_aware"] != 0:
+        raise AssertionError(f"capacity: preemptions {preempted}; naive must "
+                             "preempt and kv-aware must not")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card (torch.cuda.is_available() "
@@ -899,10 +1104,11 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(1)
     timings = {"flash_attention": [time_flash(flash_ops, c, torch.bfloat16, gen)
                                    for c in RAGGED_FLASH[::-1] + MAIN_FLASH
-                                   + GQA_FLASH + ZAMBA_FLASH],
+                                   + GQA_FLASH + ZAMBA_FLASH + VLM_AUDIO_FLASH],
                "paged_attention": [time_paged(paged_ops, torch.bfloat16, gen, m)
                                    for m in (LONG_PAGED, MAIN_PAGED, *GQA_PAGED,
-                                             ZAMBA_PAGED)]}
+                                             ZAMBA_PAGED, MUSICGEN_PAGED,
+                                             INTERNVL_PAGED)]}
     # the kernels line takes K1 at S=2048 and K2 at llama3.2-3b's decode batch
     main_row = {"flash_attention": len(RAGGED_FLASH) + len(MAIN_FLASH) - 1,
                 "paged_attention": 1}
@@ -950,6 +1156,17 @@ def main():
             profile_main_path(model, traffic, decode_only=True)
         del model
         free_card()
+
+    emit("prefix_equality", **prefix_equality())
+    free_card()
+    for cfg, reduced, traffic in vlm_audio_configs():
+        by_model[cfg.name], model = main_path(flash_ops, paged_ops, cfg,
+                                              traffic, reduced)
+        del model
+        free_card()
+    for admission, n in capacity(flash_ops, paged_ops).items():
+        by_model[f"llama3.2-3b capacity {admission}"] = n
+    free_card()
 
     replaces = {
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:99",

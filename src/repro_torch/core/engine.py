@@ -41,6 +41,9 @@ class EngineConfig:
     # critical), and the pool fraction only top-urgency requests may use
     class_priorities: Dict[str, int] = dataclasses.field(default_factory=dict)
     class_kv_headroom: float = 0.0
+    # dynamic invariant checks (repro_torch.lint.sanitizer) after every step;
+    # read-only, so metrics stay bit-identical to the default path
+    sanitize: bool = False
 
 
 class InferenceEngine:
@@ -82,6 +85,10 @@ class InferenceEngine:
         self._steps = 0
         self.autotuner = ConcurrencyAutotuner(
             AutotunerConfig(enabled=ecfg.autotune), ecfg.max_num_seqs)
+        self._sanitizer = None
+        if ecfg.sanitize:
+            from repro_torch.lint.sanitizer import EngineSanitizer
+            self._sanitizer = EngineSanitizer(self)
 
     # ------------------------------------------------------------------ api
     def submit(self, prompt, max_new_tokens: int,
@@ -281,6 +288,8 @@ class InferenceEngine:
                 preemptions_total=self.sched.n_preemptions,
                 waiting=len(self.sched.waiting),
                 running=len(self.sched.running))
+        if self._sanitizer is not None:
+            self._sanitizer.check()
         return True
 
     def run(self, max_steps: int = 10 ** 7):

@@ -1,7 +1,14 @@
-"""``TorchRunner``: real execution of the port's ``Transformer`` behind the
-engine, the counterpart of ``repro.core.runner.JaxRunner``.
+"""Model runners behind the engine.
 
-The decode cache is paged pools in the model's dtype, of the shapes
+``SimRunner``   — advances a virtual clock with the analytical perf model
+                  (a copy of ``repro.core.runner.SimRunner``; H200 constants
+                  reproduce the paper's figures, v5e constants drive TPU
+                  planning, H100 constants predict the port's card).
+``TorchRunner`` — real execution of the port's ``Transformer``, the
+                  counterpart of ``repro.core.runner.JaxRunner``.
+
+The paged-accounting layer in the scheduler is identical in both modes.
+``TorchRunner``'s decode cache is paged pools in the model's dtype, of the shapes
 ``Transformer.pool_shapes`` gives: k and v ``(L, n_pages, page, KV, hd)``
 for GQA (L the shared block's groups in a hybrid), the latent
 ``ckv (L, n_pages, page, kv_rank)`` and the roped key
@@ -18,15 +25,64 @@ a resumed request recomputes its state from its prompt and output.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import perf_model as pm
 from repro_torch.core.kv_cache import PagedAllocator
 from repro_torch.core.request import Request
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import Transformer
+
+
+class SimRunner:
+    """Virtual-clock runner: returns iteration latencies, emits dummy tokens."""
+
+    def __init__(self, cfg: ModelConfig, plan: pm.ParallelismPlan,
+                 hw: pm.Hardware, dtype_bytes: int = 2):
+        self.cfg = cfg
+        self.plan = plan
+        self.hw = hw
+        self.dtype_bytes = dtype_bytes
+
+    def iteration_time(self, prefill_tokens: int, decode_reqs: List[Request]
+                       ) -> Tuple[float, Dict[str, float]]:
+        cfg, plan, hw = self.cfg, self.plan, self.hw
+        parts = {"compute": 0.0, "memory": 0.0, "comm": 0.0}
+        t = 0.0
+        if prefill_tokens:
+            p = pm.prefill_step_time(cfg, prefill_tokens, plan, hw,
+                                     self.dtype_bytes)
+            t += p["total"]
+            for k in parts:
+                parts[k] += p[k]
+        if decode_reqs:
+            mean_ctx = float(np.mean([r.context_len for r in decode_reqs]))
+            d = pm.decode_step_time(cfg, len(decode_reqs), mean_ctx, plan, hw,
+                                    self.dtype_bytes)
+            bubble = pm.pp_bubble_factor(cfg, plan, hw, len(decode_reqs),
+                                         mean_ctx, self.dtype_bytes)
+            t += d["total"] * bubble \
+                + pm.pp_transport_time(cfg, len(decode_reqs), plan, hw,
+                                       self.dtype_bytes)
+            for k in parts:
+                parts[k] += d[k]
+        return t, parts
+
+    def prefill(self, req: Request, chunk: int) -> int:
+        return 0   # dummy token id
+
+    def decode(self, reqs: List[Request]) -> List[int]:
+        return [0] * len(reqs)
+
+    def release(self, req: Request):
+        pass
+
+    def hbm_busy_fraction(self, parts: Dict[str, float], t: float) -> float:
+        return min(parts["memory"] / t, 1.0) if t > 0 else 0.0
 
 
 class TorchRunner:

@@ -1,5 +1,8 @@
 """Decoder of the serving path: the dense and MoE families of
-``repro.models.transformer`` in their serve layout at tp=1.
+``repro.models.transformer`` in their serve layout at tp=1, and the vlm and
+audio families, whose backbones are dense decoders that take their
+frontend's embeddings as a prefix of the prompt (``prefill``'s
+``prefix_embeds``).
 
 Parameters keep the JAX package's names and shapes, so weights move between
 the two unchanged (``repro_torch.models.bridge``): ``embed``, ``final_norm``
@@ -218,11 +221,12 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Spec]:
 
 
 def check_supported(cfg: ModelConfig):
-    """Raise unless the port can build ``cfg``: a dense or MoE decoder with
-    full, sliding-window or latent attention; a hybrid with an ssm config
-    and a full-attention shared block every ``attn_every`` layers; or an
-    ssm (xLSTM) stack with an sLSTM block every ``slstm_every``."""
-    if cfg.family in ("dense", "moe"):
+    """Raise unless the port can build ``cfg``: a dense, vlm, audio or MoE
+    decoder with full, sliding-window or latent attention; a hybrid with an
+    ssm config and a full-attention shared block every ``attn_every``
+    layers; or an ssm (xLSTM) stack with an sLSTM block every
+    ``slstm_every``."""
+    if cfg.family in ("dense", "vlm", "audio", "moe"):
         if cfg.attention in ("full", "swa", "mla"):
             return
         why = (f"attention {cfg.attention!r}: a {cfg.family} decoder needs "
@@ -405,17 +409,23 @@ class Transformer(nn.Module):
 
     # ------------------------------------------------------------ serving
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor
+    def prefill(self, tokens: torch.Tensor,
+                prefix_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]],
                            List[torch.Tensor]]:
-        """Run whole prompts from position 0. tokens (B,S). Returns the last
-        position's logits (B,V); each attention layer's decode cache:
-        (k, v) (B,S,KV,hd) for GQA (one per shared-block group in a
-        hybrid), (ckv, kpe) (B,S,kv_rank) and (B,S,rope) for MLA; and the
-        final recurrent state, one tensor for each buffer of
-        ``state_shapes`` with the batch in place of the slots."""
+        """Run whole prompts from position 0. tokens (B,S); prefix_embeds
+        (B,P,d), a vlm's patch or an audio model's frame embeddings, go
+        before the token embeddings in the model's dtype, so positions run
+        over P+S. Returns the last position's logits (B,V); each attention
+        layer's decode cache over all P+S tokens: (k, v) (B,P+S,KV,hd) for
+        GQA (one per shared-block group in a hybrid), (ckv, kpe)
+        (B,P+S,kv_rank) and (B,P+S,rope) for MLA; and the final recurrent
+        state, one tensor for each buffer of ``state_shapes`` with the
+        batch in place of the slots."""
         x = self.embed[tokens]
-        positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        positions = torch.arange(x.shape[1], device=tokens.device)[None]
         if self.cfg.family == "hybrid":
             x, caches, states = self._hybrid_prefill(x, positions)
         elif self.cfg.family == "ssm":

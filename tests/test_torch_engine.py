@@ -6,7 +6,8 @@ two cases of ``tests/test_engine.py``), for the smoke configs of each
 served family: llama3.2-3b, DeepSeek-R1 (MLA + MoE), phi3.5-moe, the R1
 Llama distill, qwen3-14b (qk-norm), h2o-danube-3-4b (sliding window 16;
 its prompts are longer than the window), kimi-k2 (GQA + MoE),
-llama3-405b, zamba2-2.7b (Mamba2 + shared attention) and xlstm-350m
+llama3-405b, internvl2-76b (vlm backbone), musicgen-medium (audio, MHA),
+zamba2-2.7b (Mamba2 + shared attention) and xlstm-350m
 (mLSTM + sLSTM, no attention); the recurrent families keep their state in
 the runner's slots, and a preempted request gives its slot back and
 recomputes its state when it resumes. Their MoE capacity factor is 8, so
@@ -41,7 +42,8 @@ CTX = single_device_ctx()
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 ARCHS = ["llama3.2-3b", "deepseek-r1-671b", "phi3.5-moe-42b-a6.6b",
          "ds-distill-8b", "qwen3-14b", "h2o-danube-3-4b", "kimi-k2-1t-a32b",
-         "llama3-405b", "zamba2-2.7b", "xlstm-350m"]
+         "llama3-405b", "internvl2-76b", "musicgen-medium", "zamba2-2.7b",
+         "xlstm-350m"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -194,7 +196,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import repro_torch, repro_torch.core.engine, "
             "repro_torch.core.runner, repro_torch.launch.serve, "
             "repro_torch.models.bridge, repro_torch.models.ssm, "
-            "repro_torch.models.xlstm\n"
+            "repro_torch.models.xlstm, repro_torch.core.perf_model, "
+            "repro_torch.core.planner, repro_torch.core.router, "
+            "repro_torch.cluster, repro_torch.cluster.policies, "
+            "repro_torch.cluster.view, repro_torch.cluster.worker, "
+            "repro_torch.data.reasoning, repro_torch.lint.sanitizer\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.'))\n"

@@ -49,6 +49,12 @@ FLASH_CASES = [
     (1, 1000, 1000, 32, 32, 80, 0, 0, 0),      # zamba2 prompt, G 1
     (2, 300, 300, 4, 2, 80, 0, 0, 0),          # G 2, lens (300, 150)
     (1, 333, 333, 4, 4, 80, 100, 0, 0, [250]),  # window, lens < Skv
+    # the vlm and audio backbones: musicgen-medium (MHA, 24 heads of 64)
+    # and internvl2-76b (64 / 8 heads of 128), the latter also at its 256
+    # prefix embeddings plus 200 text tokens
+    (1, 1000, 1000, 24, 24, 64, 0, 0, 0),      # musicgen prompt, G 1
+    (1, 1000, 1000, 64, 8, 128, 0, 0, 0),      # internvl2 prompt, G 8
+    (1, 456, 456, 64, 8, 128, 0, 0, 0),        # internvl2 prefix + text
 ]
 PAGED_CASES = [
     # B, KV, G, D, page, P, nblk[, tokens of each sequence[, window]]
@@ -82,6 +88,14 @@ PAGED_CASES = [
     (4, 32, 1, 80, 16, 512, 80, [1280, 256, 257, 17]),  # partition edges, G 1
     (3, 2, 2, 80, 16, 64, 40, [513, 40, 256]),        # G 2
     (2, 2, 1, 80, 16, 64, 40, [600, 300], 100),       # window, G 1
+    # musicgen-medium's decode (24 kv heads of 64, G 1) and internvl2-76b's
+    # (8 kv heads of 128, G 8), at the batch and contexts they serve
+    (16, 24, 1, 64, 16, 1400, 80, [1280, 128, 256, 257, 700, 1000, 17,
+                                   513, 900, 1100, 333, 640, 768, 1024,
+                                   200, 999]),
+    (16, 8, 8, 128, 16, 1400, 80, [1280, 128, 256, 257, 700, 1000, 17,
+                                   513, 900, 1100, 333, 640, 768, 1024,
+                                   200, 999]),
 ]
 DTYPES = {"float32": (torch.float32, 2e-3), "bfloat16": (torch.bfloat16, 2e-2)}
 REL_RMS = {"float32": 1e-3, "bfloat16": 1e-2}

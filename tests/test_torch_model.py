@@ -6,12 +6,15 @@ distill (dense GQA, untied head), qwen3-14b (qk-norm), h2o-danube-3-4b
 (sliding window 16 at smoke size; its prompts are longer than the window,
 so it binds in prefill and in paged decode), kimi-k2 (GQA, a dense then an
 MoE layer with a shared expert), llama3-405b (dense GQA, untied head),
-zamba2-2.7b (12 Mamba2 layers and two invocations of its shared attention
-block) and xlstm-350m (14 mLSTM and 2 sLSTM blocks, no attention).
-The configs equal the JAX package's, the bridge round-trips exactly, and
-prefill plus paged decode steps give the JAX logits (atol 1e-4, float32
-roundings of the same products) and, for the recurrent families, the JAX
-package's recurrent state."""
+internvl2-76b (vlm: a dense GQA backbone whose prefill takes patch
+embeddings as a prefix), musicgen-medium (audio: an MHA decoder over codec
+tokens), zamba2-2.7b (12 Mamba2 layers and two invocations of its shared
+attention block) and xlstm-350m (14 mLSTM and 2 sLSTM blocks, no
+attention). The registry holds the JAX package's models, the configs
+equal its configs, the bridge round-trips exactly, and prefill (with and
+without a prefix of embeddings) plus paged decode steps give the JAX
+logits (atol 1e-4, float32 roundings of the same products) and, for the
+recurrent families, the JAX package's recurrent state."""
 import dataclasses
 import math
 
@@ -21,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.registry import ALL_MODELS as JAX_MODELS
 from repro.configs.registry import get_config as jax_config
 from repro.configs.registry import get_smoke_config as jax_smoke_config
 from repro.models import transformer as T
@@ -34,7 +38,8 @@ CTX = single_device_ctx()
 ATOL = 1e-4
 ARCHS = ["llama3.2-3b", "deepseek-r1-671b", "phi3.5-moe-42b-a6.6b",
          "ds-distill-8b", "qwen3-14b", "h2o-danube-3-4b", "kimi-k2-1t-a32b",
-         "llama3-405b", "zamba2-2.7b", "xlstm-350m"]
+         "llama3-405b", "internvl2-76b", "musicgen-medium", "zamba2-2.7b",
+         "xlstm-350m"]
 
 
 # xlstm-350m's 16 blocks of exponentially gated recurrence amplify fp32
@@ -60,6 +65,10 @@ def jax_params(request):
     params = T.init_params(cfg, jax.random.PRNGKey(0), CTX, mode="serve",
                            dtype=jnp.float32)
     return request.param, cfg, jax.tree_util.tree_map(np.asarray, params)
+
+
+def test_registry_holds_every_jax_model():
+    assert list(ALL_MODELS) == list(JAX_MODELS)
 
 
 @pytest.mark.parametrize("arch", sorted(ALL_MODELS))
@@ -186,6 +195,58 @@ def test_prefill_and_paged_decode_match_jax(jax_params, seed):
     assert_states_match([buf[:, rows] for buf in bufs], jax_states(cfg, state))
 
 
+@pytest.mark.parametrize("arch", ["internvl2-76b", "musicgen-medium"])
+@pytest.mark.parametrize("n_prefix", [4, 0])
+def test_prefix_prefill_and_decode_match_jax(arch, n_prefix):
+    """A prefix of ``n_prefix`` embeddings (normal, at the embedding's
+    scale; 4 is what ``reduced`` keeps of internvl2's 256) before two
+    13-token prompts: the last logits match ``T.prefill(prefix_embeds=)``,
+    the caches cover the prefix and the prompt, and 8 paged decode steps
+    from position P+S match ``T.decode_step`` on the reference's
+    ``DecodeState`` (fp32, atol 1e-4)."""
+    jcfg = jax_smoke_config(arch)
+    cfg = get_smoke_config(arch)
+    params = jax.tree_util.tree_map(np.asarray, T.init_params(
+        jcfg, jax.random.PRNGKey(0), CTX, mode="serve", dtype=jnp.float32))
+    model = from_jax_params(params, cfg, device="cpu")
+    rng = np.random.default_rng(3)
+    B, S, n_steps, page = 2, 13, 8, 16
+    P = n_prefix
+    tokens = rng.integers(0, cfg.vocab, size=(B, S)).astype(np.int32)
+    prefix = (rng.standard_normal((B, P, cfg.d_model))
+              / math.sqrt(cfg.d_model)).astype(np.float32)
+
+    jlast, state = T.prefill(params, jnp.asarray(tokens), jcfg, CTX,
+                             prefix_embeds=jnp.asarray(prefix) if P else None,
+                             max_len=P + S + n_steps, cache_dtype=jnp.float32)
+    last, caches, _ = model.prefill(torch.from_numpy(tokens).long(),
+                                    torch.from_numpy(prefix) if P else None)
+    np.testing.assert_allclose(last.numpy(), np.asarray(jlast), rtol=0, atol=ATOL)
+    assert [tuple(k.shape) for k, _ in caches] \
+        == [(B, P + S, cfg.n_kv_heads, cfg.resolved_head_dim)] * cfg.n_layers
+
+    nblk = -(-(P + S + n_steps) // page)
+    n_pages = 3 * B * nblk
+    tables = rng.permutation(n_pages)[:B * nblk].reshape(B, nblk).astype(np.int32)
+    pools = [torch.zeros(s) for s in model.pool_shapes(n_pages, page)]
+    pos = np.arange(P + S)
+    for b in range(B):
+        pages = torch.from_numpy(tables[b, pos // page]).long()
+        slots = torch.from_numpy(pos % page)
+        for j, pool in enumerate(pools):
+            pool[:, pages, slots] = torch.stack([c[j] for c in caches])[:, b]
+    nxt = np.array(jnp.argmax(jlast, axis=-1), np.int32)
+    for i in range(n_steps):
+        jlogits, state = T.decode_step(params, state, jnp.asarray(nxt[:, None]),
+                                       jcfg, CTX)
+        logits = model.decode_step(
+            torch.from_numpy(nxt).long(), torch.full((B,), P + S + i),
+            pools, torch.from_numpy(tables))
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits[:, 0]),
+                                   rtol=0, atol=ATOL)
+        nxt = np.array(jnp.argmax(jlogits[:, 0], axis=-1), np.int32)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_xlstm_fp32_logits_near_a_float64_run(seed):
     """The basis of ``XLSTM_ATOL``: the prefill logits of the JAX package
@@ -207,10 +268,11 @@ def test_xlstm_fp32_logits_near_a_float64_run(seed):
         np.testing.assert_allclose(logits, ref, rtol=0, atol=XLSTM_ATOL)
 
 
-@pytest.mark.parametrize("change", [dict(family="audio"),
+@pytest.mark.parametrize("change", [dict(family="audio", attention="linear"),
                                     dict(attention="none"),
                                     dict(family="hybrid", attn_every=2),
-                                    dict(family="ssm"), dict(family="vlm")])
+                                    dict(family="ssm"),
+                                    dict(family="vlm", attention="none")])
 def test_check_supported_refuses_unported_kinds(change):
     cfg = dataclasses.replace(get_smoke_config("llama3.2-3b"), **change)
     with pytest.raises(NotImplementedError):
