@@ -73,7 +73,22 @@ Phases, each printed as one JSON line:
      ``SimRunner`` on H100 constants for the same requests and engine
      config: the same steps and preemptions on both sides, naive
      preempting and kv-aware not, and the measured TPOT over the sim's;
- 11. the ``kernels`` line (launches summed over every main path, and by
+ 11. training, through the autograd forward that launches neither kernel
+     (as the reference trains through its jnp attention; each phase
+     prints the kernels' launches over its run, which must be 0):
+     ``train_equality``, three AdamW steps of llama3.2-3b at full width
+     (2 layers, fp32, B 2 x S 64) on the card and on a CPU copy filled
+     from the card's initial weights, each step's loss and grad norm and
+     the parameters after step 3 held to each other; ``train_main_path``,
+     ``repro_torch.launch.train.train`` on full-depth llama3.2-3b (fp32
+     weights and AdamW state, B 8 x S 128, 6 steps): per-step loss and
+     grad norm, the median step time of steps 2-6, tokens/s, the step's
+     FLOPs and its bound at the fp32 peak, and the peak memory beside the
+     51.4 GB of weights, gradients and moments; ``train_small``, 60 steps
+     of the example's 54.5M-parameter model, its loss falling, then steps
+     51-60 again from its step-50 checkpoint in a fresh model and
+     optimizer, each loss held to the uninterrupted run's;
+ 12. the ``kernels`` line (launches summed over every main path, and by
      model), then the card line, then as the last line
      ``{"ok": true, "device": {...}}``.
 Each line's ``t_s`` is the seconds since the script started. Any
@@ -235,6 +250,30 @@ INTERNVL_LAYERS = 24
 PREFIX_LAYERS = 2
 PREFIX_DECODE_STEPS = 8
 PREFIX_ATOL = 1e-3
+# train_equality: llama3.2-3b at full width and 2 layers in fp32, 3 AdamW
+# steps (lr 1e-3, warmup 2) at B 2 x S 64 on the card and on the CPU. The
+# same fp32 products summed in another order: losses within TRAIN_LOSS_RTOL,
+# grad norms within TRAIN_GNORM_RTOL; after step 3 every parameter within
+# TRAIN_PARAM_ATOL (a step moves one by about lr, rounding that by about
+# 1e-7) but for at most TRAIN_FLIP_SHARE of them, each within 4 lr: an
+# element whose first moment sits within rounding of zero takes its Adam
+# step in either direction (tests/test_torch_train.py counts them on the CPU)
+TRAIN_EQ = dict(layers=2, batch=2, seq=64, steps=3, lr=1e-3, warmup=2)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GNORM_RTOL = 1e-4
+TRAIN_PARAM_ATOL = 1e-5
+TRAIN_FLIP_SHARE = 1e-4
+# train_main_path: the reference launcher's defaults (B 8 x S 128, fp32
+# weights and AdamW state) on full-depth llama3.2-3b, 6 steps; the median
+# is over steps 2-6
+TRAIN_MAIN = dict(batch=8, seq=128, steps=6)
+# train_small: the example's 60 steps, resumed from its step-50 checkpoint;
+# each resumed loss within TRAIN_RESUME_RTOL of the uninterrupted run's (the
+# same kernels on bitwise the same state and batches; under
+# torch.use_deterministic_algorithms the embedding's backward sorts instead
+# of adding atomically, so the losses are expected to be equal)
+TRAIN_SMALL = dict(steps=60, resume_from=50)
+TRAIN_RESUME_RTOL = 1e-6
 
 
 def emit(phase: str, **kw):
@@ -559,6 +598,18 @@ def decode_weight_bytes(model) -> int:
                if name != "embed" or model.cfg.tie_embeddings)
 
 
+def _zero_launches(*ops):
+    """Set each kernel's launch count to 0."""
+    for o in ops:
+        o.KERNEL.launches = 0
+
+
+def _launches(flash_ops, paged_ops):
+    """Each kernel's launches since its count was set to 0."""
+    return {"flash_attention": flash_ops.KERNEL.launches,
+            "paged_attention": paged_ops.KERNEL.launches}
+
+
 def main_path(flash_ops, paged_ops, cfg=None, traffic=SERVE_REQUESTS,
               reduced=None):
     """Serve ``traffic`` on ``cfg`` (default: full-depth llama3.2-3b) in
@@ -573,15 +624,13 @@ def main_path(flash_ops, paged_ops, cfg=None, traffic=SERVE_REQUESTS,
     r = traffic
     requests = make_requests(cfg.vocab, r["n"], r["isl"], r["osl"], r["seed"])
     torch.cuda.reset_peak_memory_stats()
-    flash_ops.KERNEL.launches = 0
-    paged_ops.KERNEL.launches = 0
+    _zero_launches(flash_ops, paged_ops)
     t0 = time.perf_counter()
     eng, reqs = serve(cfg, requests, device="cuda", dtype=torch.bfloat16,
                       seed=0, max_num_seqs=16)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": flash_ops.KERNEL.launches,
-                "paged_attention": paged_ops.KERNEL.launches}
+    launches = _launches(flash_ops, paged_ops)
     for (prompt, n), req in zip(requests, reqs):
         if len(req.output) != n or req.t_finished is None:
             raise AssertionError(f"request {req.rid}: {len(req.output)} of {n} tokens")
@@ -1030,8 +1079,7 @@ def capacity(flash_ops, paged_ops):
                 eng = InferenceEngine(cfg, ecfg, TorchRunner(model, device="cuda"),
                                       virtual_clock=False)
                 reqs = [eng.submit(p, n) for p, n in requests]
-                flash_ops.KERNEL.launches = 0
-                paged_ops.KERNEL.launches = 0
+                _zero_launches(flash_ops, paged_ops)
             else:
                 eng = InferenceEngine(cfg, ecfg, SimRunner(
                     cfg, pm.ParallelismPlan(), pm.H100))
@@ -1040,9 +1088,7 @@ def capacity(flash_ops, paged_ops):
             eng.run()
             if side == "card":
                 torch.cuda.synchronize()
-                launches[admission] = {
-                    "flash_attention": flash_ops.KERNEL.launches,
-                    "paged_attention": paged_ops.KERNEL.launches}
+                launches[admission] = _launches(flash_ops, paged_ops)
             wall = time.perf_counter() - t0
             for (_, n), req in zip(requests, reqs):
                 if len(req.output) != n or req.t_finished is None:
@@ -1075,6 +1121,176 @@ def capacity(flash_ops, paged_ops):
         raise AssertionError(f"capacity: preemptions {preempted}; naive must "
                              "preempt and kv-aware must not")
     return launches
+
+
+def train_equality(flash_ops, paged_ops):
+    """Three ``make_train_step`` steps of llama3.2-3b at full width and
+    ``TRAIN_EQ["layers"]`` layers in fp32 (TF32 off) on the card and on a
+    CPU copy filled from the card's initial weights, on the same batches.
+    Raises beyond the tolerances above; returns both sides' losses and
+    grad norms, the parameters' largest difference after the last step
+    and the count beyond ``TRAIN_PARAM_ATOL``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    e = TRAIN_EQ
+    full = get_config("llama3.2-3b")
+    cfg = dataclasses.replace(full, n_layers=e["layers"])
+    card = Transformer(cfg, device="cuda", dtype=torch.float32, seed=3,
+                       layout="train")
+    host = Transformer(cfg, device="cpu", dtype=torch.float32, seed=None,
+                       layout="train")
+    on_card = dict(card.named_parameters())
+    with torch.no_grad():
+        for name, p in host.named_parameters():
+            p.copy_(on_card[name])
+    ocfg = AdamWConfig(lr=e["lr"], warmup_steps=e["warmup"])
+    batches = [synthetic_batch(i, e["batch"], e["seq"], cfg.vocab, device="cpu")
+               for i in range(e["steps"])]
+    sides = {}
+    _zero_launches(flash_ops, paged_ops)
+    for dev, model in (("cuda", card), ("cpu", host)):
+        state = init_opt_state(model.param_tree(), ocfg)
+        step = make_train_step(model, ocfg)
+        t0 = time.perf_counter()
+        runs = [step(state, {k: v.to(dev) for k, v in b.items()})
+                for b in batches]
+        sides[dev] = dict(loss=[float(m["loss"]) for m in runs],
+                          grad_norm=[float(m["grad_norm"]) for m in runs],
+                          seconds=time.perf_counter() - t0)
+    launches = _launches(flash_ops, paged_ops)
+    max_diff, n_off, n = 0.0, 0, 0
+    on_card = dict(card.named_parameters())
+    for name, p in host.named_parameters():
+        d = (on_card[name].detach().cpu() - p.detach()).abs()
+        max_diff = max(max_diff, float(d.max()))
+        n_off += int((d > TRAIN_PARAM_ATOL).sum())
+        n += d.numel()
+    result = dict(model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+                  dtype="float32", tf32=torch.backends.cuda.matmul.allow_tf32,
+                  reduced={"n_layers": [full.n_layers, e["layers"]]},
+                  batch=e["batch"], seq=e["seq"], lr=e["lr"],
+                  warmup_steps=e["warmup"], params=n, card=sides["cuda"],
+                  cpu=sides["cpu"], max_param_diff=max_diff,
+                  params_beyond_atol=n_off, param_atol=TRAIN_PARAM_ATOL,
+                  loss_rtol=TRAIN_LOSS_RTOL, grad_norm_rtol=TRAIN_GNORM_RTOL,
+                  launches=launches)
+    emit("train_equality", **result)
+    for key, rtol in (("loss", TRAIN_LOSS_RTOL), ("grad_norm", TRAIN_GNORM_RTOL)):
+        for i, (a, b) in enumerate(zip(sides["cuda"][key], sides["cpu"][key])):
+            if not (np.isfinite(a) and abs(a - b) <= rtol * abs(b)):
+                raise AssertionError(f"train_equality: step {i + 1} {key} "
+                                     f"card {a} cpu {b} (rtol {rtol})")
+    if n_off > TRAIN_FLIP_SHARE * n or max_diff > 4 * e["lr"]:
+        raise AssertionError(f"train_equality: {n_off} of {n} parameters "
+                             f"beyond {TRAIN_PARAM_ATOL}, largest {max_diff}")
+    if max(launches.values()):
+        raise AssertionError(f"train_equality launched a kernel: {launches}")
+    return result
+
+
+def train_main_path(flash_ops, paged_ops):
+    """``launch.train.train`` on full-depth llama3.2-3b, fp32 weights and
+    AdamW state, from seeded weights. Raises on a non-finite loss or grad
+    norm, on a parameter leaf whose first moment stayed zero, or a final
+    norm (initialised to ones) that did not move."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.train.tree import flatten_with_path
+
+    cfg = get_config("llama3.2-3b")
+    t = TRAIN_MAIN
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches(flash_ops, paged_ops)
+    t0 = time.perf_counter()
+    out = train(cfg, steps=t["steps"], batch=t["batch"], seq=t["seq"],
+                device="cuda")
+    wall = time.perf_counter() - t0
+    launches = _launches(flash_ops, paged_ops)
+    peak = torch.cuda.max_memory_allocated()
+    model, hist = out["model"], out["history"]
+    n = sum(p.numel() for p in model.parameters())
+    tokens = t["batch"] * t["seq"]
+    # causal attention's two products over the pairs a position sees, in
+    # the forward and twice in the backward
+    pairs = t["batch"] * t["seq"] * (t["seq"] + 1) // 2
+    attn_flops = 3 * 2 * 2 * cfg.n_layers * cfg.n_heads * cfg.resolved_head_dim * pairs
+    flops = 6 * n * tokens + attn_flops
+    median_s = float(np.median([h["seconds"] for h in hist[1:]]))
+    bound_s = flops / PEAK_FLOPS[torch.float32]
+    state_bytes = 4 * n * 4         # fp32 params, grads, m and v
+    emit("train_main_path", model=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, dtype="float32", state_dtype="float32",
+         tf32=torch.backends.cuda.matmul.allow_tf32, reduced={},
+         params=n, batch=t["batch"], seq=t["seq"], steps=len(hist),
+         loss=[h["loss"] for h in hist], grad_norm=[h["grad_norm"] for h in hist],
+         lr=[h["lr"] for h in hist], step_s=[h["seconds"] for h in hist],
+         median_step_s_2_to_6=median_s, tok_s=tokens / median_s,
+         step_flops=flops, step_flops_6nt=6 * n * tokens,
+         step_flops_attention=attn_flops, bound_s_fp32=bound_s,
+         bound_share=bound_s / median_s, max_memory_allocated=peak,
+         params_grads_moments_bytes=state_bytes,
+         wall_s_with_weight_init=wall, launches=launches)
+    if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist):
+        raise AssertionError("train_main_path: non-finite loss or grad norm")
+    still = [path for path, m in flatten_with_path(out["opt_state"]["m"])
+             if not bool(m.any())]
+    if still or bool((model.final_norm == 1).all()):
+        raise AssertionError(f"train_main_path: parameters did not move: "
+                             f"{still or ['final_norm']}")
+    if max(launches.values()):
+        raise AssertionError(f"train_main_path launched a kernel: {launches}")
+
+
+def train_small(flash_ops, paged_ops):
+    """The example's model for ``TRAIN_SMALL["steps"]`` steps, then again
+    from its checkpoint of step ``resume_from`` in a fresh model and
+    optimizer, under ``torch.use_deterministic_algorithms``. The loss must
+    fall, and each resumed step's loss equal the uninterrupted run's within
+    ``TRAIN_RESUME_RTOL``."""
+    import shutil
+    import tempfile
+
+    from repro_torch.examples.train_small import CFG_100M, run
+
+    t = TRAIN_SMALL
+    ckpt_dir = tempfile.mkdtemp(prefix="train_small_")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    _zero_launches(flash_ops, paged_ops)
+    try:
+        t0 = time.perf_counter()
+        whole = run(steps=t["steps"], ckpt_dir=ckpt_dir, device="cuda")
+        t1 = time.perf_counter()
+        resumed = run(steps=t["steps"], ckpt_dir=ckpt_dir, device="cuda",
+                      resume_from=t["resume_from"])
+        t2 = time.perf_counter()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    launches = _launches(flash_ops, paged_ops)
+    diffs = [abs(resumed[s] - whole[s]) / abs(whole[s]) for s in resumed]
+    emit("train_small", model=CFG_100M.name, param_count=CFG_100M.param_count(),
+         steps=t["steps"], resume_from=t["resume_from"],
+         loss_first=whole[1], loss_last=whole[t["steps"]],
+         loss_by_20=[whole[s] for s in range(20, t["steps"] + 1, 20)],
+         resumed_steps=sorted(resumed), resumed_loss=[resumed[s] for s in sorted(resumed)],
+         uninterrupted_loss=[whole[s] for s in sorted(resumed)],
+         resume_max_rel_diff=max(diffs),
+         resume_bitwise_equal=all(resumed[s] == whole[s] for s in resumed),
+         resume_rtol=TRAIN_RESUME_RTOL, seconds=t1 - t0,
+         resumed_seconds=t2 - t1, launches=launches)
+    if not whole[t["steps"]] < whole[1]:
+        raise AssertionError(f"train_small: loss {whole[1]} -> "
+                             f"{whole[t['steps']]} did not fall")
+    if sorted(resumed) != list(range(t["resume_from"] + 1, t["steps"] + 1)) \
+            or max(diffs) > TRAIN_RESUME_RTOL:
+        raise AssertionError(f"train_small: resumed losses {resumed} differ "
+                             f"from the uninterrupted run's")
+    if max(launches.values()):
+        raise AssertionError(f"train_small launched a kernel: {launches}")
 
 
 def main():
@@ -1166,6 +1382,13 @@ def main():
         free_card()
     for admission, n in capacity(flash_ops, paged_ops).items():
         by_model[f"llama3.2-3b capacity {admission}"] = n
+    free_card()
+
+    train_equality(flash_ops, paged_ops)
+    free_card()
+    train_main_path(flash_ops, paged_ops)
+    free_card()
+    train_small(flash_ops, paged_ops)
     free_card()
 
     replaces = {

@@ -6,7 +6,10 @@ prompt, with absolute ``q_positions`` and an exclusive valid kv length.
 ``lens`` is the inclusive index of the newest token.
 
 These two are the functions the CUDA kernels (``repro_torch.kernels``) are
-held against; the model calls the kernels' wrappers, never these.
+held against. Serving (``prefill``, ``decode_step``) calls the kernels'
+wrappers; the full-sequence ``Transformer.forward`` of training calls
+``flash_prefill`` under autograd, as the reference's train mode calls its
+jnp ``flash_prefill`` and neither Pallas kernel, which have no backward.
 
 ``mla_*`` — Multi-Head Latent Attention (DeepSeek-R1): prefill, the
 *absorbed* decode whose cache is the (kv_rank + rope) latent of each token,

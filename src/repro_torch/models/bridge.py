@@ -1,8 +1,11 @@
-"""Weights between the JAX package's serve parameters and the port's model.
+"""Weights between the JAX package's parameters and the port's model.
 
 The JAX side is a nested dict of arrays, as
 ``repro.models.transformer.init_params(cfg, key, single_device_ctx(),
-mode="serve")`` returns it (any array type ``numpy.asarray`` accepts).
+mode=...)`` returns it (any array type ``numpy.asarray`` accepts). On one
+device the serve and train modes give the same names, shapes and arrays;
+the layout is the model's (``Transformer(layout=)``), which decides only
+how its GQA groups q heads.
 ``from_jax_params`` copies it into a ``Transformer``; ``to_jax_params``
 gives it back as numpy. ``numpy_params`` makes such a dict from a numpy
 seed, with the JAX package's layout and scales, where no JAX is at hand.
@@ -42,8 +45,10 @@ def _nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
 
 
 def from_jax_params(params: Mapping, cfg: ModelConfig, *, device="cuda",
-                    dtype: torch.dtype = torch.float32) -> Transformer:
-    """A ``Transformer`` holding ``params``, cast to ``dtype``."""
+                    dtype: torch.dtype = torch.float32,
+                    layout: str = "serve") -> Transformer:
+    """A ``Transformer`` in ``layout`` holding ``params``, cast to
+    ``dtype``."""
     flat = {k: np.asarray(v) for k, v in _flatten(params).items()}
     specs = param_specs(cfg)
     if set(flat) != set(specs):
@@ -53,7 +58,8 @@ def from_jax_params(params: Mapping, cfg: ModelConfig, *, device="cuda",
     for name, (shape, _, _) in specs.items():
         if flat[name].shape != shape:
             raise ValueError(f"{name}: shape {flat[name].shape}, want {shape}")
-    model = Transformer(cfg, device=device, dtype=dtype, seed=None)
+    model = Transformer(cfg, device=device, dtype=dtype, seed=None,
+                        layout=layout)
     with torch.no_grad():
         for name, p in model.named_parameters():
             p.copy_(torch.from_numpy(np.require(flat[name], requirements="CW")))
@@ -72,7 +78,7 @@ def to_jax_params(model: Transformer) -> Dict[str, Any]:
 
 def numpy_params(cfg: ModelConfig, seed: int,
                  dtype=np.float32) -> Dict[str, Any]:
-    """Serve parameters drawn from ``numpy.random.default_rng(seed)``:
+    """Parameters (of either layout) drawn from ``numpy.random.default_rng(seed)``:
     normal with std 1/sqrt(fan_in), norms ones, the Mamba2 ``A_log`` and
     ``dt_bias`` zeros, in the JAX layout."""
     rng = np.random.default_rng(seed)

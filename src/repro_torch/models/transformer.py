@@ -31,6 +31,16 @@ cache; the attention goes through the same two kernels. The ssm family
 state lives in slot buffers of ``state_shapes``; prefill returns each
 layer's final state from its own pass, and a decode step reads and writes
 the batch's rows of the buffers.
+
+A model is built in one of the reference's two layouts. At tp=1 their
+parameters are the same arrays; they differ in how GQA groups q heads. The
+``serve`` layout is kv-major (above) and is the only one ``prefill`` and
+``decode_step`` take. The ``train`` layout is g-major, as the reference's
+``_flash_gqa`` groups them in ``mode="train"``: q head ``j*KV + k`` reads kv
+head ``k``. ``forward`` runs whole sequences under autograd in either
+layout, through the plain ``flash_prefill``, ``mla_prefill``,
+``mamba2_forward`` and the xLSTM forwards, never the kernels, and
+``loss_fn`` is the reference's training loss over it.
 """
 from __future__ import annotations
 
@@ -45,9 +55,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
-from repro_torch.models.attention import (mla_decode_paged, mla_latents,
-                                          mla_prefill)
-from repro_torch.models.common import rmsnorm, rope
+from repro_torch.models.attention import (flash_prefill, mla_decode_paged,
+                                          mla_latents, mla_prefill)
+from repro_torch.models.common import rmsnorm, rope, softmax_xent
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import (init_mamba_state, mamba2_decode,
                                     mamba2_forward)
@@ -61,6 +71,7 @@ from repro_torch.models.xlstm import (_mlstm_dims, init_mlstm_state,
 Spec = Tuple[Tuple[int, ...], str, int]
 # the most elements one fp32 draw of ``init_weights`` holds (256 MiB)
 INIT_CHUNK = 1 << 26
+LAYOUTS = ("serve", "train")
 
 
 def _attn_specs(cfg: ModelConfig) -> Dict[str, Spec]:
@@ -249,14 +260,19 @@ def check_supported(cfg: ModelConfig):
 
 class Transformer(nn.Module):
     """``seed`` fills the weights on the device from a ``torch.Generator``;
-    ``seed=None`` leaves them uninitialised for a caller that loads them."""
+    ``seed=None`` leaves them uninitialised for a caller that loads them.
+    ``layout`` is ``"serve"`` or ``"train"`` (the module docstring)."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
-                 dtype: torch.dtype = torch.bfloat16, seed: Optional[int] = 0):
+                 dtype: torch.dtype = torch.bfloat16, seed: Optional[int] = 0,
+                 layout: str = "serve"):
         super().__init__()
         check_supported(cfg)
+        if layout not in LAYOUTS:
+            raise ValueError(f"layout {layout!r} is not one of {LAYOUTS}")
         dev = resolve_device(device)
         self.cfg = cfg
+        self.layout = layout
         self.specs = param_specs(cfg)
         self.mla = cfg.attention == "mla"
         self.window = cfg.swa_window if cfg.attention == "swa" else 0
@@ -287,6 +303,15 @@ class Transformer(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return self.embed.dtype
+
+    def param_tree(self) -> Dict[str, object]:
+        """The parameters nested as the JAX package's params: a stack's
+        under its name, the rest at the top."""
+        tree: Dict[str, object] = {}
+        for name, p in self.named_parameters():
+            stack, _, leaf = name.rpartition(".")
+            (tree.setdefault(stack, {}) if stack else tree)[leaf] = p
+        return tree
 
     @torch.no_grad()
     def init_weights(self, seed: int):
@@ -407,6 +432,79 @@ class Transformer(nn.Module):
                             block_tables, lens, window=self.window)
         return self._mlp(self._out(x, o.view(B, 1, cfg.n_heads, -1), p), p)
 
+    # ------------------------------------------------------------ training
+    def _unstacked(self, stack: str) -> List[Dict[str, torch.Tensor]]:
+        """Each layer's parameters of a stack, in the order the layers run,
+        as views cut by one ``unbind``: its backward writes the stack's
+        gradient once, where indexing layer by layer would write a
+        stack-sized gradient for every layer."""
+        depth = len(stack_depths(self.cfg)[stack])
+        cols = {k: v.flatten(0, depth - 1).unbind(0)
+                for k, v in getattr(self, stack).items()}
+        n = len(next(iter(cols.values()))) if cols else 0
+        return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+    def _attend(self, q, k, v, positions):
+        """Plain causal attention of whole sequences in this layout's
+        grouping of q heads; the train layout's (g-major) is regrouped
+        kv-major around ``flash_prefill``, as the reference's
+        ``_flash_gqa`` does."""
+        B, S, H, hd = q.shape
+        KV = k.shape[2]
+        if self.layout == "serve" or KV == 1:
+            return flash_prefill(q, k, v, q_positions=positions,
+                                 window=self.window)
+        g = H // KV
+        q = q.reshape(B, S, g, KV, hd).transpose(2, 3).reshape(B, S, H, hd)
+        o = flash_prefill(q, k, v, q_positions=positions, window=self.window)
+        return o.reshape(B, S, KV, g, hd).transpose(2, 3).reshape(B, S, H, hd)
+
+    def _gqa_layer(self, x, p, positions):
+        q, k, v = self._qkv(x, p, positions)
+        return self._mlp(self._out(x, self._attend(q, k, v, positions), p), p)
+
+    def forward(self, tokens: torch.Tensor,
+                prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Logits (B,P+S,V) at every position of whole sequences run from
+        position 0, under autograd: tokens (B,S), prefix_embeds (B,P,d) put
+        before them as in ``prefill``. The reference's
+        ``forward(mode=layout)``; it launches neither kernel."""
+        cfg = self.cfg
+        x = self.embed[tokens]
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        positions = torch.arange(x.shape[1], device=x.device)[None]
+        if cfg.family == "hybrid":
+            shared = dict(self.shared_attn)
+            mamba = self._unstacked("mamba_stack")
+            for g in range(cfg.n_layers // cfg.attn_every):
+                x = self._gqa_layer(x, shared, positions)
+                for p in mamba[g * cfg.attn_every:(g + 1) * cfg.attn_every]:
+                    x = x + mamba2_forward(x, p, cfg)[0]
+        elif cfg.family == "ssm":
+            (G, per), _ = stack_depths(cfg).values()
+            mlstm = self._unstacked("mlstm_stack")
+            for g, p_s in enumerate(self._unstacked("slstm_stack")):
+                for p in mlstm[g * per:(g + 1) * per]:
+                    x = mlstm_forward(x, p, cfg)[0]
+                x = slstm_forward(x, p_s, cfg)[0]
+        else:
+            for stack in stack_depths(cfg):
+                for p in self._unstacked(stack):
+                    if self.mla:
+                        y, _ = mla_prefill(
+                            rmsnorm(x, p["attn_norm"], cfg.norm_eps), p, cfg,
+                            positions)
+                        x = self._mlp(x + y, p)
+                    else:
+                        x = self._gqa_layer(x, p, positions)
+        return self._head(x)
+
+    def _serve_layout(self):
+        if self.layout != "serve":
+            raise ValueError("prefill and decode_step take a serve-layout "
+                             "model; this one has the train layout")
+
     # ------------------------------------------------------------ serving
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor,
@@ -422,6 +520,7 @@ class Transformer(nn.Module):
         (B,P+S,kv_rank) and (B,P+S,rope) for MLA; and the final recurrent
         state, one tensor for each buffer of ``state_shapes`` with the
         batch in place of the slots."""
+        self._serve_layout()
         x = self.embed[tokens]
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
@@ -490,6 +589,7 @@ class Transformer(nn.Module):
         sequence's slot in them. Writes the new token's cache entries into
         the pools and the new states into the slots, in place; returns
         logits (B,V)."""
+        self._serve_layout()
         cfg = self.cfg
         pos = positions.long()
         x = self.embed[tokens][:, None]
@@ -551,3 +651,21 @@ class Transformer(nn.Module):
             for buf, t in zip(sst, new):
                 buf[g].index_copy_(0, rows, t)
         return x
+
+
+def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The reference's training loss: ``softmax_xent`` of
+    ``model(batch["tokens"], batch.get("prefix_embeds"))`` against
+    ``batch["labels"]`` (B,S), under ``batch.get("mask")``. With a prefix
+    the P prefix positions take label 0 and are masked out."""
+    logits = model(batch["tokens"], batch.get("prefix_embeds"))
+    labels = batch["labels"]
+    pad = logits.shape[1] - labels.shape[1]
+    if pad:
+        B, S = labels.shape
+        labels = F.pad(labels, (pad, 0))
+        mask = torch.cat([torch.zeros((B, pad), device=labels.device),
+                          torch.ones((B, S), device=labels.device)], dim=1)
+    else:
+        mask = batch.get("mask")
+    return softmax_xent(logits, labels, mask)

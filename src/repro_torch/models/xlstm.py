@@ -47,7 +47,7 @@ def mlstm_forward(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg, *,
     if initial_state is None:
         C, n, m, _ = init_mlstm_state(cfg, B, x.dtype, x.device)
     else:
-        C, n, m = (s.clone() for s in initial_state[:3])
+        C, n, m = initial_state[:3]
     hs = []
     for t in range(S):
         qt, kt, vt, it = q[:, t], k[:, t], v[:, t], ig[:, t]
@@ -55,8 +55,9 @@ def mlstm_forward(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg, *,
         m_new = torch.maximum(lm, it)
         fp = torch.exp(lm - m_new)
         ip = torch.exp(it - m_new)
+        # out of place: autograd keeps each step's C for the backward
         outer = vt[..., :, None] * kt[..., None, :]
-        C.mul_(fp[..., None, None]).add_(outer.mul_(ip[..., None, None]))
+        C = fp[..., None, None] * C + ip[..., None, None] * outer
         n = fp[..., None] * n + ip[..., None] * kt
         num = torch.einsum("bhvk,bhk->bhv", C, qt)
         den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", n, qt)),

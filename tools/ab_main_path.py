@@ -3,7 +3,7 @@
 
     git archive <parent> | tar -x -C build/ab_parent
     python3 tools/ab_main_path.py --tree parent=build/ab_parent --tree change=. \
-        --order parent,change,change,parent,parent,change
+        --order parent,change,change,parent,parent,change [--arch xlstm-350m]
 
 Each run is a process of its own that imports ``repro_torch`` from one
 checkout's ``src`` (its kernels build there) and prints, as JSON lines:
@@ -12,7 +12,9 @@ the attention wrappers' times at the main path's shapes (``timing``: eager
 host's time per wrapper call ``host_ms``, as ``chip_smoke.py`` times
 them), then the main path's end-to-end metrics (``main_path``:
 full-depth llama3.2-3b in bf16 serving 16 requests, as ``chip_smoke.py``
-phase 5 serves them). Runs alternate between the checkouts in the order
+phase 5 serves them; ``--arch`` serves another registry model instead,
+xlstm-350m with ``XLSTM_REQUESTS`` as ``chip_smoke.py`` does, any other
+with ``SERVE_REQUESTS``). Runs alternate between the checkouts in the order
 given so that a drift of the shared host falls on both. The last line
 gives each checkout's values of every run side by side. All lines also
 go to ``chiprun_out/ab_main_path.jsonl``.
@@ -34,7 +36,7 @@ SUMMARY_TIMING = ("ms", "device_ms", "host_ms")
 SUMMARY_MAIN = ("gen_tok_s", "ttft_p50_s", "tpot_mean_s", "max_memory_allocated")
 
 
-def run_one(tree: Path):
+def run_one(tree: Path, arch: str):
     """One run against the checkout at ``tree``, in this process."""
     sys.path.insert(0, str(ROOT))
     import torch
@@ -59,7 +61,9 @@ def run_one(tree: Path):
     for m in (cs.MAIN_PAGED, cs.LONG_PAGED):
         cs.emit("timing", kernel="paged_attention",
                 **cs.time_paged(paged_ops, torch.bfloat16, gen, m))
-    cs.main_path(flash_ops, paged_ops)
+    from repro_torch.configs.registry import get_config
+    traffic = cs.XLSTM_REQUESTS if arch == "xlstm-350m" else cs.SERVE_REQUESTS
+    cs.main_path(flash_ops, paged_ops, get_config(arch), traffic)
 
 
 def main():
@@ -69,9 +73,10 @@ def main():
     ap.add_argument("--order", help="comma-separated labels, one per run")
     ap.add_argument("--run", help="run once against this checkout")
     ap.add_argument("--timeout", type=float, default=600.0)
+    ap.add_argument("--arch", default="llama3.2-3b")
     args = ap.parse_args()
     if args.run:
-        return run_one(Path(args.run))
+        return run_one(Path(args.run), args.arch)
 
     trees = dict(t.split("=", 1) for t in args.tree)
     order = args.order.split(",")
@@ -80,7 +85,8 @@ def main():
     with OUT.open("w") as log:
         for i, label in enumerate(order):
             proc = subprocess.run(
-                [sys.executable, __file__, "--run", trees[label]],
+                [sys.executable, __file__, "--run", trees[label], "--arch",
+                 args.arch],
                 cwd=ROOT, capture_output=True, text=True, timeout=args.timeout)
             if proc.returncode != 0:
                 sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-8000:])
