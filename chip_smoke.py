@@ -88,8 +88,22 @@ Phases, each printed as one JSON line:
      of the example's 54.5M-parameter model, its loss falling, then steps
      51-60 again from its step-50 checkpoint in a fresh model and
      optimizer, each loss held to the uninterrupted run's;
- 12. the ``kernels`` line (launches summed over every main path, and by
-     model), then the card line, then as the last line
+ 12. multi-device serving, two ranks spawned on the card on a (data 1,
+     model 2) mesh over gloo (NCCL refuses two ranks on one device):
+     ``sharded_equality``, greedy tokens of llama3.2-3b and DeepSeek-R1 at
+     full width (2 layers, fp32; R1 with 16 experts and no capacity drops)
+     through the sharded runner equal those of a tp=1 model seeded alike
+     on the card, under forced preemption; ``sharded_main_path``,
+     full-depth llama3.2-3b and R1 at 5 layers with all 256 experts in
+     bf16 serving ``SERVE_REQUESTS``, each rank on its shard (K1 and K2 on
+     llama's 12 q / 4 kv heads a rank, the MoE's split and replicated
+     dispatch across the ranks). One line per model and rank: the
+     leader's TTFT, TPOT and throughput, each rank's peak memory, kernel
+     launches and collectives per engine step with their host time, the
+     backend and the ops staged through host memory. Steps 2 and 3 also
+     hold and time K1 and K2 at llama's per-rank shapes;
+ 13. the ``kernels`` line (launches summed over every main path, and by
+     model and rank), then the card line, then as the last line
      ``{"ok": true, "device": {...}}``.
 Each line's ``t_s`` is the seconds since the script started. Any
 failure raises and exits non-zero. It needs a CUDA card and fails without
@@ -274,6 +288,17 @@ TRAIN_MAIN = dict(batch=8, seq=128, steps=6)
 # of adding atomically, so the losses are expected to be equal)
 TRAIN_SMALL = dict(steps=60, resume_from=50)
 TRAIN_RESUME_RTOL = 1e-6
+# the sharded phases: two ranks on the one card, a (data 1, model 2) mesh
+# over a gloo group (NCCL refuses two ranks on one device). llama3.2-3b at
+# tp 2 runs K1 and K2 on 12 q / 4 kv heads a rank (G 3): its prompts as
+# served, its decode batch of 16
+SHARDED_MESH = (1, 2)
+RANK_FLASH = [(1, S, S, 12, 4, 128, 0) for S in (1000, 137)]
+RANK_PAGED = dict(B=16, KV=4, G=3, D=128, max_ctx=2048)
+# sharded_equality: four 30-token prompts, 20 new tokens each, on a 7-page
+# pool (the engine preempts), as greedy_equality_moe
+SHARDED_EQ_ENGINE = dict(n_pages=7, max_num_seqs=4, max_num_batched_tokens=512,
+                         chunk_size=192, admission_mode="naive")
 
 
 def emit(phase: str, **kw):
@@ -369,7 +394,7 @@ def check_kernels(flash_ops, paged_ops):
     rels = {"flash_attention": [], "paged_attention": []}
     for dtype in (torch.float32, torch.bfloat16):
         for case in (FLASH_CASES + MAIN_FLASH + RAGGED_FLASH + PHI_FLASH
-                     + GQA_FLASH + ZAMBA_FLASH + VLM_AUDIO_FLASH):
+                     + GQA_FLASH + ZAMBA_FLASH + VLM_AUDIO_FLASH + RANK_FLASH):
             q, k, v, lens, window = flash_inputs(case, dtype, gen)
             err, rel = compare(
                 flash_ops.flash_attention, flash_ops.flash_attention_plain,
@@ -379,7 +404,8 @@ def check_kernels(flash_ops, paged_ops):
         cases = [paged_case_inputs(c, dtype, gen) for c in PAGED_CASES]
         mains = [(*paged_main_inputs(dtype, gen, m), m.get("window", 0))
                  for m in (MAIN_PAGED, LONG_PAGED, PHI_PAGED, *GQA_PAGED,
-                           ZAMBA_PAGED, MUSICGEN_PAGED, INTERNVL_PAGED)]
+                           ZAMBA_PAGED, MUSICGEN_PAGED, INTERNVL_PAGED,
+                           RANK_PAGED)]
         for *args, window in cases + mains:
             err, rel = compare(
                 paged_ops.paged_attention, paged_ops.paged_attention_plain,
@@ -1293,6 +1319,180 @@ def train_small(flash_ops, paged_ops):
         raise AssertionError(f"train_small launched a kernel: {launches}")
 
 
+def sharded_jobs(phase):
+    """(config, its cuts, requests, dtype, engine overrides) of each model
+    a sharded phase serves. ``equality``: llama3.2-3b and DeepSeek-R1 at
+    full width and 2 layers in fp32 (R1 with 16 experts, 1 dense layer, its
+    capacity factor raised to E/top_k, so that no assignment drops at tp=1
+    nor in a slice's capacity under split dispatch), preempting.
+    ``main_path``: full-depth llama3.2-3b and R1 at 5 layers with all 256
+    experts in bf16, serving ``SERVE_REQUESTS`` on a pool that holds them."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import make_requests
+
+    llama, r1 = get_config("llama3.2-3b"), get_config("deepseek-r1-671b")
+    if phase == "equality":
+        rng = np.random.default_rng(2)
+        requests = [(rng.integers(0, llama.vocab, size=30).tolist(), 20)
+                    for _ in range(4)]
+        no_drop = 16 / r1.moe.top_k
+        r1_eq = dataclasses.replace(r1, n_layers=2, moe=dataclasses.replace(
+            r1.moe, n_experts=16, first_dense_layers=1, capacity_factor=no_drop))
+        return [(dataclasses.replace(llama, n_layers=2),
+                 {"n_layers": [llama.n_layers, 2]}, requests, torch.float32,
+                 SHARDED_EQ_ENGINE),
+                (r1_eq, {"n_layers": [r1.n_layers, 2],
+                         "first_dense_layers": [r1.moe.first_dense_layers, 1],
+                         "n_experts": [r1.moe.n_experts, 16],
+                         "capacity_factor": [r1.moe.capacity_factor, no_drop]},
+                 requests, torch.float32, SHARDED_EQ_ENGINE)]
+    r = SERVE_REQUESTS
+    return [(cfg, reduced, make_requests(cfg.vocab, r["n"], r["isl"], r["osl"],
+                                         r["seed"]), torch.bfloat16, {})
+            for cfg, reduced in (
+                (llama, {}),
+                (dataclasses.replace(r1, n_layers=R1_LAYERS),
+                 {"n_layers": [r1.n_layers, R1_LAYERS]}))]
+
+
+def sharded_rank(rank, phase, out_dir):
+    """One rank of a sharded phase (``run_ranks`` spawns two on the card):
+    each model of ``sharded_jobs(phase)`` through ``serve_sharded`` on the
+    mesh, the kernels' launch counts and the collectives' counters set to
+    0 just before and read just after. In ``equality`` the leading rank
+    then serves the same requests on a tp=1 model seeded alike on the card.
+    Writes its rows to ``out_dir``."""
+    from repro_torch.core.engine import EngineConfig, InferenceEngine
+    from repro_torch.core.runner import TorchRunner
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.serve import pages_to_hold, serve_sharded
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.parallel.sharding import ParallelContext
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data, model = SHARDED_MESH
+    ctx = ParallelContext(mesh=make_mesh_for(data * model, model,
+                                             device_type="cuda"))
+    rows = []
+    for cfg, reduced, requests, dtype, engine in sharded_jobs(phase):
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        ctx.comm.reset()
+        _zero_launches(flash_ops, paged_ops)
+        t0 = time.perf_counter()
+        eng, reqs = serve_sharded(cfg, requests, ctx, device="cuda",
+                                  dtype=dtype, seed=1, **engine)
+        torch.cuda.synchronize()
+        row = dict(model=cfg.name, rank=rank, layers=cfg.n_layers,
+                   reduced=reduced, dtype=str(dtype).split(".")[-1],
+                   wall_s_with_weight_init=time.perf_counter() - t0,
+                   launches=_launches(flash_ops, paged_ops),
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   comm={k: dict(v) for k, v in ctx.comm.stats.items()},
+                   backend=torch.distributed.get_backend(
+                       ctx.comm.group(ctx.model_axis)))
+        if eng is not None:
+            s = eng.metrics.summary()
+            row.update(outputs=[q.output for q in reqs],
+                       finished=[len(q.output) == n and q.t_finished is not None
+                                 for q, (_, n) in zip(reqs, requests)],
+                       steps=len(eng.metrics.timeline),
+                       preemptions=s["preemptions"], gen_tokens=s["gen_tokens"],
+                       gen_tok_s=s["gen_throughput_tok_s"],
+                       ttft_p50_s=s["ttft_s"]["p50"],
+                       tpot_mean_s=s["tpot_s"]["mean"], engine_s=s["duration_s"])
+        del eng, reqs
+        if phase == "equality" and rank == 0:
+            free_card()
+            one = InferenceEngine(
+                cfg, EngineConfig(**{"n_pages": pages_to_hold(requests),
+                                     "max_num_seqs": 16, **engine}),
+                TorchRunner(Transformer(cfg, device="cuda", dtype=dtype, seed=1),
+                            device="cuda"), virtual_clock=False)
+            ones = [one.submit(p, n) for p, n in requests]
+            one.run()
+            row.update(tp1_outputs=[q.output for q in ones],
+                       tp1_preemptions=sum(q.n_preemptions for q in ones))
+            del one, ones
+        rows.append(row)
+    with open(Path(out_dir) / f"{phase}.rank{rank}.json", "w") as f:
+        json.dump(rows, f)
+
+
+def sharded(phase):
+    """``sharded_equality`` or ``sharded_main_path``: two ranks spawned on
+    the card, a (1, 2) mesh over gloo, each serving its shard (K1 and K2 on
+    its local heads; the MoE split and replicated dispatch across the
+    ranks). Prints one line per model and rank; fails if a rank fails, a
+    request does not finish, equality does not hold, or llama's ranks did
+    not launch both kernels (R1's MLA launches neither). The times measure
+    gloo through host memory on one card, not NVLink or NCCL. Returns the
+    kernels' launches by model and rank."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import run_ranks
+
+    out = tempfile.mkdtemp(prefix=f"sharded_{phase}_")
+    try:
+        run_ranks(sharded_rank, SHARDED_MESH[0] * SHARDED_MESH[1], (phase, out),
+                  backend="gloo", device_type="cuda")
+        ranks = [json.loads((Path(out) / f"{phase}.rank{r}.json").read_text())
+                 for r in range(SHARDED_MESH[0] * SHARDED_MESH[1])]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    launches = {}
+    for rows in zip(*ranks):
+        lead = rows[0]
+        label = f"{lead['model']} tp{SHARDED_MESH[1]}"
+        if not all(lead["finished"]):
+            raise AssertionError(f"sharded_{phase}/{label}: unfinished requests")
+        if phase == "equality":
+            if lead["outputs"] != lead["tp1_outputs"]:
+                raise AssertionError(
+                    f"sharded_equality/{label}: tokens {lead['outputs']} differ "
+                    f"from tp=1 on the card {lead['tp1_outputs']}")
+            if lead["preemptions"] == 0:
+                raise AssertionError(f"sharded_equality/{label}: the small pool "
+                                     "forced no preemption")
+        for row in rows:
+            gqa = "deepseek" not in row["model"]
+            if gqa and min(row["launches"].values()) == 0 or \
+                    not gqa and max(row["launches"].values()) != 0:
+                raise AssertionError(f"sharded_{phase}/{label} rank "
+                                     f"{row['rank']}: launches {row['launches']}")
+            steps = lead["steps"]
+            per_step = {op: dict(calls=v["calls"] / steps,
+                                 host_ms=v["seconds"] / steps * 1e3,
+                                 bytes=v["bytes"] / steps,
+                                 staged=v["staged"] / steps)
+                        for op, v in row["comm"].items()}
+            extra = {k: row[k] for k in ("gen_tok_s", "ttft_p50_s",
+                                         "tpot_mean_s", "engine_s",
+                                         "preemptions", "gen_tokens")
+                     if k in row}
+            emit(f"sharded_{phase}", model=row["model"], rank=row["rank"],
+                 mesh={"data": SHARDED_MESH[0], "model": SHARDED_MESH[1]},
+                 backend=row["backend"],
+                 transport="gloo on one card (it copies CUDA tensors through "
+                           "host memory itself)",
+                 layers=row["layers"], reduced=row["reduced"],
+                 dtype=row["dtype"], steps=steps, **extra,
+                 tokens_equal_tp1=(lead["outputs"] == lead.get("tp1_outputs"))
+                 if phase == "equality" else None,
+                 max_memory_allocated=row["max_memory_allocated"],
+                 wall_s_with_weight_init=row["wall_s_with_weight_init"],
+                 launches=row["launches"], collectives_per_step=per_step,
+                 staged_through_host=sorted(op for op, v in row["comm"].items()
+                                            if v["staged"]))
+            if phase == "main_path":
+                launches[f"{label} rank{row['rank']}"] = row["launches"]
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card (torch.cuda.is_available() "
@@ -1320,11 +1520,12 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(1)
     timings = {"flash_attention": [time_flash(flash_ops, c, torch.bfloat16, gen)
                                    for c in RAGGED_FLASH[::-1] + MAIN_FLASH
-                                   + GQA_FLASH + ZAMBA_FLASH + VLM_AUDIO_FLASH],
+                                   + GQA_FLASH + ZAMBA_FLASH + VLM_AUDIO_FLASH
+                                   + RANK_FLASH],
                "paged_attention": [time_paged(paged_ops, torch.bfloat16, gen, m)
                                    for m in (LONG_PAGED, MAIN_PAGED, *GQA_PAGED,
                                              ZAMBA_PAGED, MUSICGEN_PAGED,
-                                             INTERNVL_PAGED)]}
+                                             INTERNVL_PAGED, RANK_PAGED)]}
     # the kernels line takes K1 at S=2048 and K2 at llama3.2-3b's decode batch
     main_row = {"flash_attention": len(RAGGED_FLASH) + len(MAIN_FLASH) - 1,
                 "paged_attention": 1}
@@ -1389,6 +1590,11 @@ def main():
     train_main_path(flash_ops, paged_ops)
     free_card()
     train_small(flash_ops, paged_ops)
+    free_card()
+
+    sharded("equality")
+    free_card()
+    by_model.update(sharded("main_path"))
     free_card()
 
     replaces = {

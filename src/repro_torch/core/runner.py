@@ -5,7 +5,8 @@
                   reproduce the paper's figures, v5e constants drive TPU
                   planning, H100 constants predict the port's card).
 ``TorchRunner`` — real execution of the port's ``Transformer``, the
-                  counterpart of ``repro.core.runner.JaxRunner``.
+                  counterpart of ``repro.core.runner.JaxRunner``, on one
+                  device or, as one controller, over a mesh's ranks.
 
 The paged-accounting layer in the scheduler is identical in both modes.
 ``TorchRunner``'s decode cache is paged pools in the model's dtype, of the shapes
@@ -86,30 +87,74 @@ class SimRunner:
 
 
 class TorchRunner:
+    """Real execution of ``model``. Under a mesh (``model.ctx``; the
+    reference's ``JaxRunner`` with a mesh ctx) it is a single controller:
+    the rank at "model" coordinate 0 leads, runs the engine and its
+    allocator, and broadcasts each call's work (the pool's size, prefill
+    tokens with their pages, decode tokens with their positions and block
+    tables) to the other ranks, which ``follow``: each runs the same model
+    calls on its shard, on a pool of its own kv heads indexed by the
+    leader's page ids. Meshes with "data" > 1 are refused (a later slice:
+    each data rank would need its own engine or its batch's rows)."""
+
     def __init__(self, model: Transformer, *, device="cuda"):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model on {model.device}, runner on {self.device}")
+        ctx = model.ctx
+        if ctx.mesh is not None and ctx.dp > 1:
+            raise NotImplementedError(
+                f"TorchRunner under a mesh with data = {ctx.dp}: the runner "
+                "takes meshes with data == 1 (data > 1 is a later slice)")
         self.model = model
+        self.comm = ctx.comm if ctx.mesh is not None else None
+        self.axis = ctx.model_axis
+        self.leads = self.comm is None or self.comm.axis_index(self.axis) == 0
         self.alloc = None
         self.pools = ()
         self.states = ()
         self._free_slots: List[int] = []
         self._slot_of: Dict[int, int] = {}
 
+    def _send(self, *work):
+        """The leader's work, to every follower."""
+        if self.comm is not None:
+            self.comm.broadcast_object(work, self.axis)
+
+    def follow(self):
+        """A follower's loop: run the leader's work until it ``close``s."""
+        if self.leads:
+            raise RuntimeError("the leading rank runs the engine, not follow()")
+        calls = {"bind": self._bind, "prefill": self._prefill,
+                 "decode": self._decode}
+        while True:
+            op, *args = self.comm.broadcast_object(None, self.axis)
+            if op == "close":
+                return
+            calls[op](*args)
+
+    def close(self):
+        """The leader is done: its followers return from ``follow``."""
+        if self.leads:
+            self._send("close")
+
     def bind(self, alloc: PagedAllocator, n_slots: int):
         """Allocate the device pools for ``alloc`` (pool page i is
         allocator page i) and the state buffers of ``n_slots`` sequences,
         the engine's ``max_num_seqs``."""
+        self._send("bind", alloc.n_pages, alloc.page_size, n_slots)
+        self._bind(alloc.n_pages, alloc.page_size, n_slots)
+        self.alloc = alloc
+
+    def _bind(self, n_pages: int, page_size: int, n_slots: int):
         self.pools = tuple(
             torch.zeros(shape, dtype=self.model.dtype, device=self.device)
-            for shape in self.model.pool_shapes(alloc.n_pages, alloc.page_size))
+            for shape in self.model.pool_shapes(n_pages, page_size))
         self.states = tuple(
             torch.zeros(shape, dtype=dtype, device=self.device)
             for shape, dtype in self.model.state_shapes(n_slots))
         self._free_slots = list(range(n_slots))[::-1]
         self._slot_of = {}
-        self.alloc = alloc
 
     def _to_device(self, a) -> torch.Tensor:
         return torch.from_numpy(np.asarray(a)).to(self.device)
@@ -120,24 +165,27 @@ class TorchRunner:
         preemption) at the completing chunk; its cache entries go into the
         pages of the request's table, which the scheduler grew to cover it,
         and its state into its slot. Returns the first token."""
-        toks = req.prompt + req.output[:req.resume_extra]
-        tokens = self._to_device(np.asarray([toks], np.int64))
-        logits, caches, states = self.model.prefill(tokens)
+        toks = np.asarray(req.prompt + req.output[:req.resume_extra], np.int64)
+        table = np.asarray(self.alloc.table(req.rid), np.int64)
+        pages = table[np.arange(len(toks)) // self.alloc.page_size]
+        self._send("prefill", toks, pages, req.rid)
+        return self._prefill(toks, pages, req.rid)
+
+    def _prefill(self, toks: np.ndarray, pages: np.ndarray, rid: int) -> int:
+        logits, caches, states = self.model.prefill(self._to_device(toks[None]))
         if self.pools:
-            pos = np.arange(len(toks))
-            table = np.asarray(self.alloc.table(req.rid), np.int64)
-            pages = self._to_device(table[pos // self.alloc.page_size])
-            slots = self._to_device(pos % self.alloc.page_size)
+            slots = self._to_device(np.arange(len(toks)) % self.pools[0].shape[2])
+            pages = self._to_device(pages)
             for j, pool in enumerate(self.pools):
                 pool[:, pages, slots] = torch.stack([c[j] for c in caches])[:, 0]
         if self.states:
-            if req.rid not in self._slot_of:
+            if rid not in self._slot_of:
                 if not self._free_slots:
                     raise RuntimeError(
-                        f"request {req.rid}: every one of the "
+                        f"request {rid}: every one of the "
                         f"{self.states[0].shape[1]} state slots is taken")
-                self._slot_of[req.rid] = self._free_slots.pop()
-            slot = self._slot_of[req.rid]
+                self._slot_of[rid] = self._free_slots.pop()
+            slot = self._slot_of[rid]
             for buf, st in zip(self.states, states):
                 buf[:, slot] = st[:, 0]
         return int(logits[0].argmax())
@@ -151,14 +199,18 @@ class TorchRunner:
         padded = np.zeros((len(reqs), max(len(t) for t in tables)), np.int32)
         for i, t in enumerate(tables):
             padded[i, :len(t)] = t
-        tokens = self._to_device(np.asarray([r.output[-1] for r in reqs], np.int64))
-        positions = self._to_device(
-            np.asarray([r.context_len - 1 for r in reqs], np.int64))
-        rows = self._to_device(np.asarray(
-            [self._slot_of[r.rid] for r in reqs], np.int64)) if self.states else None
-        logits = self.model.decode_step(tokens, positions, self.pools,
-                                        self._to_device(padded), self.states,
-                                        rows)
+        tokens = np.asarray([r.output[-1] for r in reqs], np.int64)
+        positions = np.asarray([r.context_len - 1 for r in reqs], np.int64)
+        rows = np.asarray([self._slot_of[r.rid] for r in reqs], np.int64) \
+            if self.states else None
+        self._send("decode", tokens, positions, padded, rows)
+        return self._decode(tokens, positions, padded, rows)
+
+    def _decode(self, tokens, positions, tables, rows) -> List[int]:
+        logits = self.model.decode_step(
+            self._to_device(tokens), self._to_device(positions), self.pools,
+            self._to_device(tables), self.states,
+            None if rows is None else self._to_device(rows))
         return logits.argmax(dim=-1).tolist()
 
     def release(self, req: Request):

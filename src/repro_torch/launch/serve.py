@@ -17,6 +17,9 @@ model serves its text or codec tokens alone. A model that needs more
 memory than one card has (llama3-405b, internvl2-76b, kimi-k2, the full
 MoE models) is served at full width on the card with its depth cut by
 ``dataclasses.replace`` (as ``chip_smoke.py`` does) through ``serve()``.
+``serve_sharded()`` serves across the ranks of a mesh (tensor and expert
+parallel over "model"), one call on every rank; the command line stays on
+one device, as the reference's does.
 
 Reduced config on the CPU (the sliding window is 16 there, so prompts
 of up to 24 tokens and outputs of up to 32 cross it):
@@ -36,7 +39,7 @@ from __future__ import annotations
 
 import argparse
 import json
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +53,7 @@ from repro_torch.core.router import DPRouter, RouterConfig
 from repro_torch.core.runner import SimRunner, TorchRunner
 from repro_torch.data.reasoning import REASONING, sample
 from repro_torch.models.transformer import Transformer
+from repro_torch.parallel.sharding import ParallelContext
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -85,6 +89,34 @@ def build_engine(cfg: ModelConfig, n_pages: int, *, device="cuda",
                         admission_mode=admission_mode)
     return InferenceEngine(cfg, ecfg, TorchRunner(model, device=device),
                            virtual_clock=False)
+
+
+def serve_sharded(cfg: ModelConfig, requests: Sequence[Tuple[List[int], int]],
+                  ctx: ParallelContext, *, device="cuda",
+                  dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                  max_num_seqs: int = 16, admission_mode: str = "kv_aware",
+                  **engine) -> Tuple[Optional[InferenceEngine], List[Request]]:
+    """``serve`` over ``ctx``'s mesh, called on every rank: each builds its
+    shard of the seeded model (the same model as one device's); the
+    leading rank runs the engine and returns it with the requests, the
+    others follow it and return (None, []). ``engine`` overrides the
+    ``EngineConfig`` (its ``n_pages`` defaults to a pool that holds every
+    request)."""
+    model = Transformer(cfg, device=device, dtype=dtype, seed=seed, ctx=ctx)
+    runner = TorchRunner(model, device=device)
+    if not runner.leads:
+        runner.follow()
+        return None, []
+    try:
+        ecfg = EngineConfig(**{"n_pages": pages_to_hold(requests),
+                               "max_num_seqs": max_num_seqs,
+                               "admission_mode": admission_mode, **engine})
+        eng = InferenceEngine(cfg, ecfg, runner, virtual_clock=False)
+        reqs = [eng.submit(p, n) for p, n in requests]
+        eng.run()
+    finally:
+        runner.close()
+    return eng, reqs
 
 
 def serve(cfg: ModelConfig, requests: Sequence[Tuple[List[int], int]], *,

@@ -6,20 +6,24 @@ mode=...)`` returns it (any array type ``numpy.asarray`` accepts). On one
 device the serve and train modes give the same names, shapes and arrays;
 the layout is the model's (``Transformer(layout=)``), which decides only
 how its GQA groups q heads.
-``from_jax_params`` copies it into a ``Transformer``; ``to_jax_params``
+``from_jax_params`` copies it into a ``Transformer`` (or, given a
+``ParallelContext``, a tree built under a mesh into one rank's shard);
+``to_jax_params``
 gives it back as numpy. ``numpy_params`` makes such a dict from a numpy
 seed, with the JAX package's layout and scales, where no JAX is at hand.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import Transformer, param_specs
+from repro_torch.models.transformer import (Transformer, padded_shapes,
+                                            param_axes, param_specs)
+from repro_torch.parallel.sharding import ParallelContext, shard_slices
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
@@ -46,20 +50,33 @@ def _nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
 
 def from_jax_params(params: Mapping, cfg: ModelConfig, *, device="cuda",
                     dtype: torch.dtype = torch.float32,
-                    layout: str = "serve") -> Transformer:
+                    layout: str = "serve", ctx: Optional[ParallelContext] = None,
+                    coords: Optional[Dict[str, int]] = None) -> Transformer:
     """A ``Transformer`` in ``layout`` holding ``params``, cast to
-    ``dtype``."""
+    ``dtype``. With a ``ctx`` over a mesh, ``params`` is the reference's
+    tree built under that mesh (``init_params(cfg, key, ctx,
+    mode="serve")``: q heads padded to hp, kv heads tiled to kvp), and the
+    model holds the shard of the rank at ``coords`` (default: this rank's
+    coordinates on the mesh)."""
     flat = {k: np.asarray(v) for k, v in _flatten(params).items()}
     specs = param_specs(cfg)
     if set(flat) != set(specs):
         raise ValueError(f"parameter names differ: missing "
                          f"{sorted(set(specs) - set(flat))}, unexpected "
                          f"{sorted(set(flat) - set(specs))}")
-    for name, (shape, _, _) in specs.items():
+    sharded = ctx is not None and ctx.mesh is not None
+    shapes = padded_shapes(cfg, ctx) if sharded else \
+        {n: shape for n, (shape, _, _) in specs.items()}
+    for name, shape in shapes.items():
         if flat[name].shape != shape:
             raise ValueError(f"{name}: shape {flat[name].shape}, want {shape}")
+    if sharded:
+        coords = ctx.coords() if coords is None else coords
+        axes = param_axes(cfg)
+        flat = {n: a[shard_slices(a.shape, axes[n], ctx, coords)]
+                for n, a in flat.items()}
     model = Transformer(cfg, device=device, dtype=dtype, seed=None,
-                        layout=layout)
+                        layout=layout, ctx=ctx)
     with torch.no_grad():
         for name, p in model.named_parameters():
             p.copy_(torch.from_numpy(np.require(flat[name], requirements="CW")))

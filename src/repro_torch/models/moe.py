@@ -1,5 +1,7 @@
-"""Token-choice top-k Mixture-of-Experts on one device, as the
-single-device half of ``repro.models.moe``.
+"""Token-choice top-k Mixture-of-Experts, as ``repro.models.moe``: on one
+device, and expert-parallel over a process group (``moe_ffn`` with a
+``ParallelContext``, the reference's ``shard_map`` split and replicated
+dispatch).
 
 Dispatch is sort-based: assignments are sorted by expert (stable, so
 first come first served within an expert), positions within each expert
@@ -97,26 +99,110 @@ def moe_ffn_reference(x: torch.Tensor, p: Dict[str, torch.Tensor],
     with record_function("moe_combine"):
         # a dropped assignment reads the last row (the reference's gather
         # clamps its out-of-range index) with weight 0
-        gathered = out_buf[slot.clamp(max=E * C - 1)]
-        contrib = gathered * (flat_w * keep)[:, None].to(x.dtype)
-        # the reference scatter-adds each token's k contributions into
-        # zeros in assignment order; adding them in that order keeps its
-        # roundings and, unlike an atomic index_add_ on the card, is
-        # deterministic
-        out = functools.reduce(torch.add, contrib.view(T, k, d).unbind(1))
+        out = _combine(out_buf[slot.clamp(max=E * C - 1)], flat_w, keep, k)
     if m.n_shared_experts:
         out = out + _shared_ffn(x, p)
     return out
 
 
-def moe_ffn(x: torch.Tensor, p: Dict[str, torch.Tensor],
-            cfg: ModelConfig) -> torch.Tensor:
-    """x (..., d) -> (..., d) over the flattened tokens. One device only:
-    expert-parallel dispatch across a process group is not ported."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            "moe_ffn: expert-parallel dispatch over more than one device is "
-            "not ported; the port runs MoE layers on one device")
+def _combine(gathered: torch.Tensor, flat_w: torch.Tensor, keep: torch.Tensor,
+             k: int) -> torch.Tensor:
+    """Each token's k weighted expert outputs, added in assignment order
+    (the reference's scatter-add into zeros; deterministic, unlike an
+    atomic ``index_add_`` on the card)."""
+    contrib = gathered * (flat_w * keep)[:, None].to(gathered.dtype)
+    T = contrib.shape[0] // k
+    return functools.reduce(torch.add, contrib.view(T, k, -1).unbind(1))
+
+
+def _gather_fsdp(p: Dict[str, torch.Tensor], ctx) -> Dict[str, torch.Tensor]:
+    """The expert weights gathered over the FSDP axis: d_model of
+    ``we_gate``/``we_up`` (dim 1) and ``we_down`` (dim 2), and of the
+    shared experts' ``ws_gate``/``ws_up`` (dim 0) and ``ws_down`` (dim 1)."""
+    f = ctx.fsdp_axis
+    if f is None:
+        return p
+    dims = {"we_gate": 1, "we_up": 1, "we_down": 2,
+            "ws_gate": 0, "ws_up": 0, "ws_down": 1}
+    return {k: ctx.comm.all_gather(v, f, dims[k]) if k in dims else v
+            for k, v in p.items()}
+
+
+def moe_ffn(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
+            ctx=None) -> torch.Tensor:
+    """x (..., d) -> (..., d) over the flattened tokens. Without a mesh,
+    ``moe_ffn_reference``. Under a ``ParallelContext`` with a mesh (the
+    reference's ``moe_ffn``), x is this rank's tokens (its "data" shard,
+    replicated over "model"), ``p``'s expert leaves are its shards (E/tp
+    experts; d_model cut over the FSDP axis, gathered here) and the
+    router is whole. ``ctx.moe_dispatch`` "auto" takes split dispatch
+    where the tokens divide over "model", else replicated:
+
+      * split: each "model" rank routes its 1/tp of the tokens with a
+        capacity of its slice, ``all_to_all`` sends each expert's buffer
+        to its owner and the outputs back, and the ranks' tokens are
+        gathered again;
+      * replicated: every rank runs its own experts on every token, with
+        a capacity over its E/tp experts, and a ``psum`` over "model"
+        adds the ranks' outputs.
+    """
     shape = x.shape
-    return moe_ffn_reference(x.reshape(-1, shape[-1]), p, cfg).reshape(shape)
+    xt = x.reshape(-1, shape[-1])
+    if ctx is None or ctx.mesh is None:
+        return moe_ffn_reference(xt, p, cfg).reshape(shape)
+    m, comm, maxis = cfg.moe, ctx.comm, ctx.model_axis
+    T, d = xt.shape
+    tp = ctx.tp
+    E, k = m.n_experts, m.top_k
+    e_loc = E // tp
+    mode = ctx.moe_dispatch
+    if mode == "auto":
+        mode = "split" if T % tp == 0 and T // tp > 0 else "replicated"
+    p = _gather_fsdp(p, ctx)
+    me = comm.axis_index(maxis)
+    if mode == "split":
+        t_loc = T // tp
+        xs = xt[me * t_loc:(me + 1) * t_loc]
+        cap = max(1, int(m.capacity_factor * t_loc * k / E))
+        with record_function("moe_dispatch"):
+            w, idx = _topk_assignments(router_probs(xs, p["router"]), k)
+            tok = torch.arange(t_loc, device=x.device).repeat_interleave(k)
+            slot, keep = _dispatch_indices(idx.reshape(-1), E, cap)
+            send = xs.new_zeros((E * cap + 1, d))
+            send[slot] = xs[tok] * keep[:, None].to(xs.dtype)
+            # recv[j]: peer j's tokens for my experts, (e_loc, cap, d) each
+            recv = comm.all_to_all(send[:E * cap].view(tp, e_loc * cap, d), maxis)
+            buf = recv.view(tp, e_loc, cap, d).transpose(0, 1) \
+                      .reshape(e_loc, tp * cap, d)
+        out_buf = _expert_ffn(buf, p["we_gate"], p["we_up"], p["we_down"])
+        with record_function("moe_combine"):
+            back = out_buf.view(e_loc, tp, cap, d).transpose(0, 1)
+            back = comm.all_to_all(back, maxis).reshape(E * cap, d)
+            out = _combine(back[slot.clamp(max=E * cap - 1)], w.reshape(-1),
+                           keep, k)
+        if m.n_shared_experts:
+            out = out + _shared_ffn(xs, p)
+        return comm.all_gather(out, maxis, 0).reshape(shape)
+    # replicated: this rank's experts on every token, then a psum
+    cap = max(1, int(m.capacity_factor * T * k / max(e_loc, 1)))
+    with record_function("moe_dispatch"):
+        w, idx = _topk_assignments(router_probs(xt, p["router"]), k)
+        flat_e = idx.reshape(-1)
+        tok = torch.arange(T, device=x.device).repeat_interleave(k)
+        local = (flat_e >= me * e_loc) & (flat_e < (me + 1) * e_loc)
+        # other ranks' assignments go to a spare expert e_loc, never run
+        slot, keep = _dispatch_indices(
+            torch.where(local, flat_e - me * e_loc, e_loc), e_loc + 1, cap)
+        keep = keep & local
+        n = (e_loc + 1) * cap
+        buf = xt.new_zeros((n + 1, d))
+        buf[slot] = xt[tok] * keep[:, None].to(xt.dtype)
+    out_buf = _expert_ffn(buf[:e_loc * cap].view(e_loc, cap, d), p["we_gate"],
+                          p["we_up"], p["we_down"]).view(e_loc * cap, d)
+    with record_function("moe_combine"):
+        rows = torch.cat([out_buf, out_buf.new_zeros((cap, d))])
+        out = _combine(rows[slot.clamp(max=n - 1)], w.reshape(-1), keep, k)
+    out = comm.psum(out, maxis)
+    if m.n_shared_experts:
+        out = out + _shared_ffn(xt, p)
+    return out.reshape(shape)

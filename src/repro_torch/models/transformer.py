@@ -41,12 +41,29 @@ head ``k``. ``forward`` runs whole sequences under autograd in either
 layout, through the plain ``flash_prefill``, ``mla_prefill``,
 ``mamba2_forward`` and the xLSTM forwards, never the kernels, and
 ``loss_fn`` is the reference's training loss over it.
+
+Under a ``ParallelContext`` with a mesh (``ctx=``) a model is one rank's
+shard of the serve layout, as the reference's ``param_shardings`` cut it
+(``param_axes`` through ``ctx.rules()``): q heads padded to hp and kv
+heads tiled to kvp (``padded_heads``); heads, d_ff, experts and the vocab
+(or an untied embedding's d_model) cut over "model"; the weights' d_model
+axes cut over the FSDP axis and gathered before use; the batch cut over
+"data". q/k/v and gate/up are column-parallel, ``wo``/``w_o`` and
+``w_down`` row-parallel with a ``psum`` over "model"; the tied embedding
+is a masked lookup of the rank's rows and a ``psum``, and the logits are
+gathered over "model". K1 and K2 run on the rank's own heads; MLA keeps
+its heads on "model" and its latent cache whole on every rank; the MoE
+FFN is expert-parallel (``models/moe.py``). The seeded init draws what one
+device draws and keeps the rank's shard, so every mesh shape serves the
+model of tp=1. The hybrid and ssm families, the train layout and the
+reference's §Perf levers are refused under a mesh.
 """
 from __future__ import annotations
 
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -65,10 +82,15 @@ from repro_torch.models.xlstm import (_mlstm_dims, init_mlstm_state,
                                       init_slstm_state, mlstm_decode,
                                       mlstm_forward, slstm_decode,
                                       slstm_forward)
+from repro_torch.parallel.sharding import (ParallelContext, kv_to_orig,
+                                           padded_heads, q_to_orig,
+                                           shard_shape, shard_slices)
 
 # name -> (shape, init, fan_in); init is "normal" (std 1/sqrt(fan_in)),
 # "ones" or "zeros", as ``build_param_specs`` gives them
 Spec = Tuple[Tuple[int, ...], str, int]
+# a leaf's logical axis names, one per dimension (None: replicated)
+Axes = Tuple[Optional[str], ...]
 # the most elements one fp32 draw of ``init_weights`` holds (256 MiB)
 INIT_CHUNK = 1 << 26
 LAYOUTS = ("serve", "train")
@@ -231,6 +253,103 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Spec]:
     return specs
 
 
+def _attn_axes(cfg: ModelConfig) -> Dict[str, Axes]:
+    if cfg.attention == "mla":
+        heads = (None, "heads", None)
+        return {"w_dq": ("embed", None), "q_norm": (None,), "w_uq": heads,
+                "w_dkv": ("embed", None), "kv_norm": (None,),
+                "w_kr": ("embed", None), "w_uk": heads, "w_uv": heads,
+                "w_o": ("heads", None, "embed"), "attn_norm": (None,)}
+    return {"attn_norm": (None,), "wq": ("embed", "heads", None),
+            "wk": ("embed", "kv_heads", None), "wv": ("embed", "kv_heads", None),
+            "wo": ("heads", None, "embed"), "qn": (None,), "kn": (None,)}
+
+
+_MLP_AXES: Dict[str, Axes] = {
+    "mlp_norm": (None,), "w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+    "w_down": ("mlp", "embed")}
+# the expert leaves, which ``moe_ffn`` gathers over the FSDP axis itself
+_MOE_AXES: Dict[str, Axes] = {
+    "mlp_norm": (None,), "router": (None, None),
+    "we_gate": ("expert", "expert_in", None),
+    "we_up": ("expert", "expert_in", None),
+    "we_down": ("expert", None, "expert_in"),
+    "ws_gate": ("embed", None), "ws_up": ("embed", None),
+    "ws_down": (None, "embed")}
+EXPERT_LEAVES = ("we_gate", "we_up", "we_down", "ws_gate", "ws_up", "ws_down")
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Axes]:
+    """The logical axes of each serve parameter of a dense, vlm, audio or
+    MoE model, as the reference's ``build_param_specs(mode="serve")``
+    gives them (its ``param_pspecs`` maps them through ``rules()``)."""
+    attn = _attn_axes(cfg)
+    top: Dict[str, Axes] = {
+        "embed": ("vocab", None) if cfg.tie_embeddings else (None, "d_tp"),
+        "final_norm": (None,), "lm_head": ("embed", "vocab")}
+    out = {}
+    for name in param_specs(cfg):
+        stack, _, leaf = name.rpartition(".")
+        if not stack:
+            out[name] = top[name]
+        else:
+            table = {**attn, **(_MOE_AXES if stack == "moe_stack" else _MLP_AXES)}
+            out[name] = ("layers", *table[leaf])
+    return out
+
+
+def serve_heads(cfg: ModelConfig, ctx: ParallelContext) -> Tuple[int, int]:
+    """(hp, kvp): the serve layout's q and kv head counts under ``ctx``
+    (the reference's ``heads_layout(mode="serve")``): padded for GQA and
+    MHA, the true count for MLA, whose heads must divide tp."""
+    if cfg.attention == "mla":
+        return cfg.n_heads, cfg.n_heads
+    return padded_heads(cfg.n_heads, cfg.n_kv_heads, ctx.tp)
+
+
+def padded_shapes(cfg: ModelConfig, ctx: ParallelContext) -> Dict[str, Tuple[int, ...]]:
+    """Each serve parameter's whole shape under ``ctx``: the reference's
+    ``build_param_specs(cfg, ctx, "serve")`` shapes, q heads padded to hp
+    and kv heads tiled to kvp."""
+    hp, kvp = serve_heads(cfg, ctx)
+    count = {"heads": hp, "kv_heads": kvp}
+    specs = param_specs(cfg)
+    return {name: tuple(count.get(a, n) for n, a in zip(specs[name][0], axes))
+            for name, axes in param_axes(cfg).items()}
+
+
+def head_maps(cfg: ModelConfig, ctx: ParallelContext) -> Dict[str, np.ndarray]:
+    """Padded head slot -> original head (-1: a zero slot) for the "heads"
+    and "kv_heads" axes (the reference's ``_q_slot_to_orig`` and
+    ``kv_to_orig`` in serve mode); MLA pads nothing."""
+    if cfg.attention == "mla":
+        return {}
+    hp, kvp = serve_heads(cfg, ctx)
+    return {"heads": q_to_orig(hp, kvp, cfg.n_heads, cfg.n_kv_heads),
+            "kv_heads": (kv_to_orig(kvp, cfg.n_heads, cfg.n_kv_heads)
+                         if kvp != cfg.n_kv_heads else np.arange(kvp))}
+
+
+def take_shard(full: torch.Tensor, axes: Axes, cfg: ModelConfig,
+               ctx: ParallelContext, coords: Dict[str, int]) -> torch.Tensor:
+    """The rank at ``coords``'s shard of a leaf given at tp=1 (``full``,
+    its unpadded shape): head axes mapped through ``head_maps`` (zeros in
+    pad slots, kv replicas tiled), then every axis cut by ``rules()``."""
+    maps = head_maps(cfg, ctx)
+    padded = [len(maps[a]) if a in maps else n for n, a in zip(full.shape, axes)]
+    x = full
+    for dim, (a, sl) in enumerate(zip(axes, shard_slices(padded, axes, ctx, coords))):
+        if a in maps:
+            idx = torch.from_numpy(maps[a][sl]).to(full.device)
+            x = x.index_select(dim, idx.clamp(min=0))
+            mask = (idx >= 0).to(x.dtype).reshape(
+                [-1 if d == dim else 1 for d in range(x.ndim)])
+            x = x * mask
+        else:
+            x = x.narrow(dim, sl.start, sl.stop - sl.start)
+    return x
+
+
 def check_supported(cfg: ModelConfig):
     """Raise unless the port can build ``cfg``: a dense, vlm, audio or MoE
     decoder with full, sliding-window or latent attention; a hybrid with an
@@ -258,27 +377,68 @@ def check_supported(cfg: ModelConfig):
     raise NotImplementedError(f"{cfg.name}: {why}")
 
 
+def check_shardable(cfg: ModelConfig, ctx: ParallelContext, layout: str):
+    """Raise unless the port can shard ``cfg`` under ``ctx``: the serve
+    layout of a dense, vlm, audio or MoE model, every §Perf lever at its
+    default, and every sharded dimension dividing its mesh axes."""
+    if cfg.family in ("hybrid", "ssm"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family under a mesh needs the "
+            "sharding rules of ssm_inner, ssm_heads, conv_ch and lstm_vdim, "
+            "the next slice of the port (ROADMAP §1)")
+    if layout != "serve":
+        raise NotImplementedError(
+            f"{cfg.name}: the {layout} layout under a mesh (the sharded train "
+            "step, ZeRO optimizer state) is a later slice of the port")
+    levers = ctx.levers_set() + (
+        ("kv_cache_dtype",) if ctx.kv_cache_dtype is not None else ())
+    if levers:
+        raise NotImplementedError(
+            f"{cfg.name}: the §Perf levers {levers} are not ported; the "
+            "port runs the reference's baseline rules (ROADMAP §1)")
+    axes = param_axes(cfg)
+    for name, shape in padded_shapes(cfg, ctx).items():
+        shard_shape(shape, axes[name], ctx)
+
+
 class Transformer(nn.Module):
     """``seed`` fills the weights on the device from a ``torch.Generator``;
     ``seed=None`` leaves them uninitialised for a caller that loads them.
-    ``layout`` is ``"serve"`` or ``"train"`` (the module docstring)."""
+    ``layout`` is ``"serve"`` or ``"train"`` (the module docstring).
+
+    ``ctx``, a ``ParallelContext`` over a ``DeviceMesh``, builds this
+    rank's shard of the serve layout of a dense, vlm, audio or MoE model
+    (the module docstring's last part); None, or a context without a
+    mesh, is one device."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  dtype: torch.dtype = torch.bfloat16, seed: Optional[int] = 0,
-                 layout: str = "serve"):
+                 layout: str = "serve", ctx: Optional[ParallelContext] = None):
         super().__init__()
         check_supported(cfg)
         if layout not in LAYOUTS:
             raise ValueError(f"layout {layout!r} is not one of {LAYOUTS}")
+        self.ctx = ctx or ParallelContext()
+        if self.ctx.mesh is not None:
+            check_shardable(cfg, self.ctx, layout)
         dev = resolve_device(device)
         self.cfg = cfg
         self.layout = layout
         self.specs = param_specs(cfg)
         self.mla = cfg.attention == "mla"
         self.window = cfg.swa_window if cfg.attention == "swa" else 0
+        hp, kvp = serve_heads(cfg, self.ctx)
+        tp = self.ctx.tp
+        # this rank's q and kv heads (all of them on one device)
+        self.n_q, self.n_kv = hp // tp, kvp // tp
+        shapes = {n: s for n, (s, _, _) in self.specs.items()}
+        if self.ctx.mesh is not None:
+            axes = param_axes(cfg)
+            shapes = {n: shard_shape(s, axes[n], self.ctx)
+                      for n, s in padded_shapes(cfg, self.ctx).items()}
         stacks: Dict[str, Dict[str, nn.Parameter]] = {
             stack: {} for stack in stack_depths(cfg)}
-        for name, (shape, _, _) in self.specs.items():
+        for name, shape in shapes.items():
             p = nn.Parameter(torch.empty(shape, dtype=dtype, device=dev),
                              requires_grad=False)
             stack, _, leaf = name.rpartition(".")
@@ -323,16 +483,50 @@ class Transformer(nn.Module):
         is 7.5 G elements)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params = dict(self.named_parameters())
-        for name, (_, init, fan_in) in self.specs.items():
+        for name, (shape, init, fan_in) in self.specs.items():
             flat = params[name].view(-1)
             if init != "normal":
                 flat.fill_(1.0 if init == "ones" else 0.0)
+                continue
+            if self.ctx.mesh is not None:
+                self._init_shard(params[name], name, shape, fan_in, gen)
                 continue
             for start in range(0, flat.numel(), INIT_CHUNK):
                 piece = flat[start:start + INIT_CHUNK]
                 piece.copy_(torch.randn(
                     piece.numel(), generator=gen, device=self.device,
                     dtype=torch.float32).div_(math.sqrt(fan_in)))
+
+    def _init_shard(self, param: torch.Tensor, name: str, shape, fan_in: int,
+                    gen: torch.Generator):
+        """Under a mesh: the same draws as one device makes for the whole
+        leaf of ``shape`` (so every mesh shape gets the model of tp=1),
+        one layer at a time into a buffer of the model's dtype, of which
+        this rank keeps its shard (``take_shard``) and frees the rest."""
+        axes = param_axes(self.cfg)[name]
+        stacked = axes[0] == "layers"
+        per = int(np.prod(shape[1:] if stacked else shape))
+        total = int(np.prod(shape))
+        pieces = (torch.randn(min(INIT_CHUNK, total - start), generator=gen,
+                              device=self.device,
+                              dtype=torch.float32).div_(math.sqrt(fan_in))
+                  for start in range(0, total, INIT_CHUNK))
+        coords = self.ctx.coords()
+        carry = torch.empty(0, device=self.device)
+        for layer in range(shape[0] if stacked else 1):
+            buf = torch.empty(per, dtype=self.dtype, device=self.device)
+            filled = 0
+            while filled < per:
+                if not carry.numel():
+                    carry = next(pieces)
+                n = min(per - filled, carry.numel())
+                buf[filled:filled + n].copy_(carry[:n])
+                carry, filled = carry[n:], filled + n
+            full = buf.view(shape[1:] if stacked else shape)
+            shard = take_shard(full, axes[1:] if stacked else axes, self.cfg,
+                               self.ctx, coords)
+            (param[layer] if stacked else param).copy_(shard)
+            del buf, full, shard
 
     def pool_shapes(self, n_pages: int, page: int) -> List[Tuple[int, ...]]:
         """Shapes of the paged decode-cache pools: k and v
@@ -348,7 +542,7 @@ class Transformer(nn.Module):
                     (L, n_pages, page, cfg.mla.qk_rope_head_dim)]
         if cfg.family == "hybrid":
             L = cfg.n_layers // cfg.attn_every
-        shape = (L, n_pages, page, cfg.n_kv_heads, cfg.resolved_head_dim)
+        shape = (L, n_pages, page, self.n_kv, cfg.resolved_head_dim)
         return [shape, shape]
 
     def state_shapes(self, n_slots: int
@@ -376,7 +570,41 @@ class Transformer(nn.Module):
 
     # ------------------------------------------------------------ layers
     def _layer(self, stack: str, *i: int) -> Dict[str, torch.Tensor]:
-        return {k: v[i] for k, v in getattr(self, stack).items()}
+        """One layer's weights; under FSDP each gathered over the FSDP
+        axis, but for the expert leaves, which ``moe_ffn`` gathers."""
+        p = {k: v[i] for k, v in getattr(self, stack).items()}
+        if self.ctx.mesh is None:
+            return p
+        axes = param_axes(self.cfg)
+        return {k: v if k in EXPERT_LEAVES else self._gathered(
+            v, axes[f"{stack}.{k}"][1:]) for k, v in p.items()}
+
+    def _gathered(self, w: torch.Tensor, axes: Axes) -> torch.Tensor:
+        """``w`` gathered over the FSDP axis on every dimension mapped to it
+        (the reference leaves these gathers to GSPMD)."""
+        f = self.ctx.fsdp_axis
+        if self.ctx.mesh is None or f is None:
+            return w
+        for dim, entry in enumerate(self.ctx.spec(*axes)):
+            if entry == f:
+                w = self.ctx.comm.all_gather(w, f, dim)
+        return w
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Token embeddings (B,S,d). A vocab-sharded (tied) table is a
+        masked lookup of this rank's rows and a psum over "model"; a
+        d-sharded (untied) one a lookup and a gather of d over "model"."""
+        ctx, table = self.ctx, self.embed
+        vocab_axis, d_axis = ctx.spec(*param_axes(self.cfg)["embed"]) \
+            if ctx.mesh is not None else (None, None)
+        if vocab_axis is not None:
+            rows = table.shape[0]
+            local = tokens - ctx.comm.axis_index(vocab_axis) * rows
+            mine = (local >= 0) & (local < rows)
+            x = table[local.clamp(0, rows - 1)] * mine[..., None].to(table.dtype)
+            return ctx.comm.psum(x, vocab_axis)
+        x = table[tokens]
+        return x if d_axis is None else ctx.comm.all_gather(x, d_axis, x.ndim - 1)
 
     def _qkv(self, x, p, positions):
         """x (B,S,d); positions (B,S) or (1,S). q (B,S,H,hd), k/v (B,S,KV,hd)."""
@@ -384,9 +612,9 @@ class Transformer(nn.Module):
         B, S, d = x.shape
         hd = cfg.resolved_head_dim
         h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-        q = (h @ p["wq"].reshape(d, -1)).view(B, S, cfg.n_heads, hd)
-        k = (h @ p["wk"].reshape(d, -1)).view(B, S, cfg.n_kv_heads, hd)
-        v = (h @ p["wv"].reshape(d, -1)).view(B, S, cfg.n_kv_heads, hd)
+        q = (h @ p["wq"].reshape(d, -1)).view(B, S, self.n_q, hd)
+        k = (h @ p["wk"].reshape(d, -1)).view(B, S, self.n_kv, hd)
+        v = (h @ p["wv"].reshape(d, -1)).view(B, S, self.n_kv, hd)
         if cfg.qk_norm:
             q = rmsnorm(q, p["qn"], cfg.norm_eps)
             k = rmsnorm(k, p["kn"], cfg.norm_eps)
@@ -394,20 +622,34 @@ class Transformer(nn.Module):
         k = rope(k, positions, cfg.rope_theta)
         return q, k, v
 
+    def _psum(self, y):
+        """Sum a row-parallel product's partial results over "model"."""
+        return self.ctx.comm.psum(y, self.ctx.model_axis)
+
     def _out(self, x, o, p):
         B, S = o.shape[:2]
-        return x + o.reshape(B, S, -1) @ p["wo"].reshape(-1, self.cfg.d_model)
+        return x + self._psum(o.reshape(B, S, -1)
+                              @ p["wo"].reshape(-1, self.cfg.d_model))
 
     def _mlp(self, x, p):
         h = rmsnorm(x, p["mlp_norm"], self.cfg.norm_eps)
         if "router" in p:
-            return x + moe_ffn(h, p, self.cfg)
-        return x + (F.silu(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"]
+            return x + moe_ffn(h, p, self.cfg, self.ctx)
+        return x + self._psum(
+            (F.silu(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"])
 
     def _head(self, x):
-        """Final norm and the head: x (B,d) -> logits (B,V)."""
+        """Final norm and the head: x (B,d) -> logits (B,V), gathered over
+        the vocab's mesh axis."""
         h = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
-        return h @ (self.embed.t() if self.cfg.tie_embeddings else self.lm_head)
+        if self.cfg.tie_embeddings:
+            logits = h @ self.embed.t()
+        else:
+            logits = h @ self._gathered(self.lm_head, ("embed", None))
+        if self.ctx.mesh is None:
+            return logits
+        return self.ctx.comm.all_gather(logits, self.ctx.spec("vocab")[0],
+                                        logits.ndim - 1)
 
     def _gqa_prefill(self, x, p, positions):
         """One attention+MLP layer over whole prompts through K1; returns
@@ -427,10 +669,10 @@ class Transformer(nn.Module):
         q, a, b = self._qkv(x, p, pos[:, None])
         pool_k[pages, offs] = a[:, 0]
         pool_v[pages, offs] = b[:, 0]
-        g = cfg.n_heads // cfg.n_kv_heads
-        o = paged_attention(q.view(B, cfg.n_kv_heads, g, -1), pool_k, pool_v,
+        g = self.n_q // self.n_kv
+        o = paged_attention(q.view(B, self.n_kv, g, -1), pool_k, pool_v,
                             block_tables, lens, window=self.window)
-        return self._mlp(self._out(x, o.view(B, 1, cfg.n_heads, -1), p), p)
+        return self._mlp(self._out(x, o.view(B, 1, self.n_q, -1), p), p)
 
     # ------------------------------------------------------------ training
     def _unstacked(self, stack: str) -> List[Dict[str, torch.Tensor]]:
@@ -468,7 +710,11 @@ class Transformer(nn.Module):
         """Logits (B,P+S,V) at every position of whole sequences run from
         position 0, under autograd: tokens (B,S), prefix_embeds (B,P,d) put
         before them as in ``prefill``. The reference's
-        ``forward(mode=layout)``; it launches neither kernel."""
+        ``forward(mode=layout)``; it launches neither kernel. One device
+        only: training under a mesh is a later slice."""
+        if self.ctx.mesh is not None:
+            raise NotImplementedError("forward under a mesh (the sharded train "
+                                      "step) is a later slice of the port")
         cfg = self.cfg
         x = self.embed[tokens]
         if prefix_embeds is not None:
@@ -521,7 +767,7 @@ class Transformer(nn.Module):
         state, one tensor for each buffer of ``state_shapes`` with the
         batch in place of the slots."""
         self._serve_layout()
-        x = self.embed[tokens]
+        x = self._embed(tokens)
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         positions = torch.arange(x.shape[1], device=tokens.device)[None]
@@ -537,7 +783,7 @@ class Transformer(nn.Module):
                     y, cache = mla_prefill(
                         rmsnorm(x, p["attn_norm"], self.cfg.norm_eps), p,
                         self.cfg, positions)
-                    x = self._mlp(x + y, p)
+                    x = self._mlp(x + self._psum(y), p)
                 else:
                     x, cache = self._gqa_prefill(x, p, positions)
                 caches.append(cache)
@@ -592,7 +838,7 @@ class Transformer(nn.Module):
         self._serve_layout()
         cfg = self.cfg
         pos = positions.long()
-        x = self.embed[tokens][:, None]
+        x = self._embed(tokens)[:, None]
         if cfg.family == "ssm":
             return self._head(self._xlstm_decode(x, states, rows)[:, 0])
         page = pools[0].shape[2]
@@ -610,8 +856,8 @@ class Transformer(nn.Module):
                 a, b = mla_latents(h, p, cfg, pos[:, None])
                 pool_a[l, pages, offs] = a[:, 0]
                 pool_b[l, pages, offs] = b[:, 0]
-                x = self._mlp(x + mla_decode_paged(
-                    h, p, cfg, pool_a[l], pool_b[l], block_tables, lens), p)
+                x = self._mlp(x + self._psum(mla_decode_paged(
+                    h, p, cfg, pool_a[l], pool_b[l], block_tables, lens)), p)
             else:
                 x = self._gqa_decode(x, p, pool_a[l], pool_b[l], at,
                                      block_tables)

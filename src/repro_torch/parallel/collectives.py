@@ -1,0 +1,179 @@
+"""The collectives of the reference's ``shard_map`` bodies, over one named
+dimension of a ``DeviceMesh``: ``psum`` (``lax.psum``), a tiled
+``all_gather`` along a tensor dimension, ``all_to_all`` (``lax.all_to_all``
+with ``split_axis=concat_axis=0``), ``ppermute`` and ``axis_index``.
+
+``psum`` and ``ppermute`` are ``torch.autograd.Function``s whose backward
+is their transpose, as ``jax.grad`` takes it: ``psum`` of the cotangent,
+and ``ppermute`` by the inverse permutation. The others serve inference
+and carry no gradient.
+
+The group's backend chooses the transport, never a caught error. On NCCL
+every op is the backend's own. Gloo takes CUDA tensors for ``all_reduce``,
+``broadcast``, ``all_gather`` and ``all_to_all_single`` (``GLOO_CUDA_OPS``;
+it copies them through the host itself), but its send and receive write
+from the device pointer and abort the process (torch 2.11 on an H100). So
+``ppermute`` of a CUDA tensor over a gloo group is staged through host
+memory explicitly, and ``Comm.stats`` counts it. Two ranks on one card
+(NCCL refuses that) run on gloo this way.
+
+``Comm.stats`` holds, per op, its calls, how many were staged, the bytes
+it moved in and the host's seconds inside it (a gloo op returns when it is
+done; an NCCL op when it is enqueued).
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+# ops gloo runs on CUDA tensors itself; the rest are staged through the host
+GLOO_CUDA_OPS = frozenset({"all_reduce", "broadcast", "all_gather", "all_to_all"})
+
+
+class Comm:
+    """Collectives over the named dimensions of ``mesh`` (None: one
+    device, where every op is the identity on its group of one)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.stats: Dict[str, Dict[str, float]] = {}
+
+    # ------------------------------------------------------------ layout
+    def size(self, axis: str) -> int:
+        if self.mesh is None:
+            return 1
+        return self.mesh.shape[self.mesh.mesh_dim_names.index(axis)]
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's coordinate on ``axis`` (``lax.axis_index``)."""
+        return 0 if self.mesh is None else self.mesh.get_local_rank(axis)
+
+    def group(self, axis: str):
+        return self.mesh.get_group(axis)
+
+    def reset(self):
+        self.stats = {}
+
+    # ------------------------------------------------------------ plumbing
+    def _run(self, op: str, axis: str, x: torch.Tensor, fn):
+        """``fn(group, x)`` on host copies where gloo does not take ``x``'s
+        CUDA memory for ``op``; counted in ``stats``."""
+        group = self.group(axis)
+        staged = (x.is_cuda and dist.get_backend(group) == "gloo"
+                  and op not in GLOO_CUDA_OPS)
+        t0 = time.perf_counter()
+        out = fn(group, x.cpu() if staged else x)
+        if staged:
+            out = out.to(x.device)
+        s = self.stats.setdefault(op, dict(calls=0, staged=0, bytes=0, seconds=0.0))
+        s["calls"] += 1
+        s["staged"] += int(staged)
+        s["bytes"] += x.numel() * x.element_size()
+        s["seconds"] += time.perf_counter() - t0
+        return out
+
+    def _all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        def fn(group, t):
+            t = t.clone()
+            dist.all_reduce(t, group=group)
+            return t
+        return self._run("all_reduce", axis, x.contiguous(), fn)
+
+    def _ppermute(self, x: torch.Tensor, axis: str,
+                  perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        me = self.axis_index(axis)
+        dst = [d for s, d in perm if s == me]
+        src = [s for s, d in perm if d == me]
+
+        def fn(group, t):
+            out = torch.zeros_like(t)
+            ops = [dist.P2POp(dist.isend, t, dist.get_global_rank(group, d), group)
+                   for d in dst]
+            ops += [dist.P2POp(dist.irecv, out, dist.get_global_rank(group, s), group)
+                    for s in src]
+            if ops:
+                for work in dist.batch_isend_irecv(ops):
+                    work.wait()
+            return out
+        return self._run("ppermute", axis, x.contiguous(), fn)
+
+    # ------------------------------------------------------------ ops
+    def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Sum over the ranks of ``axis`` (differentiable)."""
+        if self.size(axis) == 1:
+            return x
+        return _PSum.apply(x, self, axis)
+
+    def ppermute(self, x: torch.Tensor, axis: str,
+                 perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """Send x from coordinate s to d for each (s, d) of ``perm``; a
+        coordinate that receives nothing gets zeros (differentiable)."""
+        if self.size(axis) == 1:
+            return x if (0, 0) in perm else torch.zeros_like(x)
+        return _PPermute.apply(x, self, axis, tuple(perm))
+
+    def all_gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        """The ranks' x concatenated along ``dim`` in coordinate order
+        (``lax.all_gather(tiled=True)``)."""
+        n = self.size(axis)
+        if n == 1:
+            return x
+
+        def fn(group, t):
+            parts = [torch.empty_like(t) for _ in range(n)]
+            dist.all_gather(parts, t, group=group)
+            return torch.cat(parts, dim=dim)
+        return self._run("all_gather", axis, x.contiguous(), fn)
+
+    def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """x (n, ...): block i goes to coordinate i; the result's block j
+        came from coordinate j."""
+        if self.size(axis) == 1:
+            return x
+
+        def fn(group, t):
+            out = torch.empty_like(t)
+            dist.all_to_all_single(out, t, group=group)
+            return out
+        return self._run("all_to_all", axis, x.contiguous(), fn)
+
+    def broadcast_object(self, obj, axis: str, src: int = 0):
+        """``obj`` of coordinate ``src`` on ``axis``, on every rank of it."""
+        if self.size(axis) == 1:
+            return obj
+        group = self.group(axis)
+        box: List[object] = [obj]
+        t0 = time.perf_counter()
+        dist.broadcast_object_list(box, src=dist.get_global_rank(group, src),
+                                   group=group)
+        s = self.stats.setdefault("broadcast_object",
+                                  dict(calls=0, staged=0, bytes=0, seconds=0.0))
+        s["calls"] += 1
+        s["seconds"] += time.perf_counter() - t0
+        return box[0]
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis):
+        ctx.comm, ctx.axis = comm, axis
+        return comm._all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm._all_reduce(g, ctx.axis), None, None
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis, perm):
+        ctx.comm, ctx.axis, ctx.perm = comm, axis, perm
+        return comm._ppermute(x, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = tuple((d, s) for s, d in ctx.perm)
+        return ctx.comm._ppermute(g, ctx.axis, inverse), None, None, None
