@@ -91,18 +91,31 @@ Phases, each printed as one JSON line:
  12. multi-device serving, two ranks spawned on the card on a (data 1,
      model 2) mesh over gloo (NCCL refuses two ranks on one device):
      ``sharded_equality``, greedy tokens of llama3.2-3b and DeepSeek-R1 at
-     full width (2 layers, fp32; R1 with 16 experts and no capacity drops)
-     through the sharded runner equal those of a tp=1 model seeded alike
-     on the card, under forced preemption; ``sharded_main_path``,
-     full-depth llama3.2-3b and R1 at 5 layers with all 256 experts in
-     bf16 serving ``SERVE_REQUESTS``, each rank on its shard (K1 and K2 on
-     llama's 12 q / 4 kv heads a rank, the MoE's split and replicated
-     dispatch across the ranks). One line per model and rank: the
+     full width (2 layers, fp32; R1 with 16 experts and no capacity drops),
+     zamba2-2.7b (12 layers) and xlstm-350m (8 blocks), fp32, through the
+     sharded runner equal those of a tp=1 model seeded alike on the card,
+     under forced preemption (the recurrent states recomputed in fresh
+     slots); ``sharded_main_path``, full-depth llama3.2-3b, R1
+     at 5 layers with all 256 experts, full-depth zamba2-2.7b and
+     xlstm-350m, in bf16, each rank on its shard (K1 and K2 on llama's 12
+     q / 4 kv heads and zamba2's 16 / 16 heads of 80 a rank, zamba2's in
+     multiples of 9; the MoE's split and replicated dispatch across the
+     ranks; xlstm launches neither). One line per model and rank: the
      leader's TTFT, TPOT and throughput, each rank's peak memory, kernel
      launches and collectives per engine step with their host time, the
      backend and the ops staged through host memory. Steps 2 and 3 also
-     hold and time K1 and K2 at llama's per-rank shapes;
- 13. the ``kernels`` line (launches summed over every main path, and by
+     hold and time K1 and K2 at llama's and zamba2's per-rank shapes;
+ 13. multi-device training, four ranks spawned on the card on a (data 2,
+     model 2) mesh over gloo (``sharded_train``): three AdamW steps of
+     llama3.2-3b at full width (2 layers, fp32, B 4 x S 64) on the mesh
+     against tp=1 on the card (losses, grad norms, every parameter after
+     step 3, under ``train_equality``'s tolerances; each rank's moments
+     its parameter shards); that model's params and AdamW state saved from
+     (2,2) and restored onto (1,4), every rank's shards against the
+     written arrays; then 14 of llama's 28 layers for 4 steps (B 8 x S
+     128): median step time, tokens/s, peak memory and collectives per
+     step a rank. No kernel launches;
+ 14. the ``kernels`` line (launches summed over every main path, and by
      model and rank), then the card line, then as the last line
      ``{"ok": true, "device": {...}}``.
 Each line's ``t_s`` is the seconds since the script started. Any
@@ -295,10 +308,33 @@ TRAIN_RESUME_RTOL = 1e-6
 SHARDED_MESH = (1, 2)
 RANK_FLASH = [(1, S, S, 12, 4, 128, 0) for S in (1000, 137)]
 RANK_PAGED = dict(B=16, KV=4, G=3, D=128, max_ctx=2048)
+# zamba2-2.7b at tp 2: its shared block runs K1 and K2 on 16 q / 16 kv heads
+# of 80 a rank (MHA, G 1): a served prompt, and its decode batch of 16 at
+# contexts of 128-1280 tokens
+ZAMBA_RANK_FLASH = [(1, 1000, 1000, 16, 16, 80, 0)]
+ZAMBA_RANK_PAGED = dict(B=16, KV=16, G=1, D=80, max_ctx=1280)
 # sharded_equality: four 30-token prompts, 20 new tokens each, on a 7-page
 # pool (the engine preempts), as greedy_equality_moe
 SHARDED_EQ_ENGINE = dict(n_pages=7, max_num_seqs=4, max_num_batched_tokens=512,
                          chunk_size=192, admission_mode="naive")
+# the recurrent families' sharded_equality: greedy_equality_hybrid's and
+# greedy_equality_xlstm's requests and pools (one preemption each, the
+# state recomputed in a fresh slot)
+HYBRID_EQ_ENGINE = dict(n_pages=36, max_num_seqs=2, max_num_batched_tokens=2048,
+                        chunk_size=512, admission_mode="naive")
+XLSTM_EQ_ENGINE = dict(HYBRID_EQ_ENGINE, n_pages=15)
+# sharded_train: four ranks on the card, a (data 2, model 2) mesh over gloo;
+# llama3.2-3b at full width in the train layout (FSDP over "data", TP over
+# "model", AdamW moments as their parameters' shards). Equality: 2 layers,
+# B 4 x S 64, 3 steps against tp=1 on the card under train_equality's
+# tolerances; its params and AdamW state are then saved from (2,2) and
+# restored onto (1,4). Main path: 14 of 28 layers (full depth, 51.4 GB of
+# fp32 weights, gradients and moments, plus each rank's gathered fp32
+# weights kept for the backward, does not fit beside four CUDA contexts),
+# the reference launcher's B 8 x S 128, 4 steps; the median over steps 2-4
+SHARDED_TRAIN_MESH = (2, 2)
+SHARDED_TRAIN_EQ = dict(layers=2, batch=4, seq=64, steps=3, lr=1e-3, warmup=2)
+SHARDED_TRAIN_MAIN = dict(layers=14, batch=8, seq=128, steps=4)
 
 
 def emit(phase: str, **kw):
@@ -394,7 +430,8 @@ def check_kernels(flash_ops, paged_ops):
     rels = {"flash_attention": [], "paged_attention": []}
     for dtype in (torch.float32, torch.bfloat16):
         for case in (FLASH_CASES + MAIN_FLASH + RAGGED_FLASH + PHI_FLASH
-                     + GQA_FLASH + ZAMBA_FLASH + VLM_AUDIO_FLASH + RANK_FLASH):
+                     + GQA_FLASH + ZAMBA_FLASH + VLM_AUDIO_FLASH + RANK_FLASH
+                     + ZAMBA_RANK_FLASH):
             q, k, v, lens, window = flash_inputs(case, dtype, gen)
             err, rel = compare(
                 flash_ops.flash_attention, flash_ops.flash_attention_plain,
@@ -405,7 +442,7 @@ def check_kernels(flash_ops, paged_ops):
         mains = [(*paged_main_inputs(dtype, gen, m), m.get("window", 0))
                  for m in (MAIN_PAGED, LONG_PAGED, PHI_PAGED, *GQA_PAGED,
                            ZAMBA_PAGED, MUSICGEN_PAGED, INTERNVL_PAGED,
-                           RANK_PAGED)]
+                           RANK_PAGED, ZAMBA_RANK_PAGED)]
         for *args, window in cases + mains:
             err, rel = compare(
                 paged_ops.paged_attention, paged_ops.paged_attention_plain,
@@ -1324,13 +1361,19 @@ def sharded_jobs(phase):
     a sharded phase serves. ``equality``: llama3.2-3b and DeepSeek-R1 at
     full width and 2 layers in fp32 (R1 with 16 experts, 1 dense layer, its
     capacity factor raised to E/top_k, so that no assignment drops at tp=1
-    nor in a slice's capacity under split dispatch), preempting.
-    ``main_path``: full-depth llama3.2-3b and R1 at 5 layers with all 256
-    experts in bf16, serving ``SERVE_REQUESTS`` on a pool that holds them."""
+    nor in a slice's capacity under split dispatch), preempting; zamba2-2.7b
+    at full width and 12 layers and xlstm-350m at full width and 8 blocks
+    in fp32 on the requests and pools of ``greedy_equality_hybrid`` and
+    ``greedy_equality_xlstm``, each preempting once. ``main_path``:
+    full-depth llama3.2-3b and R1 at 5 layers with
+    all 256 experts in bf16, serving ``SERVE_REQUESTS`` on a pool that
+    holds them; full-depth zamba2-2.7b (``SERVE_REQUESTS``) and xlstm-350m
+    (``XLSTM_REQUESTS``)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import make_requests
 
     llama, r1 = get_config("llama3.2-3b"), get_config("deepseek-r1-671b")
+    zamba, xlstm = get_config("zamba2-2.7b"), get_config("xlstm-350m")
     if phase == "equality":
         rng = np.random.default_rng(2)
         requests = [(rng.integers(0, llama.vocab, size=30).tolist(), 20)
@@ -1338,6 +1381,16 @@ def sharded_jobs(phase):
         no_drop = 16 / r1.moe.top_k
         r1_eq = dataclasses.replace(r1, n_layers=2, moe=dataclasses.replace(
             r1.moe, n_experts=16, first_dense_layers=1, capacity_factor=no_drop))
+        recurrent = []
+        for cfg, layers, seed, lengths, engine in (
+                (zamba, 12, 4, (270, 300), HYBRID_EQ_ENGINE),
+                (xlstm, 8, 5, (100, 120), XLSTM_EQ_ENGINE)):
+            rng = np.random.default_rng(seed)
+            recurrent.append((
+                dataclasses.replace(cfg, n_layers=layers),
+                {"n_layers": [cfg.n_layers, layers]},
+                [(rng.integers(0, cfg.vocab, size=n).tolist(), 16)
+                 for n in lengths], torch.float32, engine))
         return [(dataclasses.replace(llama, n_layers=2),
                  {"n_layers": [llama.n_layers, 2]}, requests, torch.float32,
                  SHARDED_EQ_ENGINE),
@@ -1345,14 +1398,14 @@ def sharded_jobs(phase):
                          "first_dense_layers": [r1.moe.first_dense_layers, 1],
                          "n_experts": [r1.moe.n_experts, 16],
                          "capacity_factor": [r1.moe.capacity_factor, no_drop]},
-                 requests, torch.float32, SHARDED_EQ_ENGINE)]
-    r = SERVE_REQUESTS
+                 requests, torch.float32, SHARDED_EQ_ENGINE), *recurrent]
     return [(cfg, reduced, make_requests(cfg.vocab, r["n"], r["isl"], r["osl"],
                                          r["seed"]), torch.bfloat16, {})
-            for cfg, reduced in (
-                (llama, {}),
+            for cfg, reduced, r in (
+                (llama, {}, SERVE_REQUESTS),
                 (dataclasses.replace(r1, n_layers=R1_LAYERS),
-                 {"n_layers": [r1.n_layers, R1_LAYERS]}))]
+                 {"n_layers": [r1.n_layers, R1_LAYERS]}, SERVE_REQUESTS),
+                (zamba, {}, SERVE_REQUESTS), (xlstm, {}, XLSTM_REQUESTS))]
 
 
 def sharded_rank(rank, phase, out_dir):
@@ -1394,6 +1447,9 @@ def sharded_rank(rank, phase, out_dir):
                    comm={k: dict(v) for k, v in ctx.comm.stats.items()},
                    backend=torch.distributed.get_backend(
                        ctx.comm.group(ctx.model_axis)))
+        runner_states = eng.runner.states if eng is not None else ()
+        row["state_slot_bytes"] = sum(
+            b[:, 0].numel() * b.element_size() for b in runner_states) or None
         if eng is not None:
             s = eng.metrics.summary()
             row.update(outputs=[q.output for q in reqs],
@@ -1427,8 +1483,10 @@ def sharded(phase):
     the card, a (1, 2) mesh over gloo, each serving its shard (K1 and K2 on
     its local heads; the MoE split and replicated dispatch across the
     ranks). Prints one line per model and rank; fails if a rank fails, a
-    request does not finish, equality does not hold, or llama's ranks did
-    not launch both kernels (R1's MLA launches neither). The times measure
+    request does not finish, equality does not hold, or the ranks of
+    llama or zamba2 did not launch both kernels (zamba2's in multiples of
+    its 9 shared-block invocations in the main path), or those of R1 (MLA)
+    or xlstm launched one. The times measure
     gloo through host memory on one card, not NVLink or NCCL. Returns the
     kernels' launches by model and rank."""
     import shutil
@@ -1459,9 +1517,13 @@ def sharded(phase):
                 raise AssertionError(f"sharded_equality/{label}: the small pool "
                                      "forced no preemption")
         for row in rows:
-            gqa = "deepseek" not in row["model"]
-            if gqa and min(row["launches"].values()) == 0 or \
-                    not gqa and max(row["launches"].values()) != 0:
+            # MLA (R1) and xlstm attend through neither kernel; zamba2's 9
+            # shared-block invocations launch each in multiples of 9
+            attends = row["model"] not in ("deepseek-r1-671b", "xlstm-350m")
+            n = row["launches"].values()
+            groups = 9 if row["model"] == "zamba2-2.7b" and phase == "main_path" else 1
+            if attends and (min(n) == 0 or any(v % groups for v in n)) or \
+                    not attends and max(n) != 0:
                 raise AssertionError(f"sharded_{phase}/{label} rank "
                                      f"{row['rank']}: launches {row['launches']}")
             steps = lead["steps"]
@@ -1472,7 +1534,8 @@ def sharded(phase):
                         for op, v in row["comm"].items()}
             extra = {k: row[k] for k in ("gen_tok_s", "ttft_p50_s",
                                          "tpot_mean_s", "engine_s",
-                                         "preemptions", "gen_tokens")
+                                         "preemptions", "gen_tokens",
+                                         "state_slot_bytes")
                      if k in row}
             emit(f"sharded_{phase}", model=row["model"], rank=row["rank"],
                  mesh={"data": SHARDED_MESH[0], "model": SHARDED_MESH[1]},
@@ -1491,6 +1554,250 @@ def sharded(phase):
             if phase == "main_path":
                 launches[f"{label} rank{row['rank']}"] = row["launches"]
     return launches
+
+
+def _rank_rows(ctx, batch):
+    """This rank's rows of a batch (its "data" shard)."""
+    d, n = ctx.coords()["data"], ctx.axis_size("data")
+    return {k: v[d * v.shape[0] // n:(d + 1) * v.shape[0] // n]
+            for k, v in batch.items()}
+
+
+def sharded_train_rank(rank, out_dir):
+    """One of the four ranks of ``sharded_train`` on a (2, 2) mesh: the
+    equality steps (and on rank 0 the same steps at tp=1 on the card, held
+    to the checkpoint the mesh wrote), the elastic restore onto (1, 4) and
+    the main path; the kernels' launch counts set to 0 before each and read
+    after. Writes its row to ``out_dir``."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.parallel.sharding import ParallelContext, entry_slices
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.tree import flatten_with_path, leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data, model = SHARDED_TRAIN_MESH
+    ctx = ParallelContext(mesh=make_mesh_for(data * model, model,
+                                             device_type="cuda"))
+    full = get_config("llama3.2-3b")
+    row = dict(rank=rank, coords=ctx.coords())
+
+    # equality: the mesh's steps, then its checkpoint
+    e = SHARDED_TRAIN_EQ
+    cfg = dataclasses.replace(full, n_layers=e["layers"])
+    ocfg = AdamWConfig(lr=e["lr"], warmup_steps=e["warmup"])
+    batches = [synthetic_batch(i, e["batch"], e["seq"], cfg.vocab, device="cpu")
+               for i in range(e["steps"])]
+    _zero_launches(flash_ops, paged_ops)
+    m = Transformer(cfg, device="cuda", dtype=torch.float32, seed=3,
+                    layout="train", ctx=ctx)
+    state = init_opt_state(m.param_tree(), ocfg)
+    step = make_train_step(m, ocfg)
+    t0 = time.perf_counter()
+    runs = [step(state, {k: v.cuda() for k, v in _rank_rows(ctx, b).items()})
+            for b in batches]
+    row["eq_mesh"] = dict(loss=[float(r["loss"]) for r in runs],
+                          grad_norm=[float(r["grad_norm"]) for r in runs],
+                          seconds=time.perf_counter() - t0)
+    row["eq_moments_are_shards"] = all(
+        tuple(a.shape) == tuple(b.shape)
+        for key in ("m", "v")
+        for a, b in zip(leaves(state[key]), leaves(m.param_tree())))
+    ckdir = Path(out_dir) / "ckpt"
+    t0 = time.perf_counter()
+    ck.save_training(m, state, str(ckdir), e["steps"])
+    row["save_s"] = time.perf_counter() - t0
+    row["eq_launches"] = _launches(flash_ops, paged_ops)
+    del m, state, step, runs
+    free_card()
+    if rank == 0:
+        one = Transformer(cfg, device="cuda", dtype=torch.float32, seed=3,
+                          layout="train")
+        st1 = init_opt_state(one.param_tree(), ocfg)
+        step1 = make_train_step(one, ocfg)
+        runs = [step1(st1, {k: v.cuda() for k, v in b.items()}) for b in batches]
+        row["eq_tp1"] = dict(loss=[float(r["loss"]) for r in runs],
+                             grad_norm=[float(r["grad_norm"]) for r in runs])
+        src = ckdir / f"step-{e['steps']:09d}"
+        keys = json.loads((src / "manifest.json").read_text())["keys"]
+        index = {k: i for i, k in enumerate(keys)}
+        max_diff, n_off, n = 0.0, 0, 0
+        with np.load(src / "arrays.npz") as z:
+            for path, p in flatten_with_path(one.param_tree()):
+                arr = z[f"a{index['0/' + '/'.join(path)]}"]
+                d = np.abs(p.detach().cpu().numpy() - arr)
+                max_diff = max(max_diff, float(d.max()))
+                n_off += int((d > TRAIN_PARAM_ATOL).sum())
+                n += d.size
+        row.update(eq_max_param_diff=max_diff, eq_params_beyond_atol=n_off,
+                   eq_params=n)
+        del one, st1, step1, runs
+        free_card()
+    dist.barrier()
+
+    # elastic restore of that checkpoint onto (1, 4)
+    ctx4 = ParallelContext(mesh=make_mesh_for(4, 4, device_type="cuda"))
+    m4 = Transformer(cfg, device="cuda", dtype=torch.float32, seed=None,
+                     layout="train", ctx=ctx4)
+    st4 = init_opt_state(m4.param_tree(), ocfg)
+    t0 = time.perf_counter()
+    st4, at = ck.restore_training(m4, st4, str(ckdir))
+    torch.cuda.synchronize()
+    row["restore_s"] = time.perf_counter() - t0
+    tree = (m4.param_tree(), st4)
+    places = leaves(ck.training_placements(m4))
+    bad, checked = [], 0
+    with np.load(ckdir / f"step-{e['steps']:09d}" / "arrays.npz") as z:
+        for i, ((path, leaf), place) in enumerate(zip(flatten_with_path(tree), places)):
+            arr = z[f"a{i}"]
+            want = arr[entry_slices(arr.shape, place.entries, ctx4, ctx4.coords())]
+            if not np.array_equal(leaf.detach().cpu().numpy(), want):
+                bad.append("/".join(map(str, path)))
+            checked += 1
+    row.update(restore_step=at, restore_leaves=checked, restore_mismatched=bad,
+               restore_coords=ctx4.coords())
+    del m4, st4, tree
+    free_card()
+    dist.barrier()
+
+    # main path
+    t = SHARDED_TRAIN_MAIN
+    cfg = dataclasses.replace(full, n_layers=t["layers"])
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches(flash_ops, paged_ops)
+    model_ = Transformer(cfg, device="cuda", dtype=torch.float32, seed=0,
+                         layout="train", ctx=ctx)
+    ocfg = AdamWConfig(lr=3e-4, warmup_steps=20)
+    state = init_opt_state(model_.param_tree(), ocfg)
+    step = make_train_step(model_, ocfg)
+    ctx.comm.reset()
+    hist = []
+    for i in range(t["steps"]):
+        batch = _rank_rows(ctx, synthetic_batch(i, t["batch"], t["seq"],
+                                                cfg.vocab, device="cuda"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met = step(state, batch)
+        torch.cuda.synchronize()
+        hist.append(dict(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+                         seconds=time.perf_counter() - t0))
+    row["main"] = dict(
+        layers=cfg.n_layers, params_local=sum(p.numel() for p in model_.parameters()),
+        hist=hist, max_memory_allocated=torch.cuda.max_memory_allocated(),
+        comm={k: dict(v) for k, v in ctx.comm.stats.items()},
+        launches=_launches(flash_ops, paged_ops),
+        backend=torch.distributed.get_backend(ctx.comm.group(ctx.model_axis)))
+    with open(Path(out_dir) / f"train.rank{rank}.json", "w") as f:
+        json.dump(row, f)
+
+
+def sharded_train(flash_ops, paged_ops):
+    """Four ranks spawned on the card, a (2, 2) mesh over gloo. Prints
+    ``sharded_train_equality`` (the mesh's three AdamW steps against tp=1 on
+    the card: losses, grad norms and every parameter after step 3 under
+    ``train_equality``'s tolerances), ``sharded_train_restore`` (the
+    checkpoint saved from (2,2) restored onto (1,4), every rank's shards
+    against the written arrays) and one ``sharded_train_main_path`` line a
+    rank (median step time of steps 2-4, tokens/s, peak memory, collectives
+    per step). Fails if any check fails or a rank launched a kernel. Gloo
+    moves every collective through host memory on one card."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import run_ranks
+
+    world = SHARDED_TRAIN_MESH[0] * SHARDED_TRAIN_MESH[1]
+    out = tempfile.mkdtemp(prefix="sharded_train_")
+    try:
+        run_ranks(sharded_train_rank, world, (out,), backend="gloo",
+                  device_type="cuda")
+        rows = [json.loads((Path(out) / f"train.rank{r}.json").read_text())
+                for r in range(world)]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    mesh = {"data": SHARDED_TRAIN_MESH[0], "model": SHARDED_TRAIN_MESH[1]}
+    transport = "gloo on one card (it copies CUDA tensors through host memory)"
+    e, full_layers = SHARDED_TRAIN_EQ, 28
+    lead = rows[0]
+    launches = {f"rank{r['rank']}": {"equality": r["eq_launches"],
+                                     "main_path": r["main"]["launches"]}
+                for r in rows}
+    emit("sharded_train_equality", model="llama3.2-3b", mesh=mesh,
+         transport=transport, layers=e["layers"],
+         reduced={"n_layers": [full_layers, e["layers"]]}, dtype="float32",
+         tf32=False, batch=e["batch"], seq=e["seq"], lr=e["lr"],
+         warmup_steps=e["warmup"], mesh_side=[r["eq_mesh"] for r in rows],
+         tp1=lead["eq_tp1"], max_param_diff=lead["eq_max_param_diff"],
+         params_beyond_atol=lead["eq_params_beyond_atol"],
+         params=lead["eq_params"], param_atol=TRAIN_PARAM_ATOL,
+         loss_rtol=TRAIN_LOSS_RTOL, grad_norm_rtol=TRAIN_GNORM_RTOL,
+         moments_are_shards=[r["eq_moments_are_shards"] for r in rows],
+         launches={k: v["equality"] for k, v in launches.items()})
+    for key, rtol in (("loss", TRAIN_LOSS_RTOL), ("grad_norm", TRAIN_GNORM_RTOL)):
+        for r in rows:
+            for i, (a, b) in enumerate(zip(r["eq_mesh"][key], lead["eq_tp1"][key])):
+                if not (np.isfinite(a) and abs(a - b) <= rtol * abs(b)):
+                    raise AssertionError(
+                        f"sharded_train_equality: rank {r['rank']} step {i + 1} "
+                        f"{key} mesh {a} tp=1 {b} (rtol {rtol})")
+    if lead["eq_params_beyond_atol"] > TRAIN_FLIP_SHARE * lead["eq_params"] \
+            or lead["eq_max_param_diff"] > 4 * e["lr"]:
+        raise AssertionError(
+            f"sharded_train_equality: {lead['eq_params_beyond_atol']} of "
+            f"{lead['eq_params']} parameters beyond {TRAIN_PARAM_ATOL}, largest "
+            f"{lead['eq_max_param_diff']}")
+    if not all(r["eq_moments_are_shards"] for r in rows):
+        raise AssertionError("sharded_train_equality: AdamW moments are not "
+                             "their parameters' shards")
+    emit("sharded_train_restore", model="llama3.2-3b", saved_from=mesh,
+         restored_onto={"data": 1, "model": 4}, layers=e["layers"],
+         step=lead["restore_step"], leaves=lead["restore_leaves"],
+         save_s=[r["save_s"] for r in rows],
+         restore_s=[r["restore_s"] for r in rows],
+         mismatched={f"rank{r['rank']}": r["restore_mismatched"] for r in rows})
+    if any(r["restore_mismatched"] for r in rows) or lead["restore_step"] != e["steps"]:
+        raise AssertionError("sharded_train_restore: restored shards differ "
+                             "from the written arrays")
+    t = SHARDED_TRAIN_MAIN
+    for r in rows:
+        mm = r["main"]
+        hist = mm["hist"]
+        median_s = float(np.median([h["seconds"] for h in hist[1:]]))
+        steps = len(hist)
+        emit("sharded_train_main_path", model="llama3.2-3b", rank=r["rank"],
+             coords=r["coords"], mesh=mesh, backend=mm["backend"],
+             transport=transport, layers=mm["layers"],
+             reduced={"n_layers": [full_layers, mm["layers"]]}, dtype="float32",
+             state_dtype="float32", batch=t["batch"], seq=t["seq"],
+             params_local=mm["params_local"], steps=steps,
+             loss=[h["loss"] for h in hist],
+             grad_norm=[h["grad_norm"] for h in hist],
+             step_s=[h["seconds"] for h in hist], median_step_s_2_to_4=median_s,
+             tok_s=t["batch"] * t["seq"] / median_s,
+             max_memory_allocated=mm["max_memory_allocated"],
+             collectives_per_step={op: dict(calls=v["calls"] / steps,
+                                            host_ms=v["seconds"] / steps * 1e3,
+                                            bytes=v["bytes"] / steps,
+                                            staged=v["staged"] / steps)
+                                   for op, v in mm["comm"].items()},
+             staged_through_host=sorted(op for op, v in mm["comm"].items()
+                                        if v["staged"]),
+             launches=mm["launches"])
+        if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist):
+            raise AssertionError("sharded_train_main_path: non-finite loss or "
+                                 "grad norm")
+    for rank, n in launches.items():
+        if max(n["equality"].values()) or max(n["main_path"].values()):
+            raise AssertionError(f"sharded_train launched a kernel on {rank}: {n}")
 
 
 def main():
@@ -1521,11 +1828,12 @@ def main():
     timings = {"flash_attention": [time_flash(flash_ops, c, torch.bfloat16, gen)
                                    for c in RAGGED_FLASH[::-1] + MAIN_FLASH
                                    + GQA_FLASH + ZAMBA_FLASH + VLM_AUDIO_FLASH
-                                   + RANK_FLASH],
+                                   + RANK_FLASH + ZAMBA_RANK_FLASH],
                "paged_attention": [time_paged(paged_ops, torch.bfloat16, gen, m)
                                    for m in (LONG_PAGED, MAIN_PAGED, *GQA_PAGED,
                                              ZAMBA_PAGED, MUSICGEN_PAGED,
-                                             INTERNVL_PAGED, RANK_PAGED)]}
+                                             INTERNVL_PAGED, RANK_PAGED,
+                                             ZAMBA_RANK_PAGED)]}
     # the kernels line takes K1 at S=2048 and K2 at llama3.2-3b's decode batch
     main_row = {"flash_attention": len(RAGGED_FLASH) + len(MAIN_FLASH) - 1,
                 "paged_attention": 1}
@@ -1595,6 +1903,8 @@ def main():
     sharded("equality")
     free_card()
     by_model.update(sharded("main_path"))
+    free_card()
+    sharded_train(flash_ops, paged_ops)
     free_card()
 
     replaces = {

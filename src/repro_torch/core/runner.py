@@ -91,11 +91,13 @@ class TorchRunner:
     reference's ``JaxRunner`` with a mesh ctx) it is a single controller:
     the rank at "model" coordinate 0 leads, runs the engine and its
     allocator, and broadcasts each call's work (the pool's size, prefill
-    tokens with their pages, decode tokens with their positions and block
-    tables) to the other ranks, which ``follow``: each runs the same model
-    calls on its shard, on a pool of its own kv heads indexed by the
-    leader's page ids. Meshes with "data" > 1 are refused (a later slice:
-    each data rank would need its own engine or its batch's rows)."""
+    tokens with their pages and state slot, decode tokens with their
+    positions, block tables and slots) to the other ranks, which
+    ``follow``: each runs the same model calls on its shard, on a pool of
+    its own kv heads indexed by the leader's page ids and on state buffers
+    of its own (a Mamba2 rank's heads) indexed by the leader's slot ids.
+    Meshes with "data" > 1 are refused (a later slice: each data rank
+    would need its own engine or its batch's rows)."""
 
     def __init__(self, model: Transformer, *, device="cuda"):
         self.device = resolve_device(device)
@@ -164,30 +166,32 @@ class TorchRunner:
         """Whole prefill target (prompt + regenerated prefix after a
         preemption) at the completing chunk; its cache entries go into the
         pages of the request's table, which the scheduler grew to cover it,
-        and its state into its slot. Returns the first token."""
+        and its state into its slot, which the leader picks and every rank
+        writes. Returns the first token."""
         toks = np.asarray(req.prompt + req.output[:req.resume_extra], np.int64)
         table = np.asarray(self.alloc.table(req.rid), np.int64)
         pages = table[np.arange(len(toks)) // self.alloc.page_size]
-        self._send("prefill", toks, pages, req.rid)
-        return self._prefill(toks, pages, req.rid)
+        slot = None
+        if self.states:
+            if req.rid not in self._slot_of:
+                if not self._free_slots:
+                    raise RuntimeError(
+                        f"request {req.rid}: every one of the "
+                        f"{self.states[0].shape[1]} state slots is taken")
+                self._slot_of[req.rid] = self._free_slots.pop()
+            slot = self._slot_of[req.rid]
+        self._send("prefill", toks, pages, slot)
+        return self._prefill(toks, pages, slot)
 
-    def _prefill(self, toks: np.ndarray, pages: np.ndarray, rid: int) -> int:
+    def _prefill(self, toks: np.ndarray, pages: np.ndarray, slot) -> int:
         logits, caches, states = self.model.prefill(self._to_device(toks[None]))
         if self.pools:
             slots = self._to_device(np.arange(len(toks)) % self.pools[0].shape[2])
             pages = self._to_device(pages)
             for j, pool in enumerate(self.pools):
                 pool[:, pages, slots] = torch.stack([c[j] for c in caches])[:, 0]
-        if self.states:
-            if rid not in self._slot_of:
-                if not self._free_slots:
-                    raise RuntimeError(
-                        f"request {rid}: every one of the "
-                        f"{self.states[0].shape[1]} state slots is taken")
-                self._slot_of[rid] = self._free_slots.pop()
-            slot = self._slot_of[rid]
-            for buf, st in zip(self.states, states):
-                buf[:, slot] = st[:, 0]
+        for buf, st in zip(self.states, states):
+            buf[:, slot] = st[:, 0]
         return int(logits[0].argmax())
 
     def decode(self, reqs: List[Request]) -> List[int]:

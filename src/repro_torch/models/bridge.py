@@ -55,8 +55,9 @@ def from_jax_params(params: Mapping, cfg: ModelConfig, *, device="cuda",
     """A ``Transformer`` in ``layout`` holding ``params``, cast to
     ``dtype``. With a ``ctx`` over a mesh, ``params`` is the reference's
     tree built under that mesh (``init_params(cfg, key, ctx,
-    mode="serve")``: q heads padded to hp, kv heads tiled to kvp), and the
-    model holds the shard of the rank at ``coords`` (default: this rank's
+    mode=layout)``: q heads padded to hp, kv heads tiled to kvp in the
+    serve layout, true or zero-padded in the train layout), and the model
+    holds the shard of the rank at ``coords`` (default: this rank's
     coordinates on the mesh)."""
     flat = {k: np.asarray(v) for k, v in _flatten(params).items()}
     specs = param_specs(cfg)
@@ -65,14 +66,14 @@ def from_jax_params(params: Mapping, cfg: ModelConfig, *, device="cuda",
                          f"{sorted(set(specs) - set(flat))}, unexpected "
                          f"{sorted(set(flat) - set(specs))}")
     sharded = ctx is not None and ctx.mesh is not None
-    shapes = padded_shapes(cfg, ctx) if sharded else \
+    shapes = padded_shapes(cfg, ctx, layout) if sharded else \
         {n: shape for n, (shape, _, _) in specs.items()}
     for name, shape in shapes.items():
         if flat[name].shape != shape:
             raise ValueError(f"{name}: shape {flat[name].shape}, want {shape}")
     if sharded:
         coords = ctx.coords() if coords is None else coords
-        axes = param_axes(cfg)
+        axes = param_axes(cfg, layout, ctx)
         flat = {n: a[shard_slices(a.shape, axes[n], ctx, coords)]
                 for n, a in flat.items()}
     model = Transformer(cfg, device=device, dtype=dtype, seed=None,

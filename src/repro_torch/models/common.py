@@ -7,10 +7,17 @@ from typing import Optional
 import torch
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
+            ctx=None) -> torch.Tensor:
+    """RMSNorm over the last axis. Under ``ctx`` with tp > 1, ``x`` and
+    ``w`` are a rank's equal slices of that axis: the ranks' mean squares
+    are averaged over "model" before the scale."""
     dt = x.dtype
     xf = x.float()
-    xf = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    if ctx is not None and ctx.tp > 1:
+        ms = ctx.comm.psum(ms, ctx.model_axis) / ctx.tp
+    xf = xf * torch.rsqrt(ms + eps)
     return (xf * w.float()).to(dt)
 
 
@@ -31,6 +38,19 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return rot.to(x.dtype)
 
 
+def token_xent(logits: torch.Tensor, labels: torch.Tensor,
+               z_loss: float = 1e-4) -> torch.Tensor:
+    """``softmax_xent``'s term of each position (...), before the mean."""
+    logits = logits.float()
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    label_logit = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - label_logit
+    if z_loss:
+        nll = nll + z_loss * lse.square()
+    return nll
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  mask: Optional[torch.Tensor] = None,
                  z_loss: float = 1e-4) -> torch.Tensor:
@@ -39,13 +59,7 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     z_loss * lse**2``, and with ``mask`` the masked mean over
     ``max(sum(mask), 1)``. The label's logit is gathered, where the
     reference contracts a one-hot: the same value without a (T,V) one-hot."""
-    logits = logits.float()
-    m = logits.amax(dim=-1, keepdim=True).detach()
-    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
-    label_logit = logits.gather(-1, labels.long()[..., None])[..., 0]
-    nll = lse - label_logit
-    if z_loss:
-        nll = nll + z_loss * lse.square()
+    nll = token_xent(logits, labels, z_loss)
     if mask is not None:
         mask = mask.float()
         return (nll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -8,6 +8,16 @@ state h (B, nh, hd, ds) in fp32 from chunk to chunk; inside a chunk the
 work is batched products, so its memory is O(B * chunk^2 * nh). The JAX
 package has no Pallas kernel here: the products are ``torch.matmul`` and
 ``einsum``, as it leaves them to XLA.
+
+Under a ``ParallelContext`` with tp > 1 (``ctx=``) a layer is a rank's
+shard, as the reference's ``MAMBA_AXES`` cut it: ``w_z``, ``w_x``,
+``conv_x`` and ``gnorm`` hold the rank's d_inner channels, ``w_dt``,
+``A_log``, ``D`` and ``dt_bias`` its heads (the same heads: channel c is
+head c // head_dim), ``w_B``, ``w_C`` and their convs are whole, and
+``out_proj`` holds the rank's rows. The rank scans its own heads from its
+own slice of the state; the gated norm, an RMSNorm over the whole d_inner,
+averages the ranks' mean squares with a ``psum`` over "model" before it
+scales, and ``out_proj``'s partial product is summed by another.
 """
 from __future__ import annotations
 
@@ -21,11 +31,22 @@ from repro_torch.models.common import rmsnorm
 ConvState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def _dims(cfg) -> Tuple[int, int, int, int]:
-    """(d_inner, heads, head dim, state dim) of a Mamba2 layer."""
+def _dims(cfg, tp: int = 1) -> Tuple[int, int, int, int]:
+    """(d_inner, heads, head dim, state dim) of a Mamba2 layer, d_inner and
+    heads those of one rank of ``tp``."""
     s = cfg.ssm
-    di = s.expand * cfg.d_model
+    di = s.expand * cfg.d_model // tp
     return di, di // s.head_dim, s.head_dim, s.d_state
+
+
+def _tp(ctx) -> int:
+    return 1 if ctx is None else ctx.tp
+
+
+def _out(y: torch.Tensor, p, ctx) -> torch.Tensor:
+    """``out_proj``, its row-parallel partial products summed over "model"."""
+    y = y @ p["out_proj"]
+    return y if _tp(ctx) == 1 else ctx.comm.psum(y, ctx.model_axis)
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
@@ -81,9 +102,10 @@ def _chunk(h, xq, dtq, Bq, Cq, A):
 
 def mamba2_forward(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg, *,
                    initial_state: Optional[torch.Tensor] = None,
-                   conv_state: Optional[ConvState] = None):
-    """x (B,S,d) -> (y (B,S,d), (h (B,nh,hd,ds) fp32, conv states))."""
-    di, nh, hd, _ = _dims(cfg)
+                   conv_state: Optional[ConvState] = None, ctx=None):
+    """x (B,S,d) -> (y (B,S,d), (h (B,nh,hd,ds) fp32, conv states)); nh
+    and the conv state of x a rank's under ``ctx``."""
+    di, nh, hd, _ = _dims(cfg, _tp(ctx))
     B, S, _ = x.shape
     Q = min(cfg.ssm.chunk, S)
     z, xr, Bc, Cc, dt, new_cs = _project(x, p, conv_state)
@@ -91,7 +113,7 @@ def mamba2_forward(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg, *,
     Bf, Cf = Bc.float(), Cc.float()
     A = -torch.exp(p["A_log"].float())                           # (nh,)
     h = initial_state if initial_state is not None \
-        else init_mamba_state(cfg, B, x.dtype, x.device)[0]
+        else init_mamba_state(cfg, B, x.dtype, x.device, tp=_tp(ctx))[0]
     ys = []
     for start in range(0, S, Q):   # whole chunks, then the remainder
         sl = slice(start, start + Q)
@@ -100,15 +122,15 @@ def mamba2_forward(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg, *,
     y = torch.cat(ys, dim=1)
     y = y + p["D"].float()[:, None] * xh
     y = y.reshape(B, S, di).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), p["gnorm"], cfg.norm_eps)
-    return y @ p["out_proj"], (h, new_cs)
+    y = rmsnorm(y * F.silu(z), p["gnorm"], cfg.norm_eps, ctx)
+    return _out(y, p, ctx), (h, new_cs)
 
 
 def mamba2_decode(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg,
-                  state: Tuple[torch.Tensor, ConvState]):
+                  state: Tuple[torch.Tensor, ConvState], ctx=None):
     """One token. x (B,1,d); state = (h (B,nh,hd,ds), conv states).
     Returns (y (B,1,d), new state)."""
-    di, nh, hd, _ = _dims(cfg)
+    di, nh, hd, _ = _dims(cfg, _tp(ctx))
     B = x.shape[0]
     h, cs = state
     z, xr, Bc, Cc, dt, new_cs = _project(x, p, cs)
@@ -123,14 +145,16 @@ def mamba2_decode(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg,
     y = torch.einsum("bn,bhdn->bhd", Cf, h_new)
     y = y + p["D"].float()[:, None] * xh
     y = y.reshape(B, 1, di).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), p["gnorm"], cfg.norm_eps)
-    return y @ p["out_proj"], (h_new, new_cs)
+    y = rmsnorm(y * F.silu(z), p["gnorm"], cfg.norm_eps, ctx)
+    return _out(y, p, ctx), (h_new, new_cs)
 
 
-def init_mamba_state(cfg, batch: int, dtype=torch.float32, device="cpu"):
-    """Zero state: h in fp32, the conv states in ``dtype``."""
+def init_mamba_state(cfg, batch: int, dtype=torch.float32, device="cpu",
+                     tp: int = 1):
+    """Zero state: h in fp32, the conv states in ``dtype``; h's heads and
+    the conv state of x a rank's of ``tp``."""
     s = cfg.ssm
-    di, nh, hd, ds = _dims(cfg)
+    di, nh, hd, ds = _dims(cfg, tp)
     h = torch.zeros((batch, nh, hd, ds), dtype=torch.float32, device=device)
     cs = tuple(torch.zeros((batch, s.conv_width - 1, c), dtype=dtype,
                            device=device) for c in (di, ds, ds))

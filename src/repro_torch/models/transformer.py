@@ -43,20 +43,27 @@ layout, through the plain ``flash_prefill``, ``mla_prefill``,
 ``loss_fn`` is the reference's training loss over it.
 
 Under a ``ParallelContext`` with a mesh (``ctx=``) a model is one rank's
-shard of the serve layout, as the reference's ``param_shardings`` cut it
-(``param_axes`` through ``ctx.rules()``): q heads padded to hp and kv
-heads tiled to kvp (``padded_heads``); heads, d_ff, experts and the vocab
-(or an untied embedding's d_model) cut over "model"; the weights' d_model
-axes cut over the FSDP axis and gathered before use; the batch cut over
-"data". q/k/v and gate/up are column-parallel, ``wo``/``w_o`` and
-``w_down`` row-parallel with a ``psum`` over "model"; the tied embedding
-is a masked lookup of the rank's rows and a ``psum``, and the logits are
-gathered over "model". K1 and K2 run on the rank's own heads; MLA keeps
-its heads on "model" and its latent cache whole on every rank; the MoE
-FFN is expert-parallel (``models/moe.py``). The seeded init draws what one
-device draws and keeps the rank's shard, so every mesh shape serves the
-model of tp=1. The hybrid and ssm families, the train layout and the
-reference's §Perf levers are refused under a mesh.
+shard of either layout, as the reference's ``param_shardings`` cut it
+(``param_axes`` through ``ctx.rules()``): q heads padded to hp; in the
+serve layout kv heads tiled to kvp (``padded_heads``), in the train layout
+the true kv heads whole on every rank (``kv_heads_exact``) and q slots
+g-major, the pad slots last; heads, d_ff, experts, the Mamba2 d_inner and
+heads, the xLSTM up-projections and the vocab (or an untied embedding's
+d_model) cut over "model"; the weights' d_model axes cut over the FSDP axis
+and gathered before use; the batch cut over "data". q/k/v and gate/up are
+column-parallel, ``wo``/``w_o``, ``w_down`` and Mamba2's ``out_proj``
+row-parallel with a ``psum`` over "model"; the tied embedding is a masked
+lookup of the rank's rows and a ``psum``, and the logits are gathered over
+"model". K1 and K2 run on the rank's own heads; MLA keeps its heads on
+"model" and its latent cache whole on every rank; the MoE FFN is
+expert-parallel (``models/moe.py``); Mamba2 scans its own heads and its
+state slots hold them, and the xLSTM blocks run their recurrences whole on
+every rank (``models/xlstm.py``). The seeded init draws what one device
+draws and keeps the rank's shard, so every mesh shape holds the model of
+tp=1. ``forward`` under a mesh takes the rank's rows of the batch, and
+``loss_fn`` returns the global masked mean, whose gradient on each rank is
+that rank's share (``repro_torch.parallel.collectives``); the reference's
+§Perf levers are refused under a mesh.
 """
 from __future__ import annotations
 
@@ -74,7 +81,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.models.attention import (flash_prefill, mla_decode_paged,
                                           mla_latents, mla_prefill)
-from repro_torch.models.common import rmsnorm, rope, softmax_xent
+from repro_torch.models.common import rmsnorm, rope, token_xent
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import (init_mamba_state, mamba2_decode,
                                     mamba2_forward)
@@ -82,8 +89,8 @@ from repro_torch.models.xlstm import (_mlstm_dims, init_mlstm_state,
                                       init_slstm_state, mlstm_decode,
                                       mlstm_forward, slstm_decode,
                                       slstm_forward)
-from repro_torch.parallel.sharding import (ParallelContext, kv_to_orig,
-                                           padded_heads, q_to_orig,
+from repro_torch.parallel.sharding import (ParallelContext, Placement,
+                                           kv_to_orig, padded_heads, q_to_orig,
                                            shard_shape, shard_slices)
 
 # name -> (shape, init, fan_in); init is "normal" (std 1/sqrt(fan_in)),
@@ -279,63 +286,117 @@ _MOE_AXES: Dict[str, Axes] = {
 EXPERT_LEAVES = ("we_gate", "we_up", "we_down", "ws_gate", "ws_up", "ws_down")
 
 
-def param_axes(cfg: ModelConfig) -> Dict[str, Axes]:
-    """The logical axes of each serve parameter of a dense, vlm, audio or
-    MoE model, as the reference's ``build_param_specs(mode="serve")``
-    gives them (its ``param_pspecs`` maps them through ``rules()``)."""
+# the reference's MAMBA_AXES, MLSTM_AXES and SLSTM_AXES
+# (``repro.models.ssm``, ``repro.models.xlstm``)
+_MAMBA_AXES: Dict[str, Axes] = {
+    "norm": ("embed",), "w_z": ("embed", "ssm_inner"),
+    "w_x": ("embed", "ssm_inner"), "w_B": ("embed", None),
+    "w_C": ("embed", None), "w_dt": ("embed", "ssm_heads"),
+    "conv_x": (None, "ssm_inner"), "conv_B": (None, None),
+    "conv_C": (None, None), "A_log": ("ssm_heads",), "D": ("ssm_heads",),
+    "dt_bias": ("ssm_heads",), "gnorm": ("ssm_inner",),
+    "out_proj": ("ssm_inner", "embed")}
+_MLSTM_AXES: Dict[str, Axes] = {
+    "norm": ("embed",), "w_up": ("embed", "ssm_inner"),
+    "conv": (None, "ssm_inner"), "w_q": ("ssm_inner", None),
+    "w_k": ("ssm_inner", None), "w_v": ("ssm_inner", None),
+    "w_if": ("ssm_inner", None), "gnorm": (None,), "w_down": (None, "embed"),
+    "skip": ("ssm_inner", None)}
+_SLSTM_AXES: Dict[str, Axes] = {
+    "norm": ("embed",), "w_gates": ("embed", None),
+    "r_gates": (None, None, None, None), "gnorm": (None,),
+    "w_up": ("embed", "mlp"), "w_down": ("mlp", "embed")}
+
+
+def heads_layout(cfg: ModelConfig, ctx: ParallelContext,
+                 layout: str = "serve") -> Tuple[int, int]:
+    """(hp, kvx): the q and kv head counts of ``layout`` under ``ctx`` (the
+    reference's ``heads_layout``): q padded to hp; kv tiled to kvp in the
+    serve layout, kept at the true count in the train layout unless hp is
+    no multiple of it (MHA: zero-padded to kvp); for MLA the true count,
+    which must divide tp."""
+    if cfg.attention == "mla":
+        return cfg.n_heads, cfg.n_heads
+    hp, kvp = padded_heads(cfg.n_heads, cfg.n_kv_heads, ctx.tp)
+    if layout == "serve" or hp % cfg.n_kv_heads:
+        return hp, kvp
+    return hp, cfg.n_kv_heads
+
+
+def _kv_exact(cfg: ModelConfig, ctx: Optional[ParallelContext], layout: str) -> bool:
+    """Whether ``layout`` keeps the true kv heads whole on every rank."""
+    return (layout == "train" and cfg.attention != "mla" and cfg.family != "ssm"
+            and heads_layout(cfg, ctx or ParallelContext(), layout)[1]
+            == cfg.n_kv_heads)
+
+
+def param_axes(cfg: ModelConfig, layout: str = "serve",
+               ctx: Optional[ParallelContext] = None) -> Dict[str, Axes]:
+    """The logical axes of each parameter of ``layout``, as the reference's
+    ``build_param_specs(cfg, ctx, mode=layout)`` gives them (its
+    ``param_pspecs`` maps them through ``rules()``). The train layout's
+    true kv heads take ``kv_heads_exact`` over ``embed_kv``; ``ctx`` tells
+    whether MHA alignment pads them instead."""
     attn = _attn_axes(cfg)
+    if _kv_exact(cfg, ctx, layout):
+        attn["wk"] = attn["wv"] = ("embed_kv", "kv_heads_exact", None)
     top: Dict[str, Axes] = {
         "embed": ("vocab", None) if cfg.tie_embeddings else (None, "d_tp"),
         "final_norm": (None,), "lm_head": ("embed", "vocab")}
+    tables = {"dense_stack": {**attn, **_MLP_AXES},
+              "shared_attn": {**attn, **_MLP_AXES},
+              "moe_stack": {**attn, **_MOE_AXES}, "mamba_stack": _MAMBA_AXES,
+              "mlstm_stack": _MLSTM_AXES, "slstm_stack": _SLSTM_AXES}
+    depths = stack_depths(cfg)
     out = {}
     for name in param_specs(cfg):
         stack, _, leaf = name.rpartition(".")
         if not stack:
             out[name] = top[name]
         else:
-            table = {**attn, **(_MOE_AXES if stack == "moe_stack" else _MLP_AXES)}
-            out[name] = ("layers", *table[leaf])
+            out[name] = ("layers",) * len(depths[stack]) + tables[stack][leaf]
     return out
 
 
-def serve_heads(cfg: ModelConfig, ctx: ParallelContext) -> Tuple[int, int]:
-    """(hp, kvp): the serve layout's q and kv head counts under ``ctx``
-    (the reference's ``heads_layout(mode="serve")``): padded for GQA and
-    MHA, the true count for MLA, whose heads must divide tp."""
-    if cfg.attention == "mla":
-        return cfg.n_heads, cfg.n_heads
-    return padded_heads(cfg.n_heads, cfg.n_kv_heads, ctx.tp)
-
-
-def padded_shapes(cfg: ModelConfig, ctx: ParallelContext) -> Dict[str, Tuple[int, ...]]:
-    """Each serve parameter's whole shape under ``ctx``: the reference's
-    ``build_param_specs(cfg, ctx, "serve")`` shapes, q heads padded to hp
-    and kv heads tiled to kvp."""
-    hp, kvp = serve_heads(cfg, ctx)
-    count = {"heads": hp, "kv_heads": kvp}
+def padded_shapes(cfg: ModelConfig, ctx: ParallelContext,
+                  layout: str = "serve") -> Dict[str, Tuple[int, ...]]:
+    """Each parameter's whole shape under ``ctx``: the reference's
+    ``build_param_specs(cfg, ctx, layout)`` shapes, q heads padded to hp
+    and kv heads to ``heads_layout``'s count."""
+    hp, kvx = heads_layout(cfg, ctx, layout)
+    count = {"heads": hp, "kv_heads": kvx, "kv_heads_exact": kvx}
     specs = param_specs(cfg)
     return {name: tuple(count.get(a, n) for n, a in zip(specs[name][0], axes))
-            for name, axes in param_axes(cfg).items()}
+            for name, axes in param_axes(cfg, layout, ctx).items()}
 
 
-def head_maps(cfg: ModelConfig, ctx: ParallelContext) -> Dict[str, np.ndarray]:
-    """Padded head slot -> original head (-1: a zero slot) for the "heads"
-    and "kv_heads" axes (the reference's ``_q_slot_to_orig`` and
-    ``kv_to_orig`` in serve mode); MLA pads nothing."""
-    if cfg.attention == "mla":
+def head_maps(cfg: ModelConfig, ctx: ParallelContext,
+              layout: str = "serve") -> Dict[str, np.ndarray]:
+    """Padded head slot -> the tp=1 model's head slot (-1: a zero slot) for
+    the head axes of ``layout``. Serve: the reference's ``q_to_orig`` and
+    ``kv_to_orig``. Train: its g-major ``_q_slot_to_orig``, whose slot
+    j*KV + k holds the head that the tp=1 train layout holds in the same
+    slot, so the pad slots come last; kv zero-padded only under MHA
+    alignment. MLA pads nothing."""
+    if cfg.attention == "mla" or cfg.family == "ssm":
         return {}
-    hp, kvp = serve_heads(cfg, ctx)
-    return {"heads": q_to_orig(hp, kvp, cfg.n_heads, cfg.n_kv_heads),
-            "kv_heads": (kv_to_orig(kvp, cfg.n_heads, cfg.n_kv_heads)
-                         if kvp != cfg.n_kv_heads else np.arange(kvp))}
+    hp, kvx = heads_layout(cfg, ctx, layout)
+    kv = (kv_to_orig(kvx, cfg.n_heads, cfg.n_kv_heads)
+          if kvx != cfg.n_kv_heads else np.arange(kvx))
+    if layout == "serve":
+        q = q_to_orig(hp, kvx, cfg.n_heads, cfg.n_kv_heads)
+    else:
+        q = np.where(np.arange(hp) < cfg.n_heads, np.arange(hp), -1)
+    return {"heads": q, "kv_heads": kv, "kv_heads_exact": kv}
 
 
 def take_shard(full: torch.Tensor, axes: Axes, cfg: ModelConfig,
-               ctx: ParallelContext, coords: Dict[str, int]) -> torch.Tensor:
+               ctx: ParallelContext, coords: Dict[str, int],
+               layout: str = "serve") -> torch.Tensor:
     """The rank at ``coords``'s shard of a leaf given at tp=1 (``full``,
     its unpadded shape): head axes mapped through ``head_maps`` (zeros in
     pad slots, kv replicas tiled), then every axis cut by ``rules()``."""
-    maps = head_maps(cfg, ctx)
+    maps = head_maps(cfg, ctx, layout)
     padded = [len(maps[a]) if a in maps else n for n, a in zip(full.shape, axes)]
     x = full
     for dim, (a, sl) in enumerate(zip(axes, shard_slices(padded, axes, ctx, coords))):
@@ -378,26 +439,25 @@ def check_supported(cfg: ModelConfig):
 
 
 def check_shardable(cfg: ModelConfig, ctx: ParallelContext, layout: str):
-    """Raise unless the port can shard ``cfg`` under ``ctx``: the serve
-    layout of a dense, vlm, audio or MoE model, every §Perf lever at its
-    default, and every sharded dimension dividing its mesh axes."""
-    if cfg.family in ("hybrid", "ssm"):
+    """Raise unless the port can shard ``cfg`` under ``ctx``: every §Perf
+    lever at its default, no GQA train layout whose padded q heads are no
+    multiple of the kv heads (the reference tiles kv there, and its g-major
+    slots then read other heads than tp=1's), and every sharded dimension
+    dividing its mesh axes."""
+    hp, kvx = heads_layout(cfg, ctx, layout)
+    if (layout == "train" and cfg.attention != "mla" and cfg.family != "ssm"
+            and cfg.n_kv_heads < cfg.n_heads and kvx != cfg.n_kv_heads):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family under a mesh needs the "
-            "sharding rules of ssm_inner, ssm_heads, conv_ch and lstm_vdim, "
-            "the next slice of the port (ROADMAP §1)")
-    if layout != "serve":
-        raise NotImplementedError(
-            f"{cfg.name}: the {layout} layout under a mesh (the sharded train "
-            "step, ZeRO optimizer state) is a later slice of the port")
+            f"{cfg.name}: the train layout at tp {ctx.tp} pads {cfg.n_heads} "
+            f"q heads to {hp}, no multiple of its {cfg.n_kv_heads} kv heads")
     levers = ctx.levers_set() + (
         ("kv_cache_dtype",) if ctx.kv_cache_dtype is not None else ())
     if levers:
         raise NotImplementedError(
             f"{cfg.name}: the §Perf levers {levers} are not ported; the "
             "port runs the reference's baseline rules (ROADMAP §1)")
-    axes = param_axes(cfg)
-    for name, shape in padded_shapes(cfg, ctx).items():
+    axes = param_axes(cfg, layout, ctx)
+    for name, shape in padded_shapes(cfg, ctx, layout).items():
         shard_shape(shape, axes[name], ctx)
 
 
@@ -407,9 +467,8 @@ class Transformer(nn.Module):
     ``layout`` is ``"serve"`` or ``"train"`` (the module docstring).
 
     ``ctx``, a ``ParallelContext`` over a ``DeviceMesh``, builds this
-    rank's shard of the serve layout of a dense, vlm, audio or MoE model
-    (the module docstring's last part); None, or a context without a
-    mesh, is one device."""
+    rank's shard of the layout (the module docstring's last part); None,
+    or a context without a mesh, is one device."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  dtype: torch.dtype = torch.bfloat16, seed: Optional[int] = 0,
@@ -427,15 +486,18 @@ class Transformer(nn.Module):
         self.specs = param_specs(cfg)
         self.mla = cfg.attention == "mla"
         self.window = cfg.swa_window if cfg.attention == "swa" else 0
-        hp, kvp = serve_heads(cfg, self.ctx)
+        hp, kvx = heads_layout(cfg, self.ctx, layout)
         tp = self.ctx.tp
-        # this rank's q and kv heads (all of them on one device)
-        self.n_q, self.n_kv = hp // tp, kvp // tp
+        # each parameter's logical axes in this layout
+        self.axes = param_axes(cfg, layout, self.ctx)
+        self.kv_exact = _kv_exact(cfg, self.ctx, layout)
+        # this rank's q and kv heads (all of them on one device; the train
+        # layout's true kv heads on every rank)
+        self.n_q, self.n_kv = hp // tp, kvx if self.kv_exact else kvx // tp
         shapes = {n: s for n, (s, _, _) in self.specs.items()}
         if self.ctx.mesh is not None:
-            axes = param_axes(cfg)
-            shapes = {n: shard_shape(s, axes[n], self.ctx)
-                      for n, s in padded_shapes(cfg, self.ctx).items()}
+            shapes = {n: shard_shape(s, self.axes[n], self.ctx)
+                      for n, s in padded_shapes(cfg, self.ctx, layout).items()}
         stacks: Dict[str, Dict[str, nn.Parameter]] = {
             stack: {} for stack in stack_depths(cfg)}
         for name, shape in shapes.items():
@@ -503,9 +565,10 @@ class Transformer(nn.Module):
         leaf of ``shape`` (so every mesh shape gets the model of tp=1),
         one layer at a time into a buffer of the model's dtype, of which
         this rank keeps its shard (``take_shard``) and frees the rest."""
-        axes = param_axes(self.cfg)[name]
-        stacked = axes[0] == "layers"
-        per = int(np.prod(shape[1:] if stacked else shape))
+        axes = self.axes[name]
+        lead = sum(1 for a in axes if a == "layers")
+        layers = int(np.prod(shape[:lead]))
+        per = int(np.prod(shape[lead:]))
         total = int(np.prod(shape))
         pieces = (torch.randn(min(INIT_CHUNK, total - start), generator=gen,
                               device=self.device,
@@ -513,7 +576,8 @@ class Transformer(nn.Module):
                   for start in range(0, total, INIT_CHUNK))
         coords = self.ctx.coords()
         carry = torch.empty(0, device=self.device)
-        for layer in range(shape[0] if stacked else 1):
+        stacked = param.flatten(0, lead - 1) if lead else param[None]
+        for layer in range(layers):
             buf = torch.empty(per, dtype=self.dtype, device=self.device)
             filled = 0
             while filled < per:
@@ -522,10 +586,10 @@ class Transformer(nn.Module):
                 n = min(per - filled, carry.numel())
                 buf[filled:filled + n].copy_(carry[:n])
                 carry, filled = carry[n:], filled + n
-            full = buf.view(shape[1:] if stacked else shape)
-            shard = take_shard(full, axes[1:] if stacked else axes, self.cfg,
-                               self.ctx, coords)
-            (param[layer] if stacked else param).copy_(shard)
+            full = buf.view(shape[lead:])
+            shard = take_shard(full, axes[lead:], self.cfg, self.ctx, coords,
+                               self.layout)
+            stacked[layer].copy_(shard)
             del buf, full, shard
 
     def pool_shapes(self, n_pages: int, page: int) -> List[Tuple[int, ...]]:
@@ -557,7 +621,8 @@ class Transformer(nn.Module):
         none for the other families."""
         cfg = self.cfg
         if cfg.family == "hybrid":
-            h, cs = init_mamba_state(cfg, 1, self.dtype, device="meta")
+            h, cs = init_mamba_state(cfg, 1, self.dtype, device="meta",
+                                     tp=self.ctx.tp)
             per_layer = [(cfg.n_layers, t) for t in (h, *cs)]
         elif cfg.family == "ssm":
             (G, per), _ = stack_depths(cfg).values()
@@ -570,14 +635,31 @@ class Transformer(nn.Module):
 
     # ------------------------------------------------------------ layers
     def _layer(self, stack: str, *i: int) -> Dict[str, torch.Tensor]:
-        """One layer's weights; under FSDP each gathered over the FSDP
+        """One layer's weights (a block stored once takes no index)."""
+        return self._gather_layer(stack, {k: v[i] for k, v in
+                                          getattr(self, stack).items()})
+
+    def _gather_layer(self, stack: str, p: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+        """Under FSDP each of one layer's weights gathered over the FSDP
         axis, but for the expert leaves, which ``moe_ffn`` gathers."""
-        p = {k: v[i] for k, v in getattr(self, stack).items()}
         if self.ctx.mesh is None:
             return p
-        axes = param_axes(self.cfg)
+        lead = len(stack_depths(self.cfg)[stack])
         return {k: v if k in EXPERT_LEAVES else self._gathered(
-            v, axes[f"{stack}.{k}"][1:]) for k, v in p.items()}
+            v, self.axes[f"{stack}.{k}"][lead:]) for k, v in p.items()}
+
+    def placements(self) -> Dict[str, object]:
+        """Each parameter's ``Placement`` on the mesh, nested as
+        ``param_tree`` (the reference's ``param_pspecs``); every leaf
+        whole without a mesh."""
+        tree: Dict[str, object] = {}
+        for name, p in self.named_parameters():
+            stack, _, leaf = name.rpartition(".")
+            entries = (self.ctx.spec(*self.axes[name]) if self.ctx.mesh is not None
+                       else (None,) * p.ndim)
+            (tree.setdefault(stack, {}) if stack else tree)[leaf] = Placement(entries)
+        return tree
 
     def _gathered(self, w: torch.Tensor, axes: Axes) -> torch.Tensor:
         """``w`` gathered over the FSDP axis on every dimension mapped to it
@@ -595,7 +677,7 @@ class Transformer(nn.Module):
         masked lookup of this rank's rows and a psum over "model"; a
         d-sharded (untied) one a lookup and a gather of d over "model"."""
         ctx, table = self.ctx, self.embed
-        vocab_axis, d_axis = ctx.spec(*param_axes(self.cfg)["embed"]) \
+        vocab_axis, d_axis = ctx.spec(*self.axes["embed"]) \
             if ctx.mesh is not None else (None, None)
         if vocab_axis is not None:
             rows = table.shape[0]
@@ -679,21 +761,34 @@ class Transformer(nn.Module):
         """Each layer's parameters of a stack, in the order the layers run,
         as views cut by one ``unbind``: its backward writes the stack's
         gradient once, where indexing layer by layer would write a
-        stack-sized gradient for every layer."""
+        stack-sized gradient for every layer. Under FSDP each layer's
+        weights are gathered (``_gather_layer``); the backward keeps them
+        either way."""
         depth = len(stack_depths(self.cfg)[stack])
+        if not depth:
+            return [self._gather_layer(stack, dict(getattr(self, stack)))]
         cols = {k: v.flatten(0, depth - 1).unbind(0)
                 for k, v in getattr(self, stack).items()}
         n = len(next(iter(cols.values()))) if cols else 0
-        return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+        return [self._gather_layer(stack, {k: c[i] for k, c in cols.items()})
+                for i in range(n)]
 
     def _attend(self, q, k, v, positions):
         """Plain causal attention of whole sequences in this layout's
-        grouping of q heads; the train layout's (g-major) is regrouped
-        kv-major around ``flash_prefill``, as the reference's
-        ``_flash_gqa`` does."""
+        grouping of q heads. The train layout's (g-major: slot s reads kv
+        head s % KV) is regrouped kv-major around ``flash_prefill``, as the
+        reference's ``_flash_gqa`` does; a rank of a mesh, whose q slots
+        start at its offset, gives each of its slots its kv head."""
         B, S, H, hd = q.shape
         KV = k.shape[2]
         if self.layout == "serve" or KV == 1:
+            return flash_prefill(q, k, v, q_positions=positions,
+                                 window=self.window)
+        if self.ctx.tp > 1:
+            if self.kv_exact:
+                first = self.ctx.comm.axis_index(self.ctx.model_axis) * H
+                idx = (first + torch.arange(H, device=q.device)) % KV
+                k, v = k.index_select(2, idx), v.index_select(2, idx)
             return flash_prefill(q, k, v, q_positions=positions,
                                  window=self.window)
         g = H // KV
@@ -710,30 +805,28 @@ class Transformer(nn.Module):
         """Logits (B,P+S,V) at every position of whole sequences run from
         position 0, under autograd: tokens (B,S), prefix_embeds (B,P,d) put
         before them as in ``prefill``. The reference's
-        ``forward(mode=layout)``; it launches neither kernel. One device
-        only: training under a mesh is a later slice."""
-        if self.ctx.mesh is not None:
-            raise NotImplementedError("forward under a mesh (the sharded train "
-                                      "step) is a later slice of the port")
+        ``forward(mode=layout)``; it launches neither kernel. Under a mesh
+        tokens and prefix are this rank's rows of the batch (its "data"
+        shard) and the logits are theirs, whole over "model"."""
         cfg = self.cfg
-        x = self.embed[tokens]
+        x = self._embed(tokens)
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)[None]
         if cfg.family == "hybrid":
-            shared = dict(self.shared_attn)
+            shared = self._unstacked("shared_attn")[0]
             mamba = self._unstacked("mamba_stack")
             for g in range(cfg.n_layers // cfg.attn_every):
                 x = self._gqa_layer(x, shared, positions)
                 for p in mamba[g * cfg.attn_every:(g + 1) * cfg.attn_every]:
-                    x = x + mamba2_forward(x, p, cfg)[0]
+                    x = x + mamba2_forward(x, p, cfg, ctx=self.ctx)[0]
         elif cfg.family == "ssm":
             (G, per), _ = stack_depths(cfg).values()
             mlstm = self._unstacked("mlstm_stack")
             for g, p_s in enumerate(self._unstacked("slstm_stack")):
                 for p in mlstm[g * per:(g + 1) * per]:
-                    x = mlstm_forward(x, p, cfg)[0]
-                x = slstm_forward(x, p_s, cfg)[0]
+                    x = mlstm_forward(x, p, cfg, ctx=self.ctx)[0]
+                x = slstm_forward(x, p_s, cfg, ctx=self.ctx)[0]
         else:
             for stack in stack_depths(cfg):
                 for p in self._unstacked(stack):
@@ -741,7 +834,7 @@ class Transformer(nn.Module):
                         y, _ = mla_prefill(
                             rmsnorm(x, p["attn_norm"], cfg.norm_eps), p, cfg,
                             positions)
-                        x = self._mlp(x + y, p)
+                        x = self._mlp(x + self._psum(y), p)
                     else:
                         x = self._gqa_layer(x, p, positions)
         return self._head(x)
@@ -794,13 +887,14 @@ class Transformer(nn.Module):
         Mamba2 layers, each layer's final (h, conv states) kept from this
         pass."""
         cfg = self.cfg
-        shared = dict(self.shared_attn)
+        shared = self._layer("shared_attn")
         caches, states = [], [[] for _ in range(4)]
         for g in range(cfg.n_layers // cfg.attn_every):
             x, kv = self._gqa_prefill(x, shared, positions)
             caches.append(kv)
             for l in range(g * cfg.attn_every, (g + 1) * cfg.attn_every):
-                y, (h, cs) = mamba2_forward(x, self._layer("mamba_stack", l), cfg)
+                y, (h, cs) = mamba2_forward(
+                    x, self._layer("mamba_stack", l), cfg, ctx=self.ctx)
                 x = x + y
                 for acc, t in zip(states, (h, *cs)):
                     acc.append(t)
@@ -814,10 +908,12 @@ class Transformer(nn.Module):
         mst, sst = [[] for _ in range(4)], [[] for _ in range(4)]
         for g in range(G):
             for j in range(per):
-                x, st = mlstm_forward(x, self._layer("mlstm_stack", g, j), cfg)
+                x, st = mlstm_forward(x, self._layer("mlstm_stack", g, j), cfg,
+                                      ctx=self.ctx)
                 for acc, t in zip(mst, st):
                     acc.append(t)
-            x, st = slstm_forward(x, self._layer("slstm_stack", g), cfg)
+            x, st = slstm_forward(x, self._layer("slstm_stack", g), cfg,
+                                  ctx=self.ctx)
             for acc, t in zip(sst, st):
                 acc.append(t)
         return x, [], [torch.stack(acc) for acc in mst + sst]
@@ -867,7 +963,7 @@ class Transformer(nn.Module):
         """Per group g: the shared block on pool g through K2, then its
         Mamba2 layers on the batch's rows of the state buffers."""
         cfg = self.cfg
-        shared = dict(self.shared_attn)
+        shared = self._layer("shared_attn")
         pool_k, pool_v = pools
         for g in range(cfg.n_layers // cfg.attn_every):
             x = self._gqa_decode(x, shared, pool_k[g], pool_v[g], at,
@@ -875,7 +971,7 @@ class Transformer(nn.Module):
             for l in range(g * cfg.attn_every, (g + 1) * cfg.attn_every):
                 h, *cs = (buf[l].index_select(0, rows) for buf in states)
                 y, new = mamba2_decode(x, self._layer("mamba_stack", l), cfg,
-                                       (h, tuple(cs)))
+                                       (h, tuple(cs)), ctx=self.ctx)
                 x = x + y
                 for buf, t in zip(states, (new[0], *new[1])):
                     buf[l].index_copy_(0, rows, t)
@@ -889,11 +985,13 @@ class Transformer(nn.Module):
             for j in range(per):
                 l = g * per + j
                 st = tuple(buf[l].index_select(0, rows) for buf in mst)
-                x, new = mlstm_decode(x, self._layer("mlstm_stack", g, j), cfg, st)
+                x, new = mlstm_decode(x, self._layer("mlstm_stack", g, j), cfg, st,
+                                      ctx=self.ctx)
                 for buf, t in zip(mst, new):
                     buf[l].index_copy_(0, rows, t)
             st = tuple(buf[g].index_select(0, rows) for buf in sst)
-            x, new = slstm_decode(x, self._layer("slstm_stack", g), cfg, st)
+            x, new = slstm_decode(x, self._layer("slstm_stack", g), cfg, st,
+                                  ctx=self.ctx)
             for buf, t in zip(sst, new):
                 buf[g].index_copy_(0, rows, t)
         return x
@@ -903,7 +1001,15 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The reference's training loss: ``softmax_xent`` of
     ``model(batch["tokens"], batch.get("prefix_embeds"))`` against
     ``batch["labels"]`` (B,S), under ``batch.get("mask")``. With a prefix
-    the P prefix positions take label 0 and are masked out."""
+    the P prefix positions take label 0 and are masked out.
+
+    Under a mesh the batch is this rank's rows and the value is the global
+    masked mean over every "data" rank's rows. Its gradient on each rank is
+    the rank's share: its rows' sum over the global count, over the
+    "model" size, since every "model" rank computes the same term and the
+    collectives' transposes add the ranks' shares
+    (``repro_torch.parallel.collectives``). Without a mesh the sums over
+    ranks are over one and the value is ``softmax_xent``'s."""
     logits = model(batch["tokens"], batch.get("prefix_embeds"))
     labels = batch["labels"]
     pad = logits.shape[1] - labels.shape[1]
@@ -914,4 +1020,17 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
                           torch.ones((B, S), device=labels.device)], dim=1)
     else:
         mask = batch.get("mask")
-    return softmax_xent(logits, labels, mask)
+    ctx = model.ctx
+    nll = token_xent(logits, labels)
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    with torch.no_grad():
+        count = mask.sum()
+        for axis in ctx.batch_axes:
+            count = ctx.comm.psum(count, axis)
+    share = (nll * mask).sum() / count.clamp_min(1.0)
+    with torch.no_grad():
+        value = share.clone()
+        for axis in ctx.batch_axes:
+            value = ctx.comm.psum(value, axis)
+    share = share / ctx.tp
+    return share + (value - share.detach())

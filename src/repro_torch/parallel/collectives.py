@@ -1,12 +1,18 @@
 """The collectives of the reference's ``shard_map`` bodies, over one named
 dimension of a ``DeviceMesh``: ``psum`` (``lax.psum``), a tiled
 ``all_gather`` along a tensor dimension, ``all_to_all`` (``lax.all_to_all``
-with ``split_axis=concat_axis=0``), ``ppermute`` and ``axis_index``.
+with ``split_axis=concat_axis=0``), ``ppermute`` and ``axis_index``; and
+``gather`` to coordinate 0, which a checkpoint's writer uses.
 
-``psum`` and ``ppermute`` are ``torch.autograd.Function``s whose backward
-is their transpose, as ``jax.grad`` takes it: ``psum`` of the cotangent,
-and ``ppermute`` by the inverse permutation. The others serve inference
-and carry no gradient.
+``psum``, ``all_gather``, ``all_to_all`` and ``ppermute`` are
+``torch.autograd.Function``s whose backward is their transpose, as
+``jax.grad`` takes it inside ``shard_map``: ``psum`` of the cotangent; for
+the gather, the ``psum`` of the cotangent and then this rank's slice of it
+(a reduce-scatter); the inverse all-to-all, which is the all-to-all itself;
+and ``ppermute`` by the inverse permutation. Under that transpose a rank's
+gradient is its share of the sum over every rank's objective, so a value
+that every rank of an axis computes alike enters the objective once per
+rank (``Transformer``'s loss divides by the "model" size for that).
 
 The group's backend chooses the transport, never a caught error. On NCCL
 every op is the backend's own. Gloo takes CUDA tensors for ``all_reduce``,
@@ -24,7 +30,7 @@ done; an NCCL op when it is enqueued).
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -66,7 +72,7 @@ class Comm:
                   and op not in GLOO_CUDA_OPS)
         t0 = time.perf_counter()
         out = fn(group, x.cpu() if staged else x)
-        if staged:
+        if staged and out is not None:
             out = out.to(x.device)
         s = self.stats.setdefault(op, dict(calls=0, staged=0, bytes=0, seconds=0.0))
         s["calls"] += 1
@@ -115,12 +121,8 @@ class Comm:
             return x if (0, 0) in perm else torch.zeros_like(x)
         return _PPermute.apply(x, self, axis, tuple(perm))
 
-    def all_gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
-        """The ranks' x concatenated along ``dim`` in coordinate order
-        (``lax.all_gather(tiled=True)``)."""
+    def _all_gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
         n = self.size(axis)
-        if n == 1:
-            return x
 
         def fn(group, t):
             parts = [torch.empty_like(t) for _ in range(n)]
@@ -128,17 +130,40 @@ class Comm:
             return torch.cat(parts, dim=dim)
         return self._run("all_gather", axis, x.contiguous(), fn)
 
-    def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        """x (n, ...): block i goes to coordinate i; the result's block j
-        came from coordinate j."""
-        if self.size(axis) == 1:
-            return x
-
+    def _all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         def fn(group, t):
             out = torch.empty_like(t)
             dist.all_to_all_single(out, t, group=group)
             return out
         return self._run("all_to_all", axis, x.contiguous(), fn)
+
+    def all_gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        """The ranks' x concatenated along ``dim`` in coordinate order
+        (``lax.all_gather(tiled=True)``; differentiable)."""
+        if self.size(axis) == 1:
+            return x
+        return _AllGather.apply(x, self, axis, dim)
+
+    def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """x (n, ...): block i goes to coordinate i; the result's block j
+        came from coordinate j (differentiable)."""
+        if self.size(axis) == 1:
+            return x
+        return _AllToAll.apply(x, self, axis)
+
+    def gather(self, x: torch.Tensor, axis: str, dim: int) -> Optional[torch.Tensor]:
+        """The ranks' x concatenated along ``dim`` in coordinate order on
+        coordinate 0 of ``axis``, None on the others (no gradient)."""
+        n = self.size(axis)
+        if n == 1:
+            return x
+        root = self.axis_index(axis) == 0
+
+        def fn(group, t):
+            parts = [torch.empty_like(t) for _ in range(n)] if root else None
+            dist.gather(t, parts, dst=dist.get_global_rank(group, 0), group=group)
+            return torch.cat(parts, dim=dim) if root else None
+        return self._run("gather", axis, x.contiguous(), fn)
 
     def broadcast_object(self, obj, axis: str, src: int = 0):
         """``obj`` of coordinate ``src`` on ``axis``, on every rank of it."""
@@ -165,6 +190,31 @@ class _PSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.comm._all_reduce(g, ctx.axis), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis, dim):
+        ctx.comm, ctx.axis, ctx.dim = comm, axis, dim
+        ctx.width = x.shape[dim]
+        return comm._all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        me = ctx.comm.axis_index(ctx.axis)
+        summed = ctx.comm._all_reduce(g, ctx.axis)
+        return summed.narrow(ctx.dim, me * ctx.width, ctx.width), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis):
+        ctx.comm, ctx.axis = comm, axis
+        return comm._all_to_all(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm._all_to_all(g, ctx.axis), None, None
 
 
 class _PPermute(torch.autograd.Function):

@@ -70,6 +70,11 @@ class ParallelContext:
         return self.mesh.shape[self.mesh.mesh_dim_names.index(axis)]
 
     @property
+    def axis_names(self) -> Tuple[str, ...]:
+        """The mesh's dimensions (none without a mesh)."""
+        return () if self.mesh is None else tuple(self.mesh.mesh_dim_names)
+
+    @property
     def tp(self) -> int:
         return self.axis_size(self.model_axis)
 
@@ -120,9 +125,7 @@ class ParallelContext:
 
     def coords(self) -> Dict[str, int]:
         """This rank's coordinate on each mesh dimension."""
-        if self.mesh is None:
-            return {}
-        return {a: self.mesh.get_local_rank(a) for a in self.mesh.mesh_dim_names}
+        return {a: self.mesh.get_local_rank(a) for a in self.axis_names}
 
 
 # logical axis -> mesh axis (None = replicated)
@@ -218,7 +221,7 @@ def kv_to_orig(kvp: int, n_heads: int, n_kv: int) -> np.ndarray:
 
 
 # ------------------------------------------------------------ rank shards
-def _mesh_axes(entry) -> Tuple[str, ...]:
+def mesh_axes(entry) -> Tuple[str, ...]:
     if entry is None:
         return ()
     return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
@@ -226,14 +229,14 @@ def _mesh_axes(entry) -> Tuple[str, ...]:
 
 def _parts(ctx: ParallelContext, entry) -> int:
     """How many shards a dimension mapped to spec ``entry`` is cut into."""
-    return int(np.prod([ctx.axis_size(a) for a in _mesh_axes(entry)]))
+    return int(np.prod([ctx.axis_size(a) for a in mesh_axes(entry)]))
 
 
 def _index(ctx: ParallelContext, entry, coords: Dict[str, int]) -> int:
     """Which of those shards a rank at ``coords`` holds: its coordinates on
     the entry's mesh axes, flattened major to minor."""
     i = 0
-    for a in _mesh_axes(entry):
+    for a in mesh_axes(entry):
         i = i * ctx.axis_size(a) + coords.get(a, 0)
     return i
 
@@ -255,7 +258,37 @@ def shard_shape(shape: Sequence[int], axes: Sequence[Optional[str]],
 def shard_slices(shape: Sequence[int], axes: Sequence[Optional[str]],
                  ctx: ParallelContext, coords: Dict[str, int]) -> Tuple[slice, ...]:
     """The slices of the rank at ``coords`` into the whole leaf."""
-    local = shard_shape(shape, axes, ctx)
-    return tuple(slice(_index(ctx, e, coords) * m,
-                       (_index(ctx, e, coords) + 1) * m)
-                 for m, e in zip(local, ctx.spec(*axes)))
+    return entry_slices(shape, ctx.spec(*axes), ctx, coords)
+
+
+def entry_slices(shape: Sequence[int], entries: Sequence[Any],
+                 ctx: ParallelContext, coords: Dict[str, int]) -> Tuple[slice, ...]:
+    """``shard_slices`` for a leaf given by its spec entries (mesh axes)."""
+    out = []
+    for n, e in zip(shape, entries):
+        parts = _parts(ctx, e)
+        if n % parts:
+            raise ValueError(f"dimension {n} of {tuple(shape)} does not divide "
+                             f"over {e} ({parts})")
+        m = n // parts
+        out.append(slice(_index(ctx, e, coords) * m, (_index(ctx, e, coords) + 1) * m))
+    return tuple(out)
+
+
+def whole_shape(local: Sequence[int], entries: Sequence[Any],
+                ctx: ParallelContext) -> Tuple[int, ...]:
+    """The whole leaf's shape of a rank's shard of shape ``local``."""
+    return tuple(n * _parts(ctx, e) for n, e in zip(local, entries))
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where a leaf lives on the mesh: one spec entry per dimension (a mesh
+    axis, a tuple of them or None), the reference's ``PartitionSpec``. A
+    leaf of a tree (``repro_torch.train.tree`` walks into tuples, not into
+    this)."""
+    entries: Tuple[Any, ...] = ()
+
+    def axes(self) -> Tuple[str, ...]:
+        """The mesh axes the leaf is cut over, in its dimensions' order."""
+        return tuple(a for e in self.entries for a in mesh_axes(e))

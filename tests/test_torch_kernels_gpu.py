@@ -55,6 +55,8 @@ FLASH_CASES = [
     (1, 1000, 1000, 24, 24, 64, 0, 0, 0),      # musicgen prompt, G 1
     (1, 1000, 1000, 64, 8, 128, 0, 0, 0),      # internvl2 prompt, G 8
     (1, 456, 456, 64, 8, 128, 0, 0, 0),        # internvl2 prefix + text
+    # one rank of zamba2-2.7b's shared block at tp 2: 16 q / 16 kv heads of 80
+    (1, 1000, 1000, 16, 16, 80, 0, 0, 0),
 ]
 PAGED_CASES = [
     # B, KV, G, D, page, P, nblk[, tokens of each sequence[, window]]
@@ -96,6 +98,10 @@ PAGED_CASES = [
     (16, 8, 8, 128, 16, 1400, 80, [1280, 128, 256, 257, 700, 1000, 17,
                                    513, 900, 1100, 333, 640, 768, 1024,
                                    200, 999]),
+    # one rank of zamba2-2.7b's decode at tp 2: 16 kv heads of 80, G 1, at
+    # contexts of 128-1280 tokens
+    (16, 16, 1, 80, 16, 1400, 80, [1280, 128, 256, 257, 700, 1000, 17, 500,
+                                   900, 1100, 300, 64, 1200, 800, 200, 999]),
 ]
 DTYPES = {"float32": (torch.float32, 2e-3), "bfloat16": (torch.bfloat16, 2e-2)}
 REL_RMS = {"float32": 1e-3, "bfloat16": 1e-2}

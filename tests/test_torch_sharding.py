@@ -147,23 +147,28 @@ def test_parallel_modules_import_no_jax_and_start_no_group():
 @pytest.mark.parametrize("case", ["zamba2-2.7b", "xlstm-350m", "train",
                                   *port.PERF_LEVERS, "remat"])
 def test_the_sharded_model_refuses_what_is_not_ported(case):
-    """Under a mesh: the hybrid and ssm families (their sharding rules are
-    the next slice), the train layout and every §Perf lever raise, each
-    named in the message."""
+    """Under a mesh every §Perf lever raises, named in the message; the
+    hybrid and ssm families and the train layout, which shard since the
+    recurrent rules and the sharded train step were ported, still refuse
+    an int8 kv cache, and take the baseline rules."""
     from repro_torch.models.transformer import check_shardable
+    import torch
     mesh = port.AbstractMesh((1, 2), ("data", "model"))
     arch = case if case in ALL_MODELS else "llama3.2-3b"
+    layout = "train" if case == "train" else "serve"
     kw = {}
     if case in port.PERF_LEVERS:
         kw[case] = True
     elif case == "remat":
         kw["remat"] = "full"
+    else:
+        kw["kv_cache_dtype"] = torch.int8
     ctx = port.ParallelContext(mesh=mesh, **kw)
     with pytest.raises(NotImplementedError) as e:
-        check_shardable(get_config(arch), ctx, "train" if case == "train" else "serve")
-    word = {"zamba2-2.7b": "ssm_inner", "xlstm-350m": "lstm_vdim"}.get(case, case)
+        check_shardable(get_config(arch), ctx, layout)
+    word = "kv_cache_dtype" if case in ALL_MODELS or case == "train" else case
     assert word in str(e.value)
-    check_shardable(get_config("llama3.2-3b"), port.ParallelContext(mesh=mesh), "serve")
+    check_shardable(get_config(arch), port.ParallelContext(mesh=mesh), layout)
 
 
 @pytest.mark.parametrize("stages,micro", [(1, 1), (2, 4), (4, 4), (4, 16), (8, 3)])
