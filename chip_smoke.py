@@ -96,10 +96,11 @@ Phases, each printed as one JSON line:
      sharded runner equal those of a tp=1 model seeded alike on the card,
      under forced preemption (the recurrent states recomputed in fresh
      slots); ``sharded_main_path``, full-depth llama3.2-3b, R1
-     at 5 layers with all 256 experts, full-depth zamba2-2.7b and
-     xlstm-350m, in bf16, each rank on its shard (K1 and K2 on llama's 12
-     q / 4 kv heads and zamba2's 16 / 16 heads of 80 a rank, zamba2's in
-     multiples of 9; the MoE's split and replicated dispatch across the
+     at 5 layers with all 256 experts, zamba2-2.7b at 18 of its 54 layers
+     and full-depth xlstm-350m, in bf16, each rank on its
+     shard (K1 and K2 on llama's 12 q / 4 kv heads and zamba2's 16 / 16
+     heads of 80 a rank, zamba2's in multiples of its 3 shared-block
+     invocations; the MoE's split and replicated dispatch across the
      ranks; xlstm launches neither). One line per model and rank: the
      leader's TTFT, TPOT and throughput, each rank's peak memory, kernel
      launches and collectives per engine step with their host time, the
@@ -115,8 +116,33 @@ Phases, each printed as one JSON line:
      written arrays; then 14 of llama's 28 layers for 4 steps (B 8 x S
      128): median step time, tokens/s, peak memory and collectives per
      step a rank. No kernel launches;
- 14. the ``kernels`` line (launches summed over every main path, and by
-     model and rank), then the card line, then as the last line
+ 14. the dry-run (``dryrun``): every (arch x shape) cell of the
+     reference's grid on the 16x16 mesh counted on meta tensors by
+     ``repro_torch.launch.dryrun`` (one line a cell: FLOPs, device-memory
+     bytes strict and eager, collective wire bytes and counts, the H100
+     roofline's terms and bound; the 7 skipped long_500k cells with the
+     reference's reason), then two cells run on the card at mesh 1x1
+     beside their count (``dryrun_measured``): llama3.2-3b's prefill_32k at
+     B 1 (K1) and decode_32k at B 8 x 32,768 tokens (K2), the median of 5
+     warm steps by CUDA events and its share of the counted bound, each
+     kernel then held against its plain version on the inputs the cell
+     gave its first call (``held``; K1 by 1,024-row blocks of queries);
+ 15. the long decode (``long_decode``): zamba2-2.7b's long_500k cell whole
+     on the card (B 1, 524,288 tokens of seeded cache, about 48 GB), its
+     decode steps timed against the counted bound, K2 held on its first
+     call's inputs (one layer's 524,288-position pool); K2's partials
+     (partition by partition) and merge entries held against their plain
+     versions and against the one-call decode at the split run's shapes
+     and timed (``check_split``,
+     ``timing``); then the sequence-split decode on two gloo ranks of a
+     (data 2, model 1) mesh on the card (``split_decode``): zamba2-2.7b and
+     h2o-danube-3-4b at full depth in bf16, an 8,000-token prompt, each
+     rank holding 4,096 positions of the cache, 8 greedy tokens equal to
+     the unsplit model's on the card, the partials and the merge launched
+     on every rank and one-call K2 never;
+ 16. the ``kernels`` line (launches summed over every main path, and by
+     model and rank; K2's partials and merge entries from the split
+     decode), then the card line, then as the last line
      ``{"ok": true, "device": {...}}``.
 Each line's ``t_s`` is the seconds since the script started. Any
 failure raises and exits non-zero. It needs a CUDA card and fails without
@@ -124,6 +150,7 @@ one.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -333,6 +360,11 @@ XLSTM_EQ_ENGINE = dict(HYBRID_EQ_ENGINE, n_pages=15)
 # weights kept for the backward, does not fit beside four CUDA contexts),
 # the reference launcher's B 8 x S 128, 4 steps; the median over steps 2-4
 SHARDED_TRAIN_MESH = (2, 2)
+# zamba2-2.7b's sharded main path, cut since the dry-run phases were added,
+# to keep the whole run in its time: 18 of its 54 Mamba2 layers (3
+# invocations of its shared block, whose K1 and K2 still run at 16 heads of
+# 80 a rank; 93 s of gloo-bound engine time whole); xlstm-350m runs whole
+SHARDED_ZAMBA_LAYERS = 18
 SHARDED_TRAIN_EQ = dict(layers=2, batch=4, seq=64, steps=3, lr=1e-3, warmup=2)
 SHARDED_TRAIN_MAIN = dict(layers=14, batch=8, seq=128, steps=4)
 
@@ -403,25 +435,34 @@ def paged_main_inputs(dtype, gen, m=MAIN_PAGED):
 
 
 # ------------------------------------------------------------------ phases
+def hold(label, out, ref, dtype):
+    """``out`` against ``ref``: finite, within TOL of each element (abs
+    plus rel), and within REL_RMS of ``ref``'s norm in all (a dropped key
+    tile or partition moves rows by far more than that, yet may stay inside
+    TOL). Returns (max abs err, relative rms err)."""
+    out, ref = out.float(), ref.float()
+    if out.shape != ref.shape:
+        raise AssertionError(f"{label}: shape {tuple(out.shape)}, want "
+                             f"{tuple(ref.shape)}")
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{label}: non-finite output")
+    diff = (out - ref).abs()
+    tol = TOL[dtype]
+    err = float(diff.max()) if diff.numel() else 0.0
+    if not bool((diff <= tol + tol * ref.abs()).all()):
+        raise AssertionError(f"{label}: max abs err {err} beyond tol {tol}")
+    rel = float(diff.norm() / ref.norm().clamp_min(1e-30))
+    if rel > REL_RMS[dtype]:
+        raise AssertionError(f"{label}: relative rms err {rel} beyond "
+                             f"{REL_RMS[dtype]}")
+    return err, rel
+
+
 def compare(fn, plain, args, kwargs, dtype):
     out = fn(*args, **kwargs)
     torch.cuda.synchronize()
-    ref = plain(*args, **kwargs)
-    diff = (out.float() - ref.float()).abs()
-    tol = TOL[dtype]
-    where = [tuple(a.shape) for a in args[:3]]
-    if not bool(torch.isfinite(out.float()).all()):
-        raise AssertionError(f"{fn.__name__}: non-finite output")
-    ok = bool((diff <= tol + tol * ref.float().abs()).all())
-    err = float(diff.max())
-    if not ok:
-        raise AssertionError(f"{fn.__name__}: max abs err {err} beyond tol "
-                             f"{tol} at {where}")
-    rel = float(diff.norm() / ref.float().norm().clamp_min(1e-30))
-    if rel > REL_RMS[dtype]:
-        raise AssertionError(f"{fn.__name__}: relative rms err {rel} beyond "
-                             f"{REL_RMS[dtype]} at {where}")
-    return err, rel
+    return hold(f"{fn.__name__} at {[tuple(a.shape) for a in args[:3]]}", out,
+                plain(*args, **kwargs), dtype)
 
 
 def check_kernels(flash_ops, paged_ops):
@@ -449,6 +490,13 @@ def check_kernels(flash_ops, paged_ops):
                 tuple(args), {"window": window}, dtype)
             errs["paged_attention"].append(err)
             rels["paged_attention"].append(rel)
+    # the blocks of query rows that hold K1 at a dry-run cell's shape
+    # (``hold_at_cell``) make up the plain version
+    q, k, v, _, _ = flash_inputs((1, 2048, 2048, 24, 8, 128, 0), torch.float32, gen)
+    for w in (0, 300):
+        hold(f"flash_rows_plain window {w}", torch.cat(
+            [flash_rows_plain(q, k, v, r, r + 512, w) for r in range(0, 2048, 512)], 1),
+            flash_ops.flash_attention_plain(q, k, v, window=w), torch.float32)
     for name, e in errs.items():
         emit("check", kernel=name, cases=len(e), max_abs_err=max(e),
              max_rel_rms=max(rels[name]), errs=[float(f"{x:.3g}") for x in e],
@@ -1367,8 +1415,8 @@ def sharded_jobs(phase):
     ``greedy_equality_xlstm``, each preempting once. ``main_path``:
     full-depth llama3.2-3b and R1 at 5 layers with
     all 256 experts in bf16, serving ``SERVE_REQUESTS`` on a pool that
-    holds them; full-depth zamba2-2.7b (``SERVE_REQUESTS``) and xlstm-350m
-    (``XLSTM_REQUESTS``)."""
+    holds them; zamba2-2.7b at ``SHARDED_ZAMBA_LAYERS`` of its 54 layers
+    (``SERVE_REQUESTS``) and full-depth xlstm-350m (``XLSTM_REQUESTS``)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import make_requests
 
@@ -1405,7 +1453,9 @@ def sharded_jobs(phase):
                 (llama, {}, SERVE_REQUESTS),
                 (dataclasses.replace(r1, n_layers=R1_LAYERS),
                  {"n_layers": [r1.n_layers, R1_LAYERS]}, SERVE_REQUESTS),
-                (zamba, {}, SERVE_REQUESTS), (xlstm, {}, XLSTM_REQUESTS))]
+                (dataclasses.replace(zamba, n_layers=SHARDED_ZAMBA_LAYERS),
+                 {"n_layers": [zamba.n_layers, SHARDED_ZAMBA_LAYERS]}, SERVE_REQUESTS),
+                (xlstm, {}, XLSTM_REQUESTS))]
 
 
 def sharded_rank(rank, phase, out_dir):
@@ -1485,7 +1535,7 @@ def sharded(phase):
     ranks). Prints one line per model and rank; fails if a rank fails, a
     request does not finish, equality does not hold, or the ranks of
     llama or zamba2 did not launch both kernels (zamba2's in multiples of
-    its 9 shared-block invocations in the main path), or those of R1 (MLA)
+    its shared-block invocations in the main path), or those of R1 (MLA)
     or xlstm launched one. The times measure
     gloo through host memory on one card, not NVLink or NCCL. Returns the
     kernels' launches by model and rank."""
@@ -1517,11 +1567,13 @@ def sharded(phase):
                 raise AssertionError(f"sharded_equality/{label}: the small pool "
                                      "forced no preemption")
         for row in rows:
-            # MLA (R1) and xlstm attend through neither kernel; zamba2's 9
-            # shared-block invocations launch each in multiples of 9
+            # MLA (R1) and xlstm attend through neither kernel; zamba2's
+            # shared-block invocations (one a 6 layers) launch each in
+            # multiples of their count
             attends = row["model"] not in ("deepseek-r1-671b", "xlstm-350m")
             n = row["launches"].values()
-            groups = 9 if row["model"] == "zamba2-2.7b" and phase == "main_path" else 1
+            groups = row["layers"] // 6 if row["model"] == "zamba2-2.7b" \
+                and phase == "main_path" else 1
             if attends and (min(n) == 0 or any(v % groups for v in n)) or \
                     not attends and max(n) != 0:
                 raise AssertionError(f"sharded_{phase}/{label} rank "
@@ -1800,6 +1852,423 @@ def sharded_train(flash_ops, paged_ops):
             raise AssertionError(f"sharded_train launched a kernel on {rank}: {n}")
 
 
+# ------------------------------------------------------------ the dry-run
+# dryrun: the (arch x shape) grid on the 16x16 mesh counted on meta, and two
+# cells that fit one card run at mesh 1x1 beside their count: llama3.2-3b's
+# prefill_32k at B 1 (K1 at 32,768 tokens) and decode_32k at B 8 x 32,768
+# tokens of seeded cache (K2); each the median of DRYRUN_ITERS steps
+DRYRUN_MEASURED = (("llama3.2-3b", "prefill_32k", 1, "flash_attention"),
+                   ("llama3.2-3b", "decode_32k", 8, "paged_attention"))
+DRYRUN_ITERS = 5
+# long_decode: zamba2-2.7b's long_500k whole on the card (B 1, 524,288
+# tokens of seeded cache in its 9 shared-block pools, about 48 GB); then the
+# sequence-split decode on two gloo ranks of a (data 2, model 1) mesh on the
+# card (weights whole on each rank, the cache's positions cut in two):
+# zamba2-2.7b and h2o-danube-3-4b at full depth in bf16, an 8,000-token
+# prompt in a 8,192-position cache (danube's window of 4096 spans both
+# shares), SPLIT_STEPS greedy tokens against the unsplit model on the card
+SPLIT_MESH = (2, 1)
+SPLIT_OVERRIDE = {"batch": None, "cache_batch": None, "cache_seq": "data"}
+SPLIT_ARCHS = ("zamba2-2.7b", "h2o-danube-3-4b")
+SPLIT_LEN, SPLIT_PROMPT, SPLIT_STEPS = 8192, 8000, 8
+# K2's partials and merge at the split run's shapes: each half (4,096
+# positions) of one 8,192-position sequence, the newest token at 7,999
+SPLIT_PAGED = [dict(model="zamba2-2.7b", KV=32, G=1, D=80, window=0),
+               dict(model="h2o-danube-3-4b", KV=8, G=4, D=120, window=DANUBE_WINDOW)]
+
+
+# K1's plain version at the prefill_32k cell's shape, by blocks of
+# query rows (its S x S scores would take 100 GB): the first, a middle and
+# the last HELD_ROWS rows
+HELD_ROWS = 1024
+
+
+@contextlib.contextmanager
+def first_call(name):
+    """The arguments of the model's first call to the kernel wrapper
+    ``name`` (``flash_attention`` or ``paged_attention``, as
+    ``models.transformer`` calls it) while inside, cloned: one layer's
+    inputs at the shape the cell gives the kernel. The call itself goes on
+    to the wrapper, which counts it."""
+    from repro_torch.models import transformer
+
+    wrapper, got = getattr(transformer, name), {}
+
+    def spy(*args, **kwargs):
+        if not got and args[0].is_cuda:      # not the count's, on meta
+            got["args"] = [a.clone() if torch.is_tensor(a) else a for a in args]
+            got["kwargs"] = dict(kwargs)
+        return wrapper(*args, **kwargs)
+
+    setattr(transformer, name, spy)
+    try:
+        yield got
+    finally:
+        setattr(transformer, name, wrapper)
+
+
+def flash_rows_plain(q, k, v, r0, r1, window=0):
+    """K1's plain version (``flash_attention_plain``, lens whole) on the
+    query rows r0..r1-1 of a causal prefill: those rows against the keys
+    0..r1-1."""
+    D, g = q.shape[-1], q.shape[2] // k.shape[2]
+    qf = q[:, r0:r1].float() * D ** -0.5
+    kf = k[:, :r1].repeat_interleave(g, dim=2).float()
+    vf = v[:, :r1].repeat_interleave(g, dim=2).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    q_pos = torch.arange(r0, r1, device=q.device)[:, None]
+    k_pos = torch.arange(r1, device=q.device)[None, :]
+    valid = k_pos <= q_pos
+    if window > 0:
+        valid = valid & (k_pos > q_pos - window)
+    s = torch.where(valid, s, -1e30)
+    p = torch.where(valid, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    w = p / p.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhqk,bkhd->bqhd", w, vf).to(q.dtype)
+
+
+def hold_at_cell(label, kernel, got, flash_ops, paged_ops):
+    """The wrapper ``kernel`` on the inputs ``first_call`` took from a
+    cell, against its plain version (after the cell's counts are read, so
+    these launches are not the main path's): K2 whole (one layer's pool,
+    gathered); K1 on ``HELD_ROWS``-row blocks of queries at the start,
+    middle and end. Returns (max abs err, relative rms err, the shapes)."""
+    if not got:
+        raise AssertionError(f"{label}: the cell made no call to {kernel}")
+    args, kw = got["args"], got["kwargs"]
+    dtype = args[0].dtype
+    with torch.inference_mode():
+        if kernel == "paged_attention":
+            out = paged_ops.paged_attention(*args, **kw)
+            torch.cuda.synchronize()
+            err, rel = hold(f"{label} paged_attention", out,
+                            paged_ops.paged_attention_plain(*args, **kw), dtype)
+            return err, rel, [list(a.shape) for a in args[:4]]
+        q, k, v = args[:3]
+        if len(args) > 3 and args[3] is not None:
+            raise AssertionError(f"{label}: flash_attention with lens")
+        out = flash_ops.flash_attention(*args, **kw)
+        torch.cuda.synchronize()
+        S, errs = q.shape[1], []
+        for r0 in sorted({0, S // 2, S - HELD_ROWS}):
+            r1 = min(r0 + HELD_ROWS, S)
+            errs.append(hold(f"{label} flash_attention rows {r0}:{r1}", out[:, r0:r1],
+                             flash_rows_plain(q, k, v, r0, r1, kw.get("window", 0)),
+                             dtype))
+            torch.cuda.empty_cache()
+        return (max(e for e, _ in errs), max(r for _, r in errs),
+                [list(a.shape) for a in args[:3]])
+
+
+def _dryrun_line(phase, res, **kw):
+    r = res["roofline"]
+    emit(phase, arch=res["arch"], shape=res["shape"], mesh=res["mesh"],
+         reduced=res.get("reduced", {}), flops=res["flops"],
+         hbm_bytes=res["hbm_bytes"], hbm_bytes_eager=res["hbm_bytes_eager"],
+         collective_wire_bytes=res["collective_wire_total"],
+         collective_counts=res["collective_counts"],
+         bound_s=r["step_time_bound_s"], bottleneck=r["bottleneck"],
+         t_compute_s=r["t_compute_s"], t_memory_s=r["t_memory_s"],
+         t_collective_s=r["t_collective_s"],
+         argument_bytes=res["memory"]["argument_bytes"],
+         peak_estimate_bytes=res["memory"]["peak_estimate_bytes"],
+         trace_s=res["trace_s"], **kw)
+
+
+def dryrun_phase(flash_ops, paged_ops):
+    """``dryrun``: every cell of the grid on the 16x16 mesh counted on meta
+    (one line a cell; the 7 long_500k cells the reference skips, with its
+    reason), then the ``DRYRUN_MEASURED`` cells run on the card at mesh 1x1
+    through ``dryrun.measure_cell``, the kernels' counts set to 0 just
+    before and read just after: the counted FLOPs and bytes, the bound,
+    the measured step (CUDA events, warm, median) and the share of the
+    bound it reached. Returns the launches of each measured cell."""
+    from repro_torch.configs.registry import cells
+    from repro_torch.launch import dryrun
+
+    counted = 0
+    for arch, shape, skip in cells(include_skipped=True):
+        if skip:
+            emit("dryrun", arch=arch, shape=shape, mesh="16x16", skipped=skip)
+            continue
+        res = dryrun.count_cell(arch, shape, "single")
+        if not (res["flops"] > 0 and res["hbm_bytes"] > 0
+                and res["collective_wire_total"] > 0):
+            raise AssertionError(f"dryrun {arch} {shape}: an empty count {res}")
+        _dryrun_line("dryrun", res)
+        counted += 1
+    if counted != 33:
+        raise AssertionError(f"dryrun: {counted} cells counted, not 33")
+    launches = {}
+    for arch, shape, batch, kernel in DRYRUN_MEASURED:
+        free_card()
+        with first_call(kernel) as got:
+            _zero_launches(flash_ops, paged_ops)
+            res = dryrun.measure_cell(arch, shape, batch, iters=DRYRUN_ITERS)
+            n = _launches(flash_ops, paged_ops)
+        m = res["measured"]
+        if not m["finite"] or n[kernel] == 0:
+            raise AssertionError(f"dryrun_measured {arch} {shape}: finite "
+                                 f"{m['finite']}, launches {n}")
+        free_card()
+        err, rel, shapes = hold_at_cell(f"dryrun_measured {arch} {shape}", kernel,
+                                        got, flash_ops, paged_ops)
+        del got
+        _dryrun_line("dryrun_measured", res, measured_s=m["step_s"],
+                     steps_s=m["steps_s"], share_of_bound=m["share_of_bound"],
+                     launches=n, device=m["device"],
+                     held={"kernel": kernel, "shapes": shapes, "max_abs_err": err,
+                           "rel_rms_err": rel})
+        launches[f"{arch} {shape} 1x1"] = n
+    free_card()
+    return launches
+
+
+def _split_inputs(m, gen):
+    """One 8,192-position sequence of bf16 pages (shuffled) and its two
+    halves' tables, the newest token at SPLIT_PROMPT - 1."""
+    KV, G, D = m["KV"], m["G"], m["D"]
+    n = SPLIT_LEN // 16
+    q = torch.randn((1, KV, G, D), generator=gen, device="cuda").to(torch.bfloat16)
+    kp, vp = (torch.randn((n, 16, KV, D), generator=gen, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    tables = torch.randperm(n, generator=gen, device="cuda").int().view(1, n)
+    lens = torch.tensor([SPLIT_PROMPT - 1], dtype=torch.int32, device="cuda")
+    halves = [tables[:, :n // 2].contiguous(), tables[:, n // 2:].contiguous()]
+    return q, kp, vp, tables, lens, halves
+
+
+def hold_partitions(label, kern, plain):
+    """The kernel's raw partials against the plain version's, partition by
+    partition, for each share ``kern`` and ``plain`` hold ((acc, ml) each):
+    a partition with no key that counts holds l = 0 and acc = 0; one that
+    counts holds m and l within TOL (bf16, the kernel's p.v operands) and
+    acc / l within TOL and REL_RMS. Returns the max abs err of acc / l."""
+    err = 0.0
+    for i, ((acc, ml), (acc_p, ml_p)) in enumerate(zip(kern, plain)):
+        counts = ml_p[..., 1] > 0                               # (B,KV,P,G)
+        if bool((ml[..., 1][~counts] != 0).any()) or bool((acc[~counts] != 0).any()):
+            raise AssertionError(f"{label} share {i}: a partition with no key "
+                                 "that counts holds a partial")
+        if not bool(counts.any()):
+            continue
+        for j, what in enumerate(("m", "l")):
+            hold(f"{label} share {i} {what}", ml[..., j][counts], ml_p[..., j][counts],
+                 torch.bfloat16)
+        l, l_p = ml[..., 1:2][counts], ml_p[..., 1:2][counts]
+        err = max(err, hold(f"{label} share {i} acc / l", acc[counts] / l,
+                            acc_p[counts] / l_p, torch.bfloat16)[0])
+    return err
+
+
+def time_split(paged_ops, m, gen):
+    """K2's partials (over each half) and merge held against their plain
+    versions at ``m``'s shape, and against the one-call decode: the raw
+    partials partition by partition (``hold_partitions``), the merged
+    output of the kernel's partials against the plain merge of the plain
+    partials, and the merge kernel on the plain partials against the plain
+    merge, each by ``hold``. Then each timed beside its bound (the keys a half counts, read
+    once with q; the partials or the output written once) and its plain
+    version; no PyTorch call computes partials, so no library time."""
+    q, kp, vp, tables, lens, halves = _split_inputs(m, gen)
+    w = m["window"]
+    shift = [0, SPLIT_LEN // 2]
+    kern = [paged_ops.paged_attention_partials(q, kp, vp, h, lens - s, window=w)
+            for h, s in zip(halves, shift)]
+    plain = [paged_ops.paged_attention_partials_plain(q, kp, vp, h, lens - s, window=w)
+             for h, s in zip(halves, shift)]
+    cat = lambda parts, i: torch.cat([p[i] for p in parts], dim=2)  # noqa: E731
+    want = paged_ops.paged_merge_plain(cat(plain, 0), cat(plain, 1), q.dtype)
+    one_call = paged_ops.paged_attention_plain(q, kp, vp, tables, lens, window=w)
+    merged = paged_ops.paged_merge(cat(kern, 0), cat(kern, 1), q.dtype)
+    merge_only = paged_ops.paged_merge(cat(plain, 0), cat(plain, 1), q.dtype)
+    torch.cuda.synchronize()
+    label = f"split {m['model']}"
+    errs = {"partitions": hold_partitions(label, kern, plain)}
+    for name, got, ref in (("partials", paged_ops.paged_merge_plain(
+            cat(kern, 0), cat(kern, 1), q.dtype), want), ("merge", merge_only, want),
+            ("merged_vs_one_call", merged, one_call)):
+        errs[name] = hold(f"{label} {name}", got, ref, torch.bfloat16)[0]
+    B, KV, G, D = q.shape
+    # the keys the second half counts (it holds the newest token)
+    keys = min(SPLIT_PROMPT - SPLIT_LEN // 2, w) if w else SPLIT_PROMPT - SPLIT_LEN // 2
+    acc, ml = kern[1]
+    p_bytes = 2 * keys * KV * D * q.element_size() + nbytes(q, halves[1], lens, acc, ml)
+    p_bound, p_by = bound(4 * G * D * KV * keys, p_bytes, torch.bfloat16)
+    a2, m2 = cat(kern, 0), cat(kern, 1)
+    g_bound, g_by = bound(0, nbytes(a2, m2, merged), torch.bfloat16)
+    rows = {}
+    for name, fn, plain_fn, b_ms, b_by in (
+            ("paged_attention_partials",
+             lambda: paged_ops.paged_attention_partials(q, kp, vp, halves[1],
+                                                        lens - shift[1], window=w),
+             lambda: paged_ops.paged_attention_partials_plain(
+                 q, kp, vp, halves[1], lens - shift[1], window=w), p_bound, p_by),
+            ("paged_merge", lambda: paged_ops.paged_merge(a2, m2, q.dtype),
+             lambda: paged_ops.paged_merge_plain(a2, m2, q.dtype), g_bound, g_by)):
+        ms, host_ms = time_ms(fn, 50)
+        dev = device_ms(fn, 50)
+        rows[name] = dict(
+            model=m["model"], shape=[B, KV, G, D], window=w,
+            positions=[SPLIT_LEN // 2, SPLIT_PROMPT], ms=ms, device_ms=dev,
+            host_ms=host_ms, bound_ms=b_ms, bound_by=b_by,
+            bound_share=b_ms / ms, device_bound_share=b_ms / dev,
+            plain_ms=time_ms(plain_fn, 5)[0], library_ms=None,
+            max_abs_err=errs["partials" if name == "paged_attention_partials"
+                             else "merge"])
+        emit("timing", kernel=name, **rows[name])
+    emit("check_split", model=m["model"], max_abs_err=errs)
+    return rows
+
+
+def split_rank(rank, out_dir):
+    """One rank of the split decode (``run_ranks`` spawns two on the card):
+    each of ``SPLIT_ARCHS`` at full depth in bf16 on a (2, 1) mesh whose
+    cache sequence is cut over "data" (weights whole), the prompt
+    prefilled whole, this rank's 4,096 positions of it written into its
+    pool, then ``SPLIT_STEPS`` greedy decode steps through K2's partials,
+    an all_gather of them and the merge; every kernel's count set to 0
+    just before the prefill and read after the last step. The leading rank
+    then runs the same prompt on the unsplit model (no mesh) on the card.
+    Writes its rows to ``out_dir``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.parallel.sharding import ParallelContext
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data, model_axis = SPLIT_MESH
+    ctx = ParallelContext(mesh=make_mesh_for(data * model_axis, model_axis,
+                                             device_type="cuda"),
+                          fsdp_axis=None, rules_override=SPLIT_OVERRIDE)
+    share = SPLIT_LEN // data
+
+    def greedy(model, lo, hi):
+        """Prefill, the positions lo..hi-1 into a pool, SPLIT_STEPS steps."""
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        prompt = torch.randint(0, model.cfg.vocab, (1, SPLIT_PROMPT), generator=gen,
+                               device="cuda")
+        n = (hi - lo) // 16
+        last, caches, states = model.prefill(prompt)
+        pools = [torch.zeros(s, dtype=torch.bfloat16, device="cuda")
+                 for s in model.pool_shapes(n, 16)]
+        tables = torch.arange(n, dtype=torch.int32, device="cuda").view(1, n)
+        pos = torch.arange(max(0, min(hi, SPLIT_PROMPT) - lo), device="cuda")
+        for j, pool in enumerate(pools):
+            pool[:, tables[0, pos // 16].long(), pos % 16] = torch.stack(
+                [c[j][0, lo + pos] for c in caches])
+        del caches
+        rows = torch.arange(1, device="cuda")
+        tok, out = last.argmax(-1), []
+        for i in range(SPLIT_STEPS):
+            out.append(int(tok))
+            logits = model.decode_step(
+                tok, torch.full((1,), SPLIT_PROMPT + i, device="cuda"), pools,
+                tables, states, rows if states else None)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        return out
+
+    rows = []
+    for arch in SPLIT_ARCHS:
+        cfg = get_config(arch)
+        free_card()
+        model = Transformer(cfg, device="cuda", dtype=torch.bfloat16, seed=0, ctx=ctx)
+        for k in (flash_ops.KERNEL, paged_ops.KERNEL, paged_ops.PARTIALS, paged_ops.MERGE):
+            k.launches = 0
+        ctx.comm.reset()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            tokens = greedy(model, rank * share, (rank + 1) * share)
+        row = dict(model=arch, rank=rank, tokens=tokens,
+                   seconds=time.perf_counter() - t0,
+                   launches={"flash_attention": flash_ops.KERNEL.launches,
+                             "paged_attention": paged_ops.KERNEL.launches,
+                             "paged_attention_partials": paged_ops.PARTIALS.launches,
+                             "paged_merge": paged_ops.MERGE.launches},
+                   comm={k: dict(v) for k, v in ctx.comm.stats.items()})
+        del model
+        if rank == 0:
+            free_card()
+            one = Transformer(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+            with torch.inference_mode():
+                row["unsplit_tokens"] = greedy(one, 0, SPLIT_LEN)
+            del one
+        rows.append(row)
+    with open(Path(out_dir) / f"split.rank{rank}.json", "w") as f:
+        json.dump(rows, f)
+
+
+def long_decode(flash_ops, paged_ops):
+    """``long_decode``: zamba2-2.7b's long_500k cell whole on the card (B 1,
+    524,288 tokens of seeded cache) through ``dryrun.measure_cell``, its
+    decode steps timed against the counted bound (K2 in multiples of the
+    shared block's 9 invocations, K1 none); K2's partials and merge held
+    against their plain versions and timed at the split run's shapes; then
+    the split decode on two gloo ranks, whose greedy tokens must equal the
+    unsplit model's on the card, each rank launching the partials and the
+    merge once a shared-block invocation (or attention layer) a step and
+    one-call K2 never. Returns (timing rows, launches by model and rank)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import run_ranks
+
+    free_card()
+    with first_call("paged_attention") as got:
+        _zero_launches(flash_ops, paged_ops)
+        res = dryrun.measure_cell("zamba2-2.7b", "long_500k", iters=DRYRUN_ITERS)
+        n = _launches(flash_ops, paged_ops)
+    m = res["measured"]
+    if not m["finite"] or n["flash_attention"] or not n["paged_attention"] \
+            or n["paged_attention"] % 9:
+        raise AssertionError(f"long_decode: finite {m['finite']}, launches {n}")
+    free_card()
+    err, rel, shapes = hold_at_cell("long_decode zamba2-2.7b long_500k",
+                                    "paged_attention", got, flash_ops, paged_ops)
+    del got
+    _dryrun_line("long_decode", res, measured_s=m["step_s"],
+                 steps_s=m["steps_s"], share_of_bound=m["share_of_bound"],
+                 launches=n, device=m["device"],
+                 held={"kernel": "paged_attention", "shapes": shapes,
+                       "max_abs_err": err, "rel_rms_err": rel})
+    launches = {"zamba2-2.7b long_500k 1x1": n}
+    free_card()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    timings = [time_split(paged_ops, mm, gen) for mm in SPLIT_PAGED]
+    free_card()
+    out = tempfile.mkdtemp(prefix="split_decode_")
+    world = SPLIT_MESH[0] * SPLIT_MESH[1]
+    try:
+        run_ranks(split_rank, world, (out,), backend="gloo", device_type="cuda")
+        ranks = [json.loads((Path(out) / f"split.rank{r}.json").read_text())
+                 for r in range(world)]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    for rows in zip(*ranks):
+        lead = rows[0]
+        for row in rows:
+            ln = row["launches"]
+            if row["tokens"] != lead["unsplit_tokens"] or ln["paged_attention"] \
+                    or not ln["paged_attention_partials"] or not ln["paged_merge"] \
+                    or not ln["flash_attention"]:
+                raise AssertionError(
+                    f"split decode {row['model']} rank {row['rank']}: tokens "
+                    f"{row['tokens']} against unsplit {lead['unsplit_tokens']}, "
+                    f"launches {ln}")
+            emit("split_decode", model=row["model"], rank=row["rank"],
+                 mesh={"data": SPLIT_MESH[0], "model": SPLIT_MESH[1]},
+                 positions=[SPLIT_LEN // world, SPLIT_LEN], prompt=SPLIT_PROMPT,
+                 steps=SPLIT_STEPS, tokens=row["tokens"],
+                 tokens_equal_unsplit=True, seconds=row["seconds"], launches=ln,
+                 collectives={k: v["calls"] for k, v in row["comm"].items()})
+            launches[f"{row['model']} split rank{row['rank']}"] = ln
+    return timings, launches
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card (torch.cuda.is_available() "
@@ -1907,27 +2376,39 @@ def main():
     sharded_train(flash_ops, paged_ops)
     free_card()
 
+    by_model.update(dryrun_phase(flash_ops, paged_ops))
+    split_timings, split_launches = long_decode(flash_ops, paged_ops)
+    by_model.update(split_launches)
+    free_card()
+
     replaces = {
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:99",
         "paged_attention": "src/repro/kernels/paged_attention/kernel.py:79",
     }
+    # K2's two halves, at zamba2's split shape
+    for name in ("paged_attention_partials", "paged_merge"):
+        timings[name] = [split_timings[0][name]]
+        main_row[name] = 0
+        replaces[name] = replaces["paged_attention"]
     kernels = []
-    for name in ("flash_attention", "paged_attention"):
+    for name in ("flash_attention", "paged_attention", "paged_attention_partials",
+                 "paged_merge"):
         # flash at S=2048; paged at llama3.2-3b's decode batch
         row = timings[name][main_row[name]]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
+            "source": "src/repro_torch/csrc/paged_attention.cu"
+            if name.startswith("paged") else f"src/repro_torch/csrc/{name}.cu",
             "replaces": replaces[name],
-            "launches": sum(n[name] for n in by_model.values()),
-            "launches_by_model": {m: n[name] for m, n in by_model.items()},
-            "max_abs_err": max_err[name], "ms": row["ms"],
+            "launches": sum(n.get(name, 0) for n in by_model.values()),
+            "launches_by_model": {m: n[name] for m, n in by_model.items() if name in n},
+            "max_abs_err": max_err.get(name, row.get("max_abs_err")), "ms": row["ms"],
             "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "device_ms": row["device_ms"],
-            "library_device_ms": row["library_device_ms"],
+            "library_device_ms": row.get("library_device_ms"),
             "host_ms": row["host_ms"], "shape": row["shape"],
-            "dtype": row["dtype"]})
+            "dtype": row.get("dtype", "bfloat16")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -32,8 +32,13 @@
 // computes the current one. The warps' (m, l, acc) merge in shared memory
 // and the block writes its partition's fp32 partial (m, l, acc[G][D]);
 // paged_merge then combines the partitions of each (batch, kv head) into
-// out. Softmax state is fp32; q*scale and the softmax weights are rounded
-// to the pool dtype before the products, as the TPU kernel's are.
+// out. Two more entries expose the halves: paged_attention_partials runs the
+// split kernel alone and leaves the partials to the caller, and
+// paged_merge_fwd merges any number of partitions. A decode whose cache
+// sequence is cut over ranks runs the first on each rank's share, gathers
+// the partials and merges them once. Softmax state is fp32; q*scale and
+// the softmax weights are rounded to the pool dtype before the products, as
+// the TPU kernel's are.
 //
 // Head dims 80, 112 and 120 (rows of 160, 224 and 240 bytes in bf16,
 // whole 16-byte chunks) take the 128 instance's shared-memory geometry
@@ -55,6 +60,8 @@
 // - fp32, paged_split_simt: fp32 FMAs. Lane (t, half) dots token t's k
 //   with the G queries over one half of the head dim, and for p.v each lane
 //   owns D/32 contiguous head-dim elements.
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -537,7 +544,10 @@ paged_split_simt(const float* __restrict__ q, const float* __restrict__ k_pages,
 
 // Combines the partitions of one (kv head, batch) that the split kernel
 // wrote (those inside the window): out = sum_p acc_p e^(m_p - M) /
-// sum_p l_p e^(m_p - M) with M the largest m_p.
+// sum_p l_p e^(m_p - M) with M the largest m_p. Without lens (the merge
+// entry) it combines all n_part partitions: partitions that no split block
+// wrote hold (m, l, acc) = (NEG_INF, 0, 0), set by the caller, and add
+// nothing.
 template <typename T, int D>
 __global__ void __launch_bounds__(128)
 paged_merge(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
@@ -545,8 +555,8 @@ paged_merge(const float* __restrict__ part_acc, const float* __restrict__ part_m
             int max_blocks, int n_part, int window) {
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
-  const int np = (pages_used(lens[b], max_blocks) + PART - 1) / PART;
-  const int p_first = window_start(lens[b], window) / PAGE / PART;
+  const int np = lens ? (pages_used(lens[b], max_blocks) + PART - 1) / PART : n_part;
+  const int p_first = lens ? window_start(lens[b], window) / PAGE / PART : 0;
   const size_t p0 = ((size_t)b * KV + kvh) * n_part;
   for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
     const int g = i / D;
@@ -564,11 +574,13 @@ paged_merge(const float* __restrict__ part_acc, const float* __restrict__ part_m
   }
 }
 
+// The split kernel over every partition of the table: each writes its
+// partial (m, l, acc) into part_ml / part_acc, (B, KV, n_part, G, 2 | D).
 template <typename T, int D, int NT>
-cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const void* tables, const void* lens, void* out, void* scratch,
-                   int B, int KV, int G, int max_blocks, int window, float scale,
-                   cudaStream_t stream) {
+cudaError_t launch_split(const void* q, const void* kp, const void* vp, const void* tables,
+                         const void* lens, float* part_acc, float* part_ml, int B, int KV,
+                         int G, int max_blocks, int window, float scale,
+                         cudaStream_t stream) {
   constexpr bool BF16 = sizeof(T) == 2;
   constexpr int RING = PagedGeom<T, D>::RING;
   const auto split = BF16 ? (void*)paged_split_mma<D, NT> : (void*)paged_split_simt<D, NT>;
@@ -580,8 +592,6 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
     attr_set = true;
   }
   const int n_part = (max_blocks + PART - 1) / PART;
-  float* part_acc = static_cast<float*>(scratch);
-  float* part_ml = part_acc + (size_t)B * KV * n_part * G * D;
   const dim3 grid(n_part, KV, B);
   if constexpr (BF16)
     paged_split_mma<D, NT><<<grid, WARPS * 32, RING, stream>>>(
@@ -595,39 +605,27 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
         static_cast<const float*>(vp), static_cast<const int*>(tables),
         static_cast<const int*>(lens), part_acc, part_ml, KV, G, max_blocks, n_part, window,
         scale);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  paged_merge<T, D><<<dim3(KV, B), 128, 0, stream>>>(
-      part_acc, part_ml, static_cast<const int*>(lens), static_cast<T*>(out), KV, G,
-      max_blocks, n_part, window);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t dispatch_g(const void* q, const void* kp, const void* vp, const void* tables,
-                       const void* lens, void* out, void* scratch, int B, int KV, int G,
-                       int max_blocks, int window, float scale, cudaStream_t stream) {
-  if (G <= NTILE)
-    return launch<T, D, 1>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks,
-                           window, scale, stream);
-  return launch<T, D, 2>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks,
-                         window, scale, stream);
-}
-
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* kp, const void* vp,
-                       const void* tables, const void* lens, void* out, void* scratch,
-                       int B, int KV, int G, int max_blocks, int window, float scale,
-                       cudaStream_t stream) {
-  switch (D) {
-    case 32: return dispatch_g<T, 32>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks, window, scale, stream);
-    case 64: return dispatch_g<T, 64>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks, window, scale, stream);
-    case 80: return dispatch_g<T, 80>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks, window, scale, stream);
-    case 112: return dispatch_g<T, 112>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks, window, scale, stream);
-    case 120: return dispatch_g<T, 120>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks, window, scale, stream);
-    case 128: return dispatch_g<T, 128>(q, kp, vp, tables, lens, out, scratch, B, KV, G, max_blocks, window, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
+// Calls f with the dtype's storage type and the head dim as
+// std::integral_constant values; an unknown one is cudaErrorInvalidValue.
+template <typename F>
+cudaError_t dispatch(int dtype, int D, F&& f) {
+  auto with_d = [&](auto t) -> cudaError_t {
+    switch (D) {
+      case 32: return f(t, std::integral_constant<int, 32>{});
+      case 64: return f(t, std::integral_constant<int, 64>{});
+      case 80: return f(t, std::integral_constant<int, 80>{});
+      case 112: return f(t, std::integral_constant<int, 112>{});
+      case 120: return f(t, std::integral_constant<int, 120>{});
+      case 128: return f(t, std::integral_constant<int, 128>{});
+      default: return cudaErrorInvalidValue;
+    }
+  };
+  if (dtype == 0) return with_d(float{});
+  if (dtype == 1) return with_d(__nv_bfloat16{});
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -645,9 +643,68 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
   if (B == 0 || KV == 0) return 0;
   if (G < 1 || G > GMAX || max_blocks < 1) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(D, q, k_pages, v_pages, tables, lens, out, scratch, B, KV, G, max_blocks, window, scale, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k_pages, v_pages, tables, lens, out, scratch, B, KV, G, max_blocks, window, scale, s);
-  return cudaErrorInvalidValue;
+  return dispatch(dtype, D, [&](auto t, auto d) -> cudaError_t {
+    using T = decltype(t);
+    constexpr int DD = decltype(d)::value;
+    const int n_part = (max_blocks + PART - 1) / PART;
+    float* part_acc = static_cast<float*>(scratch);
+    float* part_ml = part_acc + (size_t)B * KV * n_part * G * DD;
+    const cudaError_t e =
+        G <= NTILE ? launch_split<T, DD, 1>(q, k_pages, v_pages, tables, lens, part_acc, part_ml,
+                                            B, KV, G, max_blocks, window, scale, s)
+                   : launch_split<T, DD, 2>(q, k_pages, v_pages, tables, lens, part_acc, part_ml,
+                                            B, KV, G, max_blocks, window, scale, s);
+    if (e != cudaSuccess) return e;
+    paged_merge<T, DD><<<dim3(KV, B), 128, 0, s>>>(part_acc, part_ml,
+                                                   static_cast<const int*>(lens),
+                                                   static_cast<T*>(out), KV, G, max_blocks,
+                                                   n_part, window);
+    return cudaGetLastError();
+  });
+}
+
+// The split kernel alone: each partition's fp32 partial into part_acc
+// (B, KV, ceil(max_blocks/16), G, D) and part_ml (..., G, 2) = (m, l). A
+// partition that no block writes (past the sequence, left of the window)
+// keeps what the caller put there. lens[b] is the newest token's index
+// counted from the table's first position, and may lie outside the table:
+// past its end every token of the table counts, before its start none
+// does; the window is applied to the same positions. Returns
+// cudaGetLastError() after the launch.
+extern "C" int paged_attention_partials(const void* q, const void* k_pages,
+                                        const void* v_pages, const void* tables,
+                                        const void* lens, void* part_acc, void* part_ml,
+                                        int B, int KV, int G, int D, int max_blocks,
+                                        int window, float scale, int dtype, void* stream) {
+  if (B == 0 || KV == 0) return 0;
+  if (G < 1 || G > GMAX || max_blocks < 1) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dispatch(dtype, D, [&](auto t, auto d) -> cudaError_t {
+    using T = decltype(t);
+    constexpr int DD = decltype(d)::value;
+    float* acc = static_cast<float*>(part_acc);
+    float* ml = static_cast<float*>(part_ml);
+    return G <= NTILE ? launch_split<T, DD, 1>(q, k_pages, v_pages, tables, lens, acc, ml, B,
+                                               KV, G, max_blocks, window, scale, s)
+                      : launch_split<T, DD, 2>(q, k_pages, v_pages, tables, lens, acc, ml, B,
+                                               KV, G, max_blocks, window, scale, s);
+  });
+}
+
+// The merge alone, over all n_part partitions of each (batch, kv head):
+// part_acc (B, KV, n_part, G, D) and part_ml (B, KV, n_part, G, 2) fp32,
+// out (B, KV, G, D) of dtype. Returns cudaGetLastError() after the launch.
+extern "C" int paged_merge_fwd(const void* part_acc, const void* part_ml, void* out, int B,
+                               int KV, int G, int D, int n_part, int dtype, void* stream) {
+  if (B == 0 || KV == 0) return 0;
+  if (G < 1 || n_part < 1) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dispatch(dtype, D, [&](auto t, auto d) -> cudaError_t {
+    using T = decltype(t);
+    constexpr int DD = decltype(d)::value;
+    paged_merge<T, DD><<<dim3(KV, B), 128, 0, s>>>(
+        static_cast<const float*>(part_acc), static_cast<const float*>(part_ml), nullptr,
+        static_cast<T*>(out), KV, G, n_part * PART, n_part, 0);
+    return cudaGetLastError();
+  });
 }

@@ -6,14 +6,23 @@ raises. bf16 runs on the tensor-core (wgmma) instance, fp32 on the SIMT
 instance; the dtype alone chooses. Head dims 80, 112 and 120 run the
 bf16 instance on the 128 geometry, their pad columns zero-filled by TMA.
 ``KERNEL.launches`` counts the launches.
+
+On a meta tensor (``repro_torch.analysis``'s dry-run) the wrapper books
+the kernel's products over the causal (and windowed) pairs and its I/O
+(q, k, v read once, the output written once) with the active op counter,
+in the ``flash_core`` bucket the roofline replaces by the analytic kernel
+I/O, and returns an empty meta result: it runs neither the kernel nor its
+plain version.
 """
 from __future__ import annotations
 
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
+from repro_torch.analysis import scopes
 from repro_torch.kernels.build import DTYPE_CODES, CudaKernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
@@ -34,6 +43,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B,Sq,H,D) in q's dtype. Scores are scaled by D ** -0.5."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, lens, window=window)
+    if q.device.type == "meta":
+        out = torch.empty_like(q)
+        _book(q, k, v, out, window)
+        return out
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     if lens is None:
@@ -45,6 +58,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   D ** -0.5, DTYPE_CODES[q.dtype],
                   torch.cuda.current_stream(q.device).cuda_stream)
     return out
+
+
+def causal_pairs(sq: int, skv: int, window: int = 0) -> int:
+    """(query, key) pairs that count for one head of one sequence: the
+    queries are the last ``sq`` of ``skv`` positions, each sees the keys at
+    or before it, within the window."""
+    reach = np.arange(skv - sq, skv, dtype=np.int64) + 1
+    return int(np.minimum(reach, window).sum() if window > 0 else reach.sum())
+
+
+def _book(q, k, v, out, window):
+    B, Sq, H, D = q.shape
+    pairs = B * H * causal_pairs(Sq, k.shape[1], window)
+    ts = (q, k, v, out)
+    scopes.book(flops=4.0 * pairs * D, scoped=True, name="flash_attention",
+                hbm=sum(scopes.strict_bytes(t) for t in ts),
+                eager=sum(t.numel() * t.element_size() for t in ts))
 
 
 def _check(q, k, v, lens):

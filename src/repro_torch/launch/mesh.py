@@ -1,7 +1,9 @@
 """Meshes, as ``repro.launch.mesh``: functions, not module constants, so
-importing this module touches no process group. Each builds a
+importing this module touches no process group. ``make_mesh_for`` builds a
 ``DeviceMesh`` over the process group already initialised in this process
-(``init_device_mesh`` would start one from the environment otherwise).
+(``init_device_mesh`` would start one from the environment otherwise);
+``make_production_mesh`` gives the reference's production meshes as
+layout-only meshes, for the dry-run.
 
 ``run_ranks`` starts ``world`` processes, gives each its process group
 (``tcp://127.0.0.1``, a free port) and calls ``fn(rank, *args)`` in each.
@@ -22,10 +24,15 @@ def _mesh(device_type: str, shape, names):
     return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(names))
 
 
-def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+def make_production_mesh(*, multi_pod: bool = False, coords=()):
+    """The reference's production mesh, 16x16 ("data", "model") or
+    2x16x16 ("pod", "data", "model") with the batch over ("pod", "data"),
+    as a layout-only ``AbstractMesh``: one rank of it, at ``coords``, is
+    traced on meta tensors (``repro_torch.launch.dryrun``); no card runs it."""
+    from repro_torch.parallel.sharding import AbstractMesh
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _mesh(device_type, shape, axes)
+    return AbstractMesh(shape, axes, tuple(coords))
 
 
 def make_mesh_for(devices: int, model_parallel: int = 1, pods: int = 1, *,

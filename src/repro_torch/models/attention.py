@@ -10,6 +10,9 @@ held against. Serving (``prefill``, ``decode_step``) calls the kernels'
 wrappers; the full-sequence ``Transformer.forward`` of training calls
 ``flash_prefill`` under autograd, as the reference's train mode calls its
 jnp ``flash_prefill`` and neither Pallas kernel, which have no backward.
+Its scores and softmax are tagged ``flash_core`` for the dry-run's op
+counter, as the reference tags them with ``jax.named_scope``: the
+roofline replaces their bytes by the kernel's own I/O.
 
 ``mla_*`` — Multi-Head Latent Attention (DeepSeek-R1): prefill, the
 *absorbed* decode whose cache is the (kv_rank + rope) latent of each token,
@@ -22,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis.scopes import scope
 from repro_torch.models.common import rmsnorm, rope
 
 NEG_INF = -1e30
@@ -40,20 +44,21 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     g = H // KV
     if kv_lens is None:
         kv_lens = torch.full((B,), Skv, dtype=torch.int32, device=q.device)
-    qg = (q.float() * D ** -0.5).to(q.dtype).float().reshape(B, Sq, KV, g, D)
-    s = torch.einsum("bqkgd,bckd->bkgqc", qg, k.float())
-    kv_pos = torch.arange(Skv, device=q.device)
-    qp = q_positions.long()[:, None, None, :, None]               # (B|1,1,1,Sq,1)
-    valid = kv_pos <= qp
-    valid = valid & (kv_pos < kv_lens.long()[:, None, None, None, None])
-    if window and window > 0:
-        valid = valid & (kv_pos > qp - window)
-    s = torch.where(valid, s, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(valid, torch.exp(s - m), 0.0)
-    l = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bkgqc,bckd->bkgqd", p.to(v.dtype).float(), v.float())
-    out = torch.where(l > 0, acc / l.clamp_min(1e-30), 0.0)
+    with scope("flash_core"):
+        qg = (q.float() * D ** -0.5).to(q.dtype).float().reshape(B, Sq, KV, g, D)
+        s = torch.einsum("bqkgd,bckd->bkgqc", qg, k.float())
+        kv_pos = torch.arange(Skv, device=q.device)
+        qp = q_positions.long()[:, None, None, :, None]           # (B|1,1,1,Sq,1)
+        valid = kv_pos <= qp
+        valid = valid & (kv_pos < kv_lens.long()[:, None, None, None, None])
+        if window and window > 0:
+            valid = valid & (kv_pos > qp - window)
+        s = torch.where(valid, s, NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.where(valid, torch.exp(s - m), 0.0)
+        l = p.sum(dim=-1, keepdim=True)
+        acc = torch.einsum("bkgqc,bckd->bkgqd", p.to(v.dtype).float(), v.float())
+        out = torch.where(l > 0, acc / l.clamp_min(1e-30), 0.0)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
 
 

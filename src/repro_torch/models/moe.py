@@ -45,7 +45,10 @@ def _dispatch_indices(flat_expert: torch.Tensor, n_experts: int,
     expert; a dropped one's is E*C."""
     A = flat_expert.shape[0]
     sorted_e, order = torch.sort(flat_expert, stable=True)
-    counts = torch.bincount(flat_expert, minlength=n_experts)
+    # bincount's length depends on the values, which a meta tensor lacks
+    counts = torch.zeros(n_experts, dtype=flat_expert.dtype,
+                         device=flat_expert.device).scatter_add_(
+        0, flat_expert, torch.ones_like(flat_expert))
     starts = torch.cumsum(counts, 0) - counts                 # exclusive cumsum
     pos_in_e = torch.arange(A, device=flat_expert.device) - starts[sorted_e]
     keep_sorted = pos_in_e < capacity

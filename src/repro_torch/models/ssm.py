@@ -26,6 +26,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis.scopes import Steps
 from repro_torch.models.common import rmsnorm
 
 ConvState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -114,9 +115,14 @@ def mamba2_forward(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg, *,
     A = -torch.exp(p["A_log"].float())                           # (nh,)
     h = initial_state if initial_state is not None \
         else init_mamba_state(cfg, B, x.dtype, x.device, tp=_tp(ctx))[0]
-    ys = []
-    for start in range(0, S, Q):   # whole chunks, then the remainder
-        sl = slice(start, start + Q)
+    chunks, ys = Steps(S // Q), []
+    for c in chunks:               # whole chunks, then the remainder
+        sl = slice(c * Q, (c + 1) * Q)
+        h, y = _chunk(h, xh[:, sl], dt[:, sl], Bf[:, sl], Cf[:, sl], A)
+        ys.append(y)
+    ys = chunks.expand(ys)
+    if S % Q:
+        sl = slice(S - S % Q, S)
         h, y = _chunk(h, xh[:, sl], dt[:, sl], Bf[:, sl], Cf[:, sl], A)
         ys.append(y)
     y = torch.cat(ys, dim=1)

@@ -54,7 +54,11 @@ and gathered before use; the batch cut over "data". q/k/v and gate/up are
 column-parallel, ``wo``/``w_o``, ``w_down`` and Mamba2's ``out_proj``
 row-parallel with a ``psum`` over "model"; the tied embedding is a masked
 lookup of the rank's rows and a ``psum``, and the logits are gathered over
-"model". K1 and K2 run on the rank's own heads; MLA keeps its heads on
+"model". K1 and K2 run on the rank's own heads; with the cache sequence
+cut over a mesh axis (the ``cache_seq`` rule, long_500k's B 1), each rank
+holds a contiguous share of every sequence's positions in its pool and
+decode runs K2's split half on it, gathers the partials over that axis and
+merges them once (``_split_attention``). MLA keeps its heads on
 "model" and its latent cache whole on every rank; the MoE FFN is
 expert-parallel (``models/moe.py``); Mamba2 scans its own heads and its
 state slots hold them, and the xLSTM blocks run their recurrences whole on
@@ -62,8 +66,13 @@ every rank (``models/xlstm.py``). The seeded init draws what one device
 draws and keeps the rank's shard, so every mesh shape holds the model of
 tp=1. ``forward`` under a mesh takes the rank's rows of the batch, and
 ``loss_fn`` returns the global masked mean, whose gradient on each rank is
-that rank's share (``repro_torch.parallel.collectives``); the reference's
-§Perf levers are refused under a mesh.
+that rank's share (``repro_torch.parallel.collectives``); of the
+reference's §Perf levers only ``remat`` is taken (``remat="full"``
+recomputes each dense or MoE layer's training forward in its backward, as
+the reference's ``_maybe_remat``), the others are refused under a mesh.
+
+On the meta device (``seed=None``) a model is its rank's shapes alone, at
+any width: the dry-run traces one rank's step on it.
 """
 from __future__ import annotations
 
@@ -74,11 +83,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.paged_attention.ops import (paged_attention,
+                                                     paged_attention_partials,
+                                                     paged_merge)
 from repro_torch.models.attention import (flash_prefill, mla_decode_paged,
                                           mla_latents, mla_prefill)
 from repro_torch.models.common import rmsnorm, rope, token_xent
@@ -440,17 +452,17 @@ def check_supported(cfg: ModelConfig):
 
 def check_shardable(cfg: ModelConfig, ctx: ParallelContext, layout: str):
     """Raise unless the port can shard ``cfg`` under ``ctx``: every §Perf
-    lever at its default, no GQA train layout whose padded q heads are no
-    multiple of the kv heads (the reference tiles kv there, and its g-major
-    slots then read other heads than tp=1's), and every sharded dimension
-    dividing its mesh axes."""
+    lever but ``remat`` at its default, no GQA train layout whose padded q
+    heads are no multiple of the kv heads (the reference tiles kv there,
+    and its g-major slots then read other heads than tp=1's), and every
+    sharded dimension dividing its mesh axes."""
     hp, kvx = heads_layout(cfg, ctx, layout)
     if (layout == "train" and cfg.attention != "mla" and cfg.family != "ssm"
             and cfg.n_kv_heads < cfg.n_heads and kvx != cfg.n_kv_heads):
         raise NotImplementedError(
             f"{cfg.name}: the train layout at tp {ctx.tp} pads {cfg.n_heads} "
             f"q heads to {hp}, no multiple of its {cfg.n_kv_heads} kv heads")
-    levers = ctx.levers_set() + (
+    levers = tuple(n for n in ctx.levers_set() if n != "remat") + (
         ("kv_cache_dtype",) if ctx.kv_cache_dtype is not None else ())
     if levers:
         raise NotImplementedError(
@@ -515,6 +527,13 @@ class Transformer(nn.Module):
         self.layers = [] if cfg.family in ("hybrid", "ssm") else [
             (stack, i) for stack, (n,) in stack_depths(cfg).items()
             for i in range(n)]
+        # the mesh axis the decode cache's sequence is cut over, if any
+        self.seq_axis = self.ctx.spec("cache_seq")[0] if self.ctx.mesh is not None \
+            else None
+        if self.seq_axis is not None and (self.mla or not isinstance(self.seq_axis, str)):
+            raise NotImplementedError(
+                f"{cfg.name}: a decode cache cut over {self.seq_axis!r} needs GQA "
+                "attention and one mesh axis")
         if seed is not None:
             self.init_weights(seed)
 
@@ -742,36 +761,54 @@ class Transformer(nn.Module):
 
     def _gqa_decode(self, x, p, pool_k, pool_v, at, block_tables):
         """One attention+MLP layer for one token per sequence: writes the
-        token's k and v into the pools at ``at`` = (positions, pages,
-        offsets in the pages, positions as int32), then attends through
-        K2."""
-        cfg = self.cfg
+        token's k and v into the pools at ``at`` (``_cache_slots``), then
+        attends through K2, or through its split half where the cache's
+        sequence is cut over ranks."""
         B = x.shape[0]
-        pos, pages, offs, lens = at
+        pos, pages, offs, lens, mine, s0 = at
         q, a, b = self._qkv(x, p, pos[:, None])
-        pool_k[pages, offs] = a[:, 0]
-        pool_v[pages, offs] = b[:, 0]
-        g = self.n_q // self.n_kv
-        o = paged_attention(q.view(B, self.n_kv, g, -1), pool_k, pool_v,
-                            block_tables, lens, window=self.window)
+        q = q.view(B, self.n_kv, self.n_q // self.n_kv, -1)
+        if mine is None:
+            pool_k[pages, offs] = a[:, 0]
+            pool_v[pages, offs] = b[:, 0]
+            o = paged_attention(q, pool_k, pool_v, block_tables, lens,
+                                window=self.window)
+        else:
+            keep = mine[:, None, None]
+            pool_k[pages, offs] = torch.where(keep, a[:, 0], pool_k[pages, offs])
+            pool_v[pages, offs] = torch.where(keep, b[:, 0], pool_v[pages, offs])
+            o = self._split_attention(q, pool_k, pool_v, block_tables, lens - s0)
         return self._mlp(self._out(x, o.view(B, 1, self.n_q, -1), p), p)
+
+    def _split_attention(self, q, pool_k, pool_v, block_tables, local_lens):
+        """K2's split half over this rank's share of every sequence (its
+        positions counted from the share's start, so the causal bound and
+        the window fall where they do globally), the partials gathered
+        over ``seq_axis`` (the ranks' partitions in position order) and
+        merged once."""
+        acc, ml = paged_attention_partials(q, pool_k, pool_v, block_tables,
+                                           local_lens.to(torch.int32),
+                                           window=self.window)
+        D = acc.shape[-1]
+        both = self.ctx.comm.all_gather(torch.cat([acc, ml], dim=-1),
+                                        self.seq_axis, 2)
+        return paged_merge(both[..., :D].contiguous(), both[..., D:].contiguous(),
+                           q.dtype)
 
     # ------------------------------------------------------------ training
     def _unstacked(self, stack: str) -> List[Dict[str, torch.Tensor]]:
         """Each layer's parameters of a stack, in the order the layers run,
         as views cut by one ``unbind``: its backward writes the stack's
         gradient once, where indexing layer by layer would write a
-        stack-sized gradient for every layer. Under FSDP each layer's
-        weights are gathered (``_gather_layer``); the backward keeps them
-        either way."""
+        stack-sized gradient for every layer. Under FSDP the caller gathers
+        each layer's weights where it uses them (``_gather_layer``)."""
         depth = len(stack_depths(self.cfg)[stack])
         if not depth:
-            return [self._gather_layer(stack, dict(getattr(self, stack)))]
+            return [dict(getattr(self, stack))]
         cols = {k: v.flatten(0, depth - 1).unbind(0)
                 for k, v in getattr(self, stack).items()}
         n = len(next(iter(cols.values()))) if cols else 0
-        return [self._gather_layer(stack, {k: c[i] for k, c in cols.items()})
-                for i in range(n)]
+        return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
     def _attend(self, q, k, v, positions):
         """Plain causal attention of whole sequences in this layout's
@@ -800,6 +837,24 @@ class Transformer(nn.Module):
         q, k, v = self._qkv(x, p, positions)
         return self._mlp(self._out(x, self._attend(q, k, v, positions), p), p)
 
+    def _stack_layer(self, stack: str, x, p, positions):
+        """One dense or MoE layer of training from its unstacked weights,
+        gathered here: under ``remat="full"`` inside a checkpoint, so its
+        backward gathers them again and recomputes the layer's forward
+        rather than keeping its activations (the reference's
+        ``_maybe_remat``)."""
+        def layer(x, p):
+            p = self._gather_layer(stack, p)
+            if not self.mla:
+                return self._gqa_layer(x, p, positions)
+            y, _ = mla_prefill(rmsnorm(x, p["attn_norm"], self.cfg.norm_eps), p,
+                               self.cfg, positions)
+            return self._mlp(x + self._psum(y), p)
+        if self.ctx.remat == "full":
+            return checkpoint(layer, x, p, use_reentrant=False,
+                              preserve_rng_state=False)
+        return layer(x, p)
+
     def forward(self, tokens: torch.Tensor,
                 prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Logits (B,P+S,V) at every position of whole sequences run from
@@ -814,29 +869,26 @@ class Transformer(nn.Module):
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)[None]
         if cfg.family == "hybrid":
-            shared = self._unstacked("shared_attn")[0]
+            shared = self._gather_layer("shared_attn", self._unstacked("shared_attn")[0])
             mamba = self._unstacked("mamba_stack")
             for g in range(cfg.n_layers // cfg.attn_every):
                 x = self._gqa_layer(x, shared, positions)
                 for p in mamba[g * cfg.attn_every:(g + 1) * cfg.attn_every]:
-                    x = x + mamba2_forward(x, p, cfg, ctx=self.ctx)[0]
+                    x = x + mamba2_forward(x, self._gather_layer("mamba_stack", p),
+                                           cfg, ctx=self.ctx)[0]
         elif cfg.family == "ssm":
             (G, per), _ = stack_depths(cfg).values()
             mlstm = self._unstacked("mlstm_stack")
             for g, p_s in enumerate(self._unstacked("slstm_stack")):
                 for p in mlstm[g * per:(g + 1) * per]:
-                    x = mlstm_forward(x, p, cfg, ctx=self.ctx)[0]
-                x = slstm_forward(x, p_s, cfg, ctx=self.ctx)[0]
+                    x = mlstm_forward(x, self._gather_layer("mlstm_stack", p), cfg,
+                                      ctx=self.ctx)[0]
+                x = slstm_forward(x, self._gather_layer("slstm_stack", p_s), cfg,
+                                  ctx=self.ctx)[0]
         else:
             for stack in stack_depths(cfg):
                 for p in self._unstacked(stack):
-                    if self.mla:
-                        y, _ = mla_prefill(
-                            rmsnorm(x, p["attn_norm"], cfg.norm_eps), p, cfg,
-                            positions)
-                        x = self._mlp(x + self._psum(y), p)
-                    else:
-                        x = self._gqa_layer(x, p, positions)
+                    x = self._stack_layer(stack, x, p, positions)
         return self._head(x)
 
     def _serve_layout(self):
@@ -937,13 +989,11 @@ class Transformer(nn.Module):
         x = self._embed(tokens)[:, None]
         if cfg.family == "ssm":
             return self._head(self._xlstm_decode(x, states, rows)[:, 0])
-        page = pools[0].shape[2]
-        pages = block_tables.long().gather(1, (pos // page)[:, None])[:, 0]
-        offs, lens = pos % page, pos.to(torch.int32)
-        at = (pos, pages, offs, lens)
+        at = self._cache_slots(pos, block_tables, pools[0].shape[2])
         if cfg.family == "hybrid":
             return self._head(self._hybrid_decode(x, pools, block_tables, at,
                                                   states, rows)[:, 0])
+        _, pages, offs, lens, _, _ = at
         pool_a, pool_b = pools
         for l, (stack, i) in enumerate(self.layers):
             p = self._layer(stack, i)
@@ -958,6 +1008,26 @@ class Transformer(nn.Module):
                 x = self._gqa_decode(x, p, pool_a[l], pool_b[l], at,
                                      block_tables)
         return self._head(x[:, 0])
+
+    def _cache_slots(self, pos, block_tables, page):
+        """Where each sequence's new token goes: (positions, pool pages,
+        offsets in them, lens = positions as int32, mine, s0). With the
+        cache sequence cut over ``seq_axis`` this rank's table covers the
+        n = max_blocks * page positions from s0 = its coordinate * n; the
+        token's slot is taken at its position in that share, ``mine`` says
+        which sequences' new token the rank holds, and lens stay global.
+        Uncut, ``mine`` is None and s0 0."""
+        lens = pos.to(torch.int32)
+        if self.seq_axis is None:
+            pages = block_tables.long().gather(1, (pos // page)[:, None])[:, 0]
+            return pos, pages, pos % page, lens, None, 0
+        n = block_tables.shape[1] * page
+        s0 = self.ctx.comm.axis_index(self.seq_axis) * n
+        local = pos - s0
+        mine = (local >= 0) & (local < n)
+        local = local.clamp(0, n - 1)
+        pages = block_tables.long().gather(1, (local // page)[:, None])[:, 0]
+        return pos, pages, local % page, lens, mine, s0
 
     def _hybrid_decode(self, x, pools, block_tables, at, states, rows):
         """Per group g: the shared block on pool g through K2, then its

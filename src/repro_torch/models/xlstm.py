@@ -28,6 +28,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis.scopes import Steps
 from repro_torch.models.common import rmsnorm
 from repro_torch.models.ssm import _causal_conv, _tp
 
@@ -90,8 +91,8 @@ def mlstm_forward(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg, *,
         C, n, m, _ = init_mlstm_state(cfg, B, x.dtype, x.device)
     else:
         C, n, m = initial_state[:3]
-    hs = []
-    for t in range(S):
+    hs, tokens = [], Steps(S)
+    for t in tokens:
         qt, kt, vt, it = q[:, t], k[:, t], v[:, t], ig[:, t]
         lm = logf[:, t] + m
         m_new = torch.maximum(lm, it)
@@ -106,7 +107,7 @@ def mlstm_forward(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg, *,
                             torch.exp(-m_new))[..., None]
         m = m_new
         hs.append(num / den)
-    h = torch.stack(hs, dim=1).reshape(B, S, di).to(x.dtype)
+    h = torch.stack(tokens.expand(hs), dim=1).reshape(B, S, di).to(x.dtype)
     h = rmsnorm(h, p["gnorm"], cfg.norm_eps) + skip
     y = (h * torch.sigmoid(og)) @ p["w_down"]
     return x + y, (C, n, m, conv_cs)
@@ -134,8 +135,8 @@ def slstm_forward(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg, *,
     c, n, h, m = initial_state if initial_state is not None \
         else init_slstm_state(cfg, B, x.device)
     R = p["r_gates"].float()                                     # (4,nh,hd,hd)
-    hs = []
-    for t in range(S):
+    hs, tokens = [], Steps(S)
+    for t in tokens:
         wxt = wx[:, t]
         rec = torch.einsum("ghij,bhj->gbhi", R, h.reshape(B, nh, hd)).reshape(4, B, d)
         zt = torch.tanh(wxt[:, :d] + rec[0])
@@ -151,7 +152,7 @@ def slstm_forward(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg, *,
         h = ot * c / torch.clamp(n, min=1e-6)
         m = m_new
         hs.append(h)
-    y = torch.stack(hs, dim=1).to(x.dtype)
+    y = torch.stack(tokens.expand(hs), dim=1).to(x.dtype)
     y = rmsnorm(y, p["gnorm"], cfg.norm_eps)
     up = _gather_up(y @ p["w_up"], ctx)
     ff = up.shape[-1] // 2

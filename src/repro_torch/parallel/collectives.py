@@ -26,6 +26,16 @@ memory explicitly, and ``Comm.stats`` counts it. Two ranks on one card
 ``Comm.stats`` holds, per op, its calls, how many were staged, the bytes
 it moved in and the host's seconds inside it (a gloo op returns when it is
 done; an NCCL op when it is enqueued).
+
+``CountingComm`` is the ``Comm`` of an ``AbstractMesh``: one rank of a
+mesh traced alone, on meta tensors. Each op returns an empty tensor of its
+result's shape and books, by the reference's kind (``all-reduce``,
+``all-gather``, ``all-to-all``, ``collective-permute``), its call, its
+payload (the operand's bytes, floats at 2 bytes as the reference counts
+them), its group's size and its wire bytes by the reference's ring factors
+(``src/repro/analysis/hlo.py``), into ``stats`` and into the active op
+counter (``repro_torch.analysis.counter``). The model code issues the same
+collectives as on a real mesh; the transposes of training issue theirs.
 """
 from __future__ import annotations
 
@@ -34,6 +44,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.analysis import scopes
 
 # ops gloo runs on CUDA tensors itself; the rest are staged through the host
 GLOO_CUDA_OPS = frozenset({"all_reduce", "broadcast", "all_gather", "all_to_all"})
@@ -227,3 +239,52 @@ class _PPermute(torch.autograd.Function):
     def backward(ctx, g):
         inverse = tuple((d, s) for s, d in ctx.perm)
         return ctx.comm._ppermute(g, ctx.axis, inverse), None, None, None
+
+
+# wire bytes a device moves per payload byte on a ring of n, as the
+# reference's ``_RING_FACTOR``: an all-reduce is a reduce-scatter and an
+# all-gather, 2(n-1)/n; an all-gather's operand is the local shard, so it
+# receives n-1 of them; an all-to-all sends (n-1)/n of its buffer
+RING_FACTOR = {"all-reduce": lambda n: 2 * (n - 1) / n,
+               "all-gather": lambda n: float(n - 1),
+               "reduce-scatter": lambda n: (n - 1) / n,
+               "all-to-all": lambda n: (n - 1) / n,
+               "collective-permute": lambda n: 1.0}
+
+
+class CountingComm(Comm):
+    """The collectives of an ``AbstractMesh``, counted and not run (the
+    module docstring). ``stats[kind]`` holds calls, payload and wire bytes
+    and the group sizes seen, at the scale of the loops around each call."""
+
+    def _count(self, kind: str, axis: str, x: torch.Tensor,
+               out: torch.Tensor) -> torch.Tensor:
+        n = self.size(axis)
+        payload = scopes.strict_bytes(x)
+        wire = payload * RING_FACTOR[kind](n)
+        s = scopes.scale()
+        entry = self.stats.setdefault(kind, dict(calls=0.0, payload=0.0, wire=0.0,
+                                                 groups=[]))
+        entry["calls"] += s
+        entry["payload"] += payload * s
+        entry["wire"] += wire * s
+        if n not in entry["groups"]:
+            entry["groups"].append(n)
+        scopes.book(hbm=payload + scopes.strict_bytes(out),
+                    eager=(x.numel() + out.numel()) * x.element_size(),
+                    collective=(kind, payload, wire))
+        return out
+
+    def _all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        return self._count("all-reduce", axis, x, torch.empty_like(x))
+
+    def _all_gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        shape = list(x.shape)
+        shape[dim] *= self.size(axis)
+        return self._count("all-gather", axis, x, x.new_empty(shape))
+
+    def _all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        return self._count("all-to-all", axis, x, torch.empty_like(x))
+
+    def _ppermute(self, x: torch.Tensor, axis: str, perm) -> torch.Tensor:
+        return self._count("collective-permute", axis, x, torch.empty_like(x))

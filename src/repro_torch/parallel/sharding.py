@@ -18,9 +18,11 @@ hp % kvp == 0 and (GQA) kvp % n_kv == 0. Padded q-head slots are zero
 (inert); padded kv slots are tiled copies of their original head (exact
 math; the serve layout).
 
-``AbstractMesh`` stands in for a ``DeviceMesh`` where only the shape
-matters (layouts and shard shapes without a process group), as
-``jax.sharding.AbstractMesh`` does for the reference.
+``AbstractMesh`` stands in for a ``DeviceMesh`` where only the layout
+matters, as ``jax.sharding.AbstractMesh`` does for the reference: layouts
+and shard shapes without a process group, and one rank of a mesh of any
+size traced on meta tensors (its coordinates given), whose collectives a
+``CountingComm`` counts instead of running.
 """
 from __future__ import annotations
 
@@ -37,9 +39,18 @@ PERF_LEVERS = ("decode_unroll", "serve_2d_tp", "seq_parallel_norm",
 
 @dataclasses.dataclass(frozen=True)
 class AbstractMesh:
-    """A mesh's shape and dimension names, without devices or groups."""
+    """A mesh's shape and dimension names, without devices or groups, and
+    the coordinates of the rank it stands for (all 0 if not given)."""
     shape: Tuple[int, ...]
     mesh_dim_names: Tuple[str, ...]
+    coords: Tuple[int, ...] = ()
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape))
+
+    def get_local_rank(self, axis: str) -> int:
+        return self.coords[self.mesh_dim_names.index(axis)] if self.coords else 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,9 +130,10 @@ class ParallelContext:
     @functools.cached_property
     def comm(self):
         """The collectives over this context's mesh (one device mesh, one
-        ``Comm``: its counters sum every op the model issues)."""
-        from repro_torch.parallel.collectives import Comm
-        return Comm(self.mesh)
+        ``Comm``: its counters sum every op the model issues); over an
+        ``AbstractMesh`` a ``CountingComm``, which books them unrun."""
+        from repro_torch.parallel.collectives import Comm, CountingComm
+        return (CountingComm if isinstance(self.mesh, AbstractMesh) else Comm)(self.mesh)
 
     def coords(self) -> Dict[str, int]:
         """This rank's coordinate on each mesh dimension."""

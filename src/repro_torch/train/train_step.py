@@ -1,12 +1,11 @@
-"""The training step of ``repro.train.train_step`` for the port's model.
-
-``make_prefill_step`` / ``make_decode_step`` of the reference serve its
-dry-run lowering, which waits for the analysis slice; the port serves
-through ``Transformer.prefill`` / ``decode_step`` and the engine.
+"""The steps of ``repro.train.train_step`` for the port's model: the
+training step, and the serve steps the dry-run counts
+(``repro_torch.launch.dryrun``); the engine serves through
+``Transformer.prefill`` / ``decode_step`` itself.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -71,3 +70,29 @@ def make_train_step(model: Transformer, opt_cfg: AdamWConfig
         return metrics
 
     return train_step
+
+
+def make_prefill_step(model: Transformer) -> Callable[..., Tuple[torch.Tensor, Any, Any]]:
+    """``step(tokens, prefix_embeds=None) -> (next token (B,) int32,
+    caches, states)``: ``Transformer.prefill`` and the argmax of its last
+    logits (the reference's ``make_prefill_step``)."""
+
+    def prefill_step(tokens: torch.Tensor, prefix_embeds: Optional[torch.Tensor] = None):
+        last, caches, states = model.prefill(tokens, prefix_embeds)
+        return last.argmax(dim=-1).to(torch.int32), caches, states
+
+    return prefill_step
+
+
+def make_decode_step(model: Transformer) -> Callable[..., torch.Tensor]:
+    """``step(tokens, positions, pools, block_tables, states=(), rows=None)
+    -> next token (B,) int32``: one ``Transformer.decode_step`` against the
+    pools and block tables the caller sized (the dry-run's cover
+    ``seq_len`` positions through identity tables) and the argmax of its
+    logits (the reference's ``make_decode_step``)."""
+
+    def decode_step(tokens, positions, pools, block_tables, states=(), rows=None):
+        logits = model.decode_step(tokens, positions, pools, block_tables, states, rows)
+        return logits.argmax(dim=-1).to(torch.int32)
+
+    return decode_step

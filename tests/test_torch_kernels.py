@@ -289,15 +289,32 @@ def test_cpu_calls_launch_nothing():
 
 
 def test_non_cpu_tensors_never_take_the_plain_path():
-    """A tensor that is not on the CPU goes to the kernel's checks, which
-    refuse what is not on a CUDA device, rather than to the plain version."""
+    """A tensor that is not on the CPU never takes the plain version. On
+    the meta device (the dry-run's) each wrapper books its kernel's count
+    with the active op counter and returns an empty meta result: no
+    launch, and none of the plain version's products (which the counter
+    would book as ``aten.bmm``)."""
+    from repro_torch.analysis.counter import OpCounter
     q = torch.empty((1, 16, 4, 64), device="meta")
     k = torch.empty((1, 16, 2, 64), device="meta")
-    with pytest.raises(ValueError, match="not cuda"):
-        flash_ops.flash_attention(q, k, k)
     qd = torch.empty((1, 2, 2, 64), device="meta")
     pages = torch.empty((4, 16, 2, 64), device="meta")
     tables = torch.zeros((1, 2), dtype=torch.int32, device="meta")
     lens = torch.zeros((1,), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="not cuda"):
-        paged_ops.paged_attention(qd, pages, pages, tables, lens)
+    counts = [kern.launches for kern in (flash_ops.KERNEL, paged_ops.KERNEL,
+                                         paged_ops.PARTIALS, paged_ops.MERGE)]
+    with OpCounter() as c:
+        out = flash_ops.flash_attention(q, k, k)
+        dec = paged_ops.paged_attention(qd, pages, pages, tables, lens)
+        acc, ml = paged_ops.paged_attention_partials(qd, pages, pages, tables, lens)
+        merged = paged_ops.paged_merge(acc, ml, qd.dtype)
+    assert [kern.launches for kern in (flash_ops.KERNEL, paged_ops.KERNEL,
+                                       paged_ops.PARTIALS, paged_ops.MERGE)] == counts
+    assert all(t.device.type == "meta" for t in (out, dec, acc, ml, merged))
+    assert out.shape == q.shape and dec.shape == merged.shape == qd.shape
+    assert set(c.flops_by_op) == {"flash_attention", "paged_attention",
+                                  "paged_attention_partials"}
+    # 136 causal pairs of 16 positions, 4 heads, 4 * D operations a pair;
+    # 2 pages of keys, 2 kv heads of 2 queries
+    assert c.flops_by_op["flash_attention"] == 4 * 64 * 136 * 4
+    assert c.flops_by_op["paged_attention"] == 4 * 64 * 32 * 2 * 2

@@ -221,3 +221,60 @@ def test_flash_bf16_misaligned_raises(cuda):
     with pytest.raises(ValueError, match="16-byte aligned"):
         flash_ops.flash_attention(q, k, k)
     assert flash_ops.KERNEL.launches == before
+
+
+# (B, KV, G, D, blocks of the table, newest token's index per sequence,
+# window): K2's partials over two halves of each table, merged
+SPLIT_CASES = [
+    (2, 4, 1, 64, 40, [639, 300], 0),
+    (2, 4, 3, 80, 40, [639, 200], 0),
+    (1, 8, 8, 120, 64, [1000], 0),
+    (2, 2, 16, 128, 48, [767, 500], 0),
+    (2, 4, 4, 128, 40, [639, 330], 100),
+    (1, 32, 1, 80, 64, [1023], 256),
+    (2, 8, 12, 112, 36, [575, 280], 300),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SPLIT_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_paged_partials_merged_equal_the_one_call(cuda, case, dtype):
+    """Each half of the table (the positions one rank of a sequence-split
+    cache holds) through the partials kernel with lens counted from the
+    half's start, the partitions concatenated and merged by the merge
+    kernel: equal to ``paged_attention`` (the plain version and the kernel)
+    on the whole table. A half past the newest token, or left of the
+    window, adds nothing."""
+    B, KV, G, D, nblk, newest, window = case
+    rng = np.random.default_rng(500 + SPLIT_CASES.index(case))
+    P = B * nblk
+    tdt, tol = DTYPES[dtype]
+    q, kp, vp = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda, tdt)
+                 for s in ((B, KV, G, D), (P, 16, KV, D), (P, 16, KV, D)))
+    tables = torch.from_numpy(rng.permutation(P).reshape(B, nblk).astype(np.int32)).to(cuda)
+    lens = torch.tensor(newest, dtype=torch.int32, device=cuda)
+    half = nblk // 2
+    counts = (paged_ops.PARTIALS.launches, paged_ops.MERGE.launches)
+    parts = [paged_ops.paged_attention_partials(
+        q, kp, vp, tables[:, i * half:(i + 1) * half].contiguous(),
+        lens - i * half * 16, window=window) for i in range(2)]
+    acc = torch.cat([a for a, _ in parts], dim=2)
+    ml = torch.cat([m for _, m in parts], dim=2)
+    out = paged_ops.paged_merge(acc, ml, tdt)
+    torch.cuda.synchronize()
+    assert (paged_ops.PARTIALS.launches, paged_ops.MERGE.launches) == \
+        (counts[0] + 2, counts[1] + 1)
+    ref = paged_ops.paged_attention_plain(q, kp, vp, tables, lens, window=window)
+    _assert_close(out, ref, tol, REL_RMS[dtype])
+    _assert_close(out, paged_ops.paged_attention(q, kp, vp, tables, lens, window=window),
+                  tol, REL_RMS[dtype])
+    # the plain halves merged by the plain merge: the kernel's partials'
+    # layout, and a partition no block writes holds (0, (NEG_INF, 0))
+    plain = [paged_ops.paged_attention_partials_plain(
+        q, kp, vp, tables[:, i * half:(i + 1) * half], lens - i * half * 16,
+        window=window) for i in range(2)]
+    _assert_close(paged_ops.paged_merge_plain(
+        torch.cat([a for a, _ in plain], 2), torch.cat([m for _, m in plain], 2), tdt),
+        ref, tol, REL_RMS[dtype])
+    assert acc.shape == torch.cat([a for a, _ in plain], 2).shape

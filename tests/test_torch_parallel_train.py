@@ -859,11 +859,18 @@ def test_layout_matches_the_reference_specs(arch, layout, tp, data):
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "zamba2-2.7b", "xlstm-350m"])
 def test_the_sharded_model_refuses_each_lever(arch, layout, lever):
     """Under a mesh every §Perf lever and an int8 kv cache raise in either
-    layout, each named in a message that points at ROADMAP §1."""
+    layout, each named in a message that points at ROADMAP §1; but
+    ``remat``, which the model takes (each layer's training forward
+    checkpointed), so the sharded model builds with it."""
     from repro_torch.models.transformer import Transformer
     kw = {"remat": "full"} if lever == "remat" else \
         {"kv_cache_dtype": torch.int8} if lever == "kv_cache_dtype" else {lever: True}
     ctx = ParallelContext(mesh=AbstractMesh((1, 2), ("data", "model")), **kw)
+    if lever == "remat":
+        model = Transformer(get_smoke_config(arch), device="cpu", dtype=torch.float32,
+                            seed=None, layout=layout, ctx=ctx)
+        assert model.ctx.remat == "full"
+        return
     with pytest.raises(NotImplementedError) as e:
         Transformer(get_smoke_config(arch), device="cpu", dtype=torch.float32,
                     seed=None, layout=layout, ctx=ctx)
