@@ -95,11 +95,11 @@ Phases, each printed as one JSON line:
      zamba2-2.7b (12 layers) and xlstm-350m (8 blocks), fp32, through the
      sharded runner equal those of a tp=1 model seeded alike on the card,
      under forced preemption (the recurrent states recomputed in fresh
-     slots); ``sharded_main_path``, full-depth llama3.2-3b, R1
-     at 5 layers with all 256 experts, zamba2-2.7b at 18 of its 54 layers
-     and full-depth xlstm-350m, in bf16, each rank on its
+     slots); ``sharded_main_path``, llama3.2-3b at 8 of its 28 layers, R1
+     at 5 layers with all 256 experts, zamba2-2.7b at 6 of its 54 layers
+     and xlstm-350m at 8 of its 24 blocks, in bf16, each rank on its
      shard (K1 and K2 on llama's 12 q / 4 kv heads and zamba2's 16 / 16
-     heads of 80 a rank, zamba2's in multiples of its 3 shared-block
+     heads of 80 a rank, zamba2's in multiples of its shared-block
      invocations; the MoE's split and replicated dispatch across the
      ranks; xlstm launches neither). One line per model and rank: the
      leader's TTFT, TPOT and throughput, each rank's peak memory, kernel
@@ -113,7 +113,7 @@ Phases, each printed as one JSON line:
      step 3, under ``train_equality``'s tolerances; each rank's moments
      its parameter shards); that model's params and AdamW state saved from
      (2,2) and restored onto (1,4), every rank's shards against the
-     written arrays; then 14 of llama's 28 layers for 4 steps (B 8 x S
+     written arrays; then 4 of llama's 28 layers for 4 steps (B 8 x S
      128): median step time, tokens/s, peak memory and collectives per
      step a rank. No kernel launches;
  14. the dry-run (``dryrun``): every (arch x shape) cell of the
@@ -140,10 +140,27 @@ Phases, each printed as one JSON line:
      rank holding 4,096 positions of the cache, 8 greedy tokens equal to
      the unsplit model's on the card, the partials and the merge launched
      on every rank and one-call K2 never;
- 16. the ``kernels`` line (launches summed over every main path, and by
+ 16. the reference's §Perf levers (``levers``), each on gloo ranks on the
+     card at full width, 2 layers, fp32, beside the same mesh's baseline
+     and tp=1 on the card, seeded alike: ``serve_2d_tp`` (llama3.2-3b,
+     (2,2): no weight gathered in the decode steps) and ``moe_ff_shard``
+     (phi3.5-moe at 1 layer, no capacity drops, (2,2), replicated
+     dispatch: no expert gathered) through
+     ``Transformer.prefill``/``decode_step`` on prompts of 12-200 tokens,
+     ``seq_shard_decode`` (h2o-danube, (1,2), two prompts past its 4,096
+     window: K2's partials and merge, never the one-call K2),
+     ``seq_parallel_norm`` and ``decode_unroll`` (llama3.2-3b, (1,2))
+     through ``TorchRunner`` with uneven prefill chunks, all with 8 greedy
+     tokens equal to the baseline's and tp=1's; and ``train_kv_2d``
+     (llama3.2-3b, (2,2), three AdamW steps against tp=1 under
+     ``train_equality``'s tolerances). One line a lever and rank (tokens,
+     launches, collectives by op, host-clock times); then each lever's
+     target cells of the 16x16 grid counted on meta beside the baseline's
+     (``levers_dryrun``, counted with the grid in step 14);
+ 17. the ``kernels`` line (launches summed over every main path, and by
      model and rank; K2's partials and merge entries from the split
-     decode), then the card line, then as the last line
-     ``{"ok": true, "device": {...}}``.
+     decode; ``levers/<lever>`` the levers phase's), then the card line,
+     then as the last line ``{"ok": true, "device": {...}}``.
 Each line's ``t_s`` is the seconds since the script started. Any
 failure raises and exits non-zero. It needs a CUDA card and fails without
 one.
@@ -355,18 +372,20 @@ XLSTM_EQ_ENGINE = dict(HYBRID_EQ_ENGINE, n_pages=15)
 # "model", AdamW moments as their parameters' shards). Equality: 2 layers,
 # B 4 x S 64, 3 steps against tp=1 on the card under train_equality's
 # tolerances; its params and AdamW state are then saved from (2,2) and
-# restored onto (1,4). Main path: 14 of 28 layers (full depth, 51.4 GB of
+# restored onto (1,4). Main path: 4 of 28 layers (full depth, 51.4 GB of
 # fp32 weights, gradients and moments, plus each rank's gathered fp32
-# weights kept for the backward, does not fit beside four CUDA contexts),
-# the reference launcher's B 8 x S 128, 4 steps; the median over steps 2-4
+# weights kept for the backward, does not fit beside four CUDA contexts;
+# 4 keeps the whole run in its time), the reference launcher's B 8 x S 128, 4 steps; the median over steps 2-4
 SHARDED_TRAIN_MESH = (2, 2)
-# zamba2-2.7b's sharded main path, cut since the dry-run phases were added,
-# to keep the whole run in its time: 18 of its 54 Mamba2 layers (3
-# invocations of its shared block, whose K1 and K2 still run at 16 heads of
-# 80 a rank; 93 s of gloo-bound engine time whole); xlstm-350m runs whole
-SHARDED_ZAMBA_LAYERS = 18
+# the sharded main paths, cut to keep the whole run in its time: 6 of
+# zamba2's 54 Mamba2 layers (1 invocation of its shared block, whose K1 and
+# K2 still run at 16 heads of 80 a rank; 93 s of gloo-bound engine time
+# whole), 8 of xlstm's 24 blocks and 8 of llama3.2-3b's 28 layers
+SHARDED_ZAMBA_LAYERS = 6
+SHARDED_XLSTM_BLOCKS = 8
+SHARDED_LLAMA_LAYERS = 8
 SHARDED_TRAIN_EQ = dict(layers=2, batch=4, seq=64, steps=3, lr=1e-3, warmup=2)
-SHARDED_TRAIN_MAIN = dict(layers=14, batch=8, seq=128, steps=4)
+SHARDED_TRAIN_MAIN = dict(layers=4, batch=8, seq=128, steps=4)
 
 
 def emit(phase: str, **kw):
@@ -800,6 +819,9 @@ def main_path(flash_ops, paged_ops, cfg=None, traffic=SERVE_REQUESTS,
 
 
 MOE_RANGES = ("moe_dispatch", "moe_combine")
+# output tokens a request in a traced run, few for the run's time: reading
+# a trace's events takes several times the traced run
+PROFILE_OSL = 8
 
 
 def free_card():
@@ -811,7 +833,7 @@ def free_card():
 
 def profile_main_path(model, traffic=SERVE_REQUESTS, decode_only=False):
     """A traced run of a main path's model, on a fresh engine and pool,
-    with 32 output tokens a request; with ``decode_only`` the engine first
+    with PROFILE_OSL output tokens a request; with ``decode_only`` the engine first
     runs untraced until every request has its first token, so the trace
     holds decode steps alone. Tracing slows the host, so its step times
     are not the main path's; it gives the device's busy share and the
@@ -832,7 +854,8 @@ def profile_main_path(model, traffic=SERVE_REQUESTS, decode_only=False):
 
     cfg = model.cfg
     r = traffic
-    requests = make_requests(cfg.vocab, r["n"], r["isl"], (32, 32), r["seed"] + 1)
+    requests = make_requests(cfg.vocab, r["n"], r["isl"], (PROFILE_OSL, PROFILE_OSL),
+                             r["seed"] + 1)
     ecfg = EngineConfig(n_pages=pages_to_hold(requests), max_num_seqs=16,
                         admission_mode="kv_aware")
     eng = InferenceEngine(cfg, ecfg, TorchRunner(model, device="cuda"),
@@ -886,7 +909,7 @@ def profile_main_path(model, traffic=SERVE_REQUESTS, decode_only=False):
     busy_ms = sum(by_name.values())
     steps = len(eng.metrics.timeline) - steps_before
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    emit("profile", model=cfg.name, layers=cfg.n_layers, osl=32,
+    emit("profile", model=cfg.name, layers=cfg.n_layers, osl=PROFILE_OSL,
          decode_only=decode_only, steps=steps,
          wall_ms=wall_ms, step_ms=wall_ms / max(steps, 1),
          device_busy_ms=busy_ms,
@@ -1413,10 +1436,11 @@ def sharded_jobs(phase):
     at full width and 12 layers and xlstm-350m at full width and 8 blocks
     in fp32 on the requests and pools of ``greedy_equality_hybrid`` and
     ``greedy_equality_xlstm``, each preempting once. ``main_path``:
-    full-depth llama3.2-3b and R1 at 5 layers with
-    all 256 experts in bf16, serving ``SERVE_REQUESTS`` on a pool that
-    holds them; zamba2-2.7b at ``SHARDED_ZAMBA_LAYERS`` of its 54 layers
-    (``SERVE_REQUESTS``) and full-depth xlstm-350m (``XLSTM_REQUESTS``)."""
+    llama3.2-3b at ``SHARDED_LLAMA_LAYERS`` of its 28 layers and R1 at 5
+    layers with all 256 experts in bf16, serving ``SERVE_REQUESTS`` on a
+    pool that holds them; zamba2-2.7b at ``SHARDED_ZAMBA_LAYERS`` of its 54 layers
+    (``SERVE_REQUESTS``) and xlstm-350m at ``SHARDED_XLSTM_BLOCKS`` of its
+    24 blocks (``XLSTM_REQUESTS``)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import make_requests
 
@@ -1450,12 +1474,14 @@ def sharded_jobs(phase):
     return [(cfg, reduced, make_requests(cfg.vocab, r["n"], r["isl"], r["osl"],
                                          r["seed"]), torch.bfloat16, {})
             for cfg, reduced, r in (
-                (llama, {}, SERVE_REQUESTS),
+                (dataclasses.replace(llama, n_layers=SHARDED_LLAMA_LAYERS),
+                 {"n_layers": [llama.n_layers, SHARDED_LLAMA_LAYERS]}, SERVE_REQUESTS),
                 (dataclasses.replace(r1, n_layers=R1_LAYERS),
                  {"n_layers": [r1.n_layers, R1_LAYERS]}, SERVE_REQUESTS),
                 (dataclasses.replace(zamba, n_layers=SHARDED_ZAMBA_LAYERS),
                  {"n_layers": [zamba.n_layers, SHARDED_ZAMBA_LAYERS]}, SERVE_REQUESTS),
-                (xlstm, {}, XLSTM_REQUESTS))]
+                (dataclasses.replace(xlstm, n_layers=SHARDED_XLSTM_BLOCKS),
+                 {"n_layers": [xlstm.n_layers, SHARDED_XLSTM_BLOCKS]}, XLSTM_REQUESTS))]
 
 
 def sharded_rank(rank, phase, out_dir):
@@ -1978,20 +2004,33 @@ def _dryrun_line(phase, res, **kw):
 def dryrun_phase(flash_ops, paged_ops):
     """``dryrun``: every cell of the grid on the 16x16 mesh counted on meta
     (one line a cell; the 7 long_500k cells the reference skips, with its
-    reason), then the ``DRYRUN_MEASURED`` cells run on the card at mesh 1x1
-    through ``dryrun.measure_cell``, the kernels' counts set to 0 just
-    before and read just after: the counted FLOPs and bytes, the bound,
-    the measured step (CUDA events, warm, median) and the share of the
-    bound it reached. Returns the launches of each measured cell."""
+    reason), and each of ``DRYRUN_LEVERS`` over its target cells, in
+    ``DRYRUN_WORKERS`` processes; then the ``DRYRUN_MEASURED`` cells run on
+    the card at mesh 1x1 through ``dryrun.measure_cell``, the kernels'
+    counts set to 0 just before and read just after: the counted FLOPs and
+    bytes, the bound, the measured step (CUDA events, warm, median) and the
+    share of the bound it reached. Returns the launches of each measured
+    cell and the counts by (arch, shape, lever or None)."""
+    import multiprocessing as mp
+
     from repro_torch.configs.registry import cells
     from repro_torch.launch import dryrun
 
+    grid = list(cells(include_skipped=True))
+    jobs = [(arch, shape, "single", None) for arch, shape, skip in grid if not skip]
+    jobs += [(arch, shape, "single", {lever: True}) for lever in DRYRUN_LEVERS
+             for arch, shape in dryrun.lever_cells(lever)]
+    jobs.sort(key=lambda job: job[1] != "train_4k")     # the longest first
+    with mp.get_context("spawn").Pool(DRYRUN_WORKERS) as pool:
+        results = pool.starmap(dryrun.count_cell, jobs, chunksize=1)
+    counts = {(arch, shape, next(iter(opts)) if opts else None): res
+              for (arch, shape, _, opts), res in zip(jobs, results)}
     counted = 0
-    for arch, shape, skip in cells(include_skipped=True):
+    for arch, shape, skip in grid:
         if skip:
             emit("dryrun", arch=arch, shape=shape, mesh="16x16", skipped=skip)
             continue
-        res = dryrun.count_cell(arch, shape, "single")
+        res = counts[arch, shape, None]
         if not (res["flops"] > 0 and res["hbm_bytes"] > 0
                 and res["collective_wire_total"] > 0):
             raise AssertionError(f"dryrun {arch} {shape}: an empty count {res}")
@@ -2021,7 +2060,7 @@ def dryrun_phase(flash_ops, paged_ops):
                            "rel_rms_err": rel})
         launches[f"{arch} {shape} 1x1"] = n
     free_card()
-    return launches
+    return launches, counts
 
 
 def _split_inputs(m, gen):
@@ -2269,6 +2308,415 @@ def long_decode(flash_ops, paged_ops):
             launches[f"{row['model']} split rank{row['rank']}"] = ln
     return timings, launches
 
+# the levers phase: the reference's §Perf levers on gloo ranks on the card,
+# 2 layers at published widths in fp32, prompts of 12-200 tokens (h2o-danube
+# two past its 4,096 window) and LEVER_STEPS greedy steps each
+LEVER_LAYERS = 2
+LEVER_STEPS = 8
+LEVER_PROMPTS = dict(n=4, isl=(12, 200), seed=3)
+LEVER_DANUBE_PROMPTS = (4200, 4260)
+LEVER_PAGE = 16
+# the runner's prefill chunks: prompts of 12-200 tokens take uneven ones
+LEVER_ENGINE = dict(max_num_seqs=4, max_num_batched_tokens=512, chunk_size=48,
+                    admission_mode="naive")
+# lever -> (model, mesh (data, model), the path it takes, other options)
+LEVER_RUNS = {
+    "serve_2d_tp": ("llama3.2-3b", (2, 2), "model", {}),
+    "moe_ff_shard": ("phi3.5-moe-42b-a6.6b", (2, 2), "model",
+                     {"moe_dispatch": "replicated"}),
+    "seq_shard_decode": ("h2o-danube-3-4b", (1, 2), "model", {}),
+    "seq_parallel_norm": ("llama3.2-3b", (1, 2), "runner", {}),
+    "decode_unroll": ("llama3.2-3b", (1, 2), "runner", {}),
+    "train_kv_2d": ("llama3.2-3b", (2, 2), "train", {}),
+}
+# phi3.5-moe in the levers phase: one layer (its baseline gathers 2.5 GB of
+# experts a rank a forward through gloo, 30-35 s a layer over the phase's
+# prefills and steps), its capacity factor raised to E/top_k so that no
+# assignment drops at tp=1 nor in a rank's capacity
+LEVER_PHI_LAYERS = 1
+# the levers counted on meta over each one's target cells on the 16x16 mesh
+# (``dryrun.lever_cells``) beside the baseline grid, in DRYRUN_WORKERS
+# processes (45 s for the 76 cells on an 8-core host, train cells first)
+DRYRUN_LEVERS = ("serve_2d_tp", "moe_ff_shard", "seq_shard_decode",
+                 "seq_parallel_norm", "train_kv_2d")
+DRYRUN_WORKERS = 7
+
+
+def _lever_prompts(cfg, lever):
+    """The lever's prompts, seeded: h2o-danube's past its window; else
+    ``LEVER_PROMPTS``, whose second half repeats the first half's lengths,
+    so that the two "data" rows of a (2,2) mesh prefill prompts of one
+    length at a time, as an SPMD step's batch rows are (an activation's
+    collective over "data" needs equal shapes)."""
+    r = LEVER_PROMPTS
+    rng = np.random.default_rng(r["seed"])
+    lens = list(LEVER_DANUBE_PROMPTS) if lever == "seq_shard_decode" else \
+        rng.integers(r["isl"][0], r["isl"][1] + 1, size=r["n"] // 2).tolist() * 2
+    return [rng.integers(0, cfg.vocab, size=n).tolist() for n in lens]
+
+
+def _paged_greedy(model, prompts, steps):
+    """Each prompt prefilled alone (K1), its cache written into this rank's
+    pages, then ``steps`` greedy decode steps of the batch (K2, or its
+    split half where the cache's sequence is cut over ranks, each rank
+    holding its share of every sequence's pages). Returns each prompt's
+    tokens, the decode steps' weight gathers and the seconds of the
+    prefills and of the decode steps."""
+    ctx, dev = model.ctx, model.device
+    parts, me = 1, 0
+    if model.seq_axis is not None:
+        parts, me = ctx.axis_size(model.seq_axis), ctx.comm.axis_index(model.seq_axis)
+    B, page = len(prompts), LEVER_PAGE
+    blocks = -(-(max(map(len, prompts)) + steps) // page)
+    per = -(-blocks // parts)
+    lo, n = me * per * page, per * page
+    pools = [torch.zeros(sh, dtype=model.dtype, device=dev)
+             for sh in model.pool_shapes(B * per, page)]
+    tables = torch.arange(B * per, dtype=torch.int32, device=dev).view(B, per)
+    t0 = time.perf_counter()
+    first = []
+    for b, p in enumerate(prompts):
+        last, caches, _ = model.prefill(torch.tensor([p], device=dev))
+        pos = torch.arange(lo, max(lo, min(lo + n, len(p))), device=dev)
+        local = pos - lo
+        for j, pool in enumerate(pools):
+            pool[:, tables[b, local // page].long(), local % page] = torch.stack(
+                [c[j][0, pos] for c in caches])
+        first.append(last.argmax(-1))
+        del caches
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = torch.cat(first)
+    out = [tok.tolist()]
+    lens = torch.tensor([len(p) for p in prompts], device=dev)
+    weights_before = ctx.comm.stats.get("all_gather", {}).get("weights", 0)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        tok = model.decode_step(tok, lens + i, pools, tables).argmax(-1)
+        out.append(tok.tolist())
+    torch.cuda.synchronize()
+    weights = ctx.comm.stats.get("all_gather", {}).get("weights", 0) - weights_before
+    return ([list(t) for t in zip(*out)], weights, prefill_s,
+            (time.perf_counter() - t0) / steps)
+
+
+def _lever_config(full):
+    """A lever run's config at full width and its cuts: LEVER_LAYERS
+    layers; phi3.5-moe LEVER_PHI_LAYERS, with no capacity drops."""
+    if full.moe is None:
+        return (dataclasses.replace(full, n_layers=LEVER_LAYERS),
+                {"n_layers": [full.n_layers, LEVER_LAYERS]})
+    no_drop = full.moe.n_experts / full.moe.top_k
+    cfg = dataclasses.replace(full, n_layers=LEVER_PHI_LAYERS, moe=dataclasses.replace(
+        full.moe, capacity_factor=no_drop))
+    return cfg, {"n_layers": [full.n_layers, LEVER_PHI_LAYERS],
+                 "capacity_factor": [full.moe.capacity_factor, no_drop]}
+
+
+def _lever_kernels():
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    return {"flash_attention": flash_ops.KERNEL, "paged_attention": paged_ops.KERNEL,
+            "paged_attention_partials": paged_ops.PARTIALS,
+            "paged_merge": paged_ops.MERGE}
+
+
+def lever_rank(rank, levers, out_dir):
+    """One rank of the levers phase (``run_ranks`` spawns them on the card
+    over gloo): for each lever of ``levers`` on this world's mesh, the
+    baseline model and the lever's, seeded alike, through its path; the
+    kernels' counts and the collectives' counters set to 0 just before each
+    run and read just after. Rank 0 then runs the same work at tp=1 on the
+    card. Writes its rows to ``out_dir``."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.parallel.sharding import ParallelContext
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = _lever_kernels()
+    rows, mesh = [], None
+    for lever in levers:
+        arch, (data, tp), path, opts = LEVER_RUNS[lever]
+        mesh = mesh or make_mesh_for(data * tp, tp, device_type="cuda")
+        cfg, reduced = _lever_config(get_config(arch))
+        row = dict(lever=lever, model=arch, rank=rank, mesh=[data, tp], path=path,
+                   layers=cfg.n_layers, reduced=reduced, dtype="float32")
+        trained = {}
+        # training holds the lever to tp=1 alone (sharded_train holds the
+        # baseline layout's steps)
+        runs = (("with_lever", {**opts, lever: True}),) if path == "train" else \
+            (("baseline", opts), ("with_lever", {**opts, lever: True}))
+        for name, kw in runs:
+            ctx = ParallelContext(mesh=mesh, **kw)
+            free_card()
+            for k in kernels.values():
+                k.launches = 0
+            ctx.comm.reset()
+            t0 = time.perf_counter()
+            row[name], trained[name] = _lever_run(cfg, ctx, lever, path)
+            torch.cuda.synchronize()
+            row[name].update(
+                seconds=time.perf_counter() - t0,
+                launches={n: k.launches for n, k in kernels.items()},
+                comm={op: {"calls": v["calls"], "bytes": v["bytes"],
+                           "weights": v.get("weights", 0)}
+                      for op, v in ctx.comm.stats.items()})
+        trained.pop("baseline", None)
+        dist.barrier()
+        one = None
+        if rank == 0:
+            free_card()
+            row["tp1"], one = _lever_run(cfg, None, lever, path)
+        if path == "train":
+            row.update(_lever_params(trained["with_lever"], one))
+        del trained, one
+        dist.barrier()
+        rows.append(row)
+        if rank == 0:
+            print(f"levers: {lever} done at {time.perf_counter() - STARTED:.1f} s",
+                  file=sys.stderr, flush=True)
+    with open(Path(out_dir) / f"levers.rank{rank}.json", "w") as f:
+        json.dump(rows, f)
+
+
+def _lever_run(cfg, ctx, lever, path):
+    """One run of a lever's path under ``ctx`` (None: tp=1): (its row, the
+    trained model for ``path`` "train", else None)."""
+    from repro_torch.models.transformer import Transformer
+    prompts = _lever_prompts(cfg, lever)
+    if path == "train":
+        return _lever_train(cfg, ctx)
+    if path == "runner":
+        return _lever_runner(cfg, ctx, prompts), None
+    if ctx is not None:
+        share = len(prompts) // ctx.axis_size("data")
+        d = ctx.coords()["data"]
+        prompts = prompts[d * share:(d + 1) * share]
+    model = Transformer(cfg, device="cuda", dtype=torch.float32, seed=1, ctx=ctx)
+    with torch.inference_mode():
+        tokens, weights, prefill_s, step_s = _paged_greedy(model, prompts, LEVER_STEPS)
+    return dict(tokens=tokens, decode_weight_gathers=weights, prefill_s=prefill_s,
+                decode_step_s=step_s), None
+
+
+def _lever_runner(cfg, ctx, prompts):
+    """The prompts served by ``TorchRunner`` behind the engine (sharded
+    over ``ctx``'s mesh, or at tp=1 without one), LEVER_STEPS tokens each."""
+    from repro_torch.core.engine import EngineConfig, InferenceEngine
+    from repro_torch.core.runner import TorchRunner
+    from repro_torch.launch.serve import pages_to_hold, serve_sharded
+    from repro_torch.models.transformer import Transformer
+    requests = [(p, LEVER_STEPS) for p in prompts]
+    engine = dict(LEVER_ENGINE, n_pages=pages_to_hold(requests))
+    if ctx is None:
+        eng = InferenceEngine(cfg, EngineConfig(**engine), TorchRunner(
+            Transformer(cfg, device="cuda", dtype=torch.float32, seed=1),
+            device="cuda"), virtual_clock=False)
+        reqs = [eng.submit(p, n) for p, n in requests]
+        eng.run()
+    else:
+        eng, reqs = serve_sharded(cfg, requests, ctx, device="cuda",
+                                  dtype=torch.float32, seed=1, **engine)
+    out = dict(tokens=[r.output for r in reqs])
+    if eng is not None:
+        s = eng.metrics.summary()
+        out.update(tpot_mean_s=s["tpot_s"]["mean"], ttft_p50_s=s["ttft_s"]["p50"])
+    return out
+
+
+def _lever_train(cfg, ctx):
+    """Three AdamW steps on ``SHARDED_TRAIN_EQ``'s batches from the seeded
+    train layout (sharded over ``ctx``'s mesh, or at tp=1 without one):
+    (losses, grad norms and step seconds; the trained model)."""
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    e = SHARDED_TRAIN_EQ
+    ocfg = AdamWConfig(lr=e["lr"], warmup_steps=e["warmup"])
+    m = Transformer(cfg, device="cuda", dtype=torch.float32, seed=3, layout="train",
+                    ctx=ctx)
+    state = init_opt_state(m.param_tree(), ocfg)
+    step = make_train_step(m, ocfg)
+    hist = []
+    for i in range(e["steps"]):
+        batch = synthetic_batch(i, e["batch"], e["seq"], cfg.vocab, device="cpu")
+        if ctx is not None:
+            batch = _rank_rows(ctx, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met = step(state, {k: v.cuda() for k, v in batch.items()})
+        torch.cuda.synchronize()
+        hist.append((float(met["loss"]), float(met["grad_norm"]),
+                     time.perf_counter() - t0))
+    loss, gnorm, secs = map(list, zip(*hist))
+    return dict(loss=loss, grad_norm=gnorm, step_s=secs), m
+
+
+def _lever_params(m, one):
+    """The sharded model's parameters after its steps against tp=1's
+    (``one``, on rank 0, which broadcasts them leaf by leaf): each rank's
+    shard of every leaf against the one the tp=1 leaf maps to
+    (``take_shard``): the largest difference, and how many lie beyond
+    TRAIN_PARAM_ATOL."""
+    import torch.distributed as dist
+
+    from repro_torch.models.transformer import take_shard
+    ref = dict(one.named_parameters()) if one is not None else {}
+    ctx, cfg = m.ctx, m.cfg
+    max_diff, off, n = 0.0, 0, 0
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            whole = ref[name].detach() if ref else torch.empty(
+                m.specs[name][0], dtype=p.dtype, device=p.device)
+            dist.broadcast(whole, src=0)
+            axes = m.axes[name]
+            lead = sum(1 for a in axes if a == "layers")
+            want = torch.stack([take_shard(w, axes[lead:], cfg, ctx, ctx.coords(),
+                                           "train")
+                                for w in whole.flatten(0, lead - 1)]).view(p.shape) \
+                if lead else take_shard(whole, axes, cfg, ctx, ctx.coords(), "train")
+            d = (p - want).abs()
+            max_diff = max(max_diff, float(d.max()))
+            off += int((d > TRAIN_PARAM_ATOL).sum())
+            n += d.numel()
+    return dict(max_param_diff=max_diff, params_beyond_atol=off, params=n)
+
+
+def levers(counts):
+    """``levers``: each §Perf lever of ``LEVER_RUNS`` on gloo ranks on the
+    card (four on a (2,2) mesh, then two on (1,2)), its tokens equal the
+    same mesh's baseline's and tp=1's; ``serve_2d_tp`` and
+    ``moe_ff_shard`` gather no weight of theirs in the decode steps,
+    ``seq_parallel_norm`` launches K1 and ``seq_shard_decode`` K2's
+    partials and merge and never the one-call K2; ``train_kv_2d``'s three
+    AdamW steps match tp=1's losses, grad norms and parameters under
+    ``train_equality``'s tolerances. One line a lever (its tokens,
+    launches, collectives by op and host-clock times); then the dry-run's
+    count of each lever's target cells beside the baseline's
+    (``levers_dryrun``: FLOPs, bytes, wire by kind, both collective terms,
+    the bound and its binding term; ``counts`` from ``dryrun_phase``).
+    Returns the launches of each lever's run, summed over its ranks.""" 
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import run_ranks
+
+    t_start = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="levers_")
+    rows = []
+    try:
+        for world in (4, 2):
+            names = [k for k, v in LEVER_RUNS.items() if v[1][0] * v[1][1] == world]
+            if not names:
+                continue
+            run_ranks(lever_rank, world, (names, out), backend="gloo",
+                      device_type="cuda")
+            ranks = [json.loads((Path(out) / f"levers.rank{r}.json").read_text())
+                     for r in range(world)]
+            rows += list(zip(*ranks))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    card_s = time.perf_counter() - t_start
+    launches = {}
+    for ranks in rows:
+        lead = ranks[0]
+        lever, path = lead["lever"], lead["path"]
+        _check_lever(lever, path, ranks)
+        for r in ranks:
+            emit("levers", **{k: r[k] for k in ("lever", "model", "rank", "mesh",
+                                                 "path", "layers", "reduced",
+                                                 "dtype")},
+                 baseline=r.get("baseline"), with_lever=r["with_lever"],
+                 tp1=r.get("tp1"), **{k: r[k] for k in ("max_param_diff",
+                                                        "params_beyond_atol", "params")
+                                      if k in r})
+            key = f"levers/{lever}"
+            launches[key] = {n: launches.get(key, {}).get(n, 0) + c
+                             for n, c in r["with_lever"]["launches"].items()}
+    from repro_torch.launch import dryrun
+    for lever in DRYRUN_LEVERS:
+        for arch, shape in dryrun.lever_cells(lever):
+            emit("levers_dryrun", lever=lever, arch=arch, shape=shape, mesh="16x16",
+                 baseline=_lever_count(counts[arch, shape, None]),
+                 lever_count=_lever_count(counts[arch, shape, lever]))
+    emit("levers_time", card_s=card_s, seconds=time.perf_counter() - t_start)
+    return launches
+
+
+def _lever_count(res):
+    r = res["roofline"]
+    return dict(flops=res["flops"], hbm_bytes=res["hbm_bytes"],
+                wire_bytes=res["collective_wire_bytes"],
+                weight_gather_wire=res["collective_weight_wire"],
+                t_compute_s=r["t_compute_s"], t_memory_s=r["t_memory_s"],
+                t_collective_s=r["t_collective_s"],
+                t_collective_hier_s=r["t_collective_hier_s"],
+                bound_s=r["step_time_bound_s"], bottleneck=r["bottleneck"],
+                bound_hier_s=r["step_time_bound_hier_s"],
+                bottleneck_hier=r["bottleneck_hier"])
+
+
+def _check_lever(lever, path, ranks):
+    """Raise unless a lever's rows meet the phase's checks (``levers``)."""
+    lead = ranks[0]
+    data, tp = lead["mesh"]
+    fail = []
+    if path == "train":
+        one, got = lead["tp1"], lead["with_lever"]
+        if not (np.allclose(got["loss"], one["loss"], rtol=TRAIN_LOSS_RTOL, atol=0)
+                and np.allclose(got["grad_norm"], one["grad_norm"],
+                                rtol=TRAIN_GNORM_RTOL, atol=0)):
+            fail.append(f"with_lever: losses or grad norms {got} against tp=1 {one}")
+        for r in ranks:
+            if r["params_beyond_atol"] > TRAIN_FLIP_SHARE * r["params"]:
+                fail.append(f"rank {r['rank']}: {r['params_beyond_atol']} parameters "
+                            f"beyond {TRAIN_PARAM_ATOL}")
+            if any(r["with_lever"]["launches"].values()):
+                fail.append(f"rank {r['rank']}: training launched a kernel")
+    else:
+        want = lead["tp1"]["tokens"]
+        for name in ("baseline", "with_lever"):
+            if path == "runner":
+                got = lead[name]["tokens"]
+            else:
+                # ranks are (data, model) in row-major order: each data
+                # coordinate's rows once, every "model" rank agreeing
+                got = [t for d in range(data) for t in ranks[d * tp][name]["tokens"]]
+                if any(r[name]["tokens"] != ranks[r["rank"] // tp * tp][name]["tokens"]
+                       for r in ranks):
+                    fail.append(f"{name}: the model ranks of a data row disagree")
+            if got != want:
+                fail.append(f"{name} tokens {got} != tp=1's {want}")
+        steps, layers = LEVER_STEPS, lead["layers"]
+        for r in ranks:
+            ln, lv, base = r["with_lever"]["launches"], r["with_lever"], r["baseline"]
+            if not ln["flash_attention"]:
+                fail.append(f"rank {r['rank']}: K1 did not launch")
+            if lever == "serve_2d_tp" and lv["decode_weight_gathers"]:
+                fail.append(f"rank {r['rank']}: {lv['decode_weight_gathers']} weight "
+                            "gathers in the decode steps")
+            if lever == "moe_ff_shard" and (
+                    lv["decode_weight_gathers"] != (4 * layers + 1) * steps
+                    or base["decode_weight_gathers"] != (7 * layers + 1) * steps):
+                # the attention's 4 leaves a layer and the untied head; the
+                # baseline also gathers the 3 expert leaves
+                fail.append(f"rank {r['rank']}: decode weight gathers "
+                            f"{lv['decode_weight_gathers']} (baseline "
+                            f"{base['decode_weight_gathers']})")
+            if lever == "seq_shard_decode" and (not ln["paged_attention_partials"]
+                                                or not ln["paged_merge"]
+                                                or ln["paged_attention"]):
+                fail.append(f"rank {r['rank']}: launches {ln}")
+            if lever != "seq_shard_decode" and not ln["paged_attention"]:
+                fail.append(f"rank {r['rank']}: K2 did not launch")
+    if fail:
+        raise AssertionError(f"levers {lever}: " + "; ".join(fail))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card (torch.cuda.is_available() "
@@ -2376,9 +2824,12 @@ def main():
     sharded_train(flash_ops, paged_ops)
     free_card()
 
-    by_model.update(dryrun_phase(flash_ops, paged_ops))
+    grid_launches, counts = dryrun_phase(flash_ops, paged_ops)
+    by_model.update(grid_launches)
     split_timings, split_launches = long_decode(flash_ops, paged_ops)
     by_model.update(split_launches)
+    free_card()
+    by_model.update(levers(counts))
     free_card()
 
     replaces = {

@@ -97,7 +97,12 @@ class TorchRunner:
     its own kv heads indexed by the leader's page ids and on state buffers
     of its own (a Mamba2 rank's heads) indexed by the leader's slot ids.
     Meshes with "data" > 1 are refused (a later slice: each data rank
-    would need its own engine or its batch's rows)."""
+    would need its own engine or its batch's rows), and so is a decode
+    cache cut along the sequence (``seq_shard_decode``). Of the other §Perf
+    levers ``seq_parallel_norm`` cuts its prefill's residual stream, and
+    ``decode_unroll`` changes nothing (the decode step already runs layer
+    by layer and writes pages in place); ``serve_2d_tp`` and
+    ``moe_ff_shard`` act only across "data"."""
 
     def __init__(self, model: Transformer, *, device="cuda"):
         self.device = resolve_device(device)
@@ -108,6 +113,11 @@ class TorchRunner:
             raise NotImplementedError(
                 f"TorchRunner under a mesh with data = {ctx.dp}: the runner "
                 "takes meshes with data == 1 (data > 1 is a later slice)")
+        if model.seq_axis is not None:
+            raise NotImplementedError(
+                f"TorchRunner with the decode cache's sequence cut over "
+                f"{model.seq_axis!r} (seq_shard_decode): the engine's block "
+                "tables index whole sequences, not a rank's share (ROADMAP §1)")
         self.model = model
         self.comm = ctx.comm if ctx.mesh is not None else None
         self.axis = ctx.model_axis

@@ -67,7 +67,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                      window=window)
     if q.device.type == "meta":
         out = torch.empty_like(q)
-        _book_split("paged_attention", q, block_tables, lens, window, (out,))
+        _book_split("paged_attention", q, k_pages, block_tables, lens, window, (out,))
         return out
     _check(q, k_pages, v_pages, block_tables, lens)
     B, KV, G, D = q.shape
@@ -105,8 +105,8 @@ def paged_attention_partials(q: torch.Tensor, k_pages: torch.Tensor,
     acc = torch.zeros((B, KV, n_part, G, D), dtype=torch.float32, device=q.device)
     ml = torch.zeros((B, KV, n_part, G, 2), dtype=torch.float32, device=q.device)
     if q.device.type == "meta":
-        _book_split("paged_attention_partials", q, block_tables, lens, window,
-                    (acc, ml))
+        _book_split("paged_attention_partials", q, k_pages, block_tables, lens,
+                    window, (acc, ml))
         return acc, ml
     _check(q, k_pages, v_pages, block_tables, lens)
     ml[..., 0] = NEG_INF        # the partitions that no block writes
@@ -151,18 +151,21 @@ def counted_tokens(block_tables: torch.Tensor, window: int) -> int:
     return min(n, window) if window > 0 else n
 
 
-def _book_split(name, q, block_tables, lens, window, outs):
+def _book_split(name, q, k_pages, block_tables, lens, window, outs):
     """On meta: the split kernel's products (q.k and p.v over the counted
-    keys) and bytes (those keys' k and v rows, q, the table and lens read
-    once, ``outs`` written once)."""
+    keys) and bytes (those keys' k and v rows in the pages' dtype, an int8
+    pool's at one byte, q, the table and lens read once, ``outs`` written
+    once)."""
     B, KV, G, D = q.shape
     keys = B * KV * counted_tokens(block_tables, window)
     kv_elem = 2 * keys * D
     ts = (q, block_tables, lens, *outs)
+    page_bytes = scopes.FLOAT_BYTES if k_pages.is_floating_point() else \
+        k_pages.element_size()
     scopes.book(flops=4.0 * keys * G * D, name=name,
-                hbm=kv_elem * scopes.FLOAT_BYTES + sum(scopes.strict_bytes(t) for t in ts),
-                eager=kv_elem * q.element_size() + sum(t.numel() * t.element_size()
-                                                       for t in ts))
+                hbm=kv_elem * page_bytes + sum(scopes.strict_bytes(t) for t in ts),
+                eager=kv_elem * k_pages.element_size()
+                + sum(t.numel() * t.element_size() for t in ts))
 
 
 def _check(q, k_pages, v_pages, block_tables, lens):

@@ -28,7 +28,7 @@ import json
 import time
 import traceback
 from pathlib import Path
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils._pytree import tree_leaves
@@ -44,11 +44,38 @@ from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 from repro_torch.train.train_step import (make_decode_step, make_prefill_step,
                                           make_train_step)
 
-# one H100 SXM (per device): bf16 dense peak, HBM3, NVLink each way
+# one H100 SXM (per device): bf16 dense peak, HBM3, NVLink each way, and
+# the network between 8-GPU NVLink domains
 PEAK_FLOPS = H100.flops
 HBM_BW = H100.hbm_bw
 LINK_BW = H100.link_bw
+INTER_BW = H100.inter_bw
+NVLINK_DOMAIN = 8
 MESHES = {"single": (16, 16), "multi": (2, 16, 16), "1x1": (1,)}
+
+
+def lever_cells(lever: str) -> List[Tuple[str, str]]:
+    """The (arch, shape) cells of the grid a §Perf lever is meant to move:
+    ``serve_2d_tp``'s, ``decode_unroll``'s and ``kv_cache_dtype``'s every
+    decode_32k cell; ``moe_ff_shard``'s the MoE models' decode_32k and
+    prefill_32k; ``seq_shard_decode``'s the decode_32k cells with GQA
+    attention; ``seq_parallel_norm``'s every prefill_32k cell;
+    ``train_kv_2d``'s every train_4k cell."""
+    out = []
+    for arch, shape, skip in cells():
+        cfg = get_config(arch)
+        kind = SHAPES[shape].kind
+        if lever == "moe_ff_shard":
+            keep = cfg.family == "moe" and shape in ("decode_32k", "prefill_32k")
+        elif lever == "seq_shard_decode":
+            keep = shape == "decode_32k" and cfg.attention in ("full", "swa") \
+                and cfg.family != "ssm"
+        else:
+            keep = {"seq_parallel_norm": "prefill", "train_kv_2d": "train"}.get(
+                lever, "decode") == kind and shape != "long_500k"
+        if keep:
+            out.append((arch, shape))
+    return out
 
 
 def _shape(shape_name: str, batch: Optional[int]):
@@ -139,6 +166,10 @@ def _trace_step(cfg, shape, mesh, multi_pod: bool, opts=None) -> Dict[str, Any]:
     with OpCounter() as counter:
         out = run()
     res = counter.summary()
+    comm = model.ctx.comm
+    res["collective_weight_wire"] = sum(e.get("weight_wire", 0.0)
+                                        for e in comm.stats.values())
+    res["collective_wire_by_axis"] = dict(getattr(comm, "wire_by_axis", {}))
     res["memory"] = {"argument_bytes": arg_bytes, "output_bytes": tree_bytes(out),
                      "peak_live_bytes": counter.peak_live_bytes}
     return res
@@ -178,6 +209,7 @@ def count_step(cfg, shape, mesh, multi_pod: bool, opts=None) -> Dict[str, Any]:
     res["peak_live_bytes"] = res["memory"]["peak_live_bytes"] = peak
     res["memory"]["peak_estimate_bytes"] = res["memory"]["argument_bytes"] + peak
     res["n_devices"] = 1 if mesh is None else mesh.size
+    res["mesh_axes"] = {} if mesh is None else dict(zip(mesh.mesh_dim_names, mesh.shape))
     res["trace_s"] = time.perf_counter() - t0
     return res
 
@@ -202,14 +234,33 @@ def count_cell(arch: str, shape_name: str, mesh: str = "single", opts=None,
     return res
 
 
+def axis_bandwidths(mesh_axes: Dict[str, int]) -> Dict[str, float]:
+    """Each mesh axis's link rate: NVLink's where its ranks lie in one
+    8-GPU NVLink domain (devices numbered with the last axis fastest, so
+    an axis's ranks span its size times the sizes of the axes after it),
+    the inter-node network's otherwise."""
+    out, span = {}, 1
+    for axis, size in reversed(list(mesh_axes.items())):
+        span *= size
+        out[axis] = LINK_BW if span <= NVLINK_DOMAIN else INTER_BW
+    return out
+
+
 def roofline_terms(res, cfg, shape):
-    """The reference's ``roofline_terms`` on one H100's constants."""
+    """The reference's ``roofline_terms`` on one H100's constants, and
+    beside them ``t_collective_hier_s``: each axis's wire at its own link
+    rate (``axis_bandwidths``), where ``t_collective_s`` puts all of it on
+    NVLink as the reference's single link term does, and the bound and
+    binding term with it."""
     flops = res["flops"]                      # per device (SPMD program)
     hbm = res["hbm_bytes"]
     wire = res["collective_wire_total"]
     t_compute = flops / PEAK_FLOPS
     t_memory = hbm / HBM_BW
     t_coll = wire / LINK_BW
+    bw = axis_bandwidths(res.get("mesh_axes", {}))
+    by_axis = res.get("collective_wire_by_axis", {})
+    t_coll_hier = sum(w / bw[a] for a, w in by_axis.items()) if by_axis else t_coll
     n_dev = res["n_devices"]
     tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode" else 1)
     n_active = cfg.active_param_count()
@@ -271,8 +322,12 @@ def roofline_terms(res, cfg, shape):
         "roofline_fraction": (model_flops / PEAK_FLOPS) / max(
             t_compute, t_memory, t_coll) if flops else 0.0,
         "step_time_bound_s": max(t_compute, t_memory, t_coll),
+        "t_collective_hier_s": t_coll_hier,
+        "step_time_bound_hier_s": max(t_compute, t_memory, t_coll_hier),
+        "bottleneck_hier": max((t_compute, "compute"), (t_memory, "memory"),
+                               (t_coll_hier, "collective"))[1],
         "constants": {"peak_flops": PEAK_FLOPS, "hbm_bw": HBM_BW, "link_bw": LINK_BW,
-                      "hardware": H100.name},
+                      "inter_bw": INTER_BW, "hardware": H100.name},
     }
 
 

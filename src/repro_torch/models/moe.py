@@ -118,17 +118,31 @@ def _combine(gathered: torch.Tensor, flat_w: torch.Tensor, keep: torch.Tensor,
     return functools.reduce(torch.add, contrib.view(T, k, -1).unbind(1))
 
 
+# the dimension of each expert leaf that the FSDP axis cuts: d_model by
+# default, d_ff under ``moe_ff_shard`` (the reference's ``_moe_specs``)
+_FSDP_DIMS = {"we_gate": 1, "we_up": 1, "we_down": 2,
+              "ws_gate": 0, "ws_up": 0, "ws_down": 1}
+_FF_DIMS = {"we_gate": 2, "we_up": 2, "we_down": 1,
+            "ws_gate": 1, "ws_up": 1, "ws_down": 0}
+
+
 def _gather_fsdp(p: Dict[str, torch.Tensor], ctx) -> Dict[str, torch.Tensor]:
-    """The expert weights gathered over the FSDP axis: d_model of
-    ``we_gate``/``we_up`` (dim 1) and ``we_down`` (dim 2), and of the
-    shared experts' ``ws_gate``/``ws_up`` (dim 0) and ``ws_down`` (dim 1)."""
-    f = ctx.fsdp_axis
+    """The expert weights gathered over the axis that cuts them: the FSDP
+    axis on d_model of ``we_gate``/``we_up`` (dim 1) and ``we_down`` (dim
+    2), and of the shared experts' ``ws_gate``/``ws_up`` (dim 0) and
+    ``ws_down`` (dim 1); under ``moe_ff_shard`` the "expert_ff" axis on
+    their d_ff."""
+    f = _ff_axis(ctx) or ctx.fsdp_axis
     if f is None:
         return p
-    dims = {"we_gate": 1, "we_up": 1, "we_down": 2,
-            "ws_gate": 0, "ws_up": 0, "ws_down": 1}
-    return {k: ctx.comm.all_gather(v, f, dims[k]) if k in dims else v
+    dims = _FF_DIMS if ctx.moe_ff_shard else _FSDP_DIMS
+    return {k: ctx.comm.all_gather(v, f, dims[k], weights=True) if k in dims else v
             for k, v in p.items()}
+
+
+def _ff_axis(ctx):
+    """The mesh axis that cuts the experts' d_ff (``moe_ff_shard``), or None."""
+    return ctx.spec("expert_ff")[0] if ctx.moe_ff_shard else None
 
 
 def moe_ffn(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -137,17 +151,26 @@ def moe_ffn(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
     ``moe_ffn_reference``. Under a ``ParallelContext`` with a mesh (the
     reference's ``moe_ffn``), x is this rank's tokens (its "data" shard,
     replicated over "model"), ``p``'s expert leaves are its shards (E/tp
-    experts; d_model cut over the FSDP axis, gathered here) and the
-    router is whole. ``ctx.moe_dispatch`` "auto" takes split dispatch
-    where the tokens divide over "model", else replicated:
+    experts; d_model cut over the FSDP axis, or d_ff under
+    ``moe_ff_shard``) and the router is whole. ``ctx.moe_dispatch`` "auto"
+    takes split dispatch where the tokens divide over "model", else
+    replicated:
 
-      * split: each "model" rank routes its 1/tp of the tokens with a
-        capacity of its slice, ``all_to_all`` sends each expert's buffer
-        to its owner and the outputs back, and the ranks' tokens are
-        gathered again;
+      * split: the expert weights gathered whole, each "model" rank routes
+        its 1/tp of the tokens with a capacity of its slice,
+        ``all_to_all`` sends each expert's buffer to its owner and the
+        outputs back, and the ranks' tokens are gathered again;
       * replicated: every rank runs its own experts on every token, with
         a capacity over its E/tp experts, and a ``psum`` over "model"
-        adds the ranks' outputs.
+        adds the ranks' outputs. Under ``moe_ff_shard`` no weight is
+        gathered: the tokens of every rank of the d_ff axis are gathered
+        instead, each rank's d_ff slice gives partial products of all of
+        them (the SwiGLU acts elementwise on d_ff), routed and capped
+        block by block as each rank's own tokens are, and a
+        reduce-scatter over that axis adds the partials and keeps this
+        rank's rows. That is the baseline's function; the reference's
+        lever adds its partial products over ranks that hold other tokens
+        (ROADMAP §3).
     """
     shape = x.shape
     xt = x.reshape(-1, shape[-1])
@@ -161,8 +184,10 @@ def moe_ffn(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
     mode = ctx.moe_dispatch
     if mode == "auto":
         mode = "split" if T % tp == 0 and T // tp > 0 else "replicated"
-    p = _gather_fsdp(p, ctx)
     me = comm.axis_index(maxis)
+    ff = _ff_axis(ctx)
+    if mode == "split" or ff is None:
+        p = _gather_fsdp(p, ctx)
     if mode == "split":
         t_loc = T // tp
         xs = xt[me * t_loc:(me + 1) * t_loc]
@@ -186,26 +211,38 @@ def moe_ffn(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
         if m.n_shared_experts:
             out = out + _shared_ffn(xs, p)
         return comm.all_gather(out, maxis, 0).reshape(shape)
-    # replicated: this rank's experts on every token, then a psum
+    # replicated: this rank's experts on every token, then a psum; under
+    # moe_ff_shard over the n blocks of tokens of the d_ff axis's ranks
+    n = 1 if ff is None else comm.size(ff)
+    xa = xt if ff is None else comm.all_gather(xt, ff, 0)
     cap = max(1, int(m.capacity_factor * T * k / max(e_loc, 1)))
     with record_function("moe_dispatch"):
-        w, idx = _topk_assignments(router_probs(xt, p["router"]), k)
+        w, idx = _topk_assignments(router_probs(xa, p["router"]), k)
         flat_e = idx.reshape(-1)
-        tok = torch.arange(T, device=x.device).repeat_interleave(k)
+        tok = torch.arange(n * T, device=x.device).repeat_interleave(k)
         local = (flat_e >= me * e_loc) & (flat_e < (me + 1) * e_loc)
-        # other ranks' assignments go to a spare expert e_loc, never run
+        # other ranks' assignments go to a spare expert e_loc, never run;
+        # block j's experts are j * (e_loc + 1) + e, so each block fills
+        # its own capacity
+        block = torch.div(tok, T, rounding_mode="floor")
         slot, keep = _dispatch_indices(
-            torch.where(local, flat_e - me * e_loc, e_loc), e_loc + 1, cap)
+            block * (e_loc + 1) + torch.where(local, flat_e - me * e_loc, e_loc),
+            n * (e_loc + 1), cap)
         keep = keep & local
-        n = (e_loc + 1) * cap
-        buf = xt.new_zeros((n + 1, d))
-        buf[slot] = xt[tok] * keep[:, None].to(xt.dtype)
-    out_buf = _expert_ffn(buf[:e_loc * cap].view(e_loc, cap, d), p["we_gate"],
-                          p["we_up"], p["we_down"]).view(e_loc * cap, d)
+        rows = n * (e_loc + 1) * cap
+        buf = xa.new_zeros((rows + 1, d))
+        buf[slot] = xa[tok] * keep[:, None].to(xa.dtype)
+        # (n, e_loc + 1, cap, d) -> each expert's rows of every block
+        buf = buf[:rows].view(n, e_loc + 1, cap, d)[:, :e_loc].transpose(0, 1) \
+                        .reshape(e_loc, n * cap, d)
+    out_buf = _expert_ffn(buf, p["we_gate"], p["we_up"], p["we_down"])
     with record_function("moe_combine"):
-        rows = torch.cat([out_buf, out_buf.new_zeros((cap, d))])
-        out = _combine(rows[slot.clamp(max=n - 1)], w.reshape(-1), keep, k)
+        out_buf = torch.cat([out_buf.view(e_loc, n, cap, d).transpose(0, 1),
+                             out_buf.new_zeros((n, 1, cap, d))], 1).reshape(rows, d)
+        out = _combine(out_buf[slot.clamp(max=rows - 1)], w.reshape(-1), keep, k)
     out = comm.psum(out, maxis)
     if m.n_shared_experts:
-        out = out + _shared_ffn(xt, p)
+        out = out + _shared_ffn(xa, p)
+    if ff is not None:
+        out = comm.reduce_scatter(out, ff, 0)
     return out.reshape(shape)

@@ -66,10 +66,22 @@ every rank (``models/xlstm.py``). The seeded init draws what one device
 draws and keeps the rank's shard, so every mesh shape holds the model of
 tp=1. ``forward`` under a mesh takes the rank's rows of the batch, and
 ``loss_fn`` returns the global masked mean, whose gradient on each rank is
-that rank's share (``repro_torch.parallel.collectives``); of the
-reference's §Perf levers only ``remat`` is taken (``remat="full"``
-recomputes each dense or MoE layer's training forward in its backward, as
-the reference's ``_maybe_remat``), the others are refused under a mesh.
+that rank's share (``repro_torch.parallel.collectives``).
+
+The reference's §Perf levers are taken under a mesh, each in the
+reference's layout: ``remat="full"`` recomputes each dense or MoE layer's
+training forward in its backward (its ``_maybe_remat``); ``serve_2d_tp``
+keeps a decode step's GQA, dense-MLP and head weights as their FSDP
+shards and contracts over them (``_col_2d``, ``_row_2d``);
+``seq_parallel_norm`` cuts the residual stream of whole sequences over
+"model" along the sequence (padded to a multiple), gathering each block's
+normed input and reduce-scattering its output; ``seq_shard_decode`` keeps
+the true kv heads on every rank and cuts the cache's sequence over
+"model"; ``train_kv_2d`` cuts the train layout's true kv projections on
+d_model over ("data", "model") (``_kv_2d``); ``moe_ff_shard`` cuts the
+experts' d_ff over "data" (``models/moe.py``); ``decode_unroll`` changes
+nothing here. A cache of another dtype than the model's (the
+reference's int8) is counted on meta only (``check_cache_dtype``).
 
 On the meta device (``seed=None``) a model is its rank's shapes alone, at
 any width: the dry-run traces one rank's step on it.
@@ -102,8 +114,8 @@ from repro_torch.models.xlstm import (_mlstm_dims, init_mlstm_state,
                                       mlstm_forward, slstm_decode,
                                       slstm_forward)
 from repro_torch.parallel.sharding import (ParallelContext, Placement,
-                                           kv_to_orig, padded_heads, q_to_orig,
-                                           shard_shape, shard_slices)
+                                           kv_to_orig, mesh_axes, padded_heads,
+                                           q_to_orig, shard_shape, shard_slices)
 
 # name -> (shape, init, fan_in); init is "normal" (std 1/sqrt(fan_in)),
 # "ones" or "zeros", as ``build_param_specs`` gives them
@@ -287,7 +299,9 @@ def _attn_axes(cfg: ModelConfig) -> Dict[str, Axes]:
 _MLP_AXES: Dict[str, Axes] = {
     "mlp_norm": (None,), "w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
     "w_down": ("mlp", "embed")}
-# the expert leaves, which ``moe_ffn`` gathers over the FSDP axis itself
+# the expert leaves, which ``moe_ffn`` gathers over the FSDP axis itself;
+# under ``moe_ff_shard`` their d_ff is cut over "expert_ff" instead of
+# their d_model (the reference's ``_moe_specs``)
 _MOE_AXES: Dict[str, Axes] = {
     "mlp_norm": (None,), "router": (None, None),
     "we_gate": ("expert", "expert_in", None),
@@ -295,7 +309,16 @@ _MOE_AXES: Dict[str, Axes] = {
     "we_down": ("expert", None, "expert_in"),
     "ws_gate": ("embed", None), "ws_up": ("embed", None),
     "ws_down": (None, "embed")}
+_MOE_FF_AXES: Dict[str, Axes] = {
+    **_MOE_AXES,
+    "we_gate": ("expert", None, "expert_ff"),
+    "we_up": ("expert", None, "expert_ff"),
+    "we_down": ("expert", "expert_ff", None),
+    "ws_gate": (None, "expert_ff"), "ws_up": (None, "expert_ff"),
+    "ws_down": ("expert_ff", None)}
 EXPERT_LEAVES = ("we_gate", "we_up", "we_down", "ws_gate", "ws_up", "ws_down")
+# the leaves a decode step multiplies as FSDP shards under ``serve_2d_tp``
+TWO_D_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
 # the reference's MAMBA_AXES, MLSTM_AXES and SLSTM_AXES
@@ -324,40 +347,48 @@ def heads_layout(cfg: ModelConfig, ctx: ParallelContext,
                  layout: str = "serve") -> Tuple[int, int]:
     """(hp, kvx): the q and kv head counts of ``layout`` under ``ctx`` (the
     reference's ``heads_layout``): q padded to hp; kv tiled to kvp in the
-    serve layout, kept at the true count in the train layout unless hp is
-    no multiple of it (MHA: zero-padded to kvp); for MLA the true count,
-    which must divide tp."""
+    serve layout, kept at the true count in the train layout, and in the
+    serve layout under ``seq_shard_decode``, unless hp is no multiple of it
+    (MHA: zero-padded to kvp); for MLA the true count, which must divide
+    tp."""
     if cfg.attention == "mla":
         return cfg.n_heads, cfg.n_heads
     hp, kvp = padded_heads(cfg.n_heads, cfg.n_kv_heads, ctx.tp)
-    if layout == "serve" or hp % cfg.n_kv_heads:
+    if (layout == "serve" and not ctx.seq_shard_decode) or hp % cfg.n_kv_heads:
         return hp, kvp
     return hp, cfg.n_kv_heads
 
 
 def _kv_exact(cfg: ModelConfig, ctx: Optional[ParallelContext], layout: str) -> bool:
-    """Whether ``layout`` keeps the true kv heads whole on every rank."""
-    return (layout == "train" and cfg.attention != "mla" and cfg.family != "ssm"
-            and heads_layout(cfg, ctx or ParallelContext(), layout)[1]
-            == cfg.n_kv_heads)
+    """Whether ``layout`` keeps the true kv heads whole on every rank (the
+    train layout's, and the serve layout's under ``seq_shard_decode``)."""
+    ctx = ctx or ParallelContext()
+    return ((layout == "train" or ctx.seq_shard_decode) and cfg.attention != "mla"
+            and cfg.family != "ssm"
+            and heads_layout(cfg, ctx, layout)[1] == cfg.n_kv_heads)
 
 
 def param_axes(cfg: ModelConfig, layout: str = "serve",
                ctx: Optional[ParallelContext] = None) -> Dict[str, Axes]:
     """The logical axes of each parameter of ``layout``, as the reference's
     ``build_param_specs(cfg, ctx, mode=layout)`` gives them (its
-    ``param_pspecs`` maps them through ``rules()``). The train layout's
-    true kv heads take ``kv_heads_exact`` over ``embed_kv``; ``ctx`` tells
-    whether MHA alignment pads them instead."""
+    ``param_pspecs`` maps them through ``rules()``). True kv heads take
+    ``kv_heads_exact``, over ``embed_kv`` in the train layout (``train_kv_2d``
+    cuts it over both mesh axes) and over ``embed`` in the serve layout;
+    ``ctx`` tells whether MHA alignment pads them instead and which §Perf
+    levers change the layout (``seq_shard_decode``, ``moe_ff_shard``)."""
     attn = _attn_axes(cfg)
     if _kv_exact(cfg, ctx, layout):
-        attn["wk"] = attn["wv"] = ("embed_kv", "kv_heads_exact", None)
+        kv_in = "embed_kv" if layout == "train" else "embed"
+        attn["wk"] = attn["wv"] = (kv_in, "kv_heads_exact", None)
+    ff_shard = ctx is not None and ctx.moe_ff_shard
     top: Dict[str, Axes] = {
         "embed": ("vocab", None) if cfg.tie_embeddings else (None, "d_tp"),
         "final_norm": (None,), "lm_head": ("embed", "vocab")}
     tables = {"dense_stack": {**attn, **_MLP_AXES},
               "shared_attn": {**attn, **_MLP_AXES},
-              "moe_stack": {**attn, **_MOE_AXES}, "mamba_stack": _MAMBA_AXES,
+              "moe_stack": {**attn, **(_MOE_FF_AXES if ff_shard else _MOE_AXES)},
+              "mamba_stack": _MAMBA_AXES,
               "mlstm_stack": _MLSTM_AXES, "slstm_stack": _SLSTM_AXES}
     depths = stack_depths(cfg)
     out = {}
@@ -451,26 +482,46 @@ def check_supported(cfg: ModelConfig):
 
 
 def check_shardable(cfg: ModelConfig, ctx: ParallelContext, layout: str):
-    """Raise unless the port can shard ``cfg`` under ``ctx``: every §Perf
-    lever but ``remat`` at its default, no GQA train layout whose padded q
-    heads are no multiple of the kv heads (the reference tiles kv there,
-    and its g-major slots then read other heads than tp=1's), and every
-    sharded dimension dividing its mesh axes."""
+    """Raise unless the port can shard ``cfg`` under ``ctx``: no GQA train
+    layout whose padded q heads are no multiple of the kv heads (the
+    reference tiles kv there, and its g-major slots then read other heads
+    than tp=1's), no serve layout whose decode cache is cut over more than
+    one mesh axis or, with MLA, cut at all (``cache_seq``: the split
+    decode needs GQA attention; ROADMAP §1), and every sharded dimension
+    dividing its mesh axes. Every §Perf lever is taken."""
     hp, kvx = heads_layout(cfg, ctx, layout)
     if (layout == "train" and cfg.attention != "mla" and cfg.family != "ssm"
             and cfg.n_kv_heads < cfg.n_heads and kvx != cfg.n_kv_heads):
         raise NotImplementedError(
             f"{cfg.name}: the train layout at tp {ctx.tp} pads {cfg.n_heads} "
             f"q heads to {hp}, no multiple of its {cfg.n_kv_heads} kv heads")
-    levers = tuple(n for n in ctx.levers_set() if n != "remat") + (
-        ("kv_cache_dtype",) if ctx.kv_cache_dtype is not None else ())
-    if levers:
+    if ctx.train_kv_2d and ctx.fsdp_axis is None:
         raise NotImplementedError(
-            f"{cfg.name}: the §Perf levers {levers} are not ported; the "
-            "port runs the reference's baseline rules (ROADMAP §1)")
+            f"{cfg.name}: train_kv_2d cuts the kv projections over the FSDP "
+            "axis and \"model\"; it needs an FSDP axis")
+    seq_axis = ctx.spec("cache_seq")[0]
+    if layout == "serve" and seq_axis is not None and (
+            cfg.attention == "mla" or not isinstance(seq_axis, str)):
+        raise NotImplementedError(
+            f"{cfg.name}: a decode cache cut over {seq_axis!r} needs GQA "
+            "attention and one mesh axis (MLA under a cut cache: ROADMAP §1)")
     axes = param_axes(cfg, layout, ctx)
     for name, shape in padded_shapes(cfg, ctx, layout).items():
         shard_shape(shape, axes[name], ctx)
+
+
+def check_cache_dtype(ctx: ParallelContext, dtype: torch.dtype, device: torch.device):
+    """Raise unless a model of ``dtype`` on ``device`` can serve from a
+    cache of ``ctx.kv_cache_dtype``: only the meta device (the dry-run's
+    count) takes another dtype than the model's, since K2 reads bf16 and
+    fp32 pages only and the reference's int8 cache, which has no scale,
+    decodes to zeros (ROADMAP §3, its questions)."""
+    cdt = ctx.kv_cache_dtype
+    if cdt is not None and cdt != dtype and device.type != "meta":
+        raise NotImplementedError(
+            f"kv_cache_dtype {cdt} on {device}: a cache of another dtype than "
+            f"the model's ({dtype}) is counted on meta only; the reference's "
+            "int8 cache has no scale and its decode returns zeros (ROADMAP §3)")
 
 
 class Transformer(nn.Module):
@@ -493,6 +544,7 @@ class Transformer(nn.Module):
         if self.ctx.mesh is not None:
             check_shardable(cfg, self.ctx, layout)
         dev = resolve_device(device)
+        check_cache_dtype(self.ctx, dtype, dev)
         self.cfg = cfg
         self.layout = layout
         self.specs = param_specs(cfg)
@@ -503,9 +555,12 @@ class Transformer(nn.Module):
         # each parameter's logical axes in this layout
         self.axes = param_axes(cfg, layout, self.ctx)
         self.kv_exact = _kv_exact(cfg, self.ctx, layout)
-        # this rank's q and kv heads (all of them on one device; the train
-        # layout's true kv heads on every rank)
+        # this rank's q and kv heads (all of them on one device; the true
+        # kv heads on every rank where the layout keeps them), and the kv
+        # heads of its decode cache: all kvx under ``seq_shard_decode``,
+        # whose cache is cut along the sequence instead
         self.n_q, self.n_kv = hp // tp, kvx if self.kv_exact else kvx // tp
+        self.pool_kv = kvx if self.ctx.seq_shard_decode else self.n_kv
         shapes = {n: s for n, (s, _, _) in self.specs.items()}
         if self.ctx.mesh is not None:
             shapes = {n: shard_shape(s, self.axes[n], self.ctx)
@@ -530,10 +585,21 @@ class Transformer(nn.Module):
         # the mesh axis the decode cache's sequence is cut over, if any
         self.seq_axis = self.ctx.spec("cache_seq")[0] if self.ctx.mesh is not None \
             else None
-        if self.seq_axis is not None and (self.mla or not isinstance(self.seq_axis, str)):
-            raise NotImplementedError(
-                f"{cfg.name}: a decode cache cut over {self.seq_axis!r} needs GQA "
-                "attention and one mesh axis")
+        # §Perf levers that change the computation (the others change the
+        # layout alone, or nothing: ``decode_unroll``): the FSDP axis that
+        # decode's products contract over in place of gathering weights
+        # (``serve_2d_tp``), and whether the residual stream of whole
+        # sequences is cut over "model" along the sequence
+        # (``seq_parallel_norm``; GQA blocks only, as the reference's)
+        f = self.ctx.fsdp_axis
+        self.two_d = f if (self.ctx.serve_2d_tp and f is not None
+                           and self.ctx.axis_size(f) > 1) else None
+        self.seq_parallel = (self.ctx.seq_parallel_norm and tp > 1 and not self.mla
+                             and cfg.family != "ssm")
+        # ``train_kv_2d``: the train layout's true kv projections cut on d
+        # over ("data", "model"), partial products summed over "model"
+        self.kv_2d = (self.ctx.train_kv_2d and layout == "train" and self.kv_exact
+                      and tp > 1)
         if seed is not None:
             self.init_weights(seed)
 
@@ -625,7 +691,7 @@ class Transformer(nn.Module):
                     (L, n_pages, page, cfg.mla.qk_rope_head_dim)]
         if cfg.family == "hybrid":
             L = cfg.n_layers // cfg.attn_every
-        shape = (L, n_pages, page, self.n_kv, cfg.resolved_head_dim)
+        shape = (L, n_pages, page, self.pool_kv, cfg.resolved_head_dim)
         return [shape, shape]
 
     def state_shapes(self, n_slots: int
@@ -653,20 +719,28 @@ class Transformer(nn.Module):
         return [((L, n_slots, *t.shape[1:]), t.dtype) for L, t in per_layer]
 
     # ------------------------------------------------------------ layers
-    def _layer(self, stack: str, *i: int) -> Dict[str, torch.Tensor]:
-        """One layer's weights (a block stored once takes no index)."""
+    def _layer(self, stack: str, *i: int, keep: Sequence[str] = ()
+               ) -> Dict[str, torch.Tensor]:
+        """One layer's weights (a block stored once takes no index); the
+        leaves in ``keep`` stay this rank's shards."""
         return self._gather_layer(stack, {k: v[i] for k, v in
-                                          getattr(self, stack).items()})
+                                          getattr(self, stack).items()}, keep)
 
-    def _gather_layer(self, stack: str, p: Dict[str, torch.Tensor]
-                      ) -> Dict[str, torch.Tensor]:
+    def _gather_layer(self, stack: str, p: Dict[str, torch.Tensor],
+                      keep: Sequence[str] = ()) -> Dict[str, torch.Tensor]:
         """Under FSDP each of one layer's weights gathered over the FSDP
-        axis, but for the expert leaves, which ``moe_ffn`` gathers."""
+        axis, but for the expert leaves, which ``moe_ffn`` gathers, and
+        those in ``keep``."""
         if self.ctx.mesh is None:
             return p
         lead = len(stack_depths(self.cfg)[stack])
-        return {k: v if k in EXPERT_LEAVES else self._gathered(
+        return {k: v if k in EXPERT_LEAVES or k in keep else self._gathered(
             v, self.axes[f"{stack}.{k}"][lead:]) for k, v in p.items()}
+
+    def _decode_keep(self) -> Tuple[str, ...]:
+        """The leaves a decode step uses as their FSDP shards: under
+        ``serve_2d_tp`` every GQA and dense-MLP product's."""
+        return TWO_D_LEAVES if self.two_d else ()
 
     def placements(self) -> Dict[str, object]:
         """Each parameter's ``Placement`` on the mesh, nested as
@@ -681,14 +755,16 @@ class Transformer(nn.Module):
         return tree
 
     def _gathered(self, w: torch.Tensor, axes: Axes) -> torch.Tensor:
-        """``w`` gathered over the FSDP axis on every dimension mapped to it
-        (the reference leaves these gathers to GSPMD)."""
+        """``w`` gathered over the FSDP axis on every dimension cut over it
+        (the reference leaves these gathers to GSPMD). A dimension cut over
+        the FSDP axis and "model" together (``train_kv_2d``'s ``embed_kv``)
+        keeps this "model" rank's blocks (``_kv_2d``)."""
         f = self.ctx.fsdp_axis
         if self.ctx.mesh is None or f is None:
             return w
         for dim, entry in enumerate(self.ctx.spec(*axes)):
-            if entry == f:
-                w = self.ctx.comm.all_gather(w, f, dim)
+            if f in mesh_axes(entry):
+                w = self.ctx.comm.all_gather(w, f, dim, weights=True)
         return w
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -707,15 +783,81 @@ class Transformer(nn.Module):
         x = table[tokens]
         return x if d_axis is None else ctx.comm.all_gather(x, d_axis, x.ndim - 1)
 
-    def _qkv(self, x, p, positions):
-        """x (B,S,d); positions (B,S) or (1,S). q (B,S,H,hd), k/v (B,S,KV,hd)."""
+    # the §Perf levers' products. Under ``serve_2d_tp`` a decode step's
+    # weights stay cut over the FSDP axis: a column-parallel product (d_model
+    # in) gathers the batch's rows over that axis, multiplies this rank's d
+    # slice of them by its shard and reduce-scatters the partial sums back to
+    # its rows; a row-parallel one (d_model out) multiplies every row by its
+    # shard, adds over "model" and sends each rank its rows' d slices
+    # (all_to_all). Under ``seq_parallel_norm`` the residual stream is this
+    # rank's share of the sequence: a block's input is gathered over "model"
+    # after its norm, and its row-parallel output reduce-scattered back.
+    def _col_2d(self, h: torch.Tensor, *ws: torch.Tensor) -> List[torch.Tensor]:
+        """h (B,1,d) this rank's rows; each w (d/n, ...) its FSDP shard ->
+        h @ w (B,1,m) for each, their partial sums reduce-scattered at once."""
+        a, comm = self.two_d, self.ctx.comm
+        n = ws[0].shape[0]
+        i = comm.axis_index(a)
+        rows = comm.all_gather(h, a, 0)
+        h = rows[..., i * n:(i + 1) * n].reshape(-1, n)
+        parts = [h @ w.reshape(n, -1) for w in ws]
+        out = comm.reduce_scatter(torch.cat(parts, -1).view(*rows.shape[:-1], -1), a, 0)
+        return list(out.split([t.shape[-1] for t in parts], -1))
+
+    def _row_2d(self, o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """o (B,1,m) this rank's rows; w (m, d/n) its shard -> (B,1,d),
+        summed over "model"."""
+        a, comm = self.two_d, self.ctx.comm
+        n = comm.size(a)
+        y = self._psum(comm.all_gather(o, a, 0) @ w)            # (n*B,1,d/n)
+        B = o.shape[0]
+        y = comm.all_to_all(y.reshape(n, B, -1), a)              # (n,B,d/n)
+        return y.transpose(0, 1).reshape(B, 1, -1)
+
+    def _seq_cut(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's share of x (B,S,d) along the sequence, S padded at
+        its end to a multiple of the "model" size."""
+        tp = self.ctx.tp
+        n = -(-x.shape[1] // tp)
+        x = F.pad(x, (0, 0, 0, n * tp - x.shape[1]))
+        return x[:, self.ctx.comm.axis_index(self.ctx.model_axis) * n:][:, :n]
+
+    def _seq_join(self, x: torch.Tensor, seq: int) -> torch.Tensor:
+        """The whole sequence of ``_seq_cut`` shares, its pad dropped."""
+        return self.ctx.comm.all_gather(x, self.ctx.model_axis, 1)[:, :seq]
+
+    def _kv_2d(self, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``train_kv_2d``: w (n*c, KV, hd) holds this "model" rank's c rows
+        of d for every coordinate j of the FSDP axis (rows block j*tp + m of
+        the (data, model) cut, gathered over data); its product with h's
+        matching columns, summed over "model" -> (B,S,KV*hd)."""
+        ctx = self.ctx
+        tp, m = ctx.tp, ctx.comm.axis_index(ctx.model_axis)
+        n = ctx.axis_size(ctx.fsdp_axis)
+        c = w.shape[0] // n
+        cols = ((torch.arange(n, device=h.device)[:, None] * tp + m) * c
+                + torch.arange(c, device=h.device)).flatten()
+        return self._psum(h.index_select(-1, cols) @ w.reshape(w.shape[0], -1))
+
+    def _qkv(self, x, p, positions, *, seq: Optional[int] = None,
+             two_d: bool = False):
+        """x (B,S,d); positions (B,S) or (1,S). q (B,S,H,hd), k/v (B,S,KV,hd).
+        ``seq``: x is this rank's share of a sequence of ``seq`` tokens
+        (``seq_parallel_norm``), gathered after the norm; ``two_d``: a
+        decode step's ``serve_2d_tp`` products on FSDP shards."""
         cfg = self.cfg
-        B, S, d = x.shape
         hd = cfg.resolved_head_dim
         h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-        q = (h @ p["wq"].reshape(d, -1)).view(B, S, self.n_q, hd)
-        k = (h @ p["wk"].reshape(d, -1)).view(B, S, self.n_kv, hd)
-        v = (h @ p["wv"].reshape(d, -1)).view(B, S, self.n_kv, hd)
+        if seq is not None:
+            h = self.ctx.comm.all_gather(h, self.ctx.model_axis, 1)
+        B, S, d = h.shape
+        if two_d:
+            q, k, v = self._col_2d(h, p["wq"], p["wk"], p["wv"])
+        else:
+            q = h @ p["wq"].reshape(d, -1)
+            k, v = ((self._kv_2d(h, p[n]) if self.kv_2d else h @ p[n].reshape(d, -1))
+                    for n in ("wk", "wv"))
+        q, k, v = (t.reshape(B, S, -1, hd) for t in (q, k, v))
         if cfg.qk_norm:
             q = rmsnorm(q, p["qn"], cfg.norm_eps)
             k = rmsnorm(k, p["kn"], cfg.norm_eps)
@@ -727,24 +869,46 @@ class Transformer(nn.Module):
         """Sum a row-parallel product's partial results over "model"."""
         return self.ctx.comm.psum(y, self.ctx.model_axis)
 
-    def _out(self, x, o, p):
-        B, S = o.shape[:2]
-        return x + self._psum(o.reshape(B, S, -1)
-                              @ p["wo"].reshape(-1, self.cfg.d_model))
+    def _row(self, y, *, seq: Optional[int] = None):
+        """A row-parallel product's partial sums over "model" added: by a
+        psum, or under ``seq_parallel_norm`` by a reduce-scatter to this
+        rank's share of the sequence."""
+        if seq is None:
+            return self._psum(y)
+        return self.ctx.comm.reduce_scatter(y, self.ctx.model_axis, 1)
 
-    def _mlp(self, x, p):
+    def _out(self, x, o, p, *, seq: Optional[int] = None, two_d: bool = False):
+        B, S = o.shape[:2]
+        o = o.reshape(B, S, -1)
+        if two_d:
+            return x + self._row_2d(o, p["wo"].reshape(o.shape[-1], -1))
+        return x + self._row(o @ p["wo"].reshape(-1, self.cfg.d_model), seq=seq)
+
+    def _mlp(self, x, p, *, seq: Optional[int] = None, two_d: bool = False):
         h = rmsnorm(x, p["mlp_norm"], self.cfg.norm_eps)
         if "router" in p:
-            return x + moe_ffn(h, p, self.cfg, self.ctx)
-        return x + self._psum(
-            (F.silu(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"])
+            if seq is None:
+                return x + moe_ffn(h, p, self.cfg, self.ctx)
+            # the whole sequence, its pad dropped, so the router sees the
+            # tokens (and capacities) of the baseline
+            y = moe_ffn(self._seq_join(h, seq), p, self.cfg, self.ctx)
+            return x + self._seq_cut(y)
+        if two_d:
+            g, u = self._col_2d(h, p["w_gate"], p["w_up"])
+            return x + self._row_2d(F.silu(g) * u, p["w_down"])
+        if seq is not None:
+            h = self.ctx.comm.all_gather(h, self.ctx.model_axis, 1)
+        return x + self._row(
+            (F.silu(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"], seq=seq)
 
-    def _head(self, x):
+    def _head(self, x, *, two_d: bool = False):
         """Final norm and the head: x (B,d) -> logits (B,V), gathered over
         the vocab's mesh axis."""
         h = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         if self.cfg.tie_embeddings:
             logits = h @ self.embed.t()
+        elif two_d:
+            logits = self._col_2d(h[:, None], self.lm_head)[0][:, 0]
         else:
             logits = h @ self._gathered(self.lm_head, ("embed", None))
         if self.ctx.mesh is None:
@@ -752,22 +916,52 @@ class Transformer(nn.Module):
         return self.ctx.comm.all_gather(logits, self.ctx.spec("vocab")[0],
                                         logits.ndim - 1)
 
-    def _gqa_prefill(self, x, p, positions):
+    def _read_kv(self, k, v):
+        """The kv heads this rank's q slots read (the serve layout's slot s
+        reads kv head s // (hp/KV)), where every rank holds the true kv
+        heads (``seq_shard_decode``): a contiguous range where the slots
+        group evenly over it, else one head a slot."""
+        if not self.kv_exact or self.ctx.tp == 1:
+            return k, v
+        gp = self.n_q * self.ctx.tp // k.shape[2]
+        first = self.ctx.comm.axis_index(self.ctx.model_axis) * self.n_q
+        idx = [(first + i) // gp for i in range(self.n_q)]
+        lo, n = idx[0], idx[-1] - idx[0] + 1
+        if self.n_q % n == 0 and idx == [lo + i // (self.n_q // n)
+                                         for i in range(self.n_q)]:
+            return k[:, :, lo:lo + n].contiguous(), v[:, :, lo:lo + n].contiguous()
+        sel = torch.tensor(idx, device=k.device)
+        return k.index_select(2, sel), v.index_select(2, sel)
+
+    def _gqa_prefill(self, x, p, positions, seq: Optional[int] = None):
         """One attention+MLP layer over whole prompts through K1; returns
-        x and the layer's (k, v)."""
-        q, k, v = self._qkv(x, p, positions)
-        x = self._out(x, flash_attention(q, k, v, window=self.window), p)
-        return self._mlp(x, p), (k, v)
+        x and the layer's (k, v) with the kv heads of the decode cache."""
+        q, k, v = self._qkv(x, p, positions, seq=seq)
+        x = self._out(x, flash_attention(q, *self._read_kv(k, v), window=self.window),
+                      p, seq=seq)
+        if k.shape[2] < self.pool_kv:
+            k, v = (self.ctx.comm.all_gather(t, self.ctx.model_axis, 2) for t in (k, v))
+        return self._mlp(x, p, seq=seq), (k, v)
 
     def _gqa_decode(self, x, p, pool_k, pool_v, at, block_tables):
         """One attention+MLP layer for one token per sequence: writes the
         token's k and v into the pools at ``at`` (``_cache_slots``), then
         attends through K2, or through its split half where the cache's
-        sequence is cut over ranks."""
-        B = x.shape[0]
+        sequence is cut over ranks. Under ``seq_shard_decode`` every rank's
+        pool holds every kv head (of its share of the sequence), so q is
+        gathered over "model" for K2 and this rank's heads kept from its
+        output."""
+        B, hd = x.shape[0], self.cfg.resolved_head_dim
         pos, pages, offs, lens, mine, s0 = at
-        q, a, b = self._qkv(x, p, pos[:, None])
-        q = q.view(B, self.n_kv, self.n_q // self.n_kv, -1)
+        two_d = self.two_d is not None
+        q, a, b = self._qkv(x, p, pos[:, None], two_d=two_d)
+        axis = self.ctx.model_axis
+        heads = self.ctx.seq_shard_decode and self.ctx.tp > 1
+        if heads:
+            q = self.ctx.comm.all_gather(q, axis, 2)
+            if a.shape[2] < self.pool_kv:
+                a, b = (self.ctx.comm.all_gather(t, axis, 2) for t in (a, b))
+        q = q.reshape(B, self.pool_kv, -1, hd)
         if mine is None:
             pool_k[pages, offs] = a[:, 0]
             pool_v[pages, offs] = b[:, 0]
@@ -778,7 +972,12 @@ class Transformer(nn.Module):
             pool_k[pages, offs] = torch.where(keep, a[:, 0], pool_k[pages, offs])
             pool_v[pages, offs] = torch.where(keep, b[:, 0], pool_v[pages, offs])
             o = self._split_attention(q, pool_k, pool_v, block_tables, lens - s0)
-        return self._mlp(self._out(x, o.view(B, 1, self.n_q, -1), p), p)
+        o = o.reshape(B, -1, hd)
+        if heads:
+            first = self.ctx.comm.axis_index(axis) * self.n_q
+            o = o[:, first:first + self.n_q]
+        x = self._out(x, o.reshape(B, 1, -1), p, two_d=two_d)
+        return self._mlp(x, p, two_d=two_d)
 
     def _split_attention(self, q, pool_k, pool_v, block_tables, local_lens):
         """K2's split half over this rank's share of every sequence (its
@@ -833,11 +1032,30 @@ class Transformer(nn.Module):
         o = flash_prefill(q, k, v, q_positions=positions, window=self.window)
         return o.reshape(B, S, KV, g, hd).transpose(2, 3).reshape(B, S, H, hd)
 
-    def _gqa_layer(self, x, p, positions):
-        q, k, v = self._qkv(x, p, positions)
-        return self._mlp(self._out(x, self._attend(q, k, v, positions), p), p)
+    def _gqa_layer(self, x, p, positions, seq: Optional[int] = None):
+        q, k, v = self._qkv(x, p, positions, seq=seq)
+        x = self._out(x, self._attend(q, k, v, positions), p, seq=seq)
+        return self._mlp(x, p, seq=seq)
 
-    def _stack_layer(self, stack: str, x, p, positions):
+    def _stream_cut(self, x):
+        """Under ``seq_parallel_norm``: (this rank's share of x, the
+        positions of the padded whole, the whole's length); else (x, its
+        positions, None)."""
+        S = x.shape[1]
+        if not self.seq_parallel:
+            return x, torch.arange(S, device=x.device)[None], None
+        n = -(-S // self.ctx.tp) * self.ctx.tp
+        return self._seq_cut(x), torch.arange(n, device=x.device)[None], S
+
+    def _shared_block(self, fn, x):
+        """zamba2's shared attention+MLP block ``fn(x, positions, seq) ->
+        (x, kv)`` on the whole residual stream, which ``seq_parallel_norm``
+        cuts for the block alone; returns (x whole again, kv)."""
+        xs, pos, seq = self._stream_cut(x)
+        y, kv = fn(xs, pos, seq)
+        return (y if seq is None else self._seq_join(y, seq)), kv
+
+    def _stack_layer(self, stack: str, x, p, positions, seq: Optional[int] = None):
         """One dense or MoE layer of training from its unstacked weights,
         gathered here: under ``remat="full"`` inside a checkpoint, so its
         backward gathers them again and recomputes the layer's forward
@@ -846,7 +1064,7 @@ class Transformer(nn.Module):
         def layer(x, p):
             p = self._gather_layer(stack, p)
             if not self.mla:
-                return self._gqa_layer(x, p, positions)
+                return self._gqa_layer(x, p, positions, seq)
             y, _ = mla_prefill(rmsnorm(x, p["attn_norm"], self.cfg.norm_eps), p,
                                self.cfg, positions)
             return self._mlp(x + self._psum(y), p)
@@ -867,12 +1085,12 @@ class Transformer(nn.Module):
         x = self._embed(tokens)
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
-        positions = torch.arange(x.shape[1], device=x.device)[None]
         if cfg.family == "hybrid":
             shared = self._gather_layer("shared_attn", self._unstacked("shared_attn")[0])
             mamba = self._unstacked("mamba_stack")
             for g in range(cfg.n_layers // cfg.attn_every):
-                x = self._gqa_layer(x, shared, positions)
+                x, _ = self._shared_block(
+                    lambda xs, pos, seq: (self._gqa_layer(xs, shared, pos, seq), None), x)
                 for p in mamba[g * cfg.attn_every:(g + 1) * cfg.attn_every]:
                     x = x + mamba2_forward(x, self._gather_layer("mamba_stack", p),
                                            cfg, ctx=self.ctx)[0]
@@ -886,9 +1104,12 @@ class Transformer(nn.Module):
                 x = slstm_forward(x, self._gather_layer("slstm_stack", p_s), cfg,
                                   ctx=self.ctx)[0]
         else:
+            x, positions, seq = self._stream_cut(x)
             for stack in stack_depths(cfg):
                 for p in self._unstacked(stack):
-                    x = self._stack_layer(stack, x, p, positions)
+                    x = self._stack_layer(stack, x, p, positions, seq)
+            if seq is not None:
+                x = self._seq_join(x, seq)
         return self._head(x)
 
     def _serve_layout(self):
@@ -915,12 +1136,13 @@ class Transformer(nn.Module):
         x = self._embed(tokens)
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
-        positions = torch.arange(x.shape[1], device=tokens.device)[None]
         if self.cfg.family == "hybrid":
-            x, caches, states = self._hybrid_prefill(x, positions)
+            x, caches, states = self._hybrid_prefill(x)
         elif self.cfg.family == "ssm":
             x, caches, states = self._xlstm_prefill(x)
         else:
+            S = x.shape[1]
+            x, positions, seq = self._stream_cut(x)
             caches, states = [], []
             for stack, i in self.layers:
                 p = self._layer(stack, i)
@@ -930,20 +1152,25 @@ class Transformer(nn.Module):
                         self.cfg, positions)
                     x = self._mlp(x + self._psum(y), p)
                 else:
-                    x, cache = self._gqa_prefill(x, p, positions)
+                    x, (k, v) = self._gqa_prefill(x, p, positions, seq)
+                    cache = (k[:, :S], v[:, :S])
                 caches.append(cache)
+            if seq is not None:
+                x = self._seq_join(x, seq)
         return self._head(x[:, -1]), caches, states
 
-    def _hybrid_prefill(self, x, positions):
+    def _hybrid_prefill(self, x):
         """Per group: the shared block (window 0), then ``attn_every``
         Mamba2 layers, each layer's final (h, conv states) kept from this
         pass."""
         cfg = self.cfg
+        S = x.shape[1]
         shared = self._layer("shared_attn")
         caches, states = [], [[] for _ in range(4)]
         for g in range(cfg.n_layers // cfg.attn_every):
-            x, kv = self._gqa_prefill(x, shared, positions)
-            caches.append(kv)
+            x, (k, v) = self._shared_block(
+                lambda xs, pos, seq: self._gqa_prefill(xs, shared, pos, seq), x)
+            caches.append((k[:, :S], v[:, :S]))
             for l in range(g * cfg.attn_every, (g + 1) * cfg.attn_every):
                 y, (h, cs) = mamba2_forward(
                     x, self._layer("mamba_stack", l), cfg, ctx=self.ctx)
@@ -990,24 +1217,26 @@ class Transformer(nn.Module):
         if cfg.family == "ssm":
             return self._head(self._xlstm_decode(x, states, rows)[:, 0])
         at = self._cache_slots(pos, block_tables, pools[0].shape[2])
+        two_d = self.two_d is not None
         if cfg.family == "hybrid":
             return self._head(self._hybrid_decode(x, pools, block_tables, at,
-                                                  states, rows)[:, 0])
+                                                  states, rows)[:, 0], two_d=two_d)
         _, pages, offs, lens, _, _ = at
         pool_a, pool_b = pools
         for l, (stack, i) in enumerate(self.layers):
-            p = self._layer(stack, i)
+            p = self._layer(stack, i, keep=self._decode_keep())
             if self.mla:
                 h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
                 a, b = mla_latents(h, p, cfg, pos[:, None])
                 pool_a[l, pages, offs] = a[:, 0]
                 pool_b[l, pages, offs] = b[:, 0]
                 x = self._mlp(x + self._psum(mla_decode_paged(
-                    h, p, cfg, pool_a[l], pool_b[l], block_tables, lens)), p)
+                    h, p, cfg, pool_a[l], pool_b[l], block_tables, lens)), p,
+                    two_d=two_d)
             else:
                 x = self._gqa_decode(x, p, pool_a[l], pool_b[l], at,
                                      block_tables)
-        return self._head(x[:, 0])
+        return self._head(x[:, 0], two_d=two_d)
 
     def _cache_slots(self, pos, block_tables, page):
         """Where each sequence's new token goes: (positions, pool pages,
@@ -1033,7 +1262,7 @@ class Transformer(nn.Module):
         """Per group g: the shared block on pool g through K2, then its
         Mamba2 layers on the batch's rows of the state buffers."""
         cfg = self.cfg
-        shared = self._layer("shared_attn")
+        shared = self._layer("shared_attn", keep=self._decode_keep())
         pool_k, pool_v = pools
         for g in range(cfg.n_layers // cfg.attn_every):
             x = self._gqa_decode(x, shared, pool_k[g], pool_v[g], at,

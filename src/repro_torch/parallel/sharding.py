@@ -66,8 +66,8 @@ class ParallelContext:
     kv_cache_dtype: Any = None                # default: the model's dtype
     moe_dispatch: str = "auto"                # auto | split | replicated
     rules_override: Optional[Dict[str, Any]] = None
-    # ---- the reference's §Perf levers; rules() follows them, the model
-    # refuses any that is set (ROADMAP §1) ----
+    # ---- the reference's §Perf levers; rules() follows them, and the
+    # model takes each (``repro_torch.models.transformer``) ----
     decode_unroll: bool = False
     serve_2d_tp: bool = False
     seq_parallel_norm: bool = False

@@ -39,12 +39,22 @@ roofline terms to a JSON file. Cases:
     reference's harvest pass on the whole batch on every rank (so its
     harvest pass costs more than the port's main pass that the formula
     counts in its place); MLA and the MoE dispatch are split differently;
+  * one smoke cell per §Perf lever on the (2,4) mesh against the
+    reference's ``analyze_compiled`` with the same ``opts`` (``LEVER_CELLS``;
+    exact, or at ``LEVER_RATIO`` within ``FLOPS_RTOL`` for the stated
+    reasons; both packages' wire bytes by kind printed), and each lever's
+    count against the port's own baseline of the cell: ``serve_2d_tp``
+    gathers no weight at decode, ``moe_ff_shard`` fewer, ``seq_shard_decode``
+    runs K2's split half, ``seq_parallel_norm`` trades all-reduce wire for
+    reduce-scatters and gathers, ``train_kv_2d`` cuts the FLOPs, an int8
+    cache the bytes, and ``decode_unroll`` moves nothing;
   * the analytic roofline terms equal the reference's given the same
     counts;
   * a ``psum`` of a known tensor books payload p and wire 2p(n-1)/n;
   * four full-width production cells trace on meta within ``TRACE_CAP_S``;
-  * the grid's CLI writes a file per cell and records the model's refusal
-    of a lever as the cell's error.
+  * the grid's CLI writes a file per cell, counts a lever's cell
+    (``--opts``) and records a refusal that remains (MLA under
+    ``seq_shard_decode``) as the cell's error.
 """
 import dataclasses
 import json
@@ -84,6 +94,34 @@ MESH_RATIO = {
     "moe-mla-prefill": 1.0752, "hybrid-prefill": 0.9372, "ssm-prefill": 1.0295,
     "moe-mla-decode": 1.0233, "hybrid-decode": 1.1586, "ssm-decode": 1.4299,
 }
+# one smoke cell per §Perf lever on the (2,4) mesh: (arch, kind, opts)
+LEVER_CELLS = {
+    "serve_2d_tp": ("llama3.2-3b", "decode", {"serve_2d_tp": True}),
+    "moe_ff_shard": ("phi3.5-moe-42b-a6.6b", "decode", {"moe_ff_shard": True}),
+    "seq_shard_decode": ("llama3.2-3b", "decode", {"seq_shard_decode": True}),
+    "seq_parallel_norm": ("llama3.2-3b", "prefill", {"seq_parallel_norm": True}),
+    "train_kv_2d": ("llama3.2-3b", "train", {"train_kv_2d": True}),
+    "decode_unroll": ("llama3.2-3b", "decode", {"decode_unroll": True}),
+    "kv_cache_dtype": ("llama3.2-3b", "decode", {"kv_cache_dtype": "int8"}),
+}
+# port / reference FLOPs of a lever cell after ``_design_gap``, where the
+# two differ (the module docstring); the others agree exactly
+LEVER_RATIO = {
+    # the reference runs its tied head on both "data" ranks' rows, which
+    # its act_d layout leaves gathered: 2 B d V / tp more
+    "serve_2d_tp": 0.875,
+    # the reference's lever multiplies only its own tokens by its d_ff
+    # slice (its fault, ROADMAP §3); the port every "data" rank's tokens,
+    # the baseline's function
+    "moe_ff_shard": 1.9233,
+    # the port computes the true kv heads' k and v whole on every "model"
+    # rank, which GSPMD splits
+    "seq_shard_decode": 1.2308,
+    # the port contracts a d/tp block of the kv products on each rank, its
+    # own rows only; the reference's count rises under the lever (its
+    # baseline's is the port's baseline / 1.1914)
+    "train_kv_2d": 0.8801,
+}
 TRACE_CAP_S = 120.0
 MESH, ONE = (2, 4), (1, 1)
 # smoke shapes of the three kinds: batches divide the (2,4) mesh's "data"
@@ -111,13 +149,13 @@ REFERENCE = textwrap.dedent("""
                                         make_train_step)
 
     spec = json.load(open(sys.argv[1]))
-    out = {"flops": {}, "roofline": {}}
-    for mesh_shape, cell, (arch, shp) in spec["cells"]:
+    out = {"flops": {}, "wire": {}, "roofline": {}}
+    for mesh_shape, cell, (arch, shp), opts in spec["cells"]:
         mesh = jax.make_mesh(tuple(mesh_shape), ("data", "model"),
                              axis_types=(AxisType.Auto,) * 2)
         cfg = get_smoke_config(arch)
         shape = ShapeSpec(*shp)
-        ctx = build_ctx(mesh, False, cfg, shape)
+        ctx = build_ctx(mesh, False, cfg, shape, opts)
         mode = "train" if shape.kind == "train" else "serve"
         aparams = T.abstract_params(cfg, ctx, mode=mode, dtype=jnp.bfloat16)
         psh = T.param_shardings(cfg, ctx, mode=mode)
@@ -141,12 +179,19 @@ REFERENCE = textwrap.dedent("""
             lowered = jax.jit(make_decode_step(cfg, ctx), in_shardings=(
                 psh, sp["state_shardings"], sp["shardings"]["tokens"])).lower(
                 aparams, sp["state"], sp["batch"]["tokens"])
-        out["flops"][f"{cell}@{mesh_shape[0]}x{mesh_shape[1]}"] = analyze_compiled(
-            lowered.compile(), mesh.size)["flops"]
+        cost = analyze_compiled(lowered.compile(), mesh.size)
+        key = f"{cell}@{mesh_shape[0]}x{mesh_shape[1]}"
+        out["flops"][key] = cost["flops"]
+        out["wire"][key] = cost["collective_wire_bytes"]
     for name, (arch, shp, res) in spec["roofline"].items():
         out["roofline"][name] = roofline_terms(dict(res), get_config(arch), ShapeSpec(*shp))
     json.dump(out, open(sys.argv[2], "w"))
 """)
+
+
+def _lever_cell(lever):
+    arch, kind, _ = LEVER_CELLS[lever]
+    return f"{arch}-{kind}+{lever}"
 
 
 def _smoke_cells():
@@ -171,7 +216,10 @@ ROOFLINE_CELLS = {f"{a}-{s}": (a, s) for a, s, skip in treg.cells() if skip is N
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     d = tmp_path_factory.mktemp("ref")
-    spec = {"cells": [(m, cell, v) for m in (MESH, ONE) for cell, v in _smoke_cells().items()],
+    spec = {"cells": [(m, cell, v, {}) for m in (MESH, ONE)
+                      for cell, v in _smoke_cells().items()]
+            + [(MESH, _lever_cell(lever), (arch, dataclasses.astuple(SMOKE_SHAPES[kind])),
+                opts) for lever, (arch, kind, opts) in LEVER_CELLS.items()],
             "roofline": {k: (a, dataclasses.astuple(treg.SHAPES[s]), _synthetic_res(a, s))
                          for k, (a, s) in ROOFLINE_CELLS.items()}}
     (d / "spec.json").write_text(json.dumps(spec))
@@ -321,6 +369,74 @@ def test_counted_flops_match_the_reference(reference, cell):
         MESH_RATIO.get(cell, 1.0), rel=FLOPS_RTOL if cell in MESH_RATIO else 1e-9)
 
 
+def _lever_counts(lever, with_lever=True):
+    arch, kind, opts = LEVER_CELLS[lever]
+    return dryrun.count_step(get_smoke_config(arch), SMOKE_SHAPES[kind],
+                             AbstractMesh(MESH, ("data", "model")), False,
+                             opts if with_lever else None)
+
+
+@pytest.mark.parametrize("lever", sorted(LEVER_CELLS))
+def test_lever_cell_flops_match_the_reference(reference, lever):
+    """The lever's smoke cell on the (2,4) mesh against the reference's
+    ``analyze_compiled`` with the same ``opts``: exact where the two
+    partition alike, else ``LEVER_RATIO`` within FLOPS_RTOL; both
+    packages' wire bytes by kind printed."""
+    arch, kind, _ = LEVER_CELLS[lever]
+    cfg, shape = get_smoke_config(arch), SMOKE_SHAPES[kind]
+    res = _lever_counts(lever)
+    key = f"{_lever_cell(lever)}@{MESH[0]}x{MESH[1]}"
+    want = reference["flops"][key]
+    gap = _design_gap(cfg, shape, res["flops"], MESH)
+    ratio = (res["flops"] + gap) / want
+    # the reference's own baseline of the cell, where the smoke grid has it
+    base = {f"{fam}-{kind}@{MESH[0]}x{MESH[1]}" for fam, a in FAMILIES.items()
+            if a == arch}
+    base_ref = {k: (reference["flops"][k], reference["wire"][k]) for k in base}
+    print(f"{lever}: port {res['flops']:.6e} + design gap {gap:.6e}, reference "
+          f"{want:.6e}, ratio {ratio:.6f}; wire by kind port "
+          f"{res['collective_wire_bytes']}, reference {reference['wire'][key]}; "
+          f"the reference's baseline (flops, wire) {base_ref}")
+    assert ratio == pytest.approx(LEVER_RATIO.get(lever, 1.0),
+                                  rel=FLOPS_RTOL if lever in LEVER_RATIO else 1e-9)
+
+
+@pytest.mark.parametrize("lever", sorted(LEVER_CELLS))
+def test_lever_moves_its_cell_as_designed(lever):
+    """Each lever's count against the port's own baseline of the cell."""
+    got, base = _lever_counts(lever), _lever_counts(lever, with_lever=False)
+    wire, base_wire = got["collective_wire_bytes"], base["collective_wire_bytes"]
+    print(f"{lever}: flops {base['flops']:.6e} -> {got['flops']:.6e}, hbm "
+          f"{base['hbm_bytes']:.6e} -> {got['hbm_bytes']:.6e}, wire {base_wire} -> "
+          f"{wire}, weight gathers {base['collective_weight_wire']:.6e} -> "
+          f"{got['collective_weight_wire']:.6e}")
+    if lever == "serve_2d_tp":
+        # no weight moves at decode: the activations' gathers and the
+        # partial sums' reduce-scatters instead
+        assert got["collective_weight_wire"] == 0 < base["collective_weight_wire"]
+        assert wire["reduce-scatter"] > 0
+    elif lever == "moe_ff_shard":
+        # replicated dispatch (2 tokens a "data" rank, tp 4): the experts'
+        # d_ff shards stay put, their partial sums reduce-scattered
+        assert got["collective_weight_wire"] < base["collective_weight_wire"]
+        assert wire["reduce-scatter"] > 0
+    elif lever == "seq_shard_decode":
+        assert got["flops_by_op"]["paged_attention_partials"] > 0
+        assert "paged_attention" not in got["flops_by_op"]
+    elif lever == "seq_parallel_norm":
+        # the block outputs' all-reduces become reduce-scatters and gathers
+        assert wire["reduce-scatter"] > 0
+        assert wire["all-reduce"] < base_wire["all-reduce"]
+    elif lever == "train_kv_2d":
+        assert got["flops"] < base["flops"]
+    elif lever == "kv_cache_dtype":
+        # an int8 pool: half the cache bytes of bf16
+        assert got["hbm_bytes"] < base["hbm_bytes"]
+    else:                                   # decode_unroll: nothing moves
+        for key in ("flops", "hbm_bytes", "collective_wire_total"):
+            assert got[key] == base[key], key
+
+
 ANALYTIC = ("model_flops_per_dev", "must_bytes_per_dev", "useful_flop_ratio",
             "memory_efficiency", "hbm_bytes_kernel_adj")
 
@@ -373,4 +489,12 @@ def test_cli_writes_a_file_per_cell_and_records_refusals(tmp_path):
                            "single", "--tag", "lever", "--opts",
                            '{"serve_2d_tp": true}'], env=env, check=True, timeout=300)
     res = json.loads((tmp_path / "llama3.2-3b__decode_32k__single__lever.json").read_text())
-    assert "serve_2d_tp" in res["error"] and "not ported" in res["error"]
+    assert "error" not in res and res["opts"] == {"serve_2d_tp": "True"}
+    assert res["roofline"]["step_time_bound_s"] > 0
+    # a refusal that remains: MLA under a sequence-cut decode cache
+    subprocess.run(base + ["--arch", "deepseek-r1-671b", "--shape", "decode_32k",
+                           "--mesh", "single", "--tag", "lever", "--opts",
+                           '{"seq_shard_decode": true}'], env=env, check=True, timeout=300)
+    res = json.loads((tmp_path / "deepseek-r1-671b__decode_32k__single__lever.json")
+                     .read_text())
+    assert "NotImplementedError" in res["error"] and "ROADMAP §1" in res["error"]

@@ -41,8 +41,10 @@ layout=)``) or from the port's seeded init. Everything is fp32. Cases:
     (2,2) and the reference restores onto (2,4) with ``shardings=``. Each
     shard is bitwise equal to the written array's slice; a tree padded
     for another tp raises ``ValueError``;
-  * refusals: the sharded model refuses every §Perf lever and an int8 kv
-    cache in either layout, and the runner refuses data > 1.
+  * the §Perf levers' layouts: under each the sharded model builds in
+    either layout, as the reference lays it out; an int8 kv cache is
+    refused on a real device, and the runner refuses data > 1
+    (``tests/test_torch_levers.py`` holds the levers' computations).
 
 Tolerances of the recurrent stacks against tp=1. Their smoke models are
 ill-conditioned: a half-ulp change of every tp=1 weight moves their
@@ -830,8 +832,10 @@ def _jax_flat(tree, prefix=""):
 def test_layout_matches_the_reference_specs(arch, layout, tp, data):
     """The full-size config's padded shapes, logical axes and mesh specs in
     either layout equal the reference's ``build_param_specs`` /
-    ``param_pspecs`` under an abstract (data, tp) mesh, and the model
-    accepts it (``check_shardable``)."""
+    ``param_pspecs`` under an abstract (data, tp) mesh, with the baseline
+    rules and under each §Perf lever, and the model accepts it
+    (``check_shardable``; it refuses MLA's serve layout under
+    ``seq_shard_decode`` alone)."""
     from jax.sharding import AbstractMesh as JaxAbstractMesh
     from repro.configs.registry import get_config as jax_config
     from repro.models import transformer as T
@@ -840,38 +844,67 @@ def test_layout_matches_the_reference_specs(arch, layout, tp, data):
     from repro_torch.models.transformer import (check_shardable, padded_shapes,
                                                 param_axes)
     shape, names = (data, tp), ("data", "model")
-    jctx = ref.ParallelContext(mesh=JaxAbstractMesh(shape, names))
-    tctx = ParallelContext(mesh=AbstractMesh(shape, names))
     cfg = get_config(arch)
-    specs = dict(_jax_flat(T.build_param_specs(jax_config(arch), jctx, layout)))
-    pspecs = dict(_jax_flat(T.param_pspecs(jax_config(arch), jctx, layout)))
-    shapes, axes = padded_shapes(cfg, tctx, layout), param_axes(cfg, layout, tctx)
-    assert set(shapes) == set(specs)
-    for name, spec in specs.items():
-        assert shapes[name] == spec.shape, name
-        assert axes[name] == spec.axes, name
-        assert tctx.spec(*axes[name]) == tuple(pspecs[name]), name
-    check_shardable(cfg, tctx, layout)
+    for lever in (None, *PERF_LEVERS):
+        kw = {lever: True} if lever else {}
+        jctx = ref.ParallelContext(mesh=JaxAbstractMesh(shape, names), **kw)
+        tctx = ParallelContext(mesh=AbstractMesh(shape, names), **kw)
+        specs = dict(_jax_flat(T.build_param_specs(jax_config(arch), jctx, layout)))
+        pspecs = dict(_jax_flat(T.param_pspecs(jax_config(arch), jctx, layout)))
+        shapes, axes = padded_shapes(cfg, tctx, layout), param_axes(cfg, layout, tctx)
+        assert set(shapes) == set(specs), lever
+        for name, spec in specs.items():
+            assert shapes[name] == spec.shape, (lever, name)
+            assert axes[name] == spec.axes, (lever, name)
+            assert tctx.spec(*axes[name]) == tuple(pspecs[name]), (lever, name)
+        if (lever == "seq_shard_decode" and layout == "serve"
+                and cfg.attention == "mla"):
+            with pytest.raises(NotImplementedError, match="ROADMAP §1"):
+                check_shardable(cfg, tctx, layout)
+        else:
+            check_shardable(cfg, tctx, layout)
 
 
 @pytest.mark.parametrize("lever", [*PERF_LEVERS, "remat", "kv_cache_dtype"])
 @pytest.mark.parametrize("layout", ["serve", "train"])
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "zamba2-2.7b", "xlstm-350m"])
 def test_the_sharded_model_refuses_each_lever(arch, layout, lever):
-    """Under a mesh every §Perf lever and an int8 kv cache raise in either
-    layout, each named in a message that points at ROADMAP §1; but
-    ``remat``, which the model takes (each layer's training forward
-    checkpointed), so the sharded model builds with it."""
-    from repro_torch.models.transformer import Transformer
+    """Under a (1,2) mesh the model takes every §Perf lever in either
+    layout: it builds, and its padded shapes, logical axes and mesh specs
+    equal the reference's ``build_param_specs`` / ``param_pspecs`` under
+    the same lever, its parameters those shapes' rank shards. An int8 kv
+    cache is the refusal that remains: a real (CPU) model raises, naming
+    ROADMAP §3's question; on meta, the dry-run's count, it builds."""
+    import jax.numpy as jnp
+    from jax.sharding import AbstractMesh as JaxAbstractMesh
+    from repro.configs.registry import get_smoke_config as jax_smoke
+    from repro.models import transformer as T
+    from repro.parallel import sharding as ref
+    from repro_torch.models.transformer import (Transformer, padded_shapes,
+                                                param_axes)
+    from repro_torch.parallel.sharding import shard_shape
     kw = {"remat": "full"} if lever == "remat" else \
         {"kv_cache_dtype": torch.int8} if lever == "kv_cache_dtype" else {lever: True}
+    jkw = {"kv_cache_dtype": jnp.int8} if lever == "kv_cache_dtype" else kw
     ctx = ParallelContext(mesh=AbstractMesh((1, 2), ("data", "model")), **kw)
-    if lever == "remat":
-        model = Transformer(get_smoke_config(arch), device="cpu", dtype=torch.float32,
-                            seed=None, layout=layout, ctx=ctx)
-        assert model.ctx.remat == "full"
-        return
-    with pytest.raises(NotImplementedError) as e:
-        Transformer(get_smoke_config(arch), device="cpu", dtype=torch.float32,
-                    seed=None, layout=layout, ctx=ctx)
-    assert lever in str(e.value) and "ROADMAP §1" in str(e.value)
+    jctx = ref.ParallelContext(mesh=JaxAbstractMesh((1, 2), ("data", "model")), **jkw)
+    cfg = get_smoke_config(arch)
+    device = "cpu"
+    if lever == "kv_cache_dtype":
+        with pytest.raises(NotImplementedError) as e:
+            Transformer(cfg, device="cpu", dtype=torch.float32, seed=None,
+                        layout=layout, ctx=ctx)
+        assert lever in str(e.value) and "ROADMAP §3" in str(e.value)
+        device = "meta"
+    model = Transformer(cfg, device=device, dtype=torch.float32, seed=None,
+                        layout=layout, ctx=ctx)
+    specs = dict(_jax_flat(T.build_param_specs(jax_smoke(arch), jctx, layout)))
+    pspecs = dict(_jax_flat(T.param_pspecs(jax_smoke(arch), jctx, layout)))
+    shapes, axes = padded_shapes(cfg, ctx, layout), param_axes(cfg, layout, ctx)
+    params = dict(model.named_parameters())
+    assert set(shapes) == set(specs) == set(params)
+    for name, spec in specs.items():
+        assert shapes[name] == spec.shape, name
+        assert axes[name] == spec.axes, name
+        assert ctx.spec(*axes[name]) == tuple(pspecs[name]), name
+        assert tuple(params[name].shape) == shard_shape(spec.shape, spec.axes, ctx), name

@@ -147,32 +147,39 @@ def test_parallel_modules_import_no_jax_and_start_no_group():
 @pytest.mark.parametrize("case", ["zamba2-2.7b", "xlstm-350m", "train",
                                   *port.PERF_LEVERS, "remat"])
 def test_the_sharded_model_refuses_what_is_not_ported(case):
-    """Under a mesh every §Perf lever raises, named in the message, but
-    ``remat``, which the model takes; the hybrid and ssm families and the
-    train layout, which shard since the recurrent rules and the sharded
-    train step were ported, still refuse an int8 kv cache, and take the
-    baseline rules."""
-    from repro_torch.models.transformer import check_shardable
+    """Under a mesh every §Perf lever is taken: llama3.2-3b at full size
+    passes ``check_shardable`` under it in the serve layout (the train
+    layout for ``train_kv_2d`` and ``remat``) with the reference's
+    padded shapes and specs. The hybrid and ssm families and the train
+    layout take the baseline rules and still refuse an int8 kv cache on a
+    real device (``check_cache_dtype``), not on meta."""
+    from repro_torch.models.transformer import (check_cache_dtype,
+                                                check_shardable)
     import torch
     mesh = port.AbstractMesh((1, 2), ("data", "model"))
     arch = case if case in ALL_MODELS else "llama3.2-3b"
-    layout = "train" if case == "train" else "serve"
-    kw = {}
-    if case in port.PERF_LEVERS:
-        kw[case] = True
-    elif case == "remat":
-        kw["remat"] = "full"
-    else:
-        kw["kv_cache_dtype"] = torch.int8
-    ctx = port.ParallelContext(mesh=mesh, **kw)
-    if case == "remat":
-        check_shardable(get_config(arch), ctx, "train")
+    layout = "train" if case in ("train", "train_kv_2d", "remat") else "serve"
+    cfg = get_config(arch)
+    if case in port.PERF_LEVERS or case == "remat":
+        kw = {"remat": "full"} if case == "remat" else {case: True}
+        ctx = port.ParallelContext(mesh=mesh, **kw)
+        check_shardable(cfg, ctx, layout)
+        jctx = ref.ParallelContext(mesh=JaxAbstractMesh((1, 2), ("data", "model")), **kw)
+        specs = T.param_pspecs(jax_config(arch), jctx, layout)
+        axes = param_axes(cfg, layout, ctx)
+        for stack, leaves in specs.items():
+            for leaf, pspec in (leaves.items() if isinstance(leaves, dict)
+                                else [(None, leaves)]):
+                name = stack if leaf is None else f"{stack}.{leaf}"
+                assert ctx.spec(*axes[name]) == tuple(pspec), (case, name)
         return
+    ctx = port.ParallelContext(mesh=mesh, kv_cache_dtype=torch.int8)
     with pytest.raises(NotImplementedError) as e:
-        check_shardable(get_config(arch), ctx, layout)
-    word = "kv_cache_dtype" if case in ALL_MODELS or case == "train" else case
-    assert word in str(e.value)
-    check_shardable(get_config(arch), port.ParallelContext(mesh=mesh), layout)
+        check_cache_dtype(ctx, torch.bfloat16, torch.device("cpu"))
+    assert "kv_cache_dtype" in str(e.value)
+    check_cache_dtype(ctx, torch.bfloat16, torch.device("meta"))
+    check_shardable(cfg, ctx, layout)
+    check_shardable(cfg, port.ParallelContext(mesh=mesh), layout)
 
 
 @pytest.mark.parametrize("stages,micro", [(1, 1), (2, 4), (4, 4), (4, 16), (8, 3)])
