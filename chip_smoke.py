@@ -72,7 +72,22 @@ Phases, each printed as one JSON line:
      admission and the engine's sanitizer on, each beside the port's
      ``SimRunner`` on H100 constants for the same requests and engine
      config: the same steps and preemptions on both sides, naive
-     preempting and kv-aware not, and the measured TPOT over the sim's;
+     preempting and kv-aware not, and the measured TPOT over the sim's.
+     Each run's events are written as JSONL under
+     ``chiprun_out/capacity_traces/`` and folded by ``repro_torch.obs``,
+     in this process and by ``python -m repro_torch.obs report --json`` on
+     the file (the two must agree): regime fractions, the windows' verdict
+     reasons and the requests' phase totals, card beside sim, and ``python
+     -m repro_torch.trace diff`` finds the card's file equal to itself and
+     diverging from the sim's; every
+     finished card request's span sums to its measured latency, the naive
+     card run reads ``capacity_bound`` for some of its time and no window
+     of the kv-aware one is a preemption storm. Then ``cluster``, on the
+     host: ``repro_torch.cluster.ClusterRuntime(sanitize=True)`` over four
+     DS-Distill-8B ``SimRunner`` replicas on H100 constants, colocated
+     under ``MemoryAware`` routing and disaggregated 2 + 2, serving 40
+     Poisson arrivals of the reasoning workload; each fleet summary with
+     its regime fractions (virtual-clock times, the perf model's);
  11. training, through the autograd forward that launches neither kernel
      (as the reference trains through its jnp attention; each phase
      prints the kernels' launches over its run, which must be 0):
@@ -171,6 +186,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -180,7 +196,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+sys.path.insert(0, str(SRC))
 
 # copied from tests/test_kernels.py
 FLASH_CASES = [
@@ -386,6 +404,13 @@ SHARDED_XLSTM_BLOCKS = 8
 SHARDED_LLAMA_LAYERS = 8
 SHARDED_TRAIN_EQ = dict(layers=2, batch=4, seq=64, steps=3, lr=1e-3, warmup=2)
 SHARDED_TRAIN_MAIN = dict(layers=4, batch=8, seq=128, steps=4)
+# the capacity runs' recorded events, one JSONL file a run (gitignored)
+TRACE_DIR = ROOT / "chiprun_out" / "capacity_traces"
+# the host-only fleet: four DS-Distill-8B replicas on H100 constants, 40
+# Poisson arrivals of the reasoning workload (output capped so that the
+# phase takes seconds)
+CLUSTER_TRACE = dict(n=40, rate=8.0, osl_cap=800, seed=0)
+CLUSTER_WORKER = dict(n_pages=3000, max_seqs=64)
 
 
 def emit(phase: str, **kw):
@@ -1181,6 +1206,68 @@ def vlm_audio_configs():
              {"n_layers": [vlm.n_layers, INTERNVL_LAYERS]}, SERVE_REQUESTS)]
 
 
+def port_cli(module, *args):
+    """``python -m repro_torch.<module> *args`` from the repository's root,
+    as a user runs it."""
+    return subprocess.run([sys.executable, "-m", f"repro_torch.{module}", *args],
+                          cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)},
+                          capture_output=True, text=True, timeout=300)
+
+
+def attribution(label, eng, reqs):
+    """Fold one recorded engine run with ``repro_torch.obs``. The events go
+    to ``TRACE_DIR/<label>.jsonl`` (``repro_torch.trace.jsonl``); the
+    bottleneck report is built in this process and again by ``python -m
+    repro_torch.obs report --json`` on the file, and the two must agree. Every
+    finished request's span must telescope to its measured latency
+    (``Span.total_s == t_finished - arrival``, the identity of
+    ``obs/spans.py``). Returns the regimes, the request phases and the
+    windows' verdict reasons."""
+    from repro_torch.obs import (attribute, bottleneck_report, build_windows,
+                                 fold_spans, regime_fractions)
+    from repro_torch.trace.jsonl import dump_events
+
+    events = eng.events.events
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRACE_DIR / f"{label}.jsonl"
+    n_events = dump_events(events, str(path))
+    rep = bottleneck_report(events)
+    trace = str(path.relative_to(ROOT))
+    cli = port_cli("obs", "report", "--json", trace)
+    if cli.returncode != 0:
+        raise AssertionError(f"{label}: obs report exited {cli.returncode}: "
+                             f"{cli.stderr[-2000:]}")
+    if json.loads(cli.stdout) != json.loads(json.dumps(rep)):
+        raise AssertionError(f"{label}: the obs CLI's report of {path.name} "
+                             "differs from the in-process report")
+    spans = {sp.rid: sp for sp in fold_spans(events).spans}
+    broken = [r.rid for r in reqs if r.t_finished is not None
+              and (r.rid not in spans
+                   or spans[r.rid].total_s != r.t_finished - r.arrival)]
+    if broken:
+        raise AssertionError(f"{label}: spans of rids {broken} do not sum to "
+                             "t_finished - arrival")
+    reasons = {}
+    for v in attribute(build_windows(events)).verdicts:
+        reasons[v.reason] = reasons.get(v.reason, 0) + 1
+    q = rep["requests"]
+    return dict(
+        trace=trace, n_events=n_events, window_s=rep["window_s"],
+        regimes=regime_fractions(rep), reasons=reasons,
+        requests=dict(n_finished=q["n_finished"], n_unfinished=q["n_unfinished"],
+                      n_preempted=q["n_preempted"],
+                      phase_total_s={k: v["total_s"] for k, v in q["phases"].items()},
+                      phase_frac_of_e2e={k: v["frac_of_e2e"]
+                                         for k, v in q["phases"].items()}))
+
+
+def trace_diff(a, b):
+    """``python -m repro_torch.trace diff a b``: its exit code and the first
+    line of its report."""
+    res = port_cli("trace", "diff", a, b, "--context", "0")
+    return res.returncode, (res.stdout.splitlines() or [res.stderr.strip()])[0]
+
+
 def capacity(flash_ops, paged_ops):
     """The capacity-bound regime on the card: full-depth llama3.2-3b in bf16
     serves ``SERVE_REQUESTS`` with 16 sequences at most on half the pool
@@ -1189,8 +1276,13 @@ def capacity(flash_ops, paged_ops):
     with H100 constants serves the same lengths behind the same
     ``EngineConfig``. Every request arrives at t=0 and the scheduler reads
     no clock, so the card and the sim must take the same steps and preempt
-    alike; naive admission must preempt and kv-aware must not. Returns the
-    kernels' launches of each card run."""
+    alike; naive admission must preempt and kv-aware must not. Each run's
+    events are recorded and folded by ``attribution``: the naive card run
+    must read ``capacity_bound`` for some of its time, the kv-aware one must
+    have no window of a preemption storm, and each report must count every
+    request finished. ``python -m repro_torch.trace diff`` must find the
+    card's file equal to itself and diverging from the sim's (the clocks
+    differ). Returns the kernels' launches of each card run."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core import perf_model as pm
     from repro_torch.core.engine import EngineConfig, InferenceEngine
@@ -1207,16 +1299,18 @@ def capacity(flash_ops, paged_ops):
     for admission in ("naive", "kv_aware"):
         ecfg = EngineConfig(n_pages=n_pages, max_num_seqs=16,
                             admission_mode=admission, sanitize=True)
-        runs = {}
+        runs, folds = {}, {}
         for side in ("card", "sim"):
             if side == "card":
                 eng = InferenceEngine(cfg, ecfg, TorchRunner(model, device="cuda"),
                                       virtual_clock=False)
+                eng.events.enable_recording()
                 reqs = [eng.submit(p, n) for p, n in requests]
                 _zero_launches(flash_ops, paged_ops)
             else:
                 eng = InferenceEngine(cfg, ecfg, SimRunner(
                     cfg, pm.ParallelismPlan(), pm.H100))
+                eng.events.enable_recording()
                 reqs = [eng.submit(len(p), n) for p, n in requests]
             t0 = time.perf_counter()
             eng.run()
@@ -1236,13 +1330,24 @@ def capacity(flash_ops, paged_ops):
                 tpot_mean_s=s["tpot_s"]["mean"], engine_s=s["duration_s"],
                 peak_kv_util=s["peak_kv_util"], host_wall_s=wall,
                 preempted_rids=[q.rid for q in reqs if q.n_preemptions])
+            folds[side] = attribution(f"capacity_{admission}_{side}", eng, reqs)
         card, sim = runs["card"], runs["sim"]
+        diffs = {"card_card": trace_diff(folds["card"]["trace"], folds["card"]["trace"]),
+                 "card_sim": trace_diff(folds["card"]["trace"], folds["sim"]["trace"])}
         emit("capacity", model=cfg.name, layers=cfg.n_layers, dtype="bfloat16",
              admission=admission, n_pages=n_pages,
              pages_to_hold=pages_to_hold(requests), max_num_seqs=16,
              sanitize=True, sim_hw=pm.H100.name, card=card, sim=sim,
              tpot_measured_over_predicted=card["tpot_mean_s"] / sim["tpot_mean_s"],
-             launches=launches[admission])
+             launches=launches[admission],
+             regimes={side: o["regimes"] for side, o in folds.items()},
+             requests={side: o["requests"] for side, o in folds.items()},
+             reasons={side: o["reasons"] for side, o in folds.items()},
+             traces={side: dict(path=o["trace"], n_events=o["n_events"],
+                                window_s=o["window_s"]) for side, o in folds.items()},
+             trace_diff=diffs,
+             clocks="card: the engine clock, the host wall time of each step "
+                    "on the card; sim: the perf model's (H100 constants)")
         for key in ("steps", "preemptions", "recomputed_tokens", "preempted_rids"):
             if card[key] != sim[key]:
                 raise AssertionError(f"capacity/{admission}: card {key} "
@@ -1250,11 +1355,79 @@ def capacity(flash_ops, paged_ops):
         if min(launches[admission].values()) == 0:
             raise AssertionError(f"capacity/{admission}: a kernel was not on "
                                  f"the path: {launches[admission]}")
+        for side, o in folds.items():
+            if o["requests"]["n_finished"] != len(requests):
+                raise AssertionError(f"capacity/{admission}/{side}: the report "
+                                     f"finishes {o['requests']['n_finished']} of "
+                                     f"{len(requests)} requests")
+        if diffs["card_card"][0] != 0 or diffs["card_sim"][0] != 1:
+            raise AssertionError(f"capacity/{admission}: trace diff exit codes "
+                                 f"{diffs}; want 0 on itself, 1 against the sim")
+        regimes, reasons = folds["card"]["regimes"], folds["card"]["reasons"]
+        if admission == "naive" and not regimes["fractions"]["capacity_bound"] > 0:
+            raise AssertionError("capacity/naive: the card run preempts but reads "
+                                 f"no capacity_bound time: {regimes}")
+        if admission == "kv_aware" and "preemption_storm" in reasons:
+            raise AssertionError("capacity/kv_aware: a window of the card run is a "
+                                 f"preemption storm: {reasons}")
         preempted[admission] = card["preemptions"]
     if preempted["naive"] < 1 or preempted["kv_aware"] != 0:
         raise AssertionError(f"capacity: preemptions {preempted}; naive must "
                              "preempt and kv-aware must not")
     return launches
+
+
+def cluster_phase():
+    """The port's cluster layer on the host, where there is no JAX:
+    ``ClusterRuntime(sanitize=True)`` over four ``make_sim_worker`` replicas
+    of DS-Distill-8B on H100 constants, colocated under ``MemoryAware``
+    routing and disaggregated 2 prefill + 2 decode, serving one 40-request
+    Poisson trace of the reasoning workload. Each fleet's summary carries
+    the regime fractions of its event stream; every request must finish,
+    its span telescoping to its latency, and the disaggregated fleet must
+    migrate. The times are the perf model's virtual clock, not the card's."""
+    from repro_torch import cluster as cl
+    from repro_torch.configs.paper_models import DS_DISTILL_8B
+    from repro_torch.core import perf_model as pm
+    from repro_torch.data.reasoning import REASONING
+    from repro_torch.obs import bottleneck_report, fold_spans, regime_fractions
+
+    c = CLUSTER_TRACE
+    trace = cl.make_trace(cl.PoissonProcess(rate=c["rate"]), REASONING, c["n"],
+                          seed=c["seed"], osl_cap=c["osl_cap"])
+    for mode, roles in (("colocated", ["colocated"] * 4),
+                        ("disaggregated", ["prefill"] * 2 + ["decode"] * 2)):
+        workers = [cl.make_sim_worker(DS_DISTILL_8B, pm.ParallelismPlan(), pm.H100,
+                                      role=role, name=f"{role}{i}", **CLUSTER_WORKER)
+                   for i, role in enumerate(roles)]
+        rt = cl.ClusterRuntime(workers, cl.ClusterConfig(policy=cl.MemoryAware()),
+                               sanitize=True)
+        rt.events.enable_recording()
+        rt.submit_trace(trace)
+        t0 = time.perf_counter()
+        m = rt.run()
+        wall = time.perf_counter() - t0
+        rep = bottleneck_report(rt.events.events)
+        summary = m.summary(regimes=regime_fractions(rep))
+        broken = [sp.rid for sp in fold_spans(rt.events.events).spans
+                  if sp.total_s != sp.t_finished - sp.arrival]
+        emit("cluster", mode=mode, model=DS_DISTILL_8B.name, hw=pm.H100.name,
+             workers=roles, policy="memory_aware", dispatcher=rt.cfg.dispatcher,
+             sanitize=True, trace=dict(process="poisson", workload="reasoning", **c),
+             clock="virtual: every time on this line is the perf model's (H100 "
+                   "constants), not the card's", host_wall_s=wall,
+             summary=summary,
+             phase_frac_of_e2e={k: v["frac_of_e2e"]
+                                for k, v in rep["requests"]["phases"].items()})
+        if summary["n_finished"] != c["n"] or rep["requests"]["n_finished"] != c["n"]:
+            raise AssertionError(f"cluster/{mode}: {summary['n_finished']} of "
+                                 f"{c['n']} requests finished")
+        if broken:
+            raise AssertionError(f"cluster/{mode}: spans of rids {broken} do not "
+                                 "sum to t_finished - arrival")
+        if (summary["n_migrations"] > 0) != (mode == "disaggregated"):
+            raise AssertionError(f"cluster/{mode}: {summary['n_migrations']} "
+                                 "migrations")
 
 
 def train_equality(flash_ops, paged_ops):
@@ -2809,6 +2982,7 @@ def main():
     for admission, n in capacity(flash_ops, paged_ops).items():
         by_model[f"llama3.2-3b capacity {admission}"] = n
     free_card()
+    cluster_phase()
 
     train_equality(flash_ops, paged_ops)
     free_card()

@@ -45,8 +45,10 @@ H100 = Hardware(name="h100-sxm", flops=989e12, hbm_bw=3.35e12, hbm_cap=80e9,
 
 # per-microbatch-pass pipeline overhead (stage hand-off, host-driven step
 # launch; vLLM PP's known decode tax). Calibrated on the paper's 14B
-# PP2+TP4 = 3.5x-DP8 and 405B PP8 = 7.6x-TP8 points.
-PP_PASS_OVERHEAD = {"h200-sxm": 5e-3, "tpu-v5e": 2e-3}
+# PP2+TP4 = 3.5x-DP8 and 405B PP8 = 7.6x-TP8 points. The H100 takes the
+# GPU value: a host-driven launch and a stage hand-off over the same
+# NVLink/network generation whose link terms it shares with the H200.
+PP_PASS_OVERHEAD = {"h200-sxm": 5e-3, "h100-sxm": 5e-3, "tpu-v5e": 2e-3}
 
 
 @dataclasses.dataclass(frozen=True)

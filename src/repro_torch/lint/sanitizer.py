@@ -1,17 +1,19 @@
-"""Engine sanitizer — dynamic event-loop invariants, checked every step.
+"""Sim sanitizer — dynamic event-loop invariants, checked every step.
 
-A copy of ``repro.lint.sanitizer``'s ``EngineSanitizer``: a clock that
-steps backwards, KV pages leaked or double-owned, a queue entry missing
-from the submitted log. Every check is strictly read-only over engine
-state, so a ``sanitize=True`` run produces metrics bit-identical to the
-default path — the sanitizer observes, never steers. It reads only the
+A copy of ``repro.lint.sanitizer``'s ``EngineSanitizer`` and
+``ClusterSanitizer``: a clock that steps backwards, KV pages leaked or
+double-owned across eject/inject, a queue entry missing from the submitted
+log, a worker-second timeline that contradicts the mint/decommission
+events. Every check is strictly read-only over engine/cluster state, so a
+``sanitize=True`` run produces metrics bit-identical to the default path —
+the sanitizer observes, never steers. ``EngineSanitizer`` reads only the
 engine's scheduler, allocator and event stream, so it checks a real
 (``TorchRunner``) engine as it checks a virtual-clock one.
 
-Enable with ``EngineConfig(sanitize=True)``; violations raise
+Enable with ``EngineConfig(sanitize=True)`` or
+``ClusterRuntime(..., sanitize=True)``; violations raise
 ``SanitizerError`` at the step that broke the invariant, not thousands of
-events later. The fleet-level ``ClusterSanitizer`` waits for the cluster
-runtime.
+events later.
 """
 from __future__ import annotations
 
@@ -215,3 +217,128 @@ class EngineSanitizer:
         if fin_missing:
             _fail(self.name, f"finished rids missing from the submitted "
                              f"log: {sorted(fin_missing)}")
+
+
+class ClusterSanitizer:
+    """Fleet-level invariants, checked every run-loop iteration:
+
+    - every worker's engine invariants (sanitizers are created lazily, so
+      autoscale-minted workers are covered from their first step);
+    - worker names unique; pools contain only active members of their role
+      (warming and draining replicas excluded);
+    - lifecycle timeline sane: ``t_active >= t_join``, a decommission stamp
+      never precedes the mint or the retirement request (worker-second
+      accounting depends on this ordering);
+    - in-flight migrations hold no KV pages on any engine (the pages were
+      freed at eject, the target allocates at inject) and have
+      ``ready >= eject``;
+    - the fleet submitted log is duplicate-free;
+    - the fleet event stream's scaling lifecycle is ordered per worker:
+      ``mint -> join -> retire -> drained``, never skipping backwards (a
+      replica that drains without retiring, or joins twice, is a runtime
+      bookkeeping bug the summary-level checks cannot see).
+    """
+
+    _STAGE = {"mint": 0, "join": 1, "retire": 2, "drained": 3}
+
+    def __init__(self):
+        self._engines: Dict[str, EngineSanitizer] = {}
+        self._stages: Dict[str, int] = {}
+        self._subscribed = False
+
+    def attach(self, rt):
+        """Subscribe to the fleet stream. The runtime calls this at
+        construction so no lifecycle event predates the subscription;
+        ``check`` self-attaches for standalone use."""
+        if not self._subscribed:
+            rt.events.subscribe(self.on_event)
+            self._subscribed = True
+
+    def check(self, rt):
+        self.attach(rt)
+        for w in rt.workers:
+            es = self._engines.get(w.name)
+            if es is None:
+                es = self._engines[w.name] = EngineSanitizer(
+                    w.engine, name=f"worker {w.name}")
+            es.check()
+        self._check_fleet(rt)
+        self._check_lifecycle(rt)
+        self._check_migrations(rt)
+        self._check_submitted(rt)
+
+    def on_event(self, ev):
+        stage = self._STAGE.get(ev.kind)
+        if stage is None:
+            return
+        # workers present at t=0 never mint on-stream: their first lifecycle
+        # event is a retire, which is fine — only going backwards (or
+        # joining un-minted, draining un-retired) is a violation
+        prev = self._stages.get(ev.worker)
+        if stage in (1, 3) and prev != stage - 1:
+            _fail("fleet", f"worker {ev.worker!r} scaling lifecycle: "
+                           f"{ev.kind!r} without a preceding "
+                           f"{'mint' if stage == 1 else 'retire'} "
+                           f"on the stream")
+        if prev is not None and stage <= prev:
+            _fail("fleet", f"worker {ev.worker!r} scaling lifecycle moved "
+                           f"backwards: stage {prev} -> {ev.kind!r}")
+        self._stages[ev.worker] = stage
+
+    # ------------------------------------------------------------ invariants
+    def _check_fleet(self, rt):
+        names = [w.name for w in rt.workers]
+        if len(set(names)) != len(names):
+            _fail("fleet", f"duplicate worker names: {names}")
+        member: List = [*rt.prefill_pool, *rt.decode_pool, *rt.colocated_pool]
+        for w in member:
+            if w not in rt.workers:
+                _fail("fleet", f"pool member {w.name!r} not in the fleet")
+            if w in rt._warming:
+                _fail("fleet", f"warming worker {w.name!r} is already in a "
+                               f"route/dispatch pool")
+            if w.draining:
+                _fail("fleet", f"draining worker {w.name!r} still in a "
+                               f"route/dispatch pool")
+        for pool, role in ((rt.prefill_pool, "prefill"),
+                           (rt.decode_pool, "decode"),
+                           (rt.colocated_pool, "colocated")):
+            for w in pool:
+                if w.role != role:
+                    _fail("fleet", f"worker {w.name!r} (role {w.role!r}) "
+                                   f"sits in the {role} pool")
+
+    def _check_lifecycle(self, rt):
+        for w in rt.workers:
+            if w.t_active < w.t_join - 1e-12:
+                _fail("fleet", f"worker {w.name!r} active at {w.t_active} "
+                               f"before joining at {w.t_join}")
+            if w.t_retire is not None:
+                if w.t_retire < w.t_join - 1e-12:
+                    _fail("fleet", f"worker {w.name!r} retired at "
+                                   f"{w.t_retire} before joining at "
+                                   f"{w.t_join}")
+                asked = rt._retire_requested.get(w.name)
+                if asked is not None and w.t_retire < asked - 1e-12:
+                    _fail("fleet", f"worker {w.name!r} decommissioned at "
+                                   f"{w.t_retire}, before the retirement "
+                                   f"request at {asked}")
+
+    def _check_migrations(self, rt):
+        for m in rt._migrating:
+            req = m["req"]
+            if m["ready"] < m["eject"] - 1e-12:
+                _fail("fleet", f"migration of rid {req.rid} ready at "
+                               f"{m['ready']} before its eject at "
+                               f"{m['eject']}")
+            holders = [w.name for w in rt.workers
+                       if req.rid in w.engine.alloc._tables]
+            if holders:
+                _fail("fleet", f"migrating rid {req.rid} still holds KV "
+                               f"pages on {holders} (eject must free them)")
+
+    def _check_submitted(self, rt):
+        rids = [r.rid for r in rt.submitted]
+        if len(set(rids)) != len(rids):
+            dupes = sorted({r for r in rids if rids.count(r) > 1})
+            _fail("fleet", f"rids in the fleet submitted log twice: {dupes}")
