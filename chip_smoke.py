@@ -87,7 +87,17 @@ Phases, each printed as one JSON line:
      DS-Distill-8B ``SimRunner`` replicas on H100 constants, colocated
      under ``MemoryAware`` routing and disaggregated 2 + 2, serving 40
      Poisson arrivals of the reasoning workload; each fleet summary with
-     its regime fractions (virtual-clock times, the perf model's);
+     its regime fractions (virtual-clock times, the perf model's). Then
+     ``examples``: ``python -m repro_torch.lint src/repro_torch`` and
+     ``plan_deployment --scenario ds8b-4xh200-colocated`` as host
+     subprocesses (exit 0); the quickstart's three steps in process on
+     full-width llama3.2-3b in bf16 (its engine and planner lines the CPU
+     run's), serve_reasoning's real half with naive and kv-aware admission
+     on that model (10 requests, 468 tokens, 119 steps and no preemption,
+     as on the CPU's reduced model; TTFT, TPOT beside its weight floor,
+     throughput), each launching K1 and K2; the reduced model (head dim
+     16) refused on the card by the kernel; and ``python -m
+     repro_torch.examples.quickstart`` alone printing the same lines;
  11. training, through the autograd forward that launches neither kernel
      (as the reference trains through its jnp attention; each phase
      prints the kernels' launches over its run, which must be 0):
@@ -411,6 +421,14 @@ TRACE_DIR = ROOT / "chiprun_out" / "capacity_traces"
 # phase takes seconds)
 CLUSTER_TRACE = dict(n=40, rate=8.0, osl_cap=800, seed=0)
 CLUSTER_WORKER = dict(n_pages=3000, max_seqs=64)
+# what the examples print or serve on the CPU's reduced model (``--smoke
+# --device cpu``); the full-width model on the card must serve the same
+# lengths in the same steps, since the scheduler reads no clock
+QUICKSTART_ENGINE = "[2] engine: 5 requests, 40 tokens, preemptions=0"
+QUICKSTART_PLANNER = ("[3] planner: llama3.2-3b on 64x v5e -> DP=8+TP=8 (~76772 "
+                      "decode tok/s, 256 concurrent reqs/replica)")
+REASONING_REAL = dict(n_finished=10, gen_tokens=468, preemptions=0,
+                      recomputed_tokens=0, steps=119)
 
 
 def emit(phase: str, **kw):
@@ -1428,6 +1446,109 @@ def cluster_phase():
         if (summary["n_migrations"] > 0) != (mode == "disaggregated"):
             raise AssertionError(f"cluster/{mode}: {summary['n_migrations']} "
                                  "migrations")
+
+
+def examples_phase(flash_ops, paged_ops):
+    """The port's examples and its lint on the card machine, where there is
+    no JAX. ``python -m repro_torch.lint src/repro_torch`` and
+    ``plan_deployment --scenario ds8b-4xh200-colocated`` (host only) run as
+    subprocesses beside the card's work and must exit 0. The quickstart's
+    three steps run in process on full-width llama3.2-3b in bf16 (its
+    engine and planner lines those of the CPU's reduced run, its logits
+    finite), then serve_reasoning's real half with each admission on the
+    same model, each taking the CPU's steps, tokens and no preemption; each
+    launches K1 and K2. The reduced model (head dim 16) on the card must
+    raise the kernel's head-dim error. Last, ``python -m
+    repro_torch.examples.quickstart`` alone must print the same lines.
+    Returns each example's launches; no subprocess outlives it."""
+    from repro_torch.examples import quickstart, serve_reasoning
+
+    host = {name: subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.{module}", *args], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(SRC)}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for name, module, args in (
+            ("lint", "lint", ["src/repro_torch"]),
+            ("plan_deployment", "examples.plan_deployment",
+             ["--scenario", "ds8b-4xh200-colocated"]))}
+    try:
+        launches = {}
+        t0 = time.perf_counter()
+        model = quickstart.build_model(False, "cuda")
+        _zero_launches(flash_ops, paged_ops)
+        lines = quickstart.run(model)
+        torch.cuda.synchronize()
+        launches["examples/quickstart"] = _launches(flash_ops, paged_ops)
+        emit("examples", example="quickstart", model=model.cfg.name, dtype="bfloat16",
+             lines=lines, wall_s_with_weight_init=time.perf_counter() - t0,
+             launches=launches["examples/quickstart"])
+        vocab = model.cfg.vocab
+        if lines[0] != f"[1] forward: logits (1, 16, {vocab}), finite=True" \
+                or lines[1:] != [QUICKSTART_ENGINE, QUICKSTART_PLANNER]:
+            raise AssertionError(f"examples/quickstart printed {lines}")
+        if min(launches["examples/quickstart"].values()) == 0:
+            raise AssertionError(f"quickstart: a kernel was not launched: {launches}")
+
+        weight_bytes = decode_weight_bytes(model)
+        served = {}
+        for admission in ("naive", "kv_aware"):
+            _zero_launches(flash_ops, paged_ops)
+            eng = serve_reasoning.real_engine(admission, model)
+            torch.cuda.synchronize()
+            n = _launches(flash_ops, paged_ops)
+            served[admission] = n
+            s = eng.metrics.summary()
+            got = dict(n_finished=s["n_finished"], gen_tokens=s["gen_tokens"],
+                       preemptions=s["preemptions"],
+                       recomputed_tokens=s["recomputed_tokens"],
+                       steps=len(eng.metrics.timeline))
+            emit("examples", example="serve_reasoning", admission=admission,
+                 model=model.cfg.name, dtype="bfloat16", **got,
+                 ttft_p50_s=s["ttft_s"]["p50"], tpot_mean_s=s["tpot_s"]["mean"],
+                 gen_tok_s=s["gen_throughput_tok_s"], engine_s=s["duration_s"],
+                 decode_weight_bytes=weight_bytes,
+                 tpot_weight_bound_ms=weight_bytes / PEAK_BYTES * 1e3, launches=n)
+            if got != REASONING_REAL:
+                raise AssertionError(f"serve_reasoning/{admission}: {got}, the CPU "
+                                     f"run's {REASONING_REAL}")
+            if min(n.values()) == 0:
+                raise AssertionError(f"serve_reasoning/{admission}: a kernel was "
+                                     f"not launched: {n}")
+            del eng
+        launches["examples/serve_reasoning"] = {
+            k: sum(n[k] for n in served.values()) for k in served["naive"]}
+        del model
+        free_card()
+        try:
+            quickstart.run(quickstart.build_model(True, "cuda"))
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("the reduced model (head dim 16) ran on the card")
+        if "head dim 16" not in refused:
+            raise AssertionError(f"the reduced model on the card: {refused}")
+        free_card()
+
+        t0 = time.perf_counter()
+        res = port_cli("examples.quickstart")
+        emit("examples", example="quickstart_cli", returncode=res.returncode,
+             wall_s=time.perf_counter() - t0, smoke_on_card=refused,
+             stdout=res.stdout.splitlines(), stderr=res.stderr[-2000:])
+        if res.returncode != 0 or res.stdout.splitlines() != lines:
+            raise AssertionError("python -m repro_torch.examples.quickstart: exit "
+                                 f"{res.returncode}, {res.stdout!r}")
+        for name, proc in host.items():
+            out, err = proc.communicate(timeout=300)
+            emit("examples", example=name, returncode=proc.returncode,
+                 stdout=out.splitlines()[-6:], stderr=err[-2000:])
+            if proc.returncode != 0:
+                raise AssertionError(f"{name}: exit {proc.returncode}")
+    finally:
+        for proc in host.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return launches
 
 
 def train_equality(flash_ops, paged_ops):
@@ -2983,6 +3104,8 @@ def main():
         by_model[f"llama3.2-3b capacity {admission}"] = n
     free_card()
     cluster_phase()
+    by_model.update(examples_phase(flash_ops, paged_ops))
+    free_card()
 
     train_equality(flash_ops, paged_ops)
     free_card()

@@ -63,12 +63,14 @@ def run(*, steps: int = 60, batch: int = 4, seq: int = 256,
         opt, start = ckpt.restore_training(model, opt, ckpt_dir, resume_from)
     step_fn = make_train_step(model, ocfg)
     losses = {}
+    # lint: disable=REP002 (real training-loop step timing, not simulation)
     t0 = time.perf_counter()
     for step in range(start, steps):
         m = step_fn(opt, batch_for(step, batch, seq, cfg.vocab, dev))
         losses[step + 1] = float(m["loss"])
         if (step + 1) % 20 == 0:
             print(f"step {step + 1:4d} loss {losses[step + 1]:.4f} "
+                  # lint: disable=REP002 (real training throughput readout)
                   f"({(time.perf_counter() - t0) / (step - start + 1):.2f}s/step)",
                   flush=True)
         if (step + 1) % CKPT_EVERY == 0:

@@ -11,9 +11,9 @@ engine's scheduler, allocator and event stream, so it checks a real
 (``TorchRunner``) engine as it checks a virtual-clock one.
 
 Enable with ``EngineConfig(sanitize=True)`` or
-``ClusterRuntime(..., sanitize=True)``; violations raise
-``SanitizerError`` at the step that broke the invariant, not thousands of
-events later.
+``ClusterRuntime(..., sanitize=True)`` (or ``Scenario.to_engine/to_cluster
+(sanitize=True)``); violations raise ``SanitizerError`` at the step that
+broke the invariant, not thousands of events later.
 """
 from __future__ import annotations
 
