@@ -303,6 +303,20 @@ VLM_AUDIO_FLASH = [(1, 1000, 1000, 24, 24, 64, 0),
                     INTERNVL_PREFIX + INTERNVL_TEXT, 64, 8, 128, 0)]
 MUSICGEN_PAGED = dict(B=16, KV=24, G=1, D=64, max_ctx=1280)
 INTERNVL_PAGED = dict(B=16, KV=8, G=8, D=128, max_ctx=1280)
+# K1's non-causal mode (the reference wrapper's ``causal=False``) with a
+# scale of its own: (B, Sq, Skv, H, KV, D, window, lens, scale); Sq != Skv,
+# lens < Skv, with and without a window. No caller on the main path uses it.
+NONCAUSAL_FLASH = [
+    (2, 200, 333, 8, 2, 64, 0, [333, 170], 0.09),
+    (1, 300, 137, 4, 4, 80, 0, [100], 0.2),
+    (2, 130, 500, 8, 2, 128, 0, [450, 257], 0.06),
+    (1, 257, 400, 4, 2, 128, 100, [390], 0.1),
+    (1, 1000, 1000, 24, 8, 128, 0, [1000], 128 ** -0.5),
+    (1, 500, 2000, 24, 8, 128, 0, [2000], 128 ** -0.5),
+]
+# its timing rows: llama3.2-3b's heads at S 1000, and queries of 500 over
+# 2,000 keys
+NONCAUSAL_TIMED = [(1, 1000, 1000, 24, 8, 128, 0), (1, 500, 2000, 24, 8, 128, 0)]
 TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 # limit on |out - ref|_2 / |ref|_2 over a whole output: bf16 roundings of
 # q*scale, P and out give about 3e-3, while a dropped key tile or sequence
@@ -531,6 +545,7 @@ def check_kernels(flash_ops, paged_ops):
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {"flash_attention": [], "paged_attention": []}
     rels = {"flash_attention": [], "paged_attention": []}
+    noncausal = []
     for dtype in (torch.float32, torch.bfloat16):
         for case in (FLASH_CASES + MAIN_FLASH + RAGGED_FLASH + PHI_FLASH
                      + GQA_FLASH + ZAMBA_FLASH + VLM_AUDIO_FLASH + RANK_FLASH
@@ -541,6 +556,19 @@ def check_kernels(flash_ops, paged_ops):
                 (q, k, v, lens), {"window": window}, dtype)
             errs["flash_attention"].append(err)
             rels["flash_attention"].append(rel)
+        for B, Sq, Skv, H, KV, D, window, lens, scale in NONCAUSAL_FLASH:
+            q, k, v, lt, _ = flash_inputs((B, Sq, Skv, H, KV, D, window, lens), dtype, gen)
+            count = flash_ops.NONCAUSAL.launches
+            err, rel = compare(
+                flash_ops.flash_attention, flash_ops.flash_attention_plain,
+                (q, k, v, lt), {"causal": False, "window": window, "scale": scale},
+                dtype)
+            if flash_ops.NONCAUSAL.launches != count + 1:
+                raise AssertionError("flash_attention(causal=False) did not launch "
+                                     "the non-causal instance")
+            errs["flash_attention"].append(err)
+            rels["flash_attention"].append(rel)
+            noncausal.append(err)
         cases = [paged_case_inputs(c, dtype, gen) for c in PAGED_CASES]
         mains = [(*paged_main_inputs(dtype, gen, m), m.get("window", 0))
                  for m in (MAIN_PAGED, LONG_PAGED, PHI_PAGED, *GQA_PAGED,
@@ -563,7 +591,10 @@ def check_kernels(flash_ops, paged_ops):
         emit("check", kernel=name, cases=len(e), max_abs_err=max(e),
              max_rel_rms=max(rels[name]), errs=[float(f"{x:.3g}") for x in e],
              rel_rms=[float(f"{x:.3g}") for x in rels[name]])
-    return {name: max(e) for name, e in errs.items()}
+    emit("check", kernel="flash_attention", mode="causal=False",
+         cases=len(noncausal), max_abs_err=max(noncausal))
+    return {name: max(e) for name, e in errs.items()} | {
+        "flash_attention causal=False": max(noncausal)}
 
 
 def time_ms(fn, iters, warmup=3):
@@ -645,23 +676,33 @@ def library_kernels(fn):
                    if evt.device_type == torch.autograd.DeviceType.CUDA})
 
 
-def time_flash(flash_ops, case, dtype, gen):
+def time_flash(flash_ops, case, dtype, gen, causal=True):
+    """K1's row at ``case``; ``causal=False`` times the non-causal instance
+    (every key below lens, Sq and Skv independent) against SDPA with
+    ``is_causal=False``."""
     import torch.nn.functional as F
     q, k, v, lens, window = flash_inputs(case, dtype, gen)
     B, Sq, Skv, H, KV, D, _ = case[:7]
     lens_np = lens.cpu().numpy()
-    # causal (q, k) pairs these inputs need: row i sees the keys from
-    # max(0, i - window + 1) to min(i, lens[b] - 1)
+    # (q, k) pairs these inputs need: row i sees the keys from
+    # max(0, i - window + 1) to min(i, lens[b] - 1), or, non-causal, to
+    # lens[b] - 1
     rows = np.arange(Sq)
     first = np.maximum(0, rows - window + 1) if window > 0 else np.zeros_like(rows)
-    pairs = sum(int(np.maximum(np.minimum(rows + 1, lb) - first, 0).sum())
-                for lb in lens_np)
+    pairs = sum(int(np.maximum(np.minimum(rows + 1 if causal else Skv, lb) - first,
+                               0).sum()) for lb in lens_np)
     flops = 4 * D * H * pairs
-    out = flash_ops.flash_attention(q, k, v, lens, window=window)
+    # no causal argument for the causal rows: tools/ab_main_path.py times
+    # wrappers of trees that take none
+    kw = {"window": window} if causal else {"window": window, "causal": False}
+    out = flash_ops.flash_attention(q, k, v, lens, **kw)
     b_ms, b_by = bound(flops, nbytes(q, k, v, lens, out), dtype)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    kernel = lambda: flash_ops.flash_attention(q, k, v, lens, window=window)  # noqa: E731
-    if window > 0:  # every sequence is whole here (B 1, lens = Skv)
+    kernel = lambda: flash_ops.flash_attention(q, k, v, lens, **kw)  # noqa: E731
+    if not causal:  # every sequence is whole here (B 1, lens = Skv)
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=False, enable_gqa=True)
+    elif window > 0:  # every sequence is whole here (B 1, lens = Skv)
         pos = torch.arange(Skv, device=q.device)
         mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -671,10 +712,11 @@ def time_flash(flash_ops, case, dtype, gen):
             qt, kt, vt, is_causal=True, enable_gqa=True)
     t = timed(kernel, library, 20, b_ms)
     return dict(
-        shape=list(case[:6]), window=window, dtype=str(dtype).split(".")[-1], **t,
+        shape=list(case[:6]), window=window, causal=causal,
+        dtype=str(dtype).split(".")[-1], **t,
         bound_ms=b_ms, bound_by=b_by, library_kernels=library_kernels(library),
         plain_ms=time_ms(lambda: flash_ops.flash_attention_plain(
-            q, k, v, lens, window=window), 5)[0],
+            q, k, v, lens, **kw), 5)[0],
         flops=flops, tflop_s=flops / t["ms"] / 1e9,
         device_tflop_s=flops / t["device_ms"] / 1e9)
 
@@ -2604,24 +2646,29 @@ def long_decode(flash_ops, paged_ops):
 
 # the levers phase: the reference's §Perf levers on gloo ranks on the card,
 # 2 layers at published widths in fp32, prompts of 12-200 tokens (h2o-danube
-# two past its 4,096 window) and LEVER_STEPS greedy steps each
+# two past its 4,096 window) served through ``TorchRunner`` behind the
+# engine, LEVER_STEPS tokens a request
 LEVER_LAYERS = 2
 LEVER_STEPS = 8
 LEVER_PROMPTS = dict(n=4, isl=(12, 200), seed=3)
 LEVER_DANUBE_PROMPTS = (4200, 4260)
-LEVER_PAGE = 16
 # the runner's prefill chunks: prompts of 12-200 tokens take uneven ones
 LEVER_ENGINE = dict(max_num_seqs=4, max_num_batched_tokens=512, chunk_size=48,
                     admission_mode="naive")
-# lever -> (model, mesh (data, model), the path it takes, other options)
+# a lever run takes at most about 250 engine steps (h2o-danube's two
+# 4,200-token prompts in 48-token chunks, one after the other)
+LEVER_MAX_STEPS = 2000
+# run -> (lever, model, mesh (data, model), the path it takes, other options)
 LEVER_RUNS = {
-    "serve_2d_tp": ("llama3.2-3b", (2, 2), "model", {}),
-    "moe_ff_shard": ("phi3.5-moe-42b-a6.6b", (2, 2), "model",
+    "serve_2d_tp": ("serve_2d_tp", "llama3.2-3b", (2, 2), "runner", {}),
+    "moe_ff_shard": ("moe_ff_shard", "phi3.5-moe-42b-a6.6b", (2, 2), "runner",
                      {"moe_dispatch": "replicated"}),
-    "seq_shard_decode": ("h2o-danube-3-4b", (1, 2), "model", {}),
-    "seq_parallel_norm": ("llama3.2-3b", (1, 2), "runner", {}),
-    "decode_unroll": ("llama3.2-3b", (1, 2), "runner", {}),
-    "train_kv_2d": ("llama3.2-3b", (2, 2), "train", {}),
+    "seq_shard_decode": ("seq_shard_decode", "h2o-danube-3-4b", (1, 2), "runner", {}),
+    "seq_shard_decode/mla": ("seq_shard_decode", "deepseek-r1-671b", (1, 2), "runner",
+                             {}),
+    "seq_parallel_norm": ("seq_parallel_norm", "llama3.2-3b", (1, 2), "runner", {}),
+    "decode_unroll": ("decode_unroll", "llama3.2-3b", (1, 2), "runner", {}),
+    "train_kv_2d": ("train_kv_2d", "llama3.2-3b", (2, 2), "train", {}),
 }
 # phi3.5-moe in the levers phase: one layer (its baseline gathers 2.5 GB of
 # experts a rank a forward through gloo, 30-35 s a layer over the phase's
@@ -2638,68 +2685,28 @@ DRYRUN_WORKERS = 7
 
 def _lever_prompts(cfg, lever):
     """The lever's prompts, seeded: h2o-danube's past its window; else
-    ``LEVER_PROMPTS``, whose second half repeats the first half's lengths,
-    so that the two "data" rows of a (2,2) mesh prefill prompts of one
-    length at a time, as an SPMD step's batch rows are (an activation's
-    collective over "data" needs equal shapes)."""
+    ``LEVER_PROMPTS``, whose second half repeats the first half's
+    lengths."""
     r = LEVER_PROMPTS
     rng = np.random.default_rng(r["seed"])
-    lens = list(LEVER_DANUBE_PROMPTS) if lever == "seq_shard_decode" else \
+    lens = list(LEVER_DANUBE_PROMPTS) if cfg.attention == "swa" else \
         rng.integers(r["isl"][0], r["isl"][1] + 1, size=r["n"] // 2).tolist() * 2
     return [rng.integers(0, cfg.vocab, size=n).tolist() for n in lens]
 
 
-def _paged_greedy(model, prompts, steps):
-    """Each prompt prefilled alone (K1), its cache written into this rank's
-    pages, then ``steps`` greedy decode steps of the batch (K2, or its
-    split half where the cache's sequence is cut over ranks, each rank
-    holding its share of every sequence's pages). Returns each prompt's
-    tokens, the decode steps' weight gathers and the seconds of the
-    prefills and of the decode steps."""
-    ctx, dev = model.ctx, model.device
-    parts, me = 1, 0
-    if model.seq_axis is not None:
-        parts, me = ctx.axis_size(model.seq_axis), ctx.comm.axis_index(model.seq_axis)
-    B, page = len(prompts), LEVER_PAGE
-    blocks = -(-(max(map(len, prompts)) + steps) // page)
-    per = -(-blocks // parts)
-    lo, n = me * per * page, per * page
-    pools = [torch.zeros(sh, dtype=model.dtype, device=dev)
-             for sh in model.pool_shapes(B * per, page)]
-    tables = torch.arange(B * per, dtype=torch.int32, device=dev).view(B, per)
-    t0 = time.perf_counter()
-    first = []
-    for b, p in enumerate(prompts):
-        last, caches, _ = model.prefill(torch.tensor([p], device=dev))
-        pos = torch.arange(lo, max(lo, min(lo + n, len(p))), device=dev)
-        local = pos - lo
-        for j, pool in enumerate(pools):
-            pool[:, tables[b, local // page].long(), local % page] = torch.stack(
-                [c[j][0, pos] for c in caches])
-        first.append(last.argmax(-1))
-        del caches
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    tok = torch.cat(first)
-    out = [tok.tolist()]
-    lens = torch.tensor([len(p) for p in prompts], device=dev)
-    weights_before = ctx.comm.stats.get("all_gather", {}).get("weights", 0)
-    t0 = time.perf_counter()
-    for i in range(steps):
-        tok = model.decode_step(tok, lens + i, pools, tables).argmax(-1)
-        out.append(tok.tolist())
-    torch.cuda.synchronize()
-    weights = ctx.comm.stats.get("all_gather", {}).get("weights", 0) - weights_before
-    return ([list(t) for t in zip(*out)], weights, prefill_s,
-            (time.perf_counter() - t0) / steps)
-
-
 def _lever_config(full):
     """A lever run's config at full width and its cuts: LEVER_LAYERS
-    layers; phi3.5-moe LEVER_PHI_LAYERS, with no capacity drops."""
+    layers (DeepSeek-R1: its first LEVER_LAYERS dense layers, MLA and the
+    dense MLP); phi3.5-moe LEVER_PHI_LAYERS, with no capacity drops."""
     if full.moe is None:
         return (dataclasses.replace(full, n_layers=LEVER_LAYERS),
                 {"n_layers": [full.n_layers, LEVER_LAYERS]})
+    if full.moe.first_dense_layers >= LEVER_LAYERS:
+        dense = full.moe.first_dense_layers
+        return (dataclasses.replace(full, n_layers=LEVER_LAYERS, moe=dataclasses.replace(
+            full.moe, first_dense_layers=LEVER_LAYERS)),
+                {"n_layers": [full.n_layers, LEVER_LAYERS],
+                 "first_dense_layers": [dense, LEVER_LAYERS]})
     no_drop = full.moe.n_experts / full.moe.top_k
     cfg = dataclasses.replace(full, n_layers=LEVER_PHI_LAYERS, moe=dataclasses.replace(
         full.moe, capacity_factor=no_drop))
@@ -2715,9 +2722,9 @@ def _lever_kernels():
             "paged_merge": paged_ops.MERGE}
 
 
-def lever_rank(rank, levers, out_dir):
+def lever_rank(rank, runs, out_dir):
     """One rank of the levers phase (``run_ranks`` spawns them on the card
-    over gloo): for each lever of ``levers`` on this world's mesh, the
+    over gloo): for each run of ``runs`` on this world's mesh, the
     baseline model and the lever's, seeded alike, through its path; the
     kernels' counts and the collectives' counters set to 0 just before each
     run and read just after. Rank 0 then runs the same work at tp=1 on the
@@ -2732,18 +2739,18 @@ def lever_rank(rank, levers, out_dir):
     torch.backends.cudnn.allow_tf32 = False
     kernels = _lever_kernels()
     rows, mesh = [], None
-    for lever in levers:
-        arch, (data, tp), path, opts = LEVER_RUNS[lever]
+    for run in runs:
+        lever, arch, (data, tp), path, opts = LEVER_RUNS[run]
         mesh = mesh or make_mesh_for(data * tp, tp, device_type="cuda")
         cfg, reduced = _lever_config(get_config(arch))
-        row = dict(lever=lever, model=arch, rank=rank, mesh=[data, tp], path=path,
-                   layers=cfg.n_layers, reduced=reduced, dtype="float32")
+        row = dict(run=run, lever=lever, model=arch, rank=rank, mesh=[data, tp],
+                   path=path, layers=cfg.n_layers, reduced=reduced, dtype="float32")
         trained = {}
         # training holds the lever to tp=1 alone (sharded_train holds the
         # baseline layout's steps)
-        runs = (("with_lever", {**opts, lever: True}),) if path == "train" else \
+        runs_of = (("with_lever", {**opts, lever: True}),) if path == "train" else \
             (("baseline", opts), ("with_lever", {**opts, lever: True}))
-        for name, kw in runs:
+        for name, kw in runs_of:
             ctx = ParallelContext(mesh=mesh, **kw)
             free_card()
             for k in kernels.values():
@@ -2770,7 +2777,7 @@ def lever_rank(rank, levers, out_dir):
         dist.barrier()
         rows.append(row)
         if rank == 0:
-            print(f"levers: {lever} done at {time.perf_counter() - STARTED:.1f} s",
+            print(f"levers: {run} done at {time.perf_counter() - STARTED:.1f} s",
                   file=sys.stderr, flush=True)
     with open(Path(out_dir) / f"levers.rank{rank}.json", "w") as f:
         json.dump(rows, f)
@@ -2779,45 +2786,70 @@ def lever_rank(rank, levers, out_dir):
 def _lever_run(cfg, ctx, lever, path):
     """One run of a lever's path under ``ctx`` (None: tp=1): (its row, the
     trained model for ``path`` "train", else None)."""
-    from repro_torch.models.transformer import Transformer
-    prompts = _lever_prompts(cfg, lever)
     if path == "train":
         return _lever_train(cfg, ctx)
-    if path == "runner":
-        return _lever_runner(cfg, ctx, prompts), None
-    if ctx is not None:
-        share = len(prompts) // ctx.axis_size("data")
-        d = ctx.coords()["data"]
-        prompts = prompts[d * share:(d + 1) * share]
-    model = Transformer(cfg, device="cuda", dtype=torch.float32, seed=1, ctx=ctx)
-    with torch.inference_mode():
-        tokens, weights, prefill_s, step_s = _paged_greedy(model, prompts, LEVER_STEPS)
-    return dict(tokens=tokens, decode_weight_gathers=weights, prefill_s=prefill_s,
-                decode_step_s=step_s), None
+    return _lever_runner(cfg, ctx, _lever_prompts(cfg, lever), lever), None
 
 
-def _lever_runner(cfg, ctx, prompts):
+def _lever_runner(cfg, ctx, prompts, lever):
     """The prompts served by ``TorchRunner`` behind the engine (sharded
-    over ``ctx``'s mesh, or at tp=1 without one), LEVER_STEPS tokens each."""
+    over ``ctx``'s mesh, or at tp=1 without one), LEVER_STEPS tokens each,
+    the leader running the engine and the other ranks following it. The
+    pool holds them all, but for ``seq_shard_decode``: there it holds the
+    longest request (with the kv-aware reserve), so that a rank's share
+    (half the pool) is shorter than the longer sequences, which reach the
+    second rank; the requests take turns under kv-aware admission (naive
+    admission's concurrent chunked prefills would exhaust that pool and
+    wait on each other for good). The engine stops after LEVER_MAX_STEPS
+    steps, so a run that stalls fails its token check at once. Returns the
+    leader's tokens, TTFT and TPOT, and every rank's decode steps, the
+    weights its decode steps gathered and its pools' bytes."""
     from repro_torch.core.engine import EngineConfig, InferenceEngine
     from repro_torch.core.runner import TorchRunner
-    from repro_torch.launch.serve import pages_to_hold, serve_sharded
+    from repro_torch.launch.serve import pages_to_hold
     from repro_torch.models.transformer import Transformer
+
+    class Runner(TorchRunner):
+        """``TorchRunner`` that counts its decode steps and the weights
+        they gather (every rank runs ``_decode``)."""
+        steps = weights = 0
+
+        def _decode(self, *work):
+            stats = ctx.comm.stats if ctx is not None else {}
+            before = stats.get("all_gather", {}).get("weights", 0)
+            out = super()._decode(*work)
+            self.steps += 1
+            self.weights += stats.get("all_gather", {}).get("weights", 0) - before
+            return out
+
     requests = [(p, LEVER_STEPS) for p in prompts]
+    page = 16
     engine = dict(LEVER_ENGINE, n_pages=pages_to_hold(requests))
-    if ctx is None:
-        eng = InferenceEngine(cfg, EngineConfig(**engine), TorchRunner(
-            Transformer(cfg, device="cuda", dtype=torch.float32, seed=1),
-            device="cuda"), virtual_clock=False)
-        reqs = [eng.submit(p, n) for p, n in requests]
-        eng.run()
-    else:
-        eng, reqs = serve_sharded(cfg, requests, ctx, device="cuda",
-                                  dtype=torch.float32, seed=1, **engine)
-    out = dict(tokens=[r.output for r in reqs])
-    if eng is not None:
+    if lever == "seq_shard_decode":
+        engine.update(admission_mode="kv_aware", n_pages=pages_to_hold(
+            [max(requests, key=lambda r: len(r[0]))]))
+    runner = Runner(Transformer(cfg, device="cuda", dtype=torch.float32, seed=1,
+                                ctx=ctx), device="cuda")
+    out = {}
+    if runner.leads:
+        try:
+            eng = InferenceEngine(cfg, EngineConfig(**engine), runner,
+                                  virtual_clock=False)
+            reqs = [eng.submit(p, n) for p, n in requests]
+            eng.run(max_steps=LEVER_MAX_STEPS)
+        finally:
+            runner.close()
         s = eng.metrics.summary()
-        out.update(tpot_mean_s=s["tpot_s"]["mean"], ttft_p50_s=s["ttft_s"]["p50"])
+        out.update(tokens=[r.output for r in reqs], tpot_mean_s=s["tpot_s"]["mean"],
+                   ttft_p50_s=s["ttft_s"]["p50"],
+                   preemptions=sum(r.n_preemptions for r in reqs),
+                   longest=max(len(r.prompt) + len(r.output) for r in reqs))
+    else:
+        runner.follow()
+    out.update(decode_steps=runner.steps, decode_weight_gathers=runner.weights,
+               pool_pages=engine["n_pages"], share_tokens=runner.share_blocks * page,
+               pool_bytes=sum(t.numel() * t.element_size() for t in runner.pools),
+               state_bytes=sum(t.numel() * t.element_size() for t in runner.states))
     return out
 
 
@@ -2883,17 +2915,20 @@ def _lever_params(m, one):
 def levers(counts):
     """``levers``: each §Perf lever of ``LEVER_RUNS`` on gloo ranks on the
     card (four on a (2,2) mesh, then two on (1,2)), its tokens equal the
-    same mesh's baseline's and tp=1's; ``serve_2d_tp`` and
-    ``moe_ff_shard`` gather no weight of theirs in the decode steps,
-    ``seq_parallel_norm`` launches K1 and ``seq_shard_decode`` K2's
-    partials and merge and never the one-call K2; ``train_kv_2d``'s three
+    same mesh's baseline's and tp=1's; the serving levers through
+    ``TorchRunner`` behind the engine (on (2,2) the runner serves "data" 2);
+    ``serve_2d_tp`` and ``moe_ff_shard`` gather no weight of theirs in the
+    decode steps, ``seq_parallel_norm`` launches K1 and
+    ``seq_shard_decode`` K2's partials and merge and never the one-call K2
+    (R1's MLA split decode launches no kernel); ``train_kv_2d``'s three
     AdamW steps match tp=1's losses, grad norms and parameters under
-    ``train_equality``'s tolerances. One line a lever (its tokens,
-    launches, collectives by op and host-clock times); then the dry-run's
-    count of each lever's target cells beside the baseline's
-    (``levers_dryrun``: FLOPs, bytes, wire by kind, both collective terms,
-    the bound and its binding term; ``counts`` from ``dryrun_phase``).
-    Returns the launches of each lever's run, summed over its ranks.""" 
+    ``train_equality``'s tolerances. One line a run and rank (its tokens,
+    launches, collectives by op, each rank's pool bytes and host-clock
+    times); then the dry-run's count of each lever's target cells beside
+    the baseline's (``levers_dryrun``: FLOPs, bytes, wire by kind, both
+    collective terms, the bound and its binding term; ``counts`` from
+    ``dryrun_phase``). Returns the launches of each run, summed over its
+    ranks."""
     import shutil
     import tempfile
 
@@ -2904,7 +2939,7 @@ def levers(counts):
     rows = []
     try:
         for world in (4, 2):
-            names = [k for k, v in LEVER_RUNS.items() if v[1][0] * v[1][1] == world]
+            names = [k for k, v in LEVER_RUNS.items() if v[2][0] * v[2][1] == world]
             if not names:
                 continue
             run_ranks(lever_rank, world, (names, out), backend="gloo",
@@ -2917,18 +2952,16 @@ def levers(counts):
     card_s = time.perf_counter() - t_start
     launches = {}
     for ranks in rows:
-        lead = ranks[0]
-        lever, path = lead["lever"], lead["path"]
-        _check_lever(lever, path, ranks)
+        _check_lever(ranks)
         for r in ranks:
-            emit("levers", **{k: r[k] for k in ("lever", "model", "rank", "mesh",
+            emit("levers", **{k: r[k] for k in ("run", "lever", "model", "rank", "mesh",
                                                  "path", "layers", "reduced",
                                                  "dtype")},
                  baseline=r.get("baseline"), with_lever=r["with_lever"],
                  tp1=r.get("tp1"), **{k: r[k] for k in ("max_param_diff",
                                                         "params_beyond_atol", "params")
                                       if k in r})
-            key = f"levers/{lever}"
+            key = f"levers/{r['run']}"
             launches[key] = {n: launches.get(key, {}).get(n, 0) + c
                              for n, c in r["with_lever"]["launches"].items()}
     from repro_torch.launch import dryrun
@@ -2954,10 +2987,10 @@ def _lever_count(res):
                 bottleneck_hier=r["bottleneck_hier"])
 
 
-def _check_lever(lever, path, ranks):
-    """Raise unless a lever's rows meet the phase's checks (``levers``)."""
+def _check_lever(ranks):
+    """Raise unless a run's rows meet the phase's checks (``levers``)."""
     lead = ranks[0]
-    data, tp = lead["mesh"]
+    run, lever, path = lead["run"], lead["lever"], lead["path"]
     fail = []
     if path == "train":
         one, got = lead["tp1"], lead["with_lever"]
@@ -2973,42 +3006,46 @@ def _check_lever(lever, path, ranks):
                 fail.append(f"rank {r['rank']}: training launched a kernel")
     else:
         want = lead["tp1"]["tokens"]
+        if not all(len(t) == LEVER_STEPS for t in want):
+            fail.append(f"tp=1 served {[len(t) for t in want]} tokens")
         for name in ("baseline", "with_lever"):
-            if path == "runner":
-                got = lead[name]["tokens"]
-            else:
-                # ranks are (data, model) in row-major order: each data
-                # coordinate's rows once, every "model" rank agreeing
-                got = [t for d in range(data) for t in ranks[d * tp][name]["tokens"]]
-                if any(r[name]["tokens"] != ranks[r["rank"] // tp * tp][name]["tokens"]
-                       for r in ranks):
-                    fail.append(f"{name}: the model ranks of a data row disagree")
-            if got != want:
-                fail.append(f"{name} tokens {got} != tp=1's {want}")
-        steps, layers = LEVER_STEPS, lead["layers"]
+            if lead[name]["tokens"] != want:
+                fail.append(f"{name} tokens {lead[name]['tokens']} != tp=1's {want}")
+        mla = lead["model"] == "deepseek-r1-671b"
+        layers = lead["layers"]
         for r in ranks:
             ln, lv, base = r["with_lever"]["launches"], r["with_lever"], r["baseline"]
-            if not ln["flash_attention"]:
+            if not lv["decode_steps"]:
+                fail.append(f"rank {r['rank']}: no decode step")
+            if mla:
+                if any(ln.values()):
+                    fail.append(f"rank {r['rank']}: MLA launched {ln}")
+            elif not ln["flash_attention"]:
                 fail.append(f"rank {r['rank']}: K1 did not launch")
             if lever == "serve_2d_tp" and lv["decode_weight_gathers"]:
                 fail.append(f"rank {r['rank']}: {lv['decode_weight_gathers']} weight "
                             "gathers in the decode steps")
             if lever == "moe_ff_shard" and (
-                    lv["decode_weight_gathers"] != (4 * layers + 1) * steps
-                    or base["decode_weight_gathers"] != (7 * layers + 1) * steps):
+                    lv["decode_weight_gathers"] != (4 * layers + 1) * lv["decode_steps"]
+                    or base["decode_weight_gathers"]
+                    != (7 * layers + 1) * base["decode_steps"]):
                 # the attention's 4 leaves a layer and the untied head; the
                 # baseline also gathers the 3 expert leaves
                 fail.append(f"rank {r['rank']}: decode weight gathers "
-                            f"{lv['decode_weight_gathers']} (baseline "
-                            f"{base['decode_weight_gathers']})")
-            if lever == "seq_shard_decode" and (not ln["paged_attention_partials"]
-                                                or not ln["paged_merge"]
-                                                or ln["paged_attention"]):
-                fail.append(f"rank {r['rank']}: launches {ln}")
-            if lever != "seq_shard_decode" and not ln["paged_attention"]:
+                            f"{lv['decode_weight_gathers']} in {lv['decode_steps']} "
+                            f"steps (baseline {base['decode_weight_gathers']} in "
+                            f"{base['decode_steps']})")
+            if lever == "seq_shard_decode":
+                if not mla and (not ln["paged_attention_partials"] or not ln["paged_merge"]
+                                or ln["paged_attention"]):
+                    fail.append(f"rank {r['rank']}: launches {ln}")
+                if lead["with_lever"]["longest"] <= lv["share_tokens"]:
+                    fail.append(f"a rank's share of {lv['share_tokens']} positions "
+                                "holds every sequence")
+            elif not mla and not ln["paged_attention"]:
                 fail.append(f"rank {r['rank']}: K2 did not launch")
     if fail:
-        raise AssertionError(f"levers {lever}: " + "; ".join(fail))
+        raise AssertionError(f"levers {run}: " + "; ".join(fail))
 
 
 def main():
@@ -3027,7 +3064,8 @@ def main():
          cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    built = kbuild.build([flash_ops.KERNEL.name, paged_ops.KERNEL.name])
+    built = kbuild.build([flash_ops.KERNEL.name, flash_ops.NONCAUSAL.name,
+                          paged_ops.KERNEL.name])
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, log in built.items()}
@@ -3051,6 +3089,13 @@ def main():
     for name, rows in timings.items():
         for row in rows:
             emit("timing", kernel=name, **row)
+    noncausal_rows = [time_flash(flash_ops, c, torch.bfloat16, gen, causal=False)
+                      for c in NONCAUSAL_TIMED]
+    for row in noncausal_rows:
+        emit("timing", kernel="flash_attention", **row)
+    # no phase after this one calls the non-causal mode (the main paths'
+    # prefills are causal): its count here must stay 0 to the end
+    flash_ops.NONCAUSAL.launches = 0
 
     emit("greedy_equality", **greedy_equality())
     free_card()
@@ -3157,6 +3202,17 @@ def main():
             "library_device_ms": row.get("library_device_ms"),
             "host_ms": row["host_ms"], "shape": row["shape"],
             "dtype": row.get("dtype", "bfloat16")})
+    if flash_ops.NONCAUSAL.launches:
+        raise AssertionError(f"the main paths launched K1's non-causal instance "
+                             f"{flash_ops.NONCAUSAL.launches} times")
+    # K1's non-causal instances: their own rows, launched by no main path
+    kernels[0]["modes"] = [{
+        "mode": "causal=False", "source": "src/repro_torch/csrc/flash_attention_noncausal.cu",
+        "launches": flash_ops.NONCAUSAL.launches,
+        "max_abs_err": max_err["flash_attention causal=False"],
+        **{k: row[k] for k in ("shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms", "library_device_ms")}}
+        for row in noncausal_rows]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

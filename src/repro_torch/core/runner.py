@@ -17,12 +17,13 @@ for GQA (L the shared block's groups in a hybrid), the latent
 are the engine's ``PagedAllocator`` page ids (the engine hands its
 allocator over with ``bind``), so the scheduler's block tables index the
 pools directly; the allocator frees a request's pages on preemption and on
-finish. A model with recurrent state (the hybrid and ssm families) also
-has the buffers of ``Transformer.state_shapes`` with one slot per running
-sequence, as ``JaxRunner``'s slots: prefill takes a free slot and writes
-the request's fresh state there, decode reads and writes the batch's
-slots, and ``release`` (on finish and on preemption) returns the slot, so
-a resumed request recomputes its state from its prompt and output.
+finish. Every running sequence holds one of ``max_num_seqs`` slots, as
+``JaxRunner``'s: prefill takes a free slot, ``release`` (on finish and on
+preemption) returns it, so a resumed request recomputes its cache and
+state from its prompt and output. A model with recurrent state (the
+hybrid and ssm families) keeps its state in the buffers of
+``Transformer.state_shapes``, one row per slot: prefill writes the
+request's fresh state into its row, decode reads and writes the batch's.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from repro_torch.core.kv_cache import PagedAllocator
 from repro_torch.core.request import Request
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import Transformer
+from repro_torch.parallel.sharding import mesh_axes
 
 
 class SimRunner:
@@ -89,49 +91,76 @@ class SimRunner:
 class TorchRunner:
     """Real execution of ``model``. Under a mesh (``model.ctx``; the
     reference's ``JaxRunner`` with a mesh ctx) it is a single controller:
-    the rank at "model" coordinate 0 leads, runs the engine and its
-    allocator, and broadcasts each call's work (the pool's size, prefill
-    tokens with their pages and state slot, decode tokens with their
-    positions, block tables and slots) to the other ranks, which
-    ``follow``: each runs the same model calls on its shard, on a pool of
-    its own kv heads indexed by the leader's page ids and on state buffers
-    of its own (a Mamba2 rank's heads) indexed by the leader's slot ids.
-    Meshes with "data" > 1 are refused (a later slice: each data rank
-    would need its own engine or its batch's rows), and so is a decode
-    cache cut along the sequence (``seq_shard_decode``). Of the other §Perf
-    levers ``seq_parallel_norm`` cuts its prefill's residual stream, and
-    ``decode_unroll`` changes nothing (the decode step already runs layer
-    by layer and writes pages in place); ``serve_2d_tp`` and
-    ``moe_ff_shard`` act only across "data"."""
+    the rank at coordinate 0 of every mesh axis leads, runs the engine and
+    its allocator, and broadcasts each call's work (the pool's size,
+    prefill tokens with their pages and slot, decode tokens with their
+    positions, block tables and slots) to every other rank of the mesh,
+    which ``follow``\\ s: each runs the same model calls on its shard, on a
+    pool of its own kv heads indexed by the leader's page ids and on state
+    buffers of its own (a Mamba2 rank's heads).
+
+    Over "data" (the mesh axes of the "batch" rule) the slots are cut as
+    the reference cuts its ``cache_batch``: slot s belongs to data rank
+    s // (max_num_seqs / dp), and so does the request that holds it, from
+    its prefill until ``release``. A prefill runs on every rank (each data
+    rank must join the weights' collectives); only the owner's ranks keep
+    its cache pages and its state row. A decode step gives each data rank
+    the rows of its own requests, padded to the step's largest share so
+    that every "data" collective (FSDP gathers, ``serve_2d_tp``'s rows,
+    ``moe_ff_shard``'s tokens) sees one shape; a pad row reads the pool's
+    pad page (its last, which the allocator never hands out) and a free
+    slot of its rank, and writes nothing (``decode_step``'s ``valid``).
+    The leader gathers the tokens over "data" and returns them in the
+    engine's order. Each data rank's pool is indexed by every engine page
+    id, so it holds all ``n_pages`` pages, not its share of them.
+
+    With the decode cache's sequence cut over a mesh axis
+    (``seq_shard_decode``) each rank holds a fixed share of every
+    sequence's positions: ``bind`` sets it from the longest sequence the
+    engine can hold (its whole pool), in whole pages split over that axis.
+    Every prefill and decode cuts each rank's block table from the
+    engine's, the blocks of its share padded with the pad page; a prefill
+    writes only the pages of the rank's positions, and decode runs K2's
+    split half and ``paged_merge`` (MLA: ``Transformer._mla_split``).
+
+    Of the other §Perf levers ``seq_parallel_norm`` cuts its prefill's
+    residual stream, ``serve_2d_tp`` and ``moe_ff_shard`` act across
+    "data", and ``decode_unroll`` changes nothing (the decode step already
+    runs layer by layer and writes pages in place)."""
 
     def __init__(self, model: Transformer, *, device="cuda"):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model on {model.device}, runner on {self.device}")
         ctx = model.ctx
-        if ctx.mesh is not None and ctx.dp > 1:
-            raise NotImplementedError(
-                f"TorchRunner under a mesh with data = {ctx.dp}: the runner "
-                "takes meshes with data == 1 (data > 1 is a later slice)")
-        if model.seq_axis is not None:
-            raise NotImplementedError(
-                f"TorchRunner with the decode cache's sequence cut over "
-                f"{model.seq_axis!r} (seq_shard_decode): the engine's block "
-                "tables index whole sequences, not a rank's share (ROADMAP §1)")
         self.model = model
         self.comm = ctx.comm if ctx.mesh is not None else None
-        self.axis = ctx.model_axis
-        self.leads = self.comm is None or self.comm.axis_index(self.axis) == 0
+        # the mesh axes of the batch, and this rank's coordinate over them
+        # (row-major)
+        self.batch_axes = mesh_axes(ctx.spec("batch")[0]) if self.comm else ()
+        self.dp, self.data = 1, 0
+        for a in self.batch_axes:
+            self.dp *= ctx.axis_size(a)
+            self.data = self.data * ctx.axis_size(a) + self.comm.axis_index(a)
+        self.seq_axis = model.seq_axis
+        if self.seq_axis is not None and self.seq_axis in self.batch_axes:
+            raise ValueError(f"the batch and the cache's sequence are both cut "
+                             f"over {self.seq_axis!r}")
+        self.sp = ctx.axis_size(self.seq_axis) if self.seq_axis else 1
+        self.leads = self.comm is None or not any(ctx.coords().values())
         self.alloc = None
         self.pools = ()
         self.states = ()
+        self.pad_page = None      # the pool's last page, where rows or tables pad
+        self.share_blocks = 0     # blocks of a rank's share of a sequence
+        self.rows = 0             # slots of one data rank
         self._free_slots: List[int] = []
         self._slot_of: Dict[int, int] = {}
 
     def _send(self, *work):
-        """The leader's work, to every follower."""
+        """The leader's work, to every other rank of the mesh."""
         if self.comm is not None:
-            self.comm.broadcast_object(work, self.axis)
+            self.comm.broadcast_object(work)
 
     def follow(self):
         """A follower's loop: run the leader's work until it ``close``s."""
@@ -140,7 +169,7 @@ class TorchRunner:
         calls = {"bind": self._bind, "prefill": self._prefill,
                  "decode": self._decode}
         while True:
-            op, *args = self.comm.broadcast_object(None, self.axis)
+            op, *args = self.comm.broadcast_object(None)
             if op == "close":
                 return
             calls[op](*args)
@@ -153,82 +182,129 @@ class TorchRunner:
     def bind(self, alloc: PagedAllocator, n_slots: int):
         """Allocate the device pools for ``alloc`` (pool page i is
         allocator page i) and the state buffers of ``n_slots`` sequences,
-        the engine's ``max_num_seqs``."""
+        the engine's ``max_num_seqs``, cut over "data"."""
+        if n_slots % self.dp:
+            raise ValueError(f"max_num_seqs {n_slots} does not divide over "
+                             f"{self.dp} data ranks")
         self._send("bind", alloc.n_pages, alloc.page_size, n_slots)
         self._bind(alloc.n_pages, alloc.page_size, n_slots)
         self.alloc = alloc
-
-    def _bind(self, n_pages: int, page_size: int, n_slots: int):
-        self.pools = tuple(
-            torch.zeros(shape, dtype=self.model.dtype, device=self.device)
-            for shape in self.model.pool_shapes(n_pages, page_size))
-        self.states = tuple(
-            torch.zeros(shape, dtype=dtype, device=self.device)
-            for shape, dtype in self.model.state_shapes(n_slots))
         self._free_slots = list(range(n_slots))[::-1]
         self._slot_of = {}
 
+    def _bind(self, n_pages: int, page_size: int, n_slots: int):
+        padded = self.dp > 1 or self.sp > 1
+        self.pad_page = n_pages if padded else None
+        self.share_blocks = -(-n_pages // self.sp)
+        self.rows = n_slots // self.dp
+        self.pools = tuple(
+            torch.zeros(shape, dtype=self.model.dtype, device=self.device)
+            for shape in self.model.pool_shapes(n_pages + padded, page_size))
+        self.states = tuple(
+            torch.zeros(shape, dtype=dtype, device=self.device)
+            for shape, dtype in self.model.state_shapes(self.rows))
+
     def _to_device(self, a) -> torch.Tensor:
         return torch.from_numpy(np.asarray(a)).to(self.device)
+
+    def _share_start(self) -> int:
+        """The first block of this rank's share of every sequence."""
+        if self.seq_axis is None:
+            return 0
+        return self.model.ctx.comm.axis_index(self.seq_axis) * self.share_blocks
 
     # ------------------------------------------------------------------ api
     def prefill(self, req: Request, chunk: int) -> int:
         """Whole prefill target (prompt + regenerated prefix after a
         preemption) at the completing chunk; its cache entries go into the
         pages of the request's table, which the scheduler grew to cover it,
-        and its state into its slot, which the leader picks and every rank
+        and its state into the row of its slot, which the leader picks.
+        Every rank runs it; the ranks of the slot's data rank keep what it
         writes. Returns the first token."""
         toks = np.asarray(req.prompt + req.output[:req.resume_extra], np.int64)
         table = np.asarray(self.alloc.table(req.rid), np.int64)
-        pages = table[np.arange(len(toks)) // self.alloc.page_size]
-        slot = None
-        if self.states:
-            if req.rid not in self._slot_of:
-                if not self._free_slots:
-                    raise RuntimeError(
-                        f"request {req.rid}: every one of the "
-                        f"{self.states[0].shape[1]} state slots is taken")
-                self._slot_of[req.rid] = self._free_slots.pop()
-            slot = self._slot_of[req.rid]
-        self._send("prefill", toks, pages, slot)
-        return self._prefill(toks, pages, slot)
+        if req.rid not in self._slot_of:
+            if not self._free_slots:
+                raise RuntimeError(f"request {req.rid}: every one of the "
+                                   f"{self.rows * self.dp} slots is taken")
+            self._slot_of[req.rid] = self._free_slots.pop()
+        slot = self._slot_of[req.rid]
+        self._send("prefill", toks, table, slot)
+        return self._prefill(toks, table, slot)
 
-    def _prefill(self, toks: np.ndarray, pages: np.ndarray, slot) -> int:
+    def _prefill(self, toks: np.ndarray, table: np.ndarray, slot: int) -> int:
         logits, caches, states = self.model.prefill(self._to_device(toks[None]))
+        if slot // self.rows != self.data:
+            return int(logits[0].argmax())
         if self.pools:
-            slots = self._to_device(np.arange(len(toks)) % self.pools[0].shape[2])
-            pages = self._to_device(pages)
+            page = self.pools[0].shape[2]
+            # this rank's positions: all, or those of its share
+            first = self._share_start() * page
+            pos = np.arange(len(toks))[first:][:self.share_blocks * page]
+            pages, offs = self._to_device(table[pos // page]), self._to_device(pos % page)
             for j, pool in enumerate(self.pools):
-                pool[:, pages, slots] = torch.stack([c[j] for c in caches])[:, 0]
+                pool[:, pages, offs] = torch.stack(
+                    [c[j] for c in caches])[:, 0, first:first + len(pos)]
         for buf, st in zip(self.states, states):
-            buf[:, slot] = st[:, 0]
+            buf[:, slot % self.rows] = st[:, 0]
         return int(logits[0].argmax())
 
     def decode(self, reqs: List[Request]) -> List[int]:
         """One token for each request: the newest token sits at position
         ``context_len - 1``, and the scheduler has grown each table to
         ``context_len + 1`` tokens. Tables are padded to the batch's longest
-        with page 0, a valid id never read past ``lens``."""
-        tables = [self.alloc.table(r.rid) for r in reqs]
-        padded = np.zeros((len(reqs), max(len(t) for t in tables)), np.int32)
-        for i, t in enumerate(tables):
-            padded[i, :len(t)] = t
-        tokens = np.asarray([r.output[-1] for r in reqs], np.int64)
-        positions = np.asarray([r.context_len - 1 for r in reqs], np.int64)
-        rows = np.asarray([self._slot_of[r.rid] for r in reqs], np.int64) \
-            if self.states else None
-        self._send("decode", tokens, positions, padded, rows)
-        return self._decode(tokens, positions, padded, rows)
+        with page 0, a valid id never read past ``lens`` (the pad page where
+        the runner pads). Each data rank's rows are its own requests', in
+        the engine's order, then pads up to the largest share."""
+        slots = [self._slot_of[r.rid] for r in reqs]
+        mine = [[i for i, s in enumerate(slots) if s // self.rows == dr]
+                for dr in range(self.dp)]
+        B = max(map(len, mine))
+        width = max(len(self.alloc.table(r.rid)) for r in reqs)
+        tokens = np.zeros((self.dp, B), np.int64)
+        positions = np.zeros((self.dp, B), np.int64)
+        tables = np.full((self.dp, B, width), self.pad_page or 0, np.int32)
+        rows = np.zeros((self.dp, B), np.int64)
+        valid = np.zeros((self.dp, B), bool)
+        at = [0] * len(reqs)          # each request's row in the gathered tokens
+        for dr, idx in enumerate(mine):
+            for j, i in enumerate(idx):
+                t = self.alloc.table(reqs[i].rid)
+                tokens[dr, j] = reqs[i].output[-1]
+                positions[dr, j] = reqs[i].context_len - 1
+                tables[dr, j, :len(t)] = t
+                rows[dr, j] = slots[i] % self.rows
+                valid[dr, j] = True
+                at[i] = dr * B + j
+            # a pad row takes a free slot of its data rank, which it leaves as it is
+            free = [s % self.rows for s in range(dr * self.rows, (dr + 1) * self.rows)
+                    if s not in slots]
+            rows[dr, len(idx):] = free[:B - len(idx)]
+        self._send("decode", tokens, positions, tables, rows, valid)
+        got = self._decode(tokens, positions, tables, rows, valid)
+        return [got[k] for k in at]
 
-    def _decode(self, tokens, positions, tables, rows) -> List[int]:
+    def _decode(self, tokens, positions, tables, rows, valid) -> List[int]:
+        d = self.data
+        tables = tables[d]
+        if self.seq_axis is not None:
+            # this rank's blocks of each table, padded with the pad page
+            nb = self.share_blocks
+            blocks = tables[:, self._share_start():][:, :nb]
+            tables = np.full((tables.shape[0], nb), self.pad_page, np.int32)
+            tables[:, :blocks.shape[1]] = blocks
         logits = self.model.decode_step(
-            self._to_device(tokens), self._to_device(positions), self.pools,
+            self._to_device(tokens[d]), self._to_device(positions[d]), self.pools,
             self._to_device(tables), self.states,
-            None if rows is None else self._to_device(rows))
-        return logits.argmax(dim=-1).tolist()
+            self._to_device(rows[d]) if self.states else None,
+            None if valid[d].all() else self._to_device(valid[d]))
+        out = logits.argmax(dim=-1)
+        for a in reversed(self.batch_axes):
+            out = self.comm.all_gather(out, a, 0)
+        return out.tolist()
 
     def release(self, req: Request):
-        """The request finished or was preempted: its state slot is free."""
+        """The request finished or was preempted: its slot is free."""
         slot = self._slot_of.pop(req.rid, None)
         if slot is not None:
             self._free_slots.append(slot)

@@ -5,14 +5,18 @@ A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. bf16 runs on the tensor-core (wgmma) instance, fp32 on the SIMT
 instance; the dtype alone chooses. Head dims 80, 112 and 120 run the
 bf16 instance on the 128 geometry, their pad columns zero-filled by TMA.
-``KERNEL.launches`` counts the launches.
+``causal`` picks the causal kernels (``csrc/flash_attention.cu``) or the
+non-causal ones (``csrc/flash_attention_noncausal.cu``, the same source
+compiled with the other mask into a library of its own), ``scale`` the
+scores' scale. ``KERNEL.launches`` counts the causal launches,
+``NONCAUSAL.launches`` the non-causal ones.
 
 On a meta tensor (``repro_torch.analysis``'s dry-run) the wrapper books
-the kernel's products over the causal (and windowed) pairs and its I/O
-(q, k, v read once, the output written once) with the active op counter,
-in the ``flash_core`` bucket the roofline replaces by the analytic kernel
-I/O, and returns an empty meta result: it runs neither the kernel nor its
-plain version.
+the kernel's products over the pairs it reads (causal or not, windowed)
+and its I/O (q, k, v read once, the output written once) with the active
+op counter, in the ``flash_core`` bucket the roofline replaces by the
+analytic kernel I/O, and returns an empty meta result: it runs neither the
+kernel nor its plain version.
 """
 from __future__ import annotations
 
@@ -26,26 +30,31 @@ from repro_torch.analysis import scopes
 from repro_torch.kernels.build import DTYPE_CODES, CudaKernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
-__all__ = ["KERNEL", "flash_attention", "flash_attention_plain"]
+__all__ = ["KERNEL", "NONCAUSAL", "flash_attention", "flash_attention_plain"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KERNEL = CudaKernel("flash_attention", "flash_attention_fwd",
-                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                     ctypes.c_float, _I, _P])
+_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+KERNEL = CudaKernel("flash_attention", "flash_attention_fwd", _ARGS)
+NONCAUSAL = CudaKernel("flash_attention_noncausal", "flash_attention_noncausal_fwd",
+                       _ARGS)
 HEAD_DIMS = (32, 64, 80, 112, 120, 128)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    lens: Optional[torch.Tensor] = None, *,
-                    window: int = 0) -> torch.Tensor:
-    """Causal GQA prefill attention. q (B,Sq,H,D); k,v (B,Skv,KV,D);
-    lens (B,) int32 exclusive valid kv length (default Skv). Returns
-    (B,Sq,H,D) in q's dtype. Scores are scaled by D ** -0.5."""
+                    lens: Optional[torch.Tensor] = None, *, causal: bool = True,
+                    window: int = 0, scale: Optional[float] = None) -> torch.Tensor:
+    """GQA prefill attention, the reference's ``flash_attention``. q
+    (B,Sq,H,D); k,v (B,Skv,KV,D); lens (B,) int32 exclusive valid kv length
+    (default Skv). Query row i sees key j < lens when j <= i (``causal``;
+    with ``causal=False`` every such key) and, with a window > 0, when
+    j > i - window. Scores are scaled by ``scale`` (default D ** -0.5).
+    Returns (B,Sq,H,D) in q's dtype."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, lens, window=window)
+        return flash_attention_plain(q, k, v, lens, causal=causal, window=window,
+                                     scale=scale)
     if q.device.type == "meta":
         out = torch.empty_like(q)
-        _book(q, k, v, out, window)
+        _book(q, k, v, out, window, causal)
         return out
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
@@ -53,24 +62,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lens = torch.full((B,), Skv, dtype=torch.int32, device=q.device)
     _check(q, k, v, lens)
     out = torch.empty_like(q)
-    KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-                  out.data_ptr(), B, Sq, Skv, H, KV, D, int(window),
-                  D ** -0.5, DTYPE_CODES[q.dtype],
-                  torch.cuda.current_stream(q.device).cuda_stream)
+    (KERNEL if causal else NONCAUSAL).launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        B, Sq, Skv, H, KV, D, int(window), D ** -0.5 if scale is None else float(scale),
+        DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     return out
 
 
-def causal_pairs(sq: int, skv: int, window: int = 0) -> int:
-    """(query, key) pairs that count for one head of one sequence: the
-    queries are the last ``sq`` of ``skv`` positions, each sees the keys at
-    or before it, within the window."""
+def causal_pairs(sq: int, skv: int, window: int = 0, causal: bool = True) -> int:
+    """(query, key) pairs that count for one head of one sequence. Causal:
+    the queries are the last ``sq`` of ``skv`` positions, each sees the keys
+    at or before it, within the window. Non-causal (the kernel's query
+    positions 0..sq-1): query i sees every key j < skv with j > i - window."""
+    if not causal:
+        first = np.maximum(np.arange(sq, dtype=np.int64) - window + 1, 0) \
+            if window > 0 else np.zeros(sq, np.int64)
+        return int(np.maximum(skv - first, 0).sum())
     reach = np.arange(skv - sq, skv, dtype=np.int64) + 1
     return int(np.minimum(reach, window).sum() if window > 0 else reach.sum())
 
 
-def _book(q, k, v, out, window):
+def _book(q, k, v, out, window, causal=True):
     B, Sq, H, D = q.shape
-    pairs = B * H * causal_pairs(Sq, k.shape[1], window)
+    pairs = B * H * causal_pairs(Sq, k.shape[1], window, causal)
     ts = (q, k, v, out)
     scopes.book(flops=4.0 * pairs * D, scoped=True, name="flash_attention",
                 hbm=sum(scopes.strict_bytes(t) for t in ts),

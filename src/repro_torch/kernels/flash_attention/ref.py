@@ -12,22 +12,27 @@ NEG_INF = -1e30
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           lens: Optional[torch.Tensor] = None, *,
-                          window: int = 0) -> torch.Tensor:
-    """Causal GQA attention. q (B,Sq,H,D); k,v (B,Skv,KV,D); lens (B,)
-    exclusive valid kv length (default Skv). Scores are scaled by D ** -0.5.
+                          causal: bool = True, window: int = 0,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """GQA attention. q (B,Sq,H,D); k,v (B,Skv,KV,D); lens (B,) exclusive
+    valid kv length (default Skv). Query row i sees key j < lens when j <= i
+    (``causal``; without it every such key) and, with a window > 0, when
+    j > i - window. Scores are scaled by ``scale`` (default D ** -0.5).
     Returns (B,Sq,H,D)."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     g = H // KV
     if lens is None:
         lens = torch.full((B,), Skv, dtype=torch.int32, device=q.device)
-    qf = q.float() * D ** -0.5
+    qf = q.float() * (D ** -0.5 if scale is None else scale)
     kf = k.repeat_interleave(g, dim=2).float()
     vf = v.repeat_interleave(g, dim=2).float()
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
     q_pos = torch.arange(Sq, device=q.device)[:, None]
     k_pos = torch.arange(Skv, device=q.device)[None, :]
-    valid = (k_pos < lens.long()[:, None, None, None]) & (k_pos <= q_pos)
+    valid = k_pos < lens.long()[:, None, None, None]
+    if causal:
+        valid = valid & (k_pos <= q_pos)
     if window and window > 0:
         valid = valid & (k_pos > q_pos - window)
     s = torch.where(valid, s, NEG_INF)

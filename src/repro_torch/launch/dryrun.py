@@ -58,8 +58,8 @@ def lever_cells(lever: str) -> List[Tuple[str, str]]:
     """The (arch, shape) cells of the grid a §Perf lever is meant to move:
     ``serve_2d_tp``'s, ``decode_unroll``'s and ``kv_cache_dtype``'s every
     decode_32k cell; ``moe_ff_shard``'s the MoE models' decode_32k and
-    prefill_32k; ``seq_shard_decode``'s the decode_32k cells with GQA
-    attention; ``seq_parallel_norm``'s every prefill_32k cell;
+    prefill_32k; ``seq_shard_decode``'s the decode_32k cells with GQA or
+    MLA attention; ``seq_parallel_norm``'s every prefill_32k cell;
     ``train_kv_2d``'s every train_4k cell."""
     out = []
     for arch, shape, skip in cells():
@@ -68,7 +68,7 @@ def lever_cells(lever: str) -> List[Tuple[str, str]]:
         if lever == "moe_ff_shard":
             keep = cfg.family == "moe" and shape in ("decode_32k", "prefill_32k")
         elif lever == "seq_shard_decode":
-            keep = shape == "decode_32k" and cfg.attention in ("full", "swa") \
+            keep = shape == "decode_32k" and cfg.attention in ("full", "swa", "mla") \
                 and cfg.family != "ssm"
         else:
             keep = {"seq_parallel_norm": "prefill", "train_kv_2d": "train"}.get(

@@ -16,8 +16,10 @@ roofline replaces their bytes by the kernel's own I/O.
 
 ``mla_*`` — Multi-Head Latent Attention (DeepSeek-R1): prefill, the
 *absorbed* decode whose cache is the (kv_rank + rope) latent of each token,
-and that decode over a paged latent pool. The JAX package has no kernel
-for them either; the model calls these.
+and that decode over a paged latent pool, whole or split over the ranks
+that each hold a share of every sequence's positions (``mla_partials``,
+``mla_merge``, ``mla_absorb``). The JAX package has no kernel for them
+either; the model calls these.
 """
 from __future__ import annotations
 
@@ -86,7 +88,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 # --------------------------------------------------------------------- MLA
-def _mla_scale(ml) -> float:
+def mla_scale(ml) -> float:
     return (ml.qk_nope_head_dim + ml.qk_rope_head_dim) ** -0.5
 
 
@@ -121,7 +123,7 @@ def mla_prefill(x, p, cfg, positions, kv_lens=None):
     k_nope = torch.einsum("bsr,rhe->bshe", ckv, p["w_uk"])
     vv = torch.einsum("bsr,rhe->bshe", ckv, p["w_uv"])
     s = (torch.einsum("bqhe,bkhe->bhqk", q_nope, k_nope)
-         + torch.einsum("bqhe,bke->bhqk", q_pe, kpe)) * _mla_scale(ml)
+         + torch.einsum("bqhe,bke->bhqk", q_pe, kpe)) * mla_scale(ml)
     s = s.float()
     kpos = torch.arange(S, device=x.device)
     valid = kpos[None, None, :] <= qp.long()[:, :, None]
@@ -134,24 +136,71 @@ def mla_prefill(x, p, cfg, positions, kv_lens=None):
     return out, (ckv, kpe)
 
 
+def mla_query(x, p, cfg, lens):
+    """The absorbed decode's query of each head: x (B,1,d), already normed,
+    at positions ``lens`` (B,) -> q_lat (B,1,H,kv_rank) (``w_uk`` absorbed)
+    and the roped q_pe (B,1,H,rope)."""
+    q_nope, q_pe = _mla_q(x, p, cfg, lens.long()[:, None])
+    return torch.einsum("bshe,rhe->bshr", q_nope, p["w_uk"]), q_pe
+
+
+def mla_absorb(ctx_lat, p):
+    """The latent context (B,H,kv_rank) of each head through ``w_uv`` and
+    ``w_o`` -> (B,1,d)."""
+    ctx = torch.einsum("bhr,rhe->bhe", ctx_lat, p["w_uv"])         # absorb w_uv
+    return torch.einsum("bhe,hed->bd", ctx, p["w_o"])[:, None, :]
+
+
+def mla_partials(q_lat, q_pe, ckv_pool, kpe_pool, block_tables, lens, scale):
+    """The absorbed decode's softmax over the share of each sequence's
+    positions that ``block_tables`` (B,nb) holds in the paged latent pools
+    ckv (P,page,kv_rank) and kpe (P,page,rope): ``lens`` (B,) is the newest
+    token's index counted from the share's first position, and may lie past
+    its end (every position counts) or before its start (none does).
+    q_lat (B,1,H,kv_rank), q_pe (B,1,H,rope). Scores are formed in the
+    queries' dtype, as ``mla_decode`` forms them; the rest is fp32: returns
+    (acc (B,H,kv_rank), the sum of exp(s - m) * ckv; m (B,H), the largest
+    score, NEG_INF where no position counts; l (B,H), the sum of
+    exp(s - m))."""
+    B, nb = block_tables.shape
+    pages = block_tables.long()
+    ckv = ckv_pool[pages].reshape(B, nb * ckv_pool.shape[1], -1)
+    kpe = kpe_pool[pages].reshape(B, nb * kpe_pool.shape[1], -1)
+    s = ((torch.einsum("bshr,btr->bhst", q_lat, ckv)
+          + torch.einsum("bshe,bte->bhst", q_pe, kpe)) * scale).float()[:, :, 0]
+    t = torch.arange(ckv.shape[1], device=q_lat.device)
+    valid = (t[None, :] <= lens.long()[:, None])[:, None, :]       # (B,1,T)
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1)
+    e = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    return torch.einsum("bht,btr->bhr", e, ckv.float()), m, e.sum(dim=-1)
+
+
+def mla_merge(acc, m, l, dtype):
+    """Merge the partials of the shares along dim 1 (acc (B,n,H,kv_rank),
+    m and l (B,n,H)) -> the latent context (B,H,kv_rank) in ``dtype``:
+    sum_i acc_i e^(m_i - M) / sum_i l_i e^(m_i - M), M the largest m_i."""
+    f = torch.exp(m - m.amax(dim=1, keepdim=True))
+    L = (l * f).sum(dim=1)
+    return ((acc * f[..., None]).sum(dim=1)
+            / L.clamp_min(1e-30)[..., None]).to(dtype)
+
+
 def mla_decode(x, p, cfg, ckv_cache, kpe_cache, lens):
     """Absorbed MLA decode. x (B,1,d), already normed; caches (B,S,kv_rank)
     and (B,S,rope) holding the new token at ``lens`` (B,), the inclusive
     index of the newest token. Returns (B,1,d)."""
     ml = cfg.mla
     pos = lens.long()
-    q_nope, q_pe = _mla_q(x, p, cfg, pos[:, None])
-    q_lat = torch.einsum("bshe,rhe->bshr", q_nope, p["w_uk"])      # absorb w_uk
+    q_lat, q_pe = mla_query(x, p, cfg, lens)
     s = (torch.einsum("bshr,btr->bhst", q_lat, ckv_cache)
-         + torch.einsum("bshe,bte->bhst", q_pe, kpe_cache)) * _mla_scale(ml)
+         + torch.einsum("bshe,bte->bhst", q_pe, kpe_cache)) * mla_scale(ml)
     s = s.float()[:, :, 0, :]                                      # (B,H,S)
     t = torch.arange(ckv_cache.shape[1], device=x.device)
     valid = t[None, :] <= pos[:, None]
     s = torch.where(valid[:, None, :], s, NEG_INF)
     w = torch.softmax(s, dim=-1).to(x.dtype)
-    ctx_lat = torch.einsum("bht,btr->bhr", w, ckv_cache)
-    ctx = torch.einsum("bhr,rhe->bhe", ctx_lat, p["w_uv"])         # absorb w_uv
-    return torch.einsum("bhe,hed->bd", ctx, p["w_o"])[:, None, :]
+    return mla_absorb(torch.einsum("bht,btr->bhr", w, ckv_cache), p)
 
 
 def mla_decode_paged(x, p, cfg, ckv_pool, kpe_pool, block_tables, lens):

@@ -59,7 +59,10 @@ cut over a mesh axis (the ``cache_seq`` rule, long_500k's B 1), each rank
 holds a contiguous share of every sequence's positions in its pool and
 decode runs K2's split half on it, gathers the partials over that axis and
 merges them once (``_split_attention``). MLA keeps its heads on
-"model" and its latent cache whole on every rank; the MoE FFN is
+"model" and its latent cache whole on every rank, or, cut along the
+sequence, splits its absorbed decode the same way in plain PyTorch
+(``_mla_split``: fp32 partials over the rank's positions, gathered and
+merged once, then ``w_uv`` and ``w_o``); the MoE FFN is
 expert-parallel (``models/moe.py``); Mamba2 scans its own heads and its
 state slots hold them, and the xLSTM blocks run their recurrences whole on
 every rank (``models/xlstm.py``). The seeded init draws what one device
@@ -103,8 +106,10 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_attention_partials,
                                                      paged_merge)
-from repro_torch.models.attention import (flash_prefill, mla_decode_paged,
-                                          mla_latents, mla_prefill)
+from repro_torch.models.attention import (flash_prefill, mla_absorb,
+                                          mla_decode_paged, mla_latents,
+                                          mla_merge, mla_partials, mla_prefill,
+                                          mla_query, mla_scale)
 from repro_torch.models.common import rmsnorm, rope, token_xent
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import (init_mamba_state, mamba2_decode,
@@ -486,9 +491,9 @@ def check_shardable(cfg: ModelConfig, ctx: ParallelContext, layout: str):
     layout whose padded q heads are no multiple of the kv heads (the
     reference tiles kv there, and its g-major slots then read other heads
     than tp=1's), no serve layout whose decode cache is cut over more than
-    one mesh axis or, with MLA, cut at all (``cache_seq``: the split
-    decode needs GQA attention; ROADMAP §1), and every sharded dimension
-    dividing its mesh axes. Every §Perf lever is taken."""
+    one mesh axis (``cache_seq``: the split decode gathers its partials
+    over one), and every sharded dimension dividing its mesh axes. Every
+    §Perf lever is taken."""
     hp, kvx = heads_layout(cfg, ctx, layout)
     if (layout == "train" and cfg.attention != "mla" and cfg.family != "ssm"
             and cfg.n_kv_heads < cfg.n_heads and kvx != cfg.n_kv_heads):
@@ -500,11 +505,10 @@ def check_shardable(cfg: ModelConfig, ctx: ParallelContext, layout: str):
             f"{cfg.name}: train_kv_2d cuts the kv projections over the FSDP "
             "axis and \"model\"; it needs an FSDP axis")
     seq_axis = ctx.spec("cache_seq")[0]
-    if layout == "serve" and seq_axis is not None and (
-            cfg.attention == "mla" or not isinstance(seq_axis, str)):
+    if layout == "serve" and seq_axis is not None and not isinstance(seq_axis, str):
         raise NotImplementedError(
-            f"{cfg.name}: a decode cache cut over {seq_axis!r} needs GQA "
-            "attention and one mesh axis (MLA under a cut cache: ROADMAP §1)")
+            f"{cfg.name}: a decode cache cut over {seq_axis!r}: the split "
+            "decode gathers its partials over one mesh axis")
     axes = param_axes(cfg, layout, ctx)
     for name, shape in padded_shapes(cfg, ctx, layout).items():
         shard_shape(shape, axes[name], ctx)
@@ -945,7 +949,8 @@ class Transformer(nn.Module):
 
     def _gqa_decode(self, x, p, pool_k, pool_v, at, block_tables):
         """One attention+MLP layer for one token per sequence: writes the
-        token's k and v into the pools at ``at`` (``_cache_slots``), then
+        token's k and v into the pools at ``at`` (``_cache_slots``; the
+        rows ``mine`` keeps, where it is given), then
         attends through K2, or through its split half where the cache's
         sequence is cut over ranks. Under ``seq_shard_decode`` every rank's
         pool holds every kv head (of its share of the sequence), so q is
@@ -962,15 +967,12 @@ class Transformer(nn.Module):
             if a.shape[2] < self.pool_kv:
                 a, b = (self.ctx.comm.all_gather(t, axis, 2) for t in (a, b))
         q = q.reshape(B, self.pool_kv, -1, hd)
-        if mine is None:
-            pool_k[pages, offs] = a[:, 0]
-            pool_v[pages, offs] = b[:, 0]
+        _put(pool_k, pages, offs, a[:, 0], mine)
+        _put(pool_v, pages, offs, b[:, 0], mine)
+        if self.seq_axis is None:
             o = paged_attention(q, pool_k, pool_v, block_tables, lens,
                                 window=self.window)
         else:
-            keep = mine[:, None, None]
-            pool_k[pages, offs] = torch.where(keep, a[:, 0], pool_k[pages, offs])
-            pool_v[pages, offs] = torch.where(keep, b[:, 0], pool_v[pages, offs])
             o = self._split_attention(q, pool_k, pool_v, block_tables, lens - s0)
         o = o.reshape(B, -1, hd)
         if heads:
@@ -993,6 +995,29 @@ class Transformer(nn.Module):
                                         self.seq_axis, 2)
         return paged_merge(both[..., :D].contiguous(), both[..., D:].contiguous(),
                            q.dtype)
+
+    def _mla_split(self, h, p, pool_ckv, pool_kpe, block_tables, local_lens, lens):
+        """The absorbed MLA decode over this rank's share of every sequence
+        (``local_lens`` counted from the share's start): fp32 partials
+        (``mla_partials``) gathered over ``seq_axis`` and merged once, then
+        ``w_uv`` and ``w_o`` on this rank's heads. Where the sequence is cut
+        over "model", which also cuts the heads, the queries of every head
+        are gathered first (each rank's positions serve all heads) and the
+        rank keeps its heads' contexts after the merge."""
+        ctx = self.ctx
+        q_lat, q_pe = mla_query(h, p, self.cfg, lens)
+        heads = self.seq_axis == ctx.model_axis and ctx.tp > 1
+        if heads:
+            q_lat, q_pe = (ctx.comm.all_gather(t, ctx.model_axis, 2) for t in (q_lat, q_pe))
+        acc, m, l = mla_partials(q_lat, q_pe, pool_ckv, pool_kpe, block_tables,
+                                 local_lens, mla_scale(self.cfg.mla))
+        parts = ctx.comm.all_gather(torch.cat([acc, m[..., None], l[..., None]], -1)[:, None],
+                                    self.seq_axis, 1)
+        lat = mla_merge(parts[..., :-2], parts[..., -2], parts[..., -1], h.dtype)
+        if heads:
+            n = lat.shape[1] // ctx.tp
+            lat = lat[:, ctx.comm.axis_index(ctx.model_axis) * n:][:, :n]
+        return mla_absorb(lat, p)
 
     # ------------------------------------------------------------ training
     def _unstacked(self, stack: str) -> List[Dict[str, torch.Tensor]]:
@@ -1202,65 +1227,78 @@ class Transformer(nn.Module):
                     pools: Sequence[torch.Tensor],
                     block_tables: torch.Tensor,
                     states: Sequence[torch.Tensor] = (),
-                    rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    rows: Optional[torch.Tensor] = None,
+                    valid: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One token per sequence. tokens (B,) at ``positions`` (B,);
         ``pools`` the pools of ``pool_shapes``; block_tables
         (B,max_blocks) int32 covering each position; ``states`` the
         buffers of ``state_shapes`` and ``rows`` (B,) int64 each
         sequence's slot in them. Writes the new token's cache entries into
         the pools and the new states into the slots, in place; returns
-        logits (B,V)."""
+        logits (B,V). ``valid`` (B,) bool marks the real sequences: a row
+        where it is False (a pad that keeps a step's batch one shape over
+        "data") writes nothing into the pools or the slots; its table and
+        slot must be ones no real row of the step writes."""
         self._serve_layout()
         cfg = self.cfg
         pos = positions.long()
         x = self._embed(tokens)[:, None]
         if cfg.family == "ssm":
-            return self._head(self._xlstm_decode(x, states, rows)[:, 0])
-        at = self._cache_slots(pos, block_tables, pools[0].shape[2])
+            return self._head(self._xlstm_decode(x, states, rows, valid)[:, 0])
+        at = self._cache_slots(pos, block_tables, pools[0].shape[2], valid)
         two_d = self.two_d is not None
         if cfg.family == "hybrid":
             return self._head(self._hybrid_decode(x, pools, block_tables, at,
-                                                  states, rows)[:, 0], two_d=two_d)
-        _, pages, offs, lens, _, _ = at
+                                                  states, rows, valid)[:, 0],
+                              two_d=two_d)
+        _, pages, offs, lens, mine, s0 = at
         pool_a, pool_b = pools
         for l, (stack, i) in enumerate(self.layers):
             p = self._layer(stack, i, keep=self._decode_keep())
             if self.mla:
                 h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
                 a, b = mla_latents(h, p, cfg, pos[:, None])
-                pool_a[l, pages, offs] = a[:, 0]
-                pool_b[l, pages, offs] = b[:, 0]
-                x = self._mlp(x + self._psum(mla_decode_paged(
-                    h, p, cfg, pool_a[l], pool_b[l], block_tables, lens)), p,
-                    two_d=two_d)
+                _put(pool_a[l], pages, offs, a[:, 0], mine)
+                _put(pool_b[l], pages, offs, b[:, 0], mine)
+                if self.seq_axis is None:
+                    y = mla_decode_paged(h, p, cfg, pool_a[l], pool_b[l],
+                                         block_tables, lens)
+                else:
+                    y = self._mla_split(h, p, pool_a[l], pool_b[l], block_tables,
+                                        lens - s0, lens)
+                x = self._mlp(x + self._psum(y), p, two_d=two_d)
             else:
                 x = self._gqa_decode(x, p, pool_a[l], pool_b[l], at,
                                      block_tables)
         return self._head(x[:, 0], two_d=two_d)
 
-    def _cache_slots(self, pos, block_tables, page):
+    def _cache_slots(self, pos, block_tables, page, valid=None):
         """Where each sequence's new token goes: (positions, pool pages,
         offsets in them, lens = positions as int32, mine, s0). With the
         cache sequence cut over ``seq_axis`` this rank's table covers the
         n = max_blocks * page positions from s0 = its coordinate * n; the
         token's slot is taken at its position in that share, ``mine`` says
         which sequences' new token the rank holds, and lens stay global.
-        Uncut, ``mine`` is None and s0 0."""
+        ``mine`` also drops the rows ``valid`` marks as pads. Uncut and
+        unpadded, ``mine`` is None and s0 0."""
         lens = pos.to(torch.int32)
         if self.seq_axis is None:
             pages = block_tables.long().gather(1, (pos // page)[:, None])[:, 0]
-            return pos, pages, pos % page, lens, None, 0
+            return pos, pages, pos % page, lens, valid, 0
         n = block_tables.shape[1] * page
         s0 = self.ctx.comm.axis_index(self.seq_axis) * n
         local = pos - s0
         mine = (local >= 0) & (local < n)
+        if valid is not None:
+            mine = mine & valid
         local = local.clamp(0, n - 1)
         pages = block_tables.long().gather(1, (local // page)[:, None])[:, 0]
         return pos, pages, local % page, lens, mine, s0
 
-    def _hybrid_decode(self, x, pools, block_tables, at, states, rows):
+    def _hybrid_decode(self, x, pools, block_tables, at, states, rows, valid=None):
         """Per group g: the shared block on pool g through K2, then its
-        Mamba2 layers on the batch's rows of the state buffers."""
+        Mamba2 layers on the batch's rows of the state buffers (a pad row's
+        slot keeps its state)."""
         cfg = self.cfg
         shared = self._layer("shared_attn", keep=self._decode_keep())
         pool_k, pool_v = pools
@@ -1268,15 +1306,14 @@ class Transformer(nn.Module):
             x = self._gqa_decode(x, shared, pool_k[g], pool_v[g], at,
                                  block_tables)
             for l in range(g * cfg.attn_every, (g + 1) * cfg.attn_every):
-                h, *cs = (buf[l].index_select(0, rows) for buf in states)
+                h, *cs = old = [buf[l].index_select(0, rows) for buf in states]
                 y, new = mamba2_decode(x, self._layer("mamba_stack", l), cfg,
                                        (h, tuple(cs)), ctx=self.ctx)
                 x = x + y
-                for buf, t in zip(states, (new[0], *new[1])):
-                    buf[l].index_copy_(0, rows, t)
+                _put_rows(states, l, rows, (new[0], *new[1]), old, valid)
         return x
 
-    def _xlstm_decode(self, x, states, rows):
+    def _xlstm_decode(self, x, states, rows, valid=None):
         cfg = self.cfg
         (G, per), _ = stack_depths(cfg).values()
         mst, sst = states[:4], states[4:]
@@ -1286,14 +1323,29 @@ class Transformer(nn.Module):
                 st = tuple(buf[l].index_select(0, rows) for buf in mst)
                 x, new = mlstm_decode(x, self._layer("mlstm_stack", g, j), cfg, st,
                                       ctx=self.ctx)
-                for buf, t in zip(mst, new):
-                    buf[l].index_copy_(0, rows, t)
+                _put_rows(mst, l, rows, new, st, valid)
             st = tuple(buf[g].index_select(0, rows) for buf in sst)
             x, new = slstm_decode(x, self._layer("slstm_stack", g), cfg, st,
                                   ctx=self.ctx)
-            for buf, t in zip(sst, new):
-                buf[g].index_copy_(0, rows, t)
+            _put_rows(sst, g, rows, new, st, valid)
         return x
+
+
+def _put(pool: torch.Tensor, pages, offs, new: torch.Tensor, keep):
+    """pool[pages, offs] = new, but the old entry on each row ``keep``
+    (None: every row) drops."""
+    if keep is not None:
+        new = torch.where(keep.view(-1, *(1,) * (new.ndim - 1)), new, pool[pages, offs])
+    pool[pages, offs] = new
+
+
+def _put_rows(bufs, layer: int, rows, new, old, valid):
+    """Each state buffer's ``rows`` of ``layer`` set to ``new``, but the rows
+    ``valid`` marks as pads keep ``old`` (None: every row is real)."""
+    for buf, t, o in zip(bufs, new, old):
+        if valid is not None:
+            t = torch.where(valid.view(-1, *(1,) * (t.ndim - 1)), t, o)
+        buf[layer].index_copy_(0, rows, t)
 
 
 def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -220,16 +220,23 @@ class Comm:
             return torch.cat(parts, dim=dim) if root else None
         return self._run("gather", axis, x.contiguous(), fn)
 
-    def broadcast_object(self, obj, axis: str, src: int = 0):
-        """``obj`` of coordinate ``src`` on ``axis``, on every rank of it."""
-        if self.size(axis) == 1:
-            return obj
-        group = self.group(axis)
+    def broadcast_object(self, obj, axis: Optional[str] = None, src: int = 0):
+        """``obj`` of coordinate ``src`` on ``axis``, on every rank of it;
+        with no axis, ``obj`` of the mesh's first rank on every rank of the
+        mesh (which spans the process group)."""
+        if axis is None:
+            if self.mesh is None or self.mesh.mesh.numel() == 1:
+                return obj
+            group, root = None, int(self.mesh.mesh.flatten()[0])
+        else:
+            if self.size(axis) == 1:
+                return obj
+            group = self.group(axis)
+            root = dist.get_global_rank(group, src)
         box: List[object] = [obj]
         # lint: disable=REP002 (host time of a collective, not simulation)
         t0 = time.perf_counter()
-        dist.broadcast_object_list(box, src=dist.get_global_rank(group, src),
-                                   group=group)
+        dist.broadcast_object_list(box, src=root, group=group)
         s = self.stats.setdefault("broadcast_object",
                                   dict(calls=0, staged=0, bytes=0, seconds=0.0))
         s["calls"] += 1

@@ -52,9 +52,9 @@ roofline terms to a JSON file. Cases:
     counts;
   * a ``psum`` of a known tensor books payload p and wire 2p(n-1)/n;
   * four full-width production cells trace on meta within ``TRACE_CAP_S``;
-  * the grid's CLI writes a file per cell, counts a lever's cell
-    (``--opts``) and records a refusal that remains (MLA under
-    ``seq_shard_decode``) as the cell's error.
+  * the grid's CLI writes a file per cell and counts a lever's cell
+    (``--opts``), R1's MLA decode under ``seq_shard_decode`` among them
+    (its split decode's partials gathered over "model", no kernel).
 """
 import dataclasses
 import json
@@ -491,10 +491,14 @@ def test_cli_writes_a_file_per_cell_and_records_refusals(tmp_path):
     res = json.loads((tmp_path / "llama3.2-3b__decode_32k__single__lever.json").read_text())
     assert "error" not in res and res["opts"] == {"serve_2d_tp": "True"}
     assert res["roofline"]["step_time_bound_s"] > 0
-    # a refusal that remains: MLA under a sequence-cut decode cache
+    # MLA under a sequence-cut decode cache: counted, its split decode's
+    # partials gathered over "model", neither kernel launched
     subprocess.run(base + ["--arch", "deepseek-r1-671b", "--shape", "decode_32k",
                            "--mesh", "single", "--tag", "lever", "--opts",
                            '{"seq_shard_decode": true}'], env=env, check=True, timeout=300)
     res = json.loads((tmp_path / "deepseek-r1-671b__decode_32k__single__lever.json")
                      .read_text())
-    assert "NotImplementedError" in res["error"] and "ROADMAP §1" in res["error"]
+    assert "error" not in res and res["opts"] == {"seq_shard_decode": "True"}
+    assert res["roofline"]["step_time_bound_s"] > 0
+    assert res["collective_counts"]["all-gather"] > 0
+    assert not {"paged_attention", "paged_attention_partials"} & set(res["flops_by_op"])

@@ -72,8 +72,19 @@ WINDOW_PAGED_CASES = [
     (1, 1, 4, 120, 40, [620], 108),         # edge on a boundary, D 120
     (3, 2, 9, 120, 24, [384, 17, 200], 1000),  # window past every sequence
 ]
+# K1's non-causal mode with a scale of its own (the reference wrapper's
+# ``causal=False, scale=``): Sq != Skv, lens < Skv, with and without a window
+NONCAUSAL_CASES = [
+    # B, Sq, Skv, H, KV, D, window, block_q, block_k, lens, scale
+    (2, 64, 160, 4, 2, 64, 0, 32, 32, [130, 160], 0.07),
+    (1, 96, 48, 4, 4, 32, 0, 32, 16, [40], 0.3),
+    (2, 80, 200, 6, 2, 128, 24, 16, 40, [200, 90], 0.05),
+    (1, 128, 128, 8, 2, 80, 40, 64, 64, [100], 0.1),
+]
+NONCAUSAL_ATOL = 1e-5
 # jitted: one compile per shape instead of one per eager op
 flash_attention_ref = jax.jit(_flash_ref, static_argnames=("window",))
+noncausal_ref = jax.jit(_flash_ref, static_argnames=("causal", "window", "scale"))
 paged_attention_ref = jax.jit(_paged_ref)
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-3),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -143,6 +154,64 @@ def test_flash_plain_vs_jax_interpret(case):
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         torch.from_numpy(lens), window=window)
     _close(out, ref, 2e-3)
+
+
+def _noncausal_inputs(case, seed):
+    B, Sq, Skv, H, KV, D, window, bq, bk, lens, scale = case
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((B, Sq, H, D), (B, Skv, KV, D), (B, Skv, KV, D)))
+    return q, k, v, np.asarray(lens, np.int32), window, scale
+
+
+@pytest.mark.parametrize("case", NONCAUSAL_CASES)
+def test_flash_noncausal_plain_vs_jax_ref(case):
+    """``causal=False`` with a scale: every key below lens (within the
+    window of the query's position) against ``flash_attention_ref``, fp32."""
+    q, k, v, lens, window, scale = _noncausal_inputs(case, 200 + NONCAUSAL_CASES.index(case))
+    ref = noncausal_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        jnp.asarray(lens), causal=False, window=window, scale=scale)
+    out = flash_ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                    torch.from_numpy(v), torch.from_numpy(lens),
+                                    causal=False, window=window, scale=scale)
+    assert out.shape == q.shape
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
+                               atol=NONCAUSAL_ATOL)
+    # the mode changes the result: a causal run of the same inputs differs
+    causal = flash_ops.flash_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(lens), window=window, scale=scale)
+    assert float((causal - out).abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("case", NONCAUSAL_CASES)
+def test_flash_noncausal_plain_vs_jax_interpret(case):
+    """The Pallas kernel itself, in interpret mode, with ``causal=False``
+    and the scale (fp32)."""
+    B, Sq, Skv, H, KV, D, window, bq, bk, _, _ = case
+    q, k, v, lens, window, scale = _noncausal_inputs(case, 300 + NONCAUSAL_CASES.index(case))
+    ref = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    jnp.asarray(lens), causal=False, window=window, scale=scale,
+                    block_q=bq, block_k=bk, interpret=True)
+    out = flash_ops.flash_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(lens), causal=False, window=window, scale=scale)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
+                               atol=NONCAUSAL_ATOL)
+
+
+def test_flash_noncausal_meta_books_its_pairs():
+    """On meta the wrapper books the pairs the non-causal mode reads:
+    every key for every query, or those inside each query's window."""
+    from repro_torch.analysis.counter import OpCounter
+    B, Sq, Skv, H, KV, D = 1, 6, 10, 2, 1, 32
+    q = torch.empty((B, Sq, H, D), device="meta")
+    k = torch.empty((B, Skv, KV, D), device="meta")
+    for window, pairs in ((0, Sq * Skv), (3, sum(Skv - max(0, i - 2) for i in range(Sq)))):
+        assert flash_ops.causal_pairs(Sq, Skv, window, causal=False) == pairs
+        with OpCounter() as c:
+            flash_ops.flash_attention(q, k, k, causal=False, window=window)
+        assert c.flops == 4.0 * B * H * pairs * D
 
 
 @pytest.mark.parametrize("offset,window,kv_len", [(0, 0, 96), (32, 0, 80),

@@ -167,6 +167,43 @@ def test_flash_kernel_vs_plain(cuda, case, dtype):
     _assert_close(out, ref, tol, REL_RMS[dtype])
 
 
+# K1's non-causal instances with a scale of their own: (B, Sq, Skv, H,
+# KV, D, window, lens, scale); Sq != Skv, lens < Skv, tiles cut mid-way
+NONCAUSAL_CASES = [
+    (2, 200, 333, 8, 2, 64, 0, [333, 170], 0.09),
+    (1, 300, 137, 4, 4, 80, 0, [100], 0.2),
+    (2, 130, 500, 8, 2, 128, 0, [450, 257], 0.06),
+    (1, 257, 400, 4, 2, 128, 100, [390], 0.1),
+    (2, 100, 260, 8, 8, 80, 48, [260, 129], 0.15),
+    (1, 64, 1000, 24, 8, 128, 0, [1000], 128 ** -0.5),
+    (1, 1000, 1000, 24, 8, 128, 0, [1000], 128 ** -0.5),
+    (2, 130, 130, 2, 2, 64, 0, [0, 65], 0.125),    # no valid key: zeros
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", NONCAUSAL_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_noncausal_kernel_vs_plain(cuda, case, dtype):
+    """``causal=False`` with a non-default scale: the non-causal instance
+    (counted by ``NONCAUSAL``, never by the causal ``KERNEL``) against the
+    plain version on the same inputs."""
+    B, Sq, Skv, H, KV, D, window, lens, scale = case
+    rng = np.random.default_rng(700 + NONCAUSAL_CASES.index(case))
+    tdt, tol = DTYPES[dtype]
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda, tdt)
+               for s in ((B, Sq, H, D), (B, Skv, KV, D), (B, Skv, KV, D)))
+    lt = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = (flash_ops.KERNEL.launches, flash_ops.NONCAUSAL.launches)
+    out = flash_ops.flash_attention(q, k, v, lt, causal=False, window=window, scale=scale)
+    torch.cuda.synchronize()
+    assert (flash_ops.KERNEL.launches, flash_ops.NONCAUSAL.launches) == \
+        (before[0], before[1] + 1)
+    ref = flash_ops.flash_attention_plain(q, k, v, lt, causal=False, window=window,
+                                          scale=scale)
+    _assert_close(out, ref, tol, REL_RMS[dtype])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", PAGED_CASES)
 @pytest.mark.parametrize("dtype", list(DTYPES))

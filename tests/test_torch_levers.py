@@ -38,8 +38,11 @@ fp32. Cases:
     same checkpoint restored onto one device, shard by shard;
   * ``TorchRunner`` on (1,2) under ``seq_parallel_norm`` (prompts of odd
     lengths, chunked) and ``decode_unroll``: greedy tokens equal tp=1's;
-    it refuses ``seq_shard_decode``; the model refuses MLA under
-    ``seq_shard_decode`` and an int8 or fp8 cache on a real device.
+    under ``seq_shard_decode`` (4-token pages, so that the sequences reach
+    the second rank's share) too, each rank's pool holding only the pages
+    of its positions; the model builds MLA under ``seq_shard_decode`` and
+    counts its split decode on meta, and refuses an int8 or fp8 cache on a
+    real device.
 
 The file takes about 2 minutes in one process; keep it in one xdist
 worker (``--dist loadfile``), or each worker reruns its module fixture.
@@ -431,14 +434,36 @@ def _runner(rank, out):
         _write(out, rank, "runner-" + lever, dict(
             sharded=[r.output for r in reqs], tp1=[r.output for r in ones],
             lens=[len(p) for p, _ in requests]))
-    model = Transformer(cfg, device="cpu", dtype=torch.float32, seed=0,
-                        ctx=_ctx((1, 2), {"seq_shard_decode": True}))
+    # seq_shard_decode: a rank's share is half the pool's 20 pages of 4
+    # tokens, 40 positions, so the longer sequences reach the second rank;
+    # kv-aware admission, since naive admission's concurrent chunked
+    # prefills exhaust so small a pool and wait on each other for good
+    engine = dict(engine, n_pages=20, page_size=4, admission_mode="kv_aware")
+    one = InferenceEngine(cfg, EngineConfig(**engine), TorchRunner(
+        Transformer(cfg, device="cpu", dtype=torch.float32, seed=2),
+        device="cpu"), virtual_clock=False)
+    ones = [one.submit(p, n) for p, n in requests]
+    one.run()
+    ctx = _ctx((1, 2), {"seq_shard_decode": True})
+    model = Transformer(cfg, device="cpu", dtype=torch.float32, seed=2, ctx=ctx)
+    runner = TorchRunner(model, device="cpu")
+    written = lambda: int((runner.pools[0].abs().sum((0, 2, 3, 4)) > 0).sum())  # noqa: E731
+    if not runner.leads:
+        runner.follow()
+        _write(out, rank, "runner-seq_shard_decode", dict(pages_written=written(),
+                                                         n_pages=runner.pools[0].shape[1]))
+        return
     try:
-        TorchRunner(model, device="cpu")
-        refused = None
-    except NotImplementedError as e:
-        refused = str(e)
-    _write(out, rank, "runner-refuses-seq_shard_decode", dict(refused=refused))
+        eng = InferenceEngine(cfg, EngineConfig(**engine), runner, virtual_clock=False)
+        reqs = [eng.submit(p, n) for p, n in requests]
+        eng.run()
+    finally:
+        runner.close()
+    _write(out, rank, "runner-seq_shard_decode", dict(
+        sharded=[r.output for r in reqs], tp1=[r.output for r in ones],
+        longest=max(len(p) + n for p, n in requests), share=runner.share_blocks * 4,
+        osl=[n for _, n in requests],
+        pages_written=written(), n_pages=runner.pools[0].shape[1]))
 
 
 def _world2(rank, ref, work, out):
@@ -593,9 +618,18 @@ def test_sharded_runner_under_a_lever_equals_tp1(results, lever):
     assert r["sharded"] == r["tp1"]
 
 
-def test_runner_refuses_seq_shard_decode(results):
-    for r in results["runner-refuses-seq_shard_decode"].values():
-        assert r["refused"] and "seq_shard_decode" in r["refused"]
+def test_runner_under_seq_shard_decode_equals_tp1(results):
+    """The runner serves with each rank holding its share of every
+    sequence's positions (the second rank's share is reached): tokens equal
+    tp=1's, and each rank's pool holds pages of its own positions only, so
+    the two ranks together write no more pages than the engine's pool has."""
+    ranks = results["runner-seq_shard_decode"]
+    lead = ranks[0]
+    assert lead["sharded"] == lead["tp1"]
+    assert [len(t) for t in lead["sharded"]] == lead["osl"]
+    assert lead["longest"] > lead["share"]
+    assert all(r["pages_written"] > 0 for r in ranks.values())
+    assert sum(r["pages_written"] for r in ranks.values()) <= lead["n_pages"]
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.float8_e4m3fn])
@@ -613,12 +647,26 @@ def test_a_real_model_refuses_a_quantised_cache(dtype):
     Transformer(cfg, device="meta", dtype=torch.bfloat16, seed=None, ctx=ctx)
 
 
-def test_mla_under_seq_shard_decode_is_refused():
+def test_mla_under_seq_shard_decode_builds_and_splits():
+    """R1's MLA under ``seq_shard_decode`` builds, and a decode step traced
+    on meta (one rank of (1,2)) gathers its queries and its partials over
+    "model" (``_mla_split``) and launches no kernel."""
+    from repro_torch.analysis.counter import OpCounter
     from repro_torch.models.transformer import Transformer
     from repro_torch.parallel.sharding import AbstractMesh
+    cfg = get_smoke_config("deepseek-r1-671b")
     ctx = ParallelContext(mesh=AbstractMesh((1, 2), ("data", "model")),
                           seq_shard_decode=True)
-    with pytest.raises(NotImplementedError) as e:
-        Transformer(get_smoke_config("deepseek-r1-671b"), device="meta",
-                    dtype=torch.bfloat16, seed=None, ctx=ctx)
-    assert "ROADMAP §1" in str(e.value)
+    m = Transformer(cfg, device="meta", dtype=torch.bfloat16, seed=None, ctx=ctx)
+    assert m.seq_axis == "model"
+    B, nb = 2, 3
+    pools = [torch.empty(s, device="meta", dtype=torch.bfloat16)
+             for s in m.pool_shapes(8, PAGE)]
+    with OpCounter():
+        logits = m.decode_step(torch.zeros(B, dtype=torch.long, device="meta"),
+                               torch.zeros(B, dtype=torch.long, device="meta"), pools,
+                               torch.zeros((B, nb), dtype=torch.int32, device="meta"))
+    assert logits.shape == (B, cfg.vocab)
+    gathers = ctx.comm.stats["all-gather"]
+    # per layer: q_lat and q_pe over "model", the partials over "model"
+    assert gathers["calls"] >= 3 * cfg.n_layers

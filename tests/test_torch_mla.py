@@ -107,3 +107,49 @@ def test_mla_paged_decode_equals_dense(seed):
     paged = tattn.mla_decode_paged(torch.from_numpy(x), tp, cfg, ckv_pool,
                                    kpe_pool, torch.from_numpy(tables), t_lens)
     np.testing.assert_allclose(paged.numpy(), dense.numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("ranks", [2, 3])
+def test_mla_split_decode_matches_jax(seed, ranks):
+    """The absorbed decode split as ranks of a sequence-cut cache split it
+    (``Transformer._mla_split``): each rank's share of every sequence's
+    positions in its own shuffled pages, ``mla_partials`` over the share
+    with lens counted from its start (a share past a sequence's newest
+    token adds nothing), the shares' partials merged by ``mla_merge`` and
+    absorbed by ``mla_absorb``: within 1e-4 of the reference's
+    ``mla_decode`` on the dense cache, fp32."""
+    cfg, jcfg = get_smoke_config(ARCH), jax_smoke_config(ARCH)
+    jp, tp = _both(_layer(cfg, seed))
+    page = 4
+    x, ckv, kpe, lens = _decode_inputs(cfg, seed, B=3, S=40)
+    lens[1] = 3                          # only the first share holds it
+    B, S = ckv.shape[:2]
+    nb = -(-S // (page * ranks))         # blocks of a share
+    rng = np.random.default_rng(seed + 40)
+    xt, t_lens = torch.from_numpy(x), torch.from_numpy(lens)
+    q_lat, q_pe = tattn.mla_query(xt, tp, cfg, t_lens)
+    parts = []
+    for r in range(ranks):
+        n_pages = 2 * B * nb
+        tables = rng.permutation(n_pages)[:B * nb].reshape(B, nb)
+        ckv_pool = torch.from_numpy(rng.standard_normal(
+            (n_pages, page, ckv.shape[2])).astype(np.float32))
+        kpe_pool = torch.from_numpy(rng.standard_normal(
+            (n_pages, page, kpe.shape[2])).astype(np.float32))
+        pos = np.arange(r * nb * page, min((r + 1) * nb * page, S))
+        local = pos - r * nb * page
+        for b in range(B):
+            pages = torch.from_numpy(tables[b, local // page]).long()
+            ckv_pool[pages, torch.from_numpy(local % page)] = torch.from_numpy(ckv[b, pos])
+            kpe_pool[pages, torch.from_numpy(local % page)] = torch.from_numpy(kpe[b, pos])
+        parts.append(tattn.mla_partials(
+            q_lat, q_pe, ckv_pool, kpe_pool, torch.from_numpy(tables.astype(np.int32)),
+            t_lens - r * nb * page, tattn.mla_scale(cfg.mla)))
+    acc, m, l = (torch.stack(t, 1) for t in zip(*parts))
+    assert float(m[1, 1:].max()) <= tattn.NEG_INF / 2 and float(l[1, 1:].max()) == 0.0
+    out = tattn.mla_absorb(tattn.mla_merge(acc, m, l, xt.dtype), tp)
+    ref = jattn.mla_decode(jnp.asarray(x), jp, jcfg, jnp.asarray(ckv),
+                           jnp.asarray(kpe), jnp.asarray(lens))
+    assert out.shape == (B, 1, cfg.d_model)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=ATOL)

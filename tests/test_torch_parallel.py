@@ -32,7 +32,10 @@ JSON file. All inputs come from numpy seeds or from the reference's
     equal the tp=1 port's, with and without forced preemption, for
     llama3.2-3b and deepseek-r1 (capacity factor raised to 64, so that no
     assignment drops at tp=1 or under split dispatch, whose capacity is a
-    slice's); and on (2,2) the runner refuses data > 1.
+    slice's); and on (2,2), "data" 2, llama3.2-3b preempting: each
+    request's slot picks its data rank, tokens equal the tp=1 port's
+    (``tests/test_torch_runner_mesh.py`` holds the same path to the
+    reference's ``JaxRunner``).
 """
 import dataclasses
 import json
@@ -342,24 +345,39 @@ def _world2(rank, ref, out):
     _runner(rank, out)
 
 
-def _world4(rank, ref, out):
+def _runner_data2(rank, out):
+    """llama3.2-3b served on (2,2) behind the engine, preempting, against
+    the tp=1 port: the slots, and so the requests, split over "data"."""
+    from repro_torch.core.engine import EngineConfig, InferenceEngine
     from repro_torch.core.runner import TorchRunner
+    from repro_torch.launch.serve import make_requests, serve_sharded
     from repro_torch.models.transformer import Transformer
+    cfg = get_smoke_config("llama3.2-3b")
+    requests = make_requests(cfg.vocab, 5, (10, 30), (12, 20), seed=4)
+    engine = dict(n_pages=9, max_num_seqs=6, max_num_batched_tokens=512,
+                  chunk_size=192, admission_mode="naive")
+    eng, reqs = serve_sharded(cfg, requests, ParallelContext(mesh=_mesh(2, 2)),
+                              device="cpu", dtype=torch.float32, seed=2, **engine)
+    if eng is None:
+        return
+    one = InferenceEngine(cfg, EngineConfig(**engine), TorchRunner(
+        Transformer(cfg, device="cpu", dtype=torch.float32, seed=2), device="cpu"),
+        virtual_clock=False)
+    ones = [one.submit(p, n) for p, n in requests]
+    one.run()
+    _write(out, rank, "runner-data2", dict(
+        sharded=[r.output for r in reqs], tp1=[r.output for r in ones],
+        preemptions=sum(r.n_preemptions for r in reqs), dp=eng.runner.dp))
+
+
+def _world4(rank, ref, out):
     for name, case in PREFILL_CASES.items():
         if case[1] in ((2, 2), (1, 4)):
             _prefill_decode(rank, name, case, ref, out)
     _seeded_init(rank, "init-llama-1x4", "llama3.2-3b", 1, 4, out)
     _seeded_init(rank, "init-qwen3-2x2", "qwen3-14b", 2, 2, out)
     _pipeline(rank, ref, out)
-    ctx = ParallelContext(mesh=_mesh(2, 2))
-    model = Transformer(get_smoke_config("llama3.2-3b"), device="cpu",
-                        dtype=torch.float32, seed=0, ctx=ctx)
-    try:
-        TorchRunner(model, device="cpu")
-        refused = None
-    except NotImplementedError as e:
-        refused = str(e)
-    _write(out, rank, "runner-refuses-data2", dict(refused=refused))
+    _runner_data2(rank, out)
 
 
 def _world8(rank, ref, out):
@@ -442,6 +460,11 @@ def test_sharded_runner_tokens_equal_tp1(results, case):
         assert r["preemptions"] > 0
 
 
-def test_runner_refuses_data_above_one(results):
-    for r in results["runner-refuses-data2"].values():
-        assert r["refused"] and "data" in r["refused"]
+def test_runner_on_data2_equals_tp1(results):
+    """The runner serves on "data" 2 (its leader alone writes the result):
+    greedy tokens equal tp=1's through preemptions."""
+    ranks = results["runner-data2"]
+    assert list(ranks) == [0]
+    r = ranks[0]
+    assert r["dp"] == 2 and r["preemptions"] > 0
+    assert r["sharded"] == r["tp1"]

@@ -43,8 +43,10 @@ layout=)``) or from the port's seeded init. Everything is fp32. Cases:
     for another tp raises ``ValueError``;
   * the §Perf levers' layouts: under each the sharded model builds in
     either layout, as the reference lays it out; an int8 kv cache is
-    refused on a real device, and the runner refuses data > 1
-    (``tests/test_torch_levers.py`` holds the levers' computations).
+    refused on a real device (``tests/test_torch_levers.py`` holds the
+    levers' computations);
+  * the runner on (2,2), "data" 2: xlstm's state rows cut over "data"
+    with the slots, tokens equal tp=1's through preemptions.
 
 Tolerances of the recurrent stacks against tp=1. Their smoke models are
 ill-conditioned: a half-ulp change of every tp=1 weight moves their
@@ -368,15 +370,15 @@ def _seeded_init(rank, name, arch, data, model, layout, out):
     _write(out, rank, name, dict(mismatched=bad))
 
 
-def _runner(rank, out):
-    """Greedy tokens through the engine and the sharded runner on (1,2)
+def _runner(rank, out, mesh=(1, 2), cases=RUNNER_CASES, prefix="runner-"):
+    """Greedy tokens through the engine and the sharded runner on ``mesh``
     against the tp=1 port, seeded alike."""
     from repro_torch.core.engine import EngineConfig, InferenceEngine
     from repro_torch.core.runner import TorchRunner
     from repro_torch.launch.serve import make_requests, serve_sharded
     from repro_torch.models.transformer import Transformer
-    ctx = ParallelContext(mesh=_mesh(1, 2))
-    for case in RUNNER_CASES:
+    ctx = ParallelContext(mesh=_mesh(*mesh))
+    for case in cases:
         arch, pool = case.rsplit("-", 1)
         cfg = get_smoke_config(arch)
         requests = make_requests(cfg.vocab, 4, (10, 30), (12, 20), seed=4)
@@ -392,7 +394,7 @@ def _runner(rank, out):
             device="cpu"), virtual_clock=False)
         ones = [one.submit(p, n) for p, n in requests]
         one.run()
-        _write(out, rank, "runner-" + case, dict(
+        _write(out, rank, prefix + case, dict(
             sharded=[r.output for r in reqs], tp1=[r.output for r in ones],
             preemptions=sum(r.n_preemptions for r in reqs),
             finished=all(len(r.output) == n for r, (_, n) in zip(reqs, requests))))
@@ -598,8 +600,6 @@ def _world2(rank, ref, work, out):
 
 
 def _world4(rank, ref, work, out):
-    from repro_torch.core.runner import TorchRunner
-    from repro_torch.models.transformer import Transformer
     for name, case in SERVE_CASES.items():
         if case[1] == (2, 2):
             _serve(rank, name, case, ref, out)
@@ -611,15 +611,7 @@ def _world4(rank, ref, work, out):
         _train_grads(rank, arch, out)
     _zero(rank, ref, work, out)
     _restore(rank, ref, work, out)
-    ctx = ParallelContext(mesh=_mesh(2, 2))
-    model = Transformer(get_smoke_config("zamba2-2.7b"), device="cpu",
-                        dtype=torch.float32, seed=0, ctx=ctx)
-    try:
-        TorchRunner(model, device="cpu")
-        refused = None
-    except NotImplementedError as e:
-        refused = str(e)
-    _write(out, rank, "runner-refuses-data2", dict(refused=refused))
+    _runner(rank, out, (2, 2), ["xlstm-350m-preempting"], "runner-2x2-")
 
 
 # ------------------------------------------------------------------ fixture
@@ -806,9 +798,12 @@ def test_restore_refuses_a_tree_padded_for_another_tp(results):
         assert r["refused"] and "structure mismatch" in r["refused"]
 
 
-def test_recurrent_runner_refuses_data_above_one(results):
-    for r in results["runner-refuses-data2"].values():
-        assert r["refused"] and "data" in r["refused"]
+def test_recurrent_runner_on_data2_equals_tp1(results):
+    """xlstm on (2,2): each data rank holds the state rows of its slots;
+    tokens equal tp=1's through preemptions."""
+    r = results["runner-2x2-xlstm-350m-preempting"][0]
+    assert r["finished"] and r["preemptions"] > 0
+    assert r["sharded"] == r["tp1"]
 
 
 # ------------------------------------------------ layouts and refusals, no group
@@ -834,8 +829,8 @@ def test_layout_matches_the_reference_specs(arch, layout, tp, data):
     either layout equal the reference's ``build_param_specs`` /
     ``param_pspecs`` under an abstract (data, tp) mesh, with the baseline
     rules and under each §Perf lever, and the model accepts it
-    (``check_shardable``; it refuses MLA's serve layout under
-    ``seq_shard_decode`` alone)."""
+    (``check_shardable``; MLA's serve layout under ``seq_shard_decode``
+    too, since its decode splits)."""
     from jax.sharding import AbstractMesh as JaxAbstractMesh
     from repro.configs.registry import get_config as jax_config
     from repro.models import transformer as T
@@ -857,12 +852,7 @@ def test_layout_matches_the_reference_specs(arch, layout, tp, data):
             assert shapes[name] == spec.shape, (lever, name)
             assert axes[name] == spec.axes, (lever, name)
             assert tctx.spec(*axes[name]) == tuple(pspecs[name]), (lever, name)
-        if (lever == "seq_shard_decode" and layout == "serve"
-                and cfg.attention == "mla"):
-            with pytest.raises(NotImplementedError, match="ROADMAP §1"):
-                check_shardable(cfg, tctx, layout)
-        else:
-            check_shardable(cfg, tctx, layout)
+        check_shardable(cfg, tctx, layout)
 
 
 @pytest.mark.parametrize("lever", [*PERF_LEVERS, "remat", "kv_cache_dtype"])
