@@ -5,14 +5,22 @@
 
 Phases, each printed as one JSON line:
   1. the card (nvidia-smi name and power limit, torch and CUDA versions),
-     then the build of both CUDA kernels from ``src/repro_torch/csrc``;
+     then the build of the CUDA libraries from ``src/repro_torch/csrc``;
   2. each kernel against its plain PyTorch version on the card, fp32 and
      bf16, on the kernel test cases, the edges of each kernel's tiling and
      the main paths' shapes (llama3.2-3b's G=3, phi3.5-moe's G=4, qwen3's
      G=5, kimi-k2's D=112, h2o-danube's D=120 with its window of 4096,
      llama3-405b's G=16, zamba2's D=80 at G=1, musicgen's D=64 at G=1 over
      24 kv heads, internvl2's G=8 at D=128 and its prefix plus text), and
-     the window's edges inside and on K2's 256-token partitions;
+     the window's edges inside and on K2's 256-token partitions; then K2
+     over pages of another dtype than q (fp8 e4m3 and int8 under bf16 and
+     fp32 q, bf16 under fp32; ``check_q8``) at llama3.2-3b's, h2o-danube's
+     (window, D 120), llama3-405b's (G 16) and zamba2's (D 80, G 1) decode
+     batches, in the reference's ``decode_attention`` function (two
+     passes) and upcast (``decode_unroll``), and its split passes over a
+     sequence-split share of zamba2 and h2o-danube; int8 pages also under
+     q times 12 and 40, where the output is not zeros and rows tell
+     truncation from rounding to nearest;
   3. each kernel's time in bf16 at the main paths' shapes (K1 at S 137,
      1000, 512 and 2048, and at the prompts of qwen3-14b, h2o-danube (S
      5000, window 4096), kimi-k2, llama3-405b, zamba2-2.7b, musicgen-medium
@@ -24,7 +32,8 @@ Phases, each printed as one JSON line:
      beside its bound and the share of it reached, the wrapper's host time
      per call, its plain version's time and one PyTorch library call's time
      (for a window, SDPA with a boolean mask; the line names the kernels
-     the library ran);
+     the library ran); K2 over fp8 and int8 pages at llama3.2-3b's batch,
+     both modes (the upcast mode's yardstick SDPA on the upcast cache);
   4. greedy tokens of a full-width 2-layer fp32 model served on the card
      equal those of the plain path on the CPU, with and without preemption;
   5. the main path: full-depth llama3.2-3b in bf16 serving 16 requests
@@ -82,7 +91,15 @@ Phases, each printed as one JSON line:
      diverging from the sim's; every
      finished card request's span sums to its measured latency, the naive
      card run reads ``capacity_bound`` for some of its time and no window
-     of the kv-aware one is a preemption storm. Then ``cluster``, on the
+     of the kv-aware one is a preemption storm. Then ``kv_cache_dtype``:
+     full-depth llama3.2-3b in bf16 served from an fp8 cache
+     (``ParallelContext(kv_cache_dtype=)``, ``SERVE_REQUESTS``, a pool of
+     704,643,072 B, half of bf16's) and from an int8 cache, each through
+     ``TorchRunner`` launching K1 and the two-pass K2 over its pages; a
+     2-layer fp32 model's tokens from fp8 and int8 caches on a preempting
+     pool equal on the card and on the CPU; and the capacity traffic on
+     an fp8 cache of the bf16 ``capacity`` run's bytes (768 pages) beside
+     ``SimRunner``: equal steps and preemptions. Then ``cluster``, on the
      host: ``repro_torch.cluster.ClusterRuntime(sanitize=True)`` over four
      DS-Distill-8B ``SimRunner`` replicas on H100 constants, colocated
      under ``MemoryAware`` routing and disaggregated 2 + 2, serving 40
@@ -184,7 +201,8 @@ Phases, each printed as one JSON line:
      (``levers_dryrun``, counted with the grid in step 14);
  17. the ``kernels`` line (launches summed over every main path, and by
      model and rank; K2's partials and merge entries from the split
-     decode; ``levers/<lever>`` the levers phase's), then the card line,
+     decode; ``levers/<lever>`` the levers phase's; K2 over fp8 and over
+     int8 pages with their upcast mode), then the card line,
      then as the last line ``{"ok": true, "device": {...}}``.
 Each line's ``t_s`` is the seconds since the script started. Any
 failure raises and exits non-zero. It needs a CUDA card and fails without
@@ -763,6 +781,205 @@ def time_paged(paged_ops, dtype, gen, m=MAIN_PAGED):
             q, kp, vp, tables, lens, **kw), 10)[0],
         bytes=needed, gb_s=needed / t["ms"] / 1e6,
         device_gb_s=needed / t["device_ms"] / 1e6)
+
+
+# ------------------------------------------- K2 over pages of another dtype
+# (pages, q) dtypes of the kernels for a cache of the reference's
+# kv_cache_dtype: the two-pass default (decode_attention's function) and
+# the one-pass upcast mode (decode_unroll's)
+Q8_PAIRS = ((torch.float8_e4m3fn, torch.bfloat16), (torch.float8_e4m3fn, torch.float32),
+            (torch.int8, torch.bfloat16), (torch.int8, torch.float32),
+            (torch.bfloat16, torch.float32))
+# the table's K2 shapes: llama3.2-3b's decode batch (shuffled pages),
+# h2o-danube's window at D 120, llama3-405b's G 16, zamba2's D 80 at G 1
+Q8_PAGED = [MAIN_PAGED, DANUBE_PAGED, L405_PAGED, ZAMBA_PAGED]
+# the default mode against the plain version: fp32 sums in another order
+# (1e-4 of the values' scale), the output's rounding to q's dtype (2^-8 of
+# it in bf16) and ``weight_slack`` (a weight near a rounding boundary of the
+# pages' dtype may round to the other neighbour); the upcast mode: TOL and
+# REL_RMS times the values' scale
+Q8_ATOL = 1e-4
+# K2's rows timed over 8-bit pages under a bf16 q at llama3.2-3b's batch
+Q8_TIMED = ((torch.float8_e4m3fn, False), (torch.int8, False),
+            (torch.float8_e4m3fn, True), (torch.int8, True))
+# int8 pages are also checked under q times these, where q*scale truncates
+# to non-zero integers and the plain output is not zeros: at x12 most
+# rows' largest weight lies in [0.5, 1) (truncated to 0, where rounding to
+# nearest gives 1), at x40 most rows' is exactly 1 (the output is that
+# key's v). At x1 q*scale truncates to 0 and the output is zeros.
+INT8_QX = (12.0, 40.0)
+
+
+def _dt(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def q8_inputs(pages, qdt, gen, m, qx=1.0):
+    """``paged_main_inputs`` at ``m`` with q times ``qx`` in ``qdt`` and
+    pages cast to ``pages`` as the cache casts (int8's values times 3:
+    small integers)."""
+    from repro_torch.models.cache_dtype import to_cache_dtype
+    q, kp, vp, tables, lens = paged_main_inputs(torch.float32, gen, m)
+    scale = 3.0 if pages == torch.int8 else 1.0
+    return ((q * qx).to(qdt), to_cache_dtype(kp * scale, pages),
+            to_cache_dtype(vp * scale, pages), tables, lens)
+
+
+def int8_scores(label, q, kp, tables, lens, window, ref, slack, qx):
+    """Under q times ``qx`` > 1 over int8 pages the plain output tells a
+    kernel that truncates from one that writes zeros or rounds to nearest:
+    it must hold rows without slack whose largest weight is 1 (x40), or
+    lies in [0.5, 1) (x12). Returns the share of non-zero output rows."""
+    from repro_torch.kernels.paged_attention.ref import decode_weights
+    nonzero = ref.float().abs().amax(dim=-1) > 0
+    if qx == 1.0:
+        return float(nonzero.float().mean())
+    top = decode_weights(q, kp, tables, lens, window).amax(dim=-1)
+    exact = slack.amax(dim=-1) == 0
+    rows = (top >= 0.5) & (top < 1) if qx == INT8_QX[0] else nonzero
+    if not bool((rows & exact).any()):
+        raise AssertionError(f"{label}: no row tells truncation from rounding")
+    return float(nonzero.float().mean())
+
+
+def hold_q8(label, out, ref, q, vp, slack, upcast):
+    """``out`` against ``ref`` under the bounds of ``Q8_ATOL``'s comment.
+    Returns (max abs err, max abs err over the rows without slack,
+    relative rms err)."""
+    out, ref = out.float(), ref.float()
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{label}: non-finite output")
+    v_scale = float(vp.float().std())
+    diff = (out - ref).abs()
+    if upcast:
+        tol = TOL[q.dtype] * v_scale
+        bound_ = tol + tol * ref.abs()
+    else:
+        rel = 2.0 ** -8 if q.dtype == torch.bfloat16 else 1e-6
+        bound_ = Q8_ATOL * v_scale + rel * ref.abs() + slack
+    if not bool((diff <= bound_).all()):
+        raise AssertionError(f"{label}: beyond its bound by {float((diff - bound_).max())}")
+    rel_rms = float(diff.norm() / ref.norm().clamp_min(1e-30))
+    if float(diff.norm()) > REL_RMS[q.dtype] * float(ref.norm()) + float(slack.norm()):
+        raise AssertionError(f"{label}: relative rms err {rel_rms}")
+    exact = diff[slack.amax(dim=-1) == 0]
+    return float(diff.max()), float(exact.max()) if exact.numel() else 0.0, rel_rms
+
+
+def check_q8(paged_ops):
+    """Each instance over pages of another dtype at the table's K2 shapes,
+    both modes, against the plain version; then the split decode's passes
+    over the two halves of zamba2's and h2o-danube's split share (stats
+    gathered and merged, values summed) against the one-call plain
+    version; int8 pages also under q times ``INT8_QX``. Returns the max
+    abs err of each (q, pages, mode), over all rows and over the rows
+    without slack."""
+    from repro_torch.kernels.paged_attention.ref import weight_slack
+    from repro_torch.models.cache_dtype import to_cache_dtype
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    errs, exacts, rels, nonzero = {}, {}, {}, {}
+    for pages, qdt in Q8_PAIRS:
+        qxs = (1.0, *INT8_QX) if pages == torch.int8 else (1.0,)
+        for qx in qxs:
+            for m in Q8_PAGED:
+                q, kp, vp, tables, lens = q8_inputs(pages, qdt, gen, m, qx)
+                w = m.get("window", 0)
+                # the upcast mode truncates nothing: its rows at q x1 only
+                for upcast in (False, True) if qx == 1.0 else (False,):
+                    out = paged_ops.paged_attention(q, kp, vp, tables, lens, window=w,
+                                                    upcast=upcast)
+                    torch.cuda.synchronize()
+                    ref = paged_ops.paged_attention_plain(q, kp, vp, tables, lens,
+                                                          window=w, upcast=upcast)
+                    slack = weight_slack(q, kp, vp, tables, lens, window=w, upcast=upcast)
+                    key = f"{_dt(qdt)}/{_dt(pages)} {'upcast' if upcast else 'default'}"
+                    label = f"paged_attention {key} q x{qx:g} at {list(q.shape)}"
+                    if pages == torch.int8 and not upcast:
+                        nonzero[f"{key} q x{qx:g}"] = min(
+                            nonzero.get(f"{key} q x{qx:g}", 1.0),
+                            int8_scores(label, q, kp, tables, lens, w, ref, slack, qx))
+                    err, exact, rel = hold_q8(label, out, ref, q, vp, slack, upcast)
+                    errs[key] = max(errs.get(key, 0.0), err)
+                    exacts[key] = max(exacts.get(key, 0.0), exact)
+                    rels[key] = max(rels.get(key, 0.0), rel)
+                del q, kp, vp, ref, slack
+        for qx, m in [(x, m) for x in qxs for m in SPLIT_PAGED]:
+            q, kb, vb, tables, lens, halves = _split_inputs(m, gen)
+            q = (q.float() * qx).to(qdt)
+            scale = 3.0 if pages == torch.int8 else 1.0
+            kp, vp = (to_cache_dtype(t.float() * scale, pages) for t in (kb, vb))
+            w = m["window"]
+            shift = [0, SPLIT_LEN // 2]
+            ml = torch.cat([paged_ops.paged_attention_stats(q, kp, h, lens - s, window=w)
+                            for h, s in zip(halves, shift)], dim=2)
+            stats = paged_ops.paged_stats_merge(ml)
+            acc = torch.cat([paged_ops.paged_attention_values(q, kp, vp, h, lens - s, stats,
+                                                              window=w)
+                             for h, s in zip(halves, shift)], dim=2)
+            out = paged_ops.paged_sum(acc, qdt)
+            torch.cuda.synchronize()
+            ref = paged_ops.paged_attention_plain(q, kp, vp, tables, lens, window=w)
+            slack = weight_slack(q, kp, vp, tables, lens, window=w)
+            key = f"{_dt(qdt)}/{_dt(pages)} split"
+            label = f"paged split {key} q x{qx:g} {m['model']}"
+            if pages == torch.int8:
+                nonzero[f"{key} q x{qx:g}"] = min(
+                    nonzero.get(f"{key} q x{qx:g}", 1.0),
+                    int8_scores(label, q, kp, tables, lens, w, ref, slack, qx))
+            err, exact, rel = hold_q8(label, out, ref, q, vp, slack, False)
+            errs[key] = max(errs.get(key, 0.0), err)
+            exacts[key] = max(exacts.get(key, 0.0), exact)
+            rels[key] = max(rels.get(key, 0.0), rel)
+    emit("check", kernel="paged_attention other page dtypes", cases=len(errs),
+         shapes=[[m["B"], m["KV"], m["G"], m["D"]] for m in Q8_PAGED],
+         max_abs_err=errs, max_abs_err_without_slack=exacts, rel_rms=rels,
+         int8_nonzero_rows=nonzero)
+    return errs, exacts
+
+
+def time_q8(paged_ops, pages, upcast, gen, m=MAIN_PAGED):
+    """K2's row over ``pages`` under a bf16 q at ``m``: the bound reads
+    each counted key's k and v once at the pages' width (one byte), q, the
+    table and lens once, and writes the output once. The library yardstick
+    of the upcast mode is SDPA on the pre-gathered cache upcast to bf16
+    (gathered outside the timed region); no library call computes the
+    default mode's rounding, so it has none."""
+    import torch.nn.functional as F
+    q, kp, vp, tables, lens = q8_inputs(pages, torch.bfloat16, gen, m)
+    window = m.get("window", 0)
+    B, KV, G, D = q.shape
+    counted = lens.long() + 1
+    if window > 0:
+        counted = counted.clamp(max=window)
+    tokens = int(counted.sum())
+    flops = 4 * G * D * KV * tokens
+    kw = {"window": window, "upcast": upcast}
+    out = paged_ops.paged_attention(q, kp, vp, tables, lens, **kw)
+    needed = 2 * tokens * KV * D * kp.element_size() + nbytes(q, out, tables, lens)
+    b_ms, b_by = bound(flops, needed, torch.bfloat16)
+    kernel = lambda: paged_ops.paged_attention(q, kp, vp, tables, lens, **kw)  # noqa: E731
+    ms, host_ms = time_ms(kernel, 50)
+    dev = device_ms(kernel, 50)
+    row = dict(shape=[B, KV, G, D], pages=_dt(pages), mode="upcast" if upcast else "default",
+               window=window, contexts=(lens + 1).tolist(), dtype="bfloat16", ms=ms,
+               device_ms=dev, host_ms=host_ms, bound_ms=b_ms, bound_by=b_by,
+               bound_share=b_ms / ms, device_bound_share=b_ms / dev, bytes=needed,
+               gb_s=needed / ms / 1e6, device_gb_s=needed / dev / 1e6,
+               plain_ms=time_ms(lambda: paged_ops.paged_attention_plain(
+                   q, kp, vp, tables, lens, **kw), 10)[0],
+               library_ms=None, library_device_ms=None)
+    if upcast:
+        S = tables.shape[1] * kp.shape[1]
+        kc, vc = (p[tables.long()].reshape(B, S, KV, D).transpose(1, 2).to(torch.bfloat16)
+                  .contiguous() for p in (kp, vp))
+        mask = (torch.arange(S, device=q.device)[None, :] <= lens[:, None].long())
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q.reshape(B, KV * G, 1, D), kc, vc, attn_mask=mask[:, None, None, :],
+            enable_gqa=True)
+        row.update(library_ms=time_ms(library, 50)[0],
+                   library_device_ms=device_ms(library, 50),
+                   library_kernels=library_kernels(library))
+    return row
 
 
 def greedy_equality():
@@ -1434,6 +1651,168 @@ def capacity(flash_ops, paged_ops):
     if preempted["naive"] < 1 or preempted["kv_aware"] != 0:
         raise AssertionError(f"capacity: preemptions {preempted}; naive must "
                              "preempt and kv-aware must not")
+    return launches
+
+
+# the kv_cache_dtype phase: llama3.2-3b's pool of SERVE_REQUESTS in fp8
+# (768 pages of 28 layers x 8 kv heads x 128, k and v, one byte each); the
+# int8 serve's requests; the equality run's pools (7 pages: preempting)
+KV_FP8_POOL_BYTES = 704_643_072
+KV_INT8_REQUESTS = PHI_REQUESTS
+KV_EQ_ENGINE = dict(n_pages=7, max_num_seqs=4, max_num_batched_tokens=512,
+                    chunk_size=192, admission_mode="naive")
+
+
+def _q8_launches(paged_ops):
+    """The other-page-dtype kernels' launches by instance since their
+    counts were set to 0, and the same-dtype K2's."""
+    return {"paged_attention": paged_ops.KERNEL.launches,
+            "cvt": dict(paged_ops.CVT.by_instance),
+            "upcast": dict(paged_ops.UPCAST.by_instance)}
+
+
+def _zero_q8(paged_ops):
+    for k in paged_ops.COUNTERS:
+        k.reset()
+
+
+def _schedule(eng, reqs):
+    """What the scheduler decided in a run, which a card and a sim run of
+    the same traffic and engine config must share."""
+    s = eng.metrics.summary()
+    return dict(steps=len(eng.metrics.timeline), preemptions=s["preemptions"],
+                recomputed_tokens=s["recomputed_tokens"], n_finished=s["n_finished"],
+                preempted_rids=[q.rid for q in reqs if q.n_preemptions])
+
+
+def kv_cache_dtype_phase(flash_ops, paged_ops):
+    """The reference's ``kv_cache_dtype`` lever on the card: full-depth
+    llama3.2-3b, bf16 weights, served from an fp8 cache
+    (``ParallelContext(kv_cache_dtype=float8_e4m3fn)``) through
+    ``InferenceEngine`` -> ``TorchRunner``: the capacity traffic
+    (``SERVE_REQUESTS``, naive admission, the sanitizer on) on the pool
+    that holds it all, which is the bf16 ``capacity`` run's bytes (768
+    pages; ``KV_FP8_POOL_BYTES``), K1 and the two-pass K2 over fp8 pages
+    counted, and the same traffic and engine config on ``SimRunner``
+    beside it: equal steps, preemptions and recomputed tokens. Then from
+    an int8 cache (``KV_INT8_REQUESTS``). Then the equality run: a
+    full-width 2-layer fp32 model on the card and its CPU copy, each from
+    an fp8 and from an int8 cache on a preempting pool, tokens equal.
+    Returns the launches of each card run by model."""
+    import dataclasses as dc
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import perf_model as pm
+    from repro_torch.core.engine import EngineConfig, InferenceEngine
+    from repro_torch.core.runner import SimRunner, TorchRunner
+    from repro_torch.launch.serve import make_requests, pages_to_hold
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.parallel.sharding import ParallelContext
+
+    cfg = get_config("llama3.2-3b")
+    launches = {}
+    for cache, traffic in ((torch.float8_e4m3fn, SERVE_REQUESTS),
+                           (torch.int8, KV_INT8_REQUESTS)):
+        r = traffic
+        requests = make_requests(cfg.vocab, r["n"], r["isl"], r["osl"], r["seed"])
+        # the fp8 run is the capacity traffic: naive admission and the
+        # sanitizer, as the bf16 ``capacity`` runs
+        fp8 = cache == torch.float8_e4m3fn
+        ecfg = EngineConfig(n_pages=pages_to_hold(requests), max_num_seqs=16,
+                            **(dict(admission_mode="naive", sanitize=True) if fp8 else {}))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = Transformer(cfg, device="cuda", dtype=torch.bfloat16, seed=0,
+                            ctx=ParallelContext(kv_cache_dtype=cache))
+        eng = InferenceEngine(cfg, ecfg, TorchRunner(model, device="cuda"),
+                              virtual_clock=False)
+        reqs = [eng.submit(p, n) for p, n in requests]
+        _zero_launches(flash_ops, paged_ops)
+        _zero_q8(paged_ops)
+        eng.run()
+        torch.cuda.synchronize()
+        n = dict(_launches(flash_ops, paged_ops), **_q8_launches(paged_ops))
+        wall = time.perf_counter() - t0
+        for (_, want), req in zip(requests, reqs):
+            if len(req.output) != want or req.t_finished is None:
+                raise AssertionError(f"kv_cache_dtype {cache}: request {req.rid} has "
+                                     f"{len(req.output)} of {want} tokens")
+        pools = eng.runner.pools
+        pool_bytes = sum(t.numel() * t.element_size() for t in pools)
+        instance = f"bfloat16/{_dt(cache)}"
+        if any(t.dtype != cache for t in pools) or n["paged_attention"] \
+                or not n["flash_attention"] or not n["cvt"].get(instance):
+            raise AssertionError(f"kv_cache_dtype {cache}: pools "
+                                 f"{[t.dtype for t in pools]}, launches {n}")
+        if fp8 and pool_bytes != KV_FP8_POOL_BYTES:
+            raise AssertionError(f"kv_cache_dtype fp8: pool of {pool_bytes} B, want "
+                                 f"{KV_FP8_POOL_BYTES}")
+        s = eng.metrics.summary()
+        card = _schedule(eng, reqs)
+        emit("kv_cache_dtype", model=cfg.name, layers=cfg.n_layers, dtype="bfloat16",
+             cache_dtype=_dt(cache), n_requests=len(requests),
+             admission=ecfg.admission_mode, sanitize=ecfg.sanitize,
+             gen_tokens=s["gen_tokens"], gen_tok_s=s["gen_throughput_tok_s"],
+             ttft_p50_s=s["ttft_s"]["p50"], tpot_mean_s=s["tpot_s"]["mean"],
+             engine_s=s["duration_s"], wall_s_with_weight_init=wall,
+             max_memory_allocated=torch.cuda.max_memory_allocated(),
+             n_pages=pools[0].shape[1], pool_bytes=pool_bytes,
+             pool_bytes_bf16=2 * pool_bytes // pools[0].element_size(), card=card,
+             launches=n)
+        launches[f"llama3.2-3b kv_cache_dtype {_dt(cache)}"] = n
+        del model, eng, reqs, pools
+        free_card()
+        if not fp8:
+            continue
+        # the same traffic and engine config on the port's SimRunner
+        sim = InferenceEngine(cfg, ecfg, SimRunner(cfg, pm.ParallelismPlan(), pm.H100))
+        sreqs = [sim.submit(len(p), n) for p, n in requests]
+        sim.run()
+        side = _schedule(sim, sreqs)
+        emit("kv_cache_dtype_capacity", model=cfg.name, cache_dtype=_dt(cache),
+             admission=ecfg.admission_mode, n_pages=ecfg.n_pages, pool_bytes=pool_bytes,
+             bf16_capacity_pages=pages_to_hold(requests) // 2, sim_hw=pm.H100.name,
+             card=card, sim=side, sim_tpot_mean_s=sim.metrics.summary()["tpot_s"]["mean"])
+        if card != side:
+            raise AssertionError(f"kv_cache_dtype capacity: card {card} differs from "
+                                 f"the sim's {side}")
+
+    # equality: a 2-layer fp32 model on the card and on the CPU
+    small = dc.replace(cfg, n_layers=2)
+    rng = np.random.default_rng(4)
+    requests = [(rng.integers(0, cfg.vocab, size=30).tolist(), 20) for _ in range(4)]
+    card = Transformer(small, device="cuda", dtype=torch.float32, seed=1)
+    host = Transformer(small, device="cpu", dtype=torch.float32, seed=None)
+    on_card = dict(card.named_parameters())
+    with torch.no_grad():
+        for name, p in host.named_parameters():
+            p.copy_(on_card[name])
+    for cache in (torch.float8_e4m3fn, torch.int8):
+        outs, runs = {}, {}
+        _zero_q8(paged_ops)
+        for dev, model in (("cuda", card), ("cpu", host)):
+            eng = InferenceEngine(small, EngineConfig(**KV_EQ_ENGINE),
+                                  TorchRunner(model, device=dev, cache_dtype=cache),
+                                  virtual_clock=False)
+            reqs = [eng.submit(p, n) for p, n in requests]
+            t0 = time.perf_counter()
+            eng.run(max_steps=5000)
+            outs[dev] = [q.output for q in reqs]
+            runs[dev] = dict(preemptions=sum(q.n_preemptions for q in reqs),
+                             steps=len(eng.metrics.timeline),
+                             seconds=time.perf_counter() - t0)
+            if any(len(q.output) != n for (_, n), q in zip(requests, reqs)):
+                raise AssertionError(f"kv_cache_dtype equality {cache}/{dev}: unfinished")
+        n = _q8_launches(paged_ops)
+        if outs["cuda"] != outs["cpu"] or not runs["cuda"]["preemptions"] \
+                or not n["cvt"].get(f"float32/{_dt(cache)}"):
+            raise AssertionError(f"kv_cache_dtype equality {cache}: card tokens "
+                                 f"{outs['cuda']} against CPU {outs['cpu']}, runs {runs}, "
+                                 f"launches {n}")
+        emit("kv_cache_dtype_equality", model=cfg.name, layers=2, dtype="float32",
+             cache_dtype=_dt(cache), tokens_equal=True, runs=runs, launches=n)
+    del card, host
+    free_card()
     return launches
 
 
@@ -3065,13 +3444,14 @@ def main():
 
     t0 = time.perf_counter()
     built = kbuild.build([flash_ops.KERNEL.name, flash_ops.NONCAUSAL.name,
-                          paged_ops.KERNEL.name])
+                          paged_ops.KERNEL.name, paged_ops.CVT.name, paged_ops.UPCAST.name])
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, log in built.items()}
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
 
     max_err = check_kernels(flash_ops, paged_ops)
+    q8_err, q8_exact = check_q8(paged_ops)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     timings = {"flash_attention": [time_flash(flash_ops, c, torch.bfloat16, gen)
@@ -3096,6 +3476,9 @@ def main():
     # no phase after this one calls the non-causal mode (the main paths'
     # prefills are causal): its count here must stay 0 to the end
     flash_ops.NONCAUSAL.launches = 0
+    q8_rows = [time_q8(paged_ops, pages, upcast, gen) for pages, upcast in Q8_TIMED]
+    for row in q8_rows:
+        emit("timing", kernel="paged_attention", **row)
 
     emit("greedy_equality", **greedy_equality())
     free_card()
@@ -3147,6 +3530,10 @@ def main():
         free_card()
     for admission, n in capacity(flash_ops, paged_ops).items():
         by_model[f"llama3.2-3b capacity {admission}"] = n
+    free_card()
+    q8_by_model = kv_cache_dtype_phase(flash_ops, paged_ops)
+    for key, n in q8_by_model.items():
+        by_model[key] = {k: n[k] for k in ("flash_attention", "paged_attention")}
     free_card()
     cluster_phase()
     by_model.update(examples_phase(flash_ops, paged_ops))
@@ -3213,6 +3600,37 @@ def main():
         **{k: row[k] for k in ("shape", "ms", "device_ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms", "library_device_ms")}}
         for row in noncausal_rows]
+    # K2 over pages of another dtype: the two-pass instances (the main
+    # paths' fp8 and int8 caches under bf16 weights) with their rows, and
+    # the upcast mode (``decode_unroll``), which no main path calls
+    for pages in (torch.float8_e4m3fn, torch.int8):
+        inst = f"bfloat16/{_dt(pages)}"
+        row = next(r for r in q8_rows if r["pages"] == _dt(pages) and r["mode"] == "default")
+        up = next(r for r in q8_rows if r["pages"] == _dt(pages) and r["mode"] == "upcast")
+        kernels.append({
+            "name": f"paged_attention {_dt(pages)} pages", "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_attention_cvt.cu",
+            "replaces": replaces["paged_attention"],
+            "launches": sum(n["cvt"].get(inst, 0) for n in q8_by_model.values()),
+            "launches_by_model": {m: n["cvt"].get(inst, 0) for m, n in q8_by_model.items()},
+            "max_abs_err": q8_err[f"{inst} default"],
+            "max_abs_err_by_instance": {k: v for k, v in q8_err.items()
+                                        if _dt(pages) in k},
+            # where ``weight_slack`` is 0: no weight lies at a rounding edge
+            "max_abs_err_without_slack": {k: v for k, v in q8_exact.items()
+                                          if _dt(pages) in k},
+            **{k: row[k] for k in ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms", "library_device_ms",
+                                   "shape")},
+            "kernel_ms": row["ms"], "dtype": "bfloat16",
+            "modes": [{"mode": "upcast (decode_unroll)",
+                       "source": "src/repro_torch/csrc/paged_attention_upcast.cu",
+                       "launches": sum(n["upcast"].get(inst, 0)
+                                       for n in q8_by_model.values()),
+                       "max_abs_err": q8_err[f"{inst} upcast"],
+                       **{k: up[k] for k in ("shape", "ms", "device_ms", "plain_ms",
+                                             "bound_ms", "bound_by", "library_ms",
+                                             "library_device_ms")}}]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,9 @@
                   device or, as one controller, over a mesh's ranks.
 
 The paged-accounting layer in the scheduler is identical in both modes.
-``TorchRunner``'s decode cache is paged pools in the model's dtype, of the shapes
+``TorchRunner``'s decode cache is paged pools of ``Transformer.pool_dtype``
+(the context's ``kv_cache_dtype``, else the runner's ``cache_dtype``, else
+the model's dtype), of the shapes
 ``Transformer.pool_shapes`` gives: k and v ``(L, n_pages, page, KV, hd)``
 for GQA (L the shared block's groups in a hybrid), the latent
 ``ckv (L, n_pages, page, kv_rank)`` and the roped key
@@ -27,7 +29,7 @@ request's fresh state into its row, decode reads and writes the batch's.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +39,7 @@ from repro_torch.core import perf_model as pm
 from repro_torch.core.kv_cache import PagedAllocator
 from repro_torch.core.request import Request
 from repro_torch.device import resolve_device
+from repro_torch.models.cache_dtype import to_cache_dtype, writable
 from repro_torch.models.transformer import Transformer
 from repro_torch.parallel.sharding import mesh_axes
 
@@ -125,15 +128,24 @@ class TorchRunner:
 
     Of the other §Perf levers ``seq_parallel_norm`` cuts its prefill's
     residual stream, ``serve_2d_tp`` and ``moe_ff_shard`` act across
-    "data", and ``decode_unroll`` changes nothing (the decode step already
-    runs layer by layer and writes pages in place)."""
+    "data", and ``decode_unroll`` reads a cache of another dtype than the
+    model's upcast to the model's (the decode step already runs layer by
+    layer and writes pages in place).
 
-    def __init__(self, model: Transformer, *, device="cuda"):
+    ``cache_dtype`` is ``JaxRunner``'s: the pools' dtype where the
+    context's ``kv_cache_dtype`` is None. Where both are None the pools
+    take the model's dtype, where ``JaxRunner``'s take fp32 (a departure:
+    a bf16 model here serves from a bf16 cache). Prefill's cache entries
+    are cast into the pools as ``jnp.astype`` casts (``to_cache_dtype``)."""
+
+    def __init__(self, model: Transformer, *, device="cuda",
+                 cache_dtype: Optional[torch.dtype] = None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model on {model.device}, runner on {self.device}")
         ctx = model.ctx
         self.model = model
+        self.cache_dtype = model.pool_dtype(cache_dtype)
         self.comm = ctx.comm if ctx.mesh is not None else None
         # the mesh axes of the batch, and this rank's coordinate over them
         # (row-major)
@@ -198,7 +210,7 @@ class TorchRunner:
         self.share_blocks = -(-n_pages // self.sp)
         self.rows = n_slots // self.dp
         self.pools = tuple(
-            torch.zeros(shape, dtype=self.model.dtype, device=self.device)
+            torch.zeros(shape, dtype=self.cache_dtype, device=self.device)
             for shape in self.model.pool_shapes(n_pages + padded, page_size))
         self.states = tuple(
             torch.zeros(shape, dtype=dtype, device=self.device)
@@ -243,8 +255,8 @@ class TorchRunner:
             pos = np.arange(len(toks))[first:][:self.share_blocks * page]
             pages, offs = self._to_device(table[pos // page]), self._to_device(pos % page)
             for j, pool in enumerate(self.pools):
-                pool[:, pages, offs] = torch.stack(
-                    [c[j] for c in caches])[:, 0, first:first + len(pos)]
+                new = torch.stack([c[j] for c in caches])[:, 0, first:first + len(pos)]
+                writable(pool)[:, pages, offs] = writable(to_cache_dtype(new, pool.dtype))
         for buf, st in zip(self.states, states):
             buf[:, slot % self.rows] = st[:, 0]
         return int(logits[0].argmax())

@@ -65,18 +65,14 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "paged_common.cuh"
 
 namespace {
 
 using namespace repro_torch;
+using namespace repro_torch::paged;
 namespace hw = repro_torch::hopper;
 
-constexpr int PAGE = 16;
-constexpr int WARPS = 4;
-constexpr int GMAX = 16;    // most q heads per kv head the kernel takes
-constexpr int NTILE = 8;    // queries per n tile of m16n8k16
-constexpr int PART = 16;    // pages per partition
-constexpr int STAGES = 2;   // pages in flight per warp
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <typename T, int D>
@@ -93,31 +89,6 @@ struct PagedGeom {
   static_assert(D * sizeof(T) % 16 == 0, "a row must be whole 16-byte chunks");
   static_assert(D <= 128, "the widest geometry is 128");
 };
-
-__host__ __device__ constexpr int pages_used(int len, int max_blocks) {
-  return (len + PAGE) / PAGE < max_blocks ? (len + PAGE) / PAGE : max_blocks;
-}
-
-// First key position inside the window of a sequence whose newest token is
-// at len (0 without a window).
-__host__ __device__ constexpr int window_start(int len, int window) {
-  return window > 0 && len - window + 1 > 0 ? len - window + 1 : 0;
-}
-
-// The block's place in the sequence: its pages are page0 .. page0+n_pages-1,
-// keys lo .. seq_len-1 count.
-struct Partition {
-  int seq_len, lo, page0, n_pages;
-};
-
-__device__ __forceinline__ Partition partition_of(const int* lens, int b, int max_blocks,
-                                                  int window) {
-  const int len = lens[b];
-  const int lo = window_start(len, window);
-  const int page0 = max((int)blockIdx.x * PART, lo / PAGE);
-  const int end = min(((int)blockIdx.x + 1) * PART, pages_used(len, max_blocks));
-  return {len + 1, lo, page0, end - page0};
-}
 
 // Zeroes the pad chunks (head dims D..DP-1) of k and v in every slot of one
 // warp's ring, where cp.async never writes, so they add nothing to q.k and

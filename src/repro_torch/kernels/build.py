@@ -13,6 +13,7 @@ launch a kernel.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -29,6 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the ``dtype`` argument of every C entry
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the ``page_dtype`` argument of the entries that read pages of another
+# dtype than q (``csrc/paged_cvt.cuh``)
+PAGE_CODES = {torch.bfloat16: 1, torch.float8_e4m3fn: 2, torch.int8: 3}
 
 
 def _nvcc() -> str:
@@ -83,13 +87,15 @@ def build(names: Iterable[str]) -> Dict[str, str]:
 
 class CudaKernel:
     """One CUDA library's entry point, loaded at its first launch, and the
-    number of times it was launched (``launches``, reset by the caller)."""
+    number of times it was launched (``launches``, reset by the caller),
+    also by the instance a wrapper names (``by_instance``)."""
 
     def __init__(self, name: str, symbol: str, argtypes):
         self.name = name
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.by_instance = collections.Counter()
         self._lib = None
         self._fn = None
 
@@ -105,12 +111,19 @@ class CudaKernel:
             self._lib, self._fn = lib, fn
         return self._fn
 
-    def launch(self, *args):
+    def reset(self):
+        self.launches = 0
+        self.by_instance.clear()
+
+    def launch(self, *args, instance=None):
         """Call the C entry; it launches on the given stream and returns
-        ``cudaGetLastError()``, which must be 0."""
+        ``cudaGetLastError()``, which must be 0. ``instance`` names the
+        kernel instance the call ran, for ``by_instance``."""
         err = self._load()(*args)
         if err != 0:
             msg = self._lib.error_string(err).decode()
             raise RuntimeError(f"{self.name}: launch failed with CUDA error "
                                f"{err} ({msg})")
         self.launches += 1
+        if instance is not None:
+            self.by_instance[instance] += 1

@@ -1,5 +1,6 @@
 """Wrapper of the CUDA paged-attention decode kernel
-(``csrc/paged_attention.cu``).
+(``csrc/paged_attention.cu``) and of its instances for pages of another
+dtype than q (``csrc/paged_attention_cvt.cu``, ``paged_attention_upcast.cu``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. One call runs two kernels on the caller's stream: a split over the
@@ -10,11 +11,26 @@ Head dims 80, 112 and 120 run on the 128 instance's geometry with the
 pad zeroed; a group of 9 to 16 q heads takes a second tile of queries.
 ``KERNEL.launches`` counts the calls.
 
+Pages of another dtype than q (a cache of the reference's
+``kv_cache_dtype``: fp8 e4m3 or int8 under a bf16 or fp32 q, bf16 under an
+fp32 q) take ``decode_attention``'s function, which rounds q*scale and the
+normalised weights to the pages' dtype: ``CVT``, two passes over the
+split layout (four launches, one count). Under ``upcast=True`` (the
+reference's ``decode_unroll``, which upcasts the cache to q's dtype) they
+take the one-pass kernel with the pages converted on load, ``UPCAST``.
+fp32 pages under a bf16 q round nothing, so the fp32 kernel runs them on
+q in fp32. Each counter's ``by_instance`` names q's and the pages' dtype.
+
 Two more entries expose the halves, for a decode whose cache sequence is
 cut over ranks: ``paged_attention_partials`` runs the split kernel alone
 over a rank's share of the table and returns its partitions' fp32
 partials, and ``paged_merge`` merges any number of partitions, those the
-ranks gathered. ``PARTIALS.launches`` and ``MERGE.launches`` count them.
+ranks gathered. ``PARTIALS.launches`` and ``MERGE.launches`` count them
+(``UPCAST_PARTIALS`` the upcast pages'). ``decode_attention``'s function
+splits in four: ``paged_attention_stats`` (pass 1, each partition's
+(m, l)), ``paged_stats_merge`` (the sequence's (M, L) from the gathered
+partitions), ``paged_attention_values`` (pass 2, each partition's sum of
+the rounded weights times v) and ``paged_sum``.
 
 On a meta tensor (``repro_torch.analysis``'s dry-run) each wrapper books
 its kernel's operations and device-memory bytes with the active op counter
@@ -29,15 +45,19 @@ import ctypes
 import torch
 
 from repro_torch.analysis import scopes
-from repro_torch.kernels.build import DTYPE_CODES, CudaKernel
+from repro_torch.kernels.build import DTYPE_CODES, PAGE_CODES, CudaKernel
 from repro_torch.kernels.paged_attention.ref import (
     NEG_INF, paged_attention_partials_plain, paged_attention_plain,
-    paged_merge_plain)
+    paged_attention_stats_plain, paged_attention_values_plain,
+    paged_merge_plain, paged_stats_merge_plain, paged_sum_plain,
+    rounds_weights)
 
-__all__ = ["KERNEL", "MERGE", "PARTIALS", "paged_attention",
+__all__ = ["CVT", "KERNEL", "MERGE", "PARTIALS", "STATS", "STATS_MERGE", "SUM",
+           "UPCAST", "UPCAST_PARTIALS", "VALUES", "paged_attention",
            "paged_attention_partials", "paged_attention_plain",
-           "paged_attention_partials_plain", "paged_merge",
-           "paged_merge_plain"]
+           "paged_attention_partials_plain", "paged_attention_stats",
+           "paged_attention_values", "paged_merge", "paged_merge_plain",
+           "paged_stats_merge", "paged_sum"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("paged_attention", "paged_attention_fwd",
@@ -48,6 +68,25 @@ PARTIALS = CudaKernel("paged_attention", "paged_attention_partials",
                        ctypes.c_float, _I, _P])
 MERGE = CudaKernel("paged_attention", "paged_merge_fwd",
                    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+_SPLIT_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+               _I, _I, _P]
+CVT = CudaKernel("paged_attention_cvt", "paged_cvt_fwd", _SPLIT_ARGS)
+UPCAST = CudaKernel("paged_attention_upcast", "paged_upcast_fwd", _SPLIT_ARGS)
+UPCAST_PARTIALS = CudaKernel("paged_attention_upcast", "paged_upcast_partials",
+                             _SPLIT_ARGS)
+STATS = CudaKernel("paged_attention_cvt", "paged_cvt_stats",
+                   [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+                    _I, _I, _P])
+STATS_MERGE = CudaKernel("paged_attention_cvt", "paged_cvt_stats_merge",
+                         [_P, _P, _I, _I, _I, _I, _P])
+VALUES = CudaKernel("paged_attention_cvt", "paged_cvt_values",
+                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     ctypes.c_float, _I, _I, _P])
+SUM = CudaKernel("paged_attention_cvt", "paged_cvt_sum",
+                 [_P, _P, _I, _I, _I, _I, _I, _I, _P])
+# every counter of the module, for a caller that sets them to 0
+COUNTERS = (KERNEL, PARTIALS, MERGE, CVT, UPCAST, UPCAST_PARTIALS, STATS,
+            STATS_MERGE, VALUES, SUM)
 HEAD_DIMS = (32, 64, 80, 112, 120, 128)
 PAGE = 16       # tokens per page, fixed in the kernel
 MAX_GROUP = 16  # most q heads per kv head the kernel takes
@@ -56,39 +95,59 @@ PART = 16       # pages per partition of the split kernel, fixed in the kernel
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_tables: torch.Tensor,
-                    lens: torch.Tensor, *, window: int = 0) -> torch.Tensor:
+                    lens: torch.Tensor, *, window: int = 0,
+                    upcast: bool = False) -> torch.Tensor:
     """One-token decode attention. q (B,KV,G,D) kv-major; k/v_pages
     (P,16,KV,D); block_tables (B,max_blocks) int32 page ids, every entry a
     valid page; lens (B,) int32 inclusive index of the newest token; a
     window > 0 keeps the keys at ``lens - window < pos <= lens``. Scores
-    are scaled by D ** -0.5. Returns (B,KV,G,D) in q's dtype."""
+    are scaled by D ** -0.5. Pages of another dtype than q take
+    ``decode_attention``'s rounding, or with ``upcast`` are read as q's
+    dtype (the module docstring). Returns (B,KV,G,D) in q's dtype."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, block_tables, lens,
-                                     window=window)
+                                     window=window, upcast=upcast)
     if q.device.type == "meta":
         out = torch.empty_like(q)
         _book_split("paged_attention", q, k_pages, block_tables, lens, window, (out,))
         return out
     _check(q, k_pages, v_pages, block_tables, lens)
+    if k_pages.dtype == torch.float32 and q.dtype != torch.float32:
+        _no_upcast_wider(upcast, q, k_pages)
+        return paged_attention(q.float(), k_pages, v_pages, block_tables, lens,
+                               window=window).to(q.dtype)
     B, KV, G, D = q.shape
     max_blocks = block_tables.shape[1]
     out = torch.empty_like(q)
-    # each partition's fp32 acc (G, D) and (m, l) per query row
     n_part = -(-max_blocks // PART)
-    scratch = torch.empty(B * KV * n_part * G * (D + 2), dtype=torch.float32,
-                          device=q.device)
-    KERNEL.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+    if k_pages.dtype == q.dtype:
+        # each partition's fp32 acc (G, D) and (m, l) per query row
+        scratch = torch.empty(B * KV * n_part * G * (D + 2), dtype=torch.float32,
+                              device=q.device)
+        KERNEL.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                      block_tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                      scratch.data_ptr(), B, KV, G, D, max_blocks, int(window),
+                      D ** -0.5,
+                      DTYPE_CODES[q.dtype],
+                      torch.cuda.current_stream(q.device).cuda_stream)
+        return out
+    # ... and, for the two passes, each row's (M, L)
+    kernel = UPCAST if upcast else CVT
+    scratch = torch.empty(B * KV * (n_part * G * (D + 2) + 2 * G),
+                          dtype=torch.float32, device=q.device)
+    kernel.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                   block_tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
                   scratch.data_ptr(), B, KV, G, D, max_blocks, int(window),
-                  D ** -0.5,
-                  DTYPE_CODES[q.dtype],
-                  torch.cuda.current_stream(q.device).cuda_stream)
+                  D ** -0.5, DTYPE_CODES[q.dtype], PAGE_CODES[k_pages.dtype],
+                  torch.cuda.current_stream(q.device).cuda_stream,
+                  instance=_instance(q, k_pages))
     return out
 
 
 def paged_attention_partials(q: torch.Tensor, k_pages: torch.Tensor,
                              v_pages: torch.Tensor, block_tables: torch.Tensor,
-                             lens: torch.Tensor, *, window: int = 0):
+                             lens: torch.Tensor, *, window: int = 0,
+                             upcast: bool = False):
     """The split half of ``paged_attention`` over a share of each
     sequence's positions that ``block_tables`` holds: lens (B,) int32 is the
     newest token's index counted from the table's first position, and may
@@ -96,8 +155,18 @@ def paged_attention_partials(q: torch.Tensor, k_pages: torch.Tensor,
     its start (none does); the window is applied to the same positions.
     Returns fp32 (acc (B,KV,P,G,D), ml (B,KV,P,G,2)), P = ceil(max_blocks /
     16): each partition's sum of exp(score - m) * v and its (m, l); a
-    partition with no key that counts holds (0, (NEG_INF, 0))."""
+    partition with no key that counts holds (0, (NEG_INF, 0)). Pages that
+    ``decode_attention`` would round to (another dtype than q's, not fp32)
+    need ``upcast``; without it their split is ``paged_attention_stats``
+    and ``paged_attention_values``."""
+    if rounds_weights(q, k_pages, upcast) and q.device.type != "meta":
+        raise ValueError(f"paged_attention_partials: {k_pages.dtype} pages under a "
+                         f"{q.dtype} q round the normalised weights, which one pass "
+                         "cannot: split with paged_attention_stats and "
+                         "paged_attention_values, or pass upcast=True")
     if q.device.type == "cpu":
+        if upcast:
+            k_pages, v_pages = k_pages.to(q.dtype), v_pages.to(q.dtype)
         return paged_attention_partials_plain(q, k_pages, v_pages, block_tables,
                                               lens, window=window, part=PART)
     B, KV, G, D = q.shape
@@ -109,13 +178,120 @@ def paged_attention_partials(q: torch.Tensor, k_pages: torch.Tensor,
                     window, (acc, ml))
         return acc, ml
     _check(q, k_pages, v_pages, block_tables, lens)
+    if k_pages.dtype == torch.float32 and q.dtype != torch.float32:
+        _no_upcast_wider(upcast, q, k_pages)
+        q = q.float()
     ml[..., 0] = NEG_INF        # the partitions that no block writes
-    PARTIALS.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                    block_tables.data_ptr(), lens.data_ptr(), acc.data_ptr(),
-                    ml.data_ptr(), B, KV, G, D, block_tables.shape[1],
-                    int(window), D ** -0.5, DTYPE_CODES[q.dtype],
-                    torch.cuda.current_stream(q.device).cuda_stream)
+    args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), lens.data_ptr(), acc.data_ptr(),
+            ml.data_ptr(), B, KV, G, D, block_tables.shape[1],
+            int(window), D ** -0.5, DTYPE_CODES[q.dtype])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if k_pages.dtype == q.dtype:
+        PARTIALS.launch(*args, stream)
+    else:
+        UPCAST_PARTIALS.launch(*args, PAGE_CODES[k_pages.dtype], stream,
+                               instance=_instance(q, k_pages))
     return acc, ml
+
+
+def paged_attention_stats(q: torch.Tensor, k_pages: torch.Tensor,
+                          block_tables: torch.Tensor, lens: torch.Tensor, *,
+                          window: int = 0) -> torch.Tensor:
+    """Pass 1 of ``decode_attention``'s function over a share of each
+    sequence (``lens`` as ``paged_attention_partials``'): each partition's
+    fp32 ml (B,KV,P,G,2) = (m, l) of the scores of q*scale rounded to the
+    pages' dtype; (NEG_INF, 0) where no key counts."""
+    if q.device.type == "cpu":
+        return paged_attention_stats_plain(q, k_pages, block_tables, lens,
+                                           window=window, part=PART)
+    B, KV, G, D = q.shape
+    n_part = -(-block_tables.shape[1] // PART)
+    ml = torch.zeros((B, KV, n_part, G, 2), dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        _book_split("paged_attention_stats", q, k_pages, block_tables, lens,
+                    window, (ml,), values=False)
+        return ml
+    _check(q, k_pages, k_pages, block_tables, lens)
+    _check_rounding(q, k_pages)
+    ml[..., 0] = NEG_INF        # the partitions that no block writes
+    STATS.launch(q.data_ptr(), k_pages.data_ptr(), block_tables.data_ptr(),
+                 lens.data_ptr(), ml.data_ptr(), B, KV, G, D,
+                 block_tables.shape[1], int(window), D ** -0.5,
+                 DTYPE_CODES[q.dtype], PAGE_CODES[k_pages.dtype],
+                 torch.cuda.current_stream(q.device).cuda_stream,
+                 instance=_instance(q, k_pages))
+    return ml
+
+
+def paged_stats_merge(ml: torch.Tensor) -> torch.Tensor:
+    """Every partition's (m, l) of ml (B,KV,P,G,2) fp32 (of one rank, or
+    several gathered along dim 2) merged into the sequence's (M, L)
+    (B,KV,G,2): M the largest m, L = sum l e^(m - M)."""
+    if ml.device.type == "cpu":
+        return paged_stats_merge_plain(ml)
+    B, KV, P, G, _ = ml.shape
+    stats = torch.empty((B, KV, G, 2), dtype=torch.float32, device=ml.device)
+    if ml.device.type == "meta":
+        scopes.book(hbm=sum(scopes.strict_bytes(t) for t in (ml, stats)),
+                    eager=sum(t.numel() * t.element_size() for t in (ml, stats)))
+        return stats
+    _check_f32("paged_stats_merge", ml)
+    STATS_MERGE.launch(ml.data_ptr(), stats.data_ptr(), B, KV, G, P,
+                       torch.cuda.current_stream(ml.device).cuda_stream)
+    return stats
+
+
+def paged_attention_values(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_tables: torch.Tensor,
+                           lens: torch.Tensor, stats: torch.Tensor, *,
+                           window: int = 0) -> torch.Tensor:
+    """Pass 2 over a share of each sequence: each partition's fp32 sum
+    (B,KV,P,G,D) of the weights exp(s - M) / L rounded to the pages' dtype
+    times v, ``stats`` (B,KV,G,2) the sequence's (M, L)
+    (``paged_stats_merge``); zeros where no key counts."""
+    if q.device.type == "cpu":
+        return paged_attention_values_plain(q, k_pages, v_pages, block_tables, lens,
+                                            stats, window=window, part=PART)
+    B, KV, G, D = q.shape
+    n_part = -(-block_tables.shape[1] // PART)
+    acc = torch.zeros((B, KV, n_part, G, D), dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        _book_split("paged_attention_values", q, k_pages, block_tables, lens,
+                    window, (stats, acc))
+        return acc
+    _check(q, k_pages, v_pages, block_tables, lens)
+    _check_rounding(q, k_pages)
+    _check_f32("paged_attention_values", stats)
+    if tuple(stats.shape) != (B, KV, G, 2):
+        raise ValueError(f"paged_attention_values: stats {tuple(stats.shape)}, "
+                         f"need {(B, KV, G, 2)}")
+    VALUES.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                  block_tables.data_ptr(), lens.data_ptr(), stats.data_ptr(),
+                  acc.data_ptr(), B, KV, G, D, block_tables.shape[1], int(window),
+                  D ** -0.5, DTYPE_CODES[q.dtype], PAGE_CODES[k_pages.dtype],
+                  torch.cuda.current_stream(q.device).cuda_stream,
+                  instance=_instance(q, k_pages))
+    return acc
+
+
+def paged_sum(acc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Pass 2's partitions (B,KV,P,G,D) fp32 (of one rank, or several
+    gathered along dim 2) added up -> (B,KV,G,D) in ``dtype``."""
+    if acc.device.type == "cpu":
+        return paged_sum_plain(acc, dtype)
+    B, KV, P, G, D = acc.shape
+    out = torch.empty((B, KV, G, D), dtype=dtype, device=acc.device)
+    if acc.device.type == "meta":
+        scopes.book(hbm=sum(scopes.strict_bytes(t) for t in (acc, out)),
+                    eager=sum(t.numel() * t.element_size() for t in (acc, out)))
+        return out
+    _check_f32("paged_sum", acc)
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"paged_sum: dtype {dtype}")
+    SUM.launch(acc.data_ptr(), out.data_ptr(), B, KV, G, D, P, DTYPE_CODES[dtype],
+               torch.cuda.current_stream(acc.device).cuda_stream)
+    return out
 
 
 def paged_merge(acc: torch.Tensor, ml: torch.Tensor,
@@ -151,18 +327,18 @@ def counted_tokens(block_tables: torch.Tensor, window: int) -> int:
     return min(n, window) if window > 0 else n
 
 
-def _book_split(name, q, k_pages, block_tables, lens, window, outs):
+def _book_split(name, q, k_pages, block_tables, lens, window, outs, values=True):
     """On meta: the split kernel's products (q.k and p.v over the counted
     keys) and bytes (those keys' k and v rows in the pages' dtype, an int8
     pool's at one byte, q, the table and lens read once, ``outs`` written
-    once)."""
+    once); without ``values`` q.k and k alone."""
     B, KV, G, D = q.shape
     keys = B * KV * counted_tokens(block_tables, window)
-    kv_elem = 2 * keys * D
+    kv_elem = (2 if values else 1) * keys * D
     ts = (q, block_tables, lens, *outs)
     page_bytes = scopes.FLOAT_BYTES if k_pages.is_floating_point() else \
         k_pages.element_size()
-    scopes.book(flops=4.0 * keys * G * D, name=name,
+    scopes.book(flops=(4.0 if values else 2.0) * keys * G * D, name=name,
                 hbm=kv_elem * page_bytes + sum(scopes.strict_bytes(t) for t in ts),
                 eager=kv_elem * k_pages.element_size()
                 + sum(t.numel() * t.element_size() for t in ts))
@@ -181,11 +357,12 @@ def _check(q, k_pages, v_pages, block_tables, lens):
     if D not in HEAD_DIMS or not 1 <= G <= MAX_GROUP:
         raise ValueError(f"paged_attention: head dim {D} (need one of "
                          f"{HEAD_DIMS}) or group {G} (need 1..{MAX_GROUP})")
-    if q.dtype not in DTYPE_CODES or k_pages.dtype != q.dtype \
-            or v_pages.dtype != q.dtype:
+    if q.dtype not in DTYPE_CODES or v_pages.dtype != k_pages.dtype \
+            or k_pages.dtype not in (q.dtype, torch.float32, *PAGE_CODES):
         raise ValueError(f"paged_attention: dtypes {q.dtype}, "
-                         f"{k_pages.dtype}, {v_pages.dtype}; need one of "
-                         f"{list(DTYPE_CODES)}")
+                         f"{k_pages.dtype}, {v_pages.dtype}; need q of "
+                         f"{list(DTYPE_CODES)} and both pages of q's dtype, "
+                         f"fp32 or one of {list(PAGE_CODES)}")
     if block_tables.dtype != torch.int32 or block_tables.ndim != 2 \
             or block_tables.shape[0] != B or block_tables.shape[1] < 1:
         raise ValueError("paged_attention: block_tables must be int32 "
@@ -201,3 +378,27 @@ def _check(q, k_pages, v_pages, block_tables, lens):
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         if t.data_ptr() % 16:
             raise ValueError(f"paged_attention: {name} is not 16-byte aligned")
+
+
+def _instance(q, k_pages) -> str:
+    """The name of the instance a call ran: q's dtype / the pages'."""
+    return f"{str(q.dtype)[6:]}/{str(k_pages.dtype)[6:]}"
+
+
+def _no_upcast_wider(upcast, q, k_pages):
+    if upcast:
+        raise NotImplementedError(
+            f"paged_attention: upcast of {k_pages.dtype} pages to a {q.dtype} q "
+            "rounds the cache down, which no kernel here computes")
+
+
+def _check_rounding(q, k_pages):
+    if not rounds_weights(q, k_pages):
+        raise ValueError(f"paged_attention: {k_pages.dtype} pages under a {q.dtype} "
+                         "q round nothing: take paged_attention_partials")
+
+
+def _check_f32(name, t):
+    if t.dtype != torch.float32 or not t.is_cuda or not t.is_contiguous():
+        raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} on {t.device} must be "
+                         "contiguous fp32 on a CUDA device")

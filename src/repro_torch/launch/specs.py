@@ -7,8 +7,8 @@ mesh's.
 batch over ("pod", "data") or "data"; a decode batch that does not divide
 over them (long_500k's B 1) leaves the batch whole and cuts the cache
 sequence over "data"; train cells remat by default. Every §Perf lever of
-``opts`` goes into the context, and the model takes it; a ``kv_cache_dtype``
-other than the model's is counted on meta only (``check_cache_dtype``).
+``opts`` goes into the context, and the model takes it, a ``kv_cache_dtype``
+other than the model's included (its pools in that dtype).
 """
 from __future__ import annotations
 

@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 
 from repro_torch.analysis.scopes import scope
+from repro_torch.models.cache_dtype import to_cache_dtype
 from repro_torch.models.common import rmsnorm, rope
 
 NEG_INF = -1e30
@@ -69,11 +70,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      window: int = 0) -> torch.Tensor:
     """q (B,1,H,D); caches (B,S,KV,D); lens (B,) = index of the newest token
     (attention covers positions 0..lens inclusive); scores are scaled by
-    D ** -0.5. Returns (B,1,H,D)."""
+    D ** -0.5; q*scale and the weights are rounded to the caches' dtype as
+    the reference rounds them (``to_cache_dtype``). Returns (B,1,H,D)."""
     B, _, H, D = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     g = H // KV
-    qg = (q.float() * D ** -0.5).to(k_cache.dtype).float().reshape(B, KV, g, D)
+    qg = to_cache_dtype(q.float() * D ** -0.5, k_cache.dtype).float().reshape(B, KV, g, D)
     s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float())
     pos = torch.arange(S, device=q.device)
     newest = lens.long()[:, None]
@@ -82,7 +84,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         valid = valid & (pos[None, :] > newest - window)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
+    out = torch.einsum("bkgs,bskd->bkgd", to_cache_dtype(p, v_cache.dtype).float(),
                        v_cache.float())
     return out.reshape(B, 1, H, D).to(q.dtype)
 
@@ -162,10 +164,7 @@ def mla_partials(q_lat, q_pe, ckv_pool, kpe_pool, block_tables, lens, scale):
     (acc (B,H,kv_rank), the sum of exp(s - m) * ckv; m (B,H), the largest
     score, NEG_INF where no position counts; l (B,H), the sum of
     exp(s - m))."""
-    B, nb = block_tables.shape
-    pages = block_tables.long()
-    ckv = ckv_pool[pages].reshape(B, nb * ckv_pool.shape[1], -1)
-    kpe = kpe_pool[pages].reshape(B, nb * kpe_pool.shape[1], -1)
+    ckv, kpe = _latents(ckv_pool, kpe_pool, block_tables, q_lat.dtype)
     s = ((torch.einsum("bshr,btr->bhst", q_lat, ckv)
           + torch.einsum("bshe,bte->bhst", q_pe, kpe)) * scale).float()[:, :, 0]
     t = torch.arange(ckv.shape[1], device=q_lat.device)
@@ -207,10 +206,18 @@ def mla_decode_paged(x, p, cfg, ckv_pool, kpe_pool, block_tables, lens):
     """``mla_decode`` over a paged latent pool: ckv_pool (P,page,kv_rank),
     kpe_pool (P,page,rope); block_tables (B,max_blocks) page ids whose
     pages cover positions 0..lens (every entry a valid page). The table's
-    pages are gathered into a dense cache; positions past ``lens`` are
+    pages are gathered into a dense cache (upcast to x's dtype where the
+    pools are narrower, ``_latents``); positions past ``lens`` are
     masked."""
+    ckv, kpe = _latents(ckv_pool, kpe_pool, block_tables, x.dtype)
+    return mla_decode(x, p, cfg, ckv, kpe, lens)
+
+
+def _latents(ckv_pool, kpe_pool, block_tables, dtype):
+    """The table's pages of both latent pools as dense caches (B,n,r) in
+    ``dtype``: a pool of a narrower cache dtype (bf16 under fp32, int8)
+    upcast exactly, as the reference's einsums promote it."""
     B, nblk = block_tables.shape
     pages = block_tables.long()
-    ckv = ckv_pool[pages].reshape(B, nblk * ckv_pool.shape[1], -1)
-    kpe = kpe_pool[pages].reshape(B, nblk * kpe_pool.shape[1], -1)
-    return mla_decode(x, p, cfg, ckv, kpe, lens)
+    return tuple(pool[pages].reshape(B, nblk * pool.shape[1], -1).to(dtype)
+                 for pool in (ckv_pool, kpe_pool))

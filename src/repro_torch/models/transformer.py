@@ -83,8 +83,23 @@ the true kv heads on every rank and cuts the cache's sequence over
 "model"; ``train_kv_2d`` cuts the train layout's true kv projections on
 d_model over ("data", "model") (``_kv_2d``); ``moe_ff_shard`` cuts the
 experts' d_ff over "data" (``models/moe.py``); ``decode_unroll`` changes
-nothing here. A cache of another dtype than the model's (the
-reference's int8) is counted on meta only (``check_cache_dtype``).
+nothing here but for a cache of another dtype, which it reads upcast to
+the model's (below).
+
+The decode cache's dtype is the reference's ``ctx.kv_cache_dtype`` (else
+a runner's, else the model's; ``pool_dtype``): fp32, bf16, fp8 e4m3 or
+int8 under a model of either float dtype. Its entries are cast as
+``jnp.astype`` casts (``models/cache_dtype.py``), and K2 computes the
+reference's ``decode_attention`` on such pages, rounding q*scale and the
+normalised weights to the cache's dtype; under ``decode_unroll`` the
+reference upcasts the cache to the model's dtype first (dense, vlm, audio
+and MoE stacks with GQA), and so does K2 (``upcast``). MLA reads its
+latent pools upcast to the model's dtype, the reference's promotion; it
+refuses fp8, where the reference's ``mla_decode`` raises, and a cache
+wider than the model, where the reference's promotion turns the residual
+stream to fp32. The recurrent states stay in the model's dtype (their
+conv windows included): the reference's prefill replaces its cache-dtype
+state by one harvested in the model's dtype, and its decode promotes.
 
 On the meta device (``seed=None``) a model is its rank's shapes alone, at
 any width: the dry-run traces one rank's step on it.
@@ -103,13 +118,16 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.paged_attention.ops import (paged_attention,
-                                                     paged_attention_partials,
-                                                     paged_merge)
+from repro_torch.kernels.paged_attention.ops import (
+    paged_attention, paged_attention_partials, paged_attention_stats,
+    paged_attention_values, paged_merge, paged_stats_merge, paged_sum)
+from repro_torch.kernels.paged_attention.ref import rounds_weights
 from repro_torch.models.attention import (flash_prefill, mla_absorb,
                                           mla_decode_paged, mla_latents,
                                           mla_merge, mla_partials, mla_prefill,
                                           mla_query, mla_scale)
+from repro_torch.models.cache_dtype import (check_cache_dtype, to_cache_dtype,
+                                            writable)
 from repro_torch.models.common import rmsnorm, rope, token_xent
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import (init_mamba_state, mamba2_decode,
@@ -514,18 +532,28 @@ def check_shardable(cfg: ModelConfig, ctx: ParallelContext, layout: str):
         shard_shape(shape, axes[name], ctx)
 
 
-def check_cache_dtype(ctx: ParallelContext, dtype: torch.dtype, device: torch.device):
-    """Raise unless a model of ``dtype`` on ``device`` can serve from a
-    cache of ``ctx.kv_cache_dtype``: only the meta device (the dry-run's
-    count) takes another dtype than the model's, since K2 reads bf16 and
-    fp32 pages only and the reference's int8 cache, which has no scale,
-    decodes to zeros (ROADMAP §3, its questions)."""
-    cdt = ctx.kv_cache_dtype
-    if cdt is not None and cdt != dtype and device.type != "meta":
+def cache_dtype_of(cfg: ModelConfig, ctx: ParallelContext, dtype: torch.dtype,
+                   cache_dtype: Optional[torch.dtype] = None) -> torch.dtype:
+    """The decode cache's dtype for a model of ``dtype``:
+    ``ctx.kv_cache_dtype``, else ``cache_dtype``, else ``dtype``. Raises
+    where the reference does not serve it: MLA with fp8, whose
+    ``mla_decode`` einsum has no implicit promotion of float8_e4m3fn
+    (``TypePromotionError``, ``src/repro/models/attention.py:171``), and
+    MLA with a cache wider than the model, which the reference's promotion
+    carries into an fp32 residual stream."""
+    cdt = ctx.kv_cache_dtype or cache_dtype or dtype
+    if cdt != dtype:
+        check_cache_dtype(cdt)
+    if cfg.attention == "mla" and cdt == torch.float8_e4m3fn:
         raise NotImplementedError(
-            f"kv_cache_dtype {cdt} on {device}: a cache of another dtype than "
-            f"the model's ({dtype}) is counted on meta only; the reference's "
-            "int8 cache has no scale and its decode returns zeros (ROADMAP §3)")
+            f"{cfg.name}: MLA with a float8_e4m3fn cache: the reference's "
+            "mla_decode raises TypePromotionError there (no implicit promotion of "
+            "float8_e4m3fn, src/repro/models/attention.py:171)")
+    if cfg.attention == "mla" and cdt.itemsize > dtype.itemsize:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA with a {cdt} cache under a {dtype} model: the "
+            "reference's promotion turns the residual stream to the cache's dtype")
+    return cdt
 
 
 class Transformer(nn.Module):
@@ -548,7 +576,7 @@ class Transformer(nn.Module):
         if self.ctx.mesh is not None:
             check_shardable(cfg, self.ctx, layout)
         dev = resolve_device(device)
-        check_cache_dtype(self.ctx, dtype, dev)
+        cache_dtype_of(cfg, self.ctx, dtype)
         self.cfg = cfg
         self.layout = layout
         self.specs = param_specs(cfg)
@@ -604,6 +632,11 @@ class Transformer(nn.Module):
         # over ("data", "model"), partial products summed over "model"
         self.kv_2d = (self.ctx.train_kv_2d and layout == "train" and self.kv_exact
                       and tp > 1)
+        # ``decode_unroll``: the reference's unrolled decode reads a cache
+        # of another dtype upcast to the model's (dense, vlm, audio and MoE
+        # stacks with GQA; ``src/repro/models/transformer.py:485-488``)
+        self.upcast = (self.ctx.decode_unroll and not self.mla
+                       and cfg.family in ("dense", "vlm", "audio", "moe"))
         if seed is not None:
             self.init_weights(seed)
 
@@ -681,6 +714,11 @@ class Transformer(nn.Module):
             stacked[layer].copy_(shard)
             del buf, full, shard
 
+    def pool_dtype(self, cache_dtype: Optional[torch.dtype] = None) -> torch.dtype:
+        """The pools' dtype: ``ctx.kv_cache_dtype``, else ``cache_dtype``
+        (a runner's), else the model's (``cache_dtype_of``)."""
+        return cache_dtype_of(self.cfg, self.ctx, self.dtype, cache_dtype)
+
     def pool_shapes(self, n_pages: int, page: int) -> List[Tuple[int, ...]]:
         """Shapes of the paged decode-cache pools: k and v
         (L,P,page,KV,hd) for GQA, with L the shared block's groups in a
@@ -707,7 +745,12 @@ class Transformer(nn.Module):
         and the conv states of x, B and C (L,n,cw-1,width) in the model's
         dtype; for xLSTM the mLSTM C, n, m (fp32) and conv, over its blocks
         in the order they run, then the sLSTM c, n, h, m (G,n,d) fp32;
-        none for the other families."""
+        none for the other families. The conv states stay in the model's
+        dtype under any cache dtype: the reference allocates them in the
+        cache's (``init_mamba_state(cfg, batch, cdt)``), but its prefill
+        replaces them by states harvested in the model's dtype and its
+        decode's ``_causal_conv`` promotes them to it, so its decode reads
+        the model's dtype (ROADMAP §3)."""
         cfg = self.cfg
         if cfg.family == "hybrid":
             h, cs = init_mamba_state(cfg, 1, self.dtype, device="meta",
@@ -971,7 +1014,7 @@ class Transformer(nn.Module):
         _put(pool_v, pages, offs, b[:, 0], mine)
         if self.seq_axis is None:
             o = paged_attention(q, pool_k, pool_v, block_tables, lens,
-                                window=self.window)
+                                window=self.window, upcast=self.upcast)
         else:
             o = self._split_attention(q, pool_k, pool_v, block_tables, lens - s0)
         o = o.reshape(B, -1, hd)
@@ -986,10 +1029,23 @@ class Transformer(nn.Module):
         positions counted from the share's start, so the causal bound and
         the window fall where they do globally), the partials gathered
         over ``seq_axis`` (the ranks' partitions in position order) and
-        merged once."""
+        merged once. Pages that ``decode_attention`` rounds to (the cache's
+        dtype is not q's) split in two passes, since its weights are
+        normalised by the whole sequence's (M, L): each rank's partitions'
+        (m, l) gathered and merged, then each rank's sums of the rounded
+        weights times v gathered and added. On meta the dry-run counts one
+        pass, as before."""
+        local_lens = local_lens.to(torch.int32)
+        if rounds_weights(q, pool_k, self.upcast) and q.device.type != "meta":
+            ml = self.ctx.comm.all_gather(
+                paged_attention_stats(q, pool_k, block_tables, local_lens,
+                                      window=self.window), self.seq_axis, 2)
+            acc = paged_attention_values(q, pool_k, pool_v, block_tables, local_lens,
+                                         paged_stats_merge(ml), window=self.window)
+            return paged_sum(self.ctx.comm.all_gather(acc, self.seq_axis, 2), q.dtype)
         acc, ml = paged_attention_partials(q, pool_k, pool_v, block_tables,
-                                           local_lens.to(torch.int32),
-                                           window=self.window)
+                                           local_lens, window=self.window,
+                                           upcast=self.upcast)
         D = acc.shape[-1]
         both = self.ctx.comm.all_gather(torch.cat([acc, ml], dim=-1),
                                         self.seq_axis, 2)
@@ -1332,8 +1388,11 @@ class Transformer(nn.Module):
 
 
 def _put(pool: torch.Tensor, pages, offs, new: torch.Tensor, keep):
-    """pool[pages, offs] = new, but the old entry on each row ``keep``
-    (None: every row) drops."""
+    """pool[pages, offs] = new cast to the pool's dtype
+    (``to_cache_dtype``), but the old entry on each row ``keep`` (None:
+    every row) drops."""
+    new = writable(to_cache_dtype(new, pool.dtype))
+    pool = writable(pool)
     if keep is not None:
         new = torch.where(keep.view(-1, *(1,) * (new.ndim - 1)), new, pool[pages, offs])
     pool[pages, offs] = new

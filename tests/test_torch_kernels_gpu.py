@@ -315,3 +315,180 @@ def test_paged_partials_merged_equal_the_one_call(cuda, case, dtype):
         torch.cat([a for a, _ in plain], 2), torch.cat([m for _, m in plain], 2), tdt),
         ref, tol, REL_RMS[dtype])
     assert acc.shape == torch.cat([a for a, _ in plain], 2).shape
+
+
+# ------------------------------------------------ pages of another dtype
+# K2 over a cache of the reference's kv_cache_dtype: (pages, q) dtypes
+Q8_PAIRS = [("float8_e4m3fn", "bfloat16"), ("float8_e4m3fn", "float32"),
+            ("int8", "bfloat16"), ("int8", "float32"), ("bfloat16", "float32")]
+# B, KV, G, D, page, P, nblk[, tokens of each sequence[, window]]: the
+# main paths' shapes (llama3.2-3b's decode batch, h2o-danube's D 120 with
+# its window, llama3-405b's G 16, zamba2's D 80 at G 1) and the edges
+Q8_CASES = [
+    (16, 8, 3, 128, 16, 1024, 64),                            # llama3.2-3b
+    (5, 2, 3, 128, 16, 512, 128, [1, 255, 256, 257, 2048]),   # partition edges
+    (3, 8, 4, 120, 16, 256, 80, [1280, 255, 600], 257),       # h2o-danube, window
+    (2, 8, 16, 128, 16, 256, 80, [1280, 300]),                # llama3-405b: G 16
+    (4, 32, 1, 80, 16, 512, 80, [1280, 256, 257, 17]),        # zamba2: D 80, G 1
+    (2, 2, 9, 112, 16, 64, 40, [513, 40], 100),               # G 9, D 112, window
+    (2, 4, 8, 32, 16, 64, 20, [1, 320]),                      # D 32
+    (3, 4, 1, 64, 16, 32, 6),                                 # D 64
+]
+# the default mode: the same function as the plain version, fp32 sums in
+# another order (1e-4 of unit values), the output's rounding to q's dtype
+# (2^-8 of it in bf16) and ``weight_slack`` (a weight near a rounding
+# boundary of the pages' dtype may round to the other neighbour); the
+# upcast mode: the existing K2 tolerances times the values' scale (the
+# kernel rounds a bf16 q's q*scale and weights to bf16, keeps an fp32 q's
+# as three bf16 terms)
+Q8_ATOL = 1e-4
+# int8 pages also under q times these, where q*scale truncates to non-zero
+# integers and the output is not zeros: at x12 most rows' largest weight
+# lies in [0.5, 1) (truncated to 0, where rounding to nearest gives 1), at
+# x40 most rows' is exactly 1 (the output is that key's v)
+INT8_QX = (12.0, 40.0)
+# (pair, qx): the upcast mode truncates nothing, so it runs at x1 only
+Q8_RUNS = [(p, 1.0) for p in Q8_PAIRS] + [(p, x) for p in Q8_PAIRS if p[0] == "int8"
+                                          for x in INT8_QX]
+Q8_IDS = [f"{'/'.join(p)}" + (f"-qx{x:g}" if x != 1 else "") for p, x in Q8_RUNS]
+Q8_MODES = [(p, x, m) for p, x in Q8_RUNS for m in ("default", "upcast")
+            if x == 1.0 or m == "default"]
+
+
+def _q8_inputs(case, pages, qdt, seed, cuda, qx=1.0):
+    from repro_torch.models.cache_dtype import to_cache_dtype
+    q, kp, vp, tables, lens, window = _paged_inputs(case, seed)
+    scale = 3.0 if pages == torch.int8 else 1.0   # small integers in int8
+    kp, vp = (to_cache_dtype(torch.from_numpy(a).to(cuda) * scale, pages) for a in (kp, vp))
+    return (torch.from_numpy(q * qx).to(cuda, qdt), kp, vp,
+            torch.from_numpy(tables).to(cuda), torch.from_numpy(lens).to(cuda), window)
+
+
+def _int8_scores(q, kp, tables, lens, window, ref, slack, qx):
+    """With q times ``qx`` > 1 over int8 pages the plain output must tell a
+    kernel that truncates from one that writes zeros or rounds to nearest:
+    rows held exactly (no slack) whose largest weight is 1 (x40), or lies
+    in [0.5, 1) (x12)."""
+    from repro_torch.kernels.paged_attention.ref import decode_weights
+    if qx == 1.0:
+        return
+    top = decode_weights(q, kp, tables, lens, window).amax(dim=-1)
+    exact = slack.amax(dim=-1) == 0
+    nonzero = ref.float().abs().amax(dim=-1) > 0
+    if qx == INT8_QX[0]:
+        assert bool(((top >= 0.5) & (top < 1) & exact).any())
+    else:
+        assert bool((nonzero & exact).any())
+
+
+def _hold_q8(out, ref, q, slack, vp, upcast):
+    out, ref = out.float(), ref.float()
+    assert bool(torch.isfinite(out).all())
+    v_scale = float(vp.float().std())
+    if upcast:
+        tol = DTYPES[str(q.dtype)[6:]][1] * v_scale
+        bound = tol + tol * ref.abs()
+    else:
+        rel = 2.0 ** -8 if q.dtype == torch.bfloat16 else 1e-6
+        bound = Q8_ATOL * v_scale + rel * ref.abs() + slack
+    assert bool(((out - ref).abs() <= bound).all()), float(((out - ref).abs() - bound).max())
+    rel_rms = REL_RMS[str(q.dtype)[6:]]
+    assert float((out - ref).norm()) <= rel_rms * float(ref.norm()) + float(slack.norm())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", Q8_CASES)
+@pytest.mark.parametrize("pair,qx,mode", Q8_MODES,
+                         ids=[f"{'/'.join(p)}{f'-qx{x:g}' if x != 1 else ''}-{m}"
+                              for p, x, m in Q8_MODES])
+def test_paged_other_page_dtype_vs_plain(cuda, pair, qx, mode, case):
+    """The two-pass kernel (default) or the one-pass kernel on pages
+    converted on load (upcast) against the plain version; one launch of
+    its counter a call, none of the same-dtype kernel's."""
+    from repro_torch.kernels.paged_attention.ref import weight_slack
+    pages, qdt = (getattr(torch, n) for n in pair)
+    upcast = mode == "upcast"
+    q, kp, vp, tables, lens, window = _q8_inputs(case, pages, qdt,
+                                                 700 + Q8_CASES.index(case), cuda, qx)
+    counter = paged_ops.UPCAST if upcast else paged_ops.CVT
+    before = (counter.launches, paged_ops.KERNEL.launches)
+    out = paged_ops.paged_attention(q, kp, vp, tables, lens, window=window, upcast=upcast)
+    torch.cuda.synchronize()
+    assert (counter.launches, paged_ops.KERNEL.launches) == (before[0] + 1, before[1])
+    assert out.dtype == qdt
+    ref = paged_ops.paged_attention_plain(q, kp, vp, tables, lens, window=window,
+                                          upcast=upcast)
+    slack = weight_slack(q, kp, vp, tables, lens, window=window, upcast=upcast)
+    if not upcast:
+        _int8_scores(q, kp, tables, lens, window, ref, slack, qx)
+    _hold_q8(out, ref, q, slack, vp, upcast)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SPLIT_CASES)
+@pytest.mark.parametrize("pair,qx", Q8_RUNS, ids=Q8_IDS)
+def test_paged_other_page_dtype_split_over_two_halves(cuda, pair, qx, case):
+    """Each half of the table as a rank's share: pass 1 of both halves
+    gathered and merged into (M, L), pass 2 of both with them, summed;
+    against the one-call kernel and the plain version. The upcast mode's
+    partials merged by the same-dtype merge kernel likewise."""
+    from repro_torch.kernels.paged_attention.ref import weight_slack
+    B, KV, G, D, nblk, newest, window = case
+    pages, qdt = (getattr(torch, n) for n in pair)
+    rng = np.random.default_rng(900 + SPLIT_CASES.index(case))
+    P = B * nblk
+    from repro_torch.models.cache_dtype import to_cache_dtype
+    scale = 3.0 if pages == torch.int8 else 1.0
+    q = torch.from_numpy(rng.standard_normal((B, KV, G, D)).astype(np.float32) * qx).to(
+        cuda, qdt)
+    kp, vp = (to_cache_dtype(torch.from_numpy(rng.standard_normal((P, 16, KV, D)).astype(
+        np.float32)).to(cuda) * scale, pages) for _ in range(2))
+    tables = torch.from_numpy(rng.permutation(P).reshape(B, nblk).astype(np.int32)).to(cuda)
+    lens = torch.tensor(newest, dtype=torch.int32, device=cuda)
+    half = nblk // 2
+    shares = [(tables[:, i * half:(i + 1) * half].contiguous(), lens - i * half * 16)
+              for i in range(2)]
+    ml = torch.cat([paged_ops.paged_attention_stats(q, kp, t, l, window=window)
+                    for t, l in shares], dim=2)
+    stats = paged_ops.paged_stats_merge(ml)
+    acc = torch.cat([paged_ops.paged_attention_values(q, kp, vp, t, l, stats, window=window)
+                     for t, l in shares], dim=2)
+    out = paged_ops.paged_sum(acc, qdt)
+    torch.cuda.synchronize()
+    ref = paged_ops.paged_attention_plain(q, kp, vp, tables, lens, window=window)
+    slack = weight_slack(q, kp, vp, tables, lens, window=window)
+    _int8_scores(q, kp, tables, lens, window, ref, slack, qx)
+    _hold_q8(out, ref, q, slack, vp, False)
+    _hold_q8(out, paged_ops.paged_attention(q, kp, vp, tables, lens, window=window), q,
+             slack, vp, False)
+    # the plain passes: the kernels' layouts
+    plain = paged_ops.paged_stats_merge_plain(torch.cat(
+        [paged_ops.paged_attention_stats_plain(q, kp, t, l, window=window) for t, l in shares],
+        dim=2))
+    np.testing.assert_allclose(stats.cpu().numpy(), plain.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    if qx != 1.0:
+        return   # the upcast mode truncates nothing: its partials at x1 only
+    parts = [paged_ops.paged_attention_partials(q, kp, vp, t, l, window=window, upcast=True)
+             for t, l in shares]
+    up = paged_ops.paged_merge(torch.cat([a for a, _ in parts], 2),
+                               torch.cat([m for _, m in parts], 2), qdt)
+    _hold_q8(up, paged_ops.paged_attention_plain(q, kp, vp, tables, lens, window=window,
+                                                 upcast=True), q, slack, vp, True)
+
+
+@pytest.mark.gpu
+def test_paged_other_page_dtype_refusals(cuda):
+    """fp32 pages upcast to a bf16 q would round the cache down: refused;
+    bf16 pages under a bf16 q round nothing: no two-pass entry takes them;
+    fp32 pages under a bf16 q run the fp32 kernel on q in fp32."""
+    case = Q8_CASES[-1]
+    q, kp, vp, tables, lens, _ = _q8_inputs(case, torch.float32, torch.bfloat16, 1, cuda)
+    with pytest.raises(NotImplementedError):
+        paged_ops.paged_attention(q, kp, vp, tables, lens, upcast=True)
+    before = paged_ops.KERNEL.launches
+    out = paged_ops.paged_attention(q, kp, vp, tables, lens)
+    assert paged_ops.KERNEL.launches == before + 1 and out.dtype == torch.bfloat16
+    _assert_close(out, paged_ops.paged_attention_plain(q, kp, vp, tables, lens), 2e-2, 1e-2)
+    kb, vb = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="round nothing"):
+        paged_ops.paged_attention_stats(q, kb, tables, lens)

@@ -41,8 +41,8 @@ fp32. Cases:
     under ``seq_shard_decode`` (4-token pages, so that the sequences reach
     the second rank's share) too, each rank's pool holding only the pages
     of its positions; the model builds MLA under ``seq_shard_decode`` and
-    counts its split decode on meta, and refuses an int8 or fp8 cache on a
-    real device.
+    counts its split decode on meta (the ``kv_cache_dtype`` lever is held
+    in ``tests/test_torch_kv_cache_dtype.py``).
 
 The file takes about 2 minutes in one process; keep it in one xdist
 worker (``--dist loadfile``), or each worker reruns its module fixture.
@@ -630,21 +630,6 @@ def test_runner_under_seq_shard_decode_equals_tp1(results):
     assert lead["longest"] > lead["share"]
     assert all(r["pages_written"] > 0 for r in ranks.values())
     assert sum(r["pages_written"] for r in ranks.values()) <= lead["n_pages"]
-
-
-@pytest.mark.parametrize("dtype", [torch.int8, torch.float8_e4m3fn])
-def test_a_real_model_refuses_a_quantised_cache(dtype):
-    """On the CPU (or a card) an int8 or fp8 cache raises, naming ROADMAP
-    §3's question; on meta (the dry-run) the model builds."""
-    from repro_torch.models.transformer import Transformer
-    from repro_torch.parallel.sharding import AbstractMesh
-    cfg = get_smoke_config("llama3.2-3b")
-    ctx = ParallelContext(mesh=AbstractMesh((1, 2), ("data", "model")),
-                          kv_cache_dtype=dtype)
-    with pytest.raises(NotImplementedError) as e:
-        Transformer(cfg, device="cpu", dtype=torch.float32, seed=None, ctx=ctx)
-    assert "ROADMAP §3" in str(e.value)
-    Transformer(cfg, device="meta", dtype=torch.bfloat16, seed=None, ctx=ctx)
 
 
 def test_mla_under_seq_shard_decode_builds_and_splits():

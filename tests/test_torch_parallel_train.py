@@ -863,8 +863,7 @@ def test_the_sharded_model_refuses_each_lever(arch, layout, lever):
     layout: it builds, and its padded shapes, logical axes and mesh specs
     equal the reference's ``build_param_specs`` / ``param_pspecs`` under
     the same lever, its parameters those shapes' rank shards. An int8 kv
-    cache is the refusal that remains: a real (CPU) model raises, naming
-    ROADMAP §3's question; on meta, the dry-run's count, it builds."""
+    cache builds on a real (CPU) device too, its pools in int8."""
     import jax.numpy as jnp
     from jax.sharding import AbstractMesh as JaxAbstractMesh
     from repro.configs.registry import get_smoke_config as jax_smoke
@@ -879,15 +878,10 @@ def test_the_sharded_model_refuses_each_lever(arch, layout, lever):
     ctx = ParallelContext(mesh=AbstractMesh((1, 2), ("data", "model")), **kw)
     jctx = ref.ParallelContext(mesh=JaxAbstractMesh((1, 2), ("data", "model")), **jkw)
     cfg = get_smoke_config(arch)
-    device = "cpu"
+    model = Transformer(cfg, device="cpu", dtype=torch.float32, seed=None,
+                        layout=layout, ctx=ctx)
     if lever == "kv_cache_dtype":
-        with pytest.raises(NotImplementedError) as e:
-            Transformer(cfg, device="cpu", dtype=torch.float32, seed=None,
-                        layout=layout, ctx=ctx)
-        assert lever in str(e.value) and "ROADMAP §3" in str(e.value)
-        device = "meta"
-    model = Transformer(cfg, device=device, dtype=torch.float32, seed=None,
-                        layout=layout, ctx=ctx)
+        assert model.pool_dtype() == torch.int8
     specs = dict(_jax_flat(T.build_param_specs(jax_smoke(arch), jctx, layout)))
     pspecs = dict(_jax_flat(T.param_pspecs(jax_smoke(arch), jctx, layout)))
     shapes, axes = padded_shapes(cfg, ctx, layout), param_axes(cfg, layout, ctx)

@@ -151,10 +151,9 @@ def test_the_sharded_model_refuses_what_is_not_ported(case):
     passes ``check_shardable`` under it in the serve layout (the train
     layout for ``train_kv_2d`` and ``remat``) with the reference's
     padded shapes and specs. The hybrid and ssm families and the train
-    layout take the baseline rules and still refuse an int8 kv cache on a
-    real device (``check_cache_dtype``), not on meta."""
-    from repro_torch.models.transformer import (check_cache_dtype,
-                                                check_shardable)
+    layout take the baseline rules and an int8 kv cache, which a real
+    device serves as meta counts it (``cache_dtype_of``)."""
+    from repro_torch.models.transformer import cache_dtype_of, check_shardable
     import torch
     mesh = port.AbstractMesh((1, 2), ("data", "model"))
     arch = case if case in ALL_MODELS else "llama3.2-3b"
@@ -174,10 +173,7 @@ def test_the_sharded_model_refuses_what_is_not_ported(case):
                 assert ctx.spec(*axes[name]) == tuple(pspec), (case, name)
         return
     ctx = port.ParallelContext(mesh=mesh, kv_cache_dtype=torch.int8)
-    with pytest.raises(NotImplementedError) as e:
-        check_cache_dtype(ctx, torch.bfloat16, torch.device("cpu"))
-    assert "kv_cache_dtype" in str(e.value)
-    check_cache_dtype(ctx, torch.bfloat16, torch.device("meta"))
+    assert cache_dtype_of(cfg, ctx, torch.bfloat16) == torch.int8
     check_shardable(cfg, ctx, layout)
     check_shardable(cfg, port.ParallelContext(mesh=mesh), layout)
 

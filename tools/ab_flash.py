@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""K1 (the flash-attention prefill) of two checkouts compared on one NVIDIA
-card: the SASS of each ``flash_fwd_wgmma`` instance and the device time of
-the causal kernel at the main paths' longest shapes.
+"""K1 (the flash-attention prefill) or K2 (the paged decode) of two
+checkouts compared on one NVIDIA card: the SASS of each instance and the
+device time at the main paths' shapes.
 
     git archive <parent> | tar -x -C build/ab_parent
     python3 tools/ab_flash.py --tree parent=build/ab_parent --tree change=. \
-        --order parent,change,change,parent,parent,change
+        --order parent,change,change,parent,parent,change [--kernel paged]
 
-Each checkout builds its own ``flash_attention`` library (in its
+Each checkout builds its own library (``flash_attention``, or
+``paged_attention`` with ``--kernel paged``, in its
 ``src/repro_torch/build``); ``cuobjdump -sass`` lists its functions, and a
-line per ``flash_fwd_wgmma`` instance gives its instruction count and a
+line per instance (``flash_fwd_wgmma``; ``paged_split_mma``,
+``paged_split_simt`` and ``paged_merge``) gives its instruction count and a
 hash of its instructions (addresses dropped), so two builds of the same
 device code hash alike. Then one process per entry of ``--order`` times
-the causal kernel with ``chip_smoke.time_flash`` (``device_ms`` from a
-replayed CUDA graph). Lines also go to ``chiprun_out/ab_flash.jsonl``.
+the kernel with ``chip_smoke.time_flash`` (the causal kernel) or
+``chip_smoke.time_paged`` (bf16 and fp32 at llama3.2-3b's decode batch,
+bf16 at h2o-danube's and llama3-405b's; ``device_ms`` from a replayed CUDA
+graph). Lines also go to ``chiprun_out/ab_flash.jsonl``.
 """
 from __future__ import annotations
 
@@ -40,24 +44,31 @@ def emit(**kw):
         f.write(line + "\n")
 
 
-def _import(tree: Path):
+# --kernel -> (library, the functions whose SASS is compared)
+KERNELS = {"flash": ("flash_attention", ("flash_fwd_wgmma",)),
+           "paged": ("paged_attention", ("paged_split_mma", "paged_split_simt",
+                                         "paged_merge"))}
+
+
+def _import(tree: Path, kernel: str):
     src = (tree / "src").resolve()
     sys.path.insert(0, str(src))
     from repro_torch.kernels import build
     if not Path(build.__file__).resolve().is_relative_to(src):
         raise AssertionError(f"imported {build.__file__}, not {src}")
-    build.build(["flash_attention"])
+    build.build([KERNELS[kernel][0]])
     return build
 
 
-def sass(label: str, tree: Path):
-    """One line per ``flash_fwd_wgmma`` instance of the checkout's build."""
-    so = _import(tree).library_path("flash_attention")
+def sass(label: str, tree: Path, kernel: str):
+    """One line per instance of the checkout's build."""
+    lib, names = KERNELS[kernel]
+    so = _import(tree, kernel).library_path(lib)
     text = subprocess.run([CUOBJDUMP, "-sass", str(so)], capture_output=True,
                           text=True, check=True).stdout
     for fn in re.split(r"\n\s*Function : ", text)[1:]:
         name, body = fn.split("\n", 1)
-        if "flash_fwd_wgmma" not in name:
+        if not any(n in name for n in names):
             continue
         ins = [re.sub(r"/\*[0-9a-f]{4,}\*/", "", ln).strip()
                for ln in body.splitlines() if "/*" in ln]
@@ -65,15 +76,24 @@ def sass(label: str, tree: Path):
              sha1=hashlib.sha1("\n".join(ins).encode()).hexdigest()[:12])
 
 
-def timing(label: str, tree: Path):
-    """The causal kernel's rows at ``CASES``."""
+def timing(label: str, tree: Path, kernel: str):
+    """The causal kernel's rows at ``CASES``, or K2's at ``chip_smoke``'s
+    shapes."""
     sys.path.insert(0, str(ROOT))
     import torch
 
     import chip_smoke as cs
-    _import(tree)
-    from repro_torch.kernels.flash_attention import ops as flash_ops
+    _import(tree, kernel)
     gen = torch.Generator(device="cuda").manual_seed(1)
+    if kernel == "paged":
+        from repro_torch.kernels.paged_attention import ops as paged_ops
+        for dtype, m in ((torch.bfloat16, cs.MAIN_PAGED), (torch.float32, cs.MAIN_PAGED),
+                         (torch.bfloat16, cs.DANUBE_PAGED), (torch.bfloat16, cs.L405_PAGED)):
+            r = cs.time_paged(paged_ops, dtype, gen, m)
+            emit(phase="timing", tree=label, shape=r["shape"], window=r["window"],
+                 dtype=r["dtype"], ms=r["ms"], device_ms=r["device_ms"])
+        return
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     for case in CASES:
         r = cs.time_flash(flash_ops, case, torch.bfloat16, gen)
         emit(phase="timing", tree=label, shape=r["shape"], window=r["window"],
@@ -84,12 +104,13 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", action="append", default=[], help="label=path")
     ap.add_argument("--order", help="comma-separated labels, one timing run each")
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="flash")
     ap.add_argument("--run", nargs=3, metavar=("WHAT", "LABEL", "PATH"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.run:
         what, label, path = args.run
-        (sass if what == "sass" else timing)(label, Path(path))
+        (sass if what == "sass" else timing)(label, Path(path), args.kernel)
         return
     trees = dict(t.split("=", 1) for t in args.tree)
     OUT.parent.mkdir(parents=True, exist_ok=True)
@@ -97,11 +118,11 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True)
     emit(phase="device", nvidia_smi=smi.stdout.strip())
     for label, path in trees.items():
-        subprocess.run([sys.executable, __file__, "--run", "sass", label, path],
-                       check=True, cwd=ROOT)
+        subprocess.run([sys.executable, __file__, "--kernel", args.kernel, "--run",
+                        "sass", label, path], check=True, cwd=ROOT)
     for label in (args.order or ",".join(trees)).split(","):
-        subprocess.run([sys.executable, __file__, "--run", "timing", label,
-                        trees[label]], check=True, cwd=ROOT)
+        subprocess.run([sys.executable, __file__, "--kernel", args.kernel, "--run",
+                        "timing", label, trees[label]], check=True, cwd=ROOT)
 
 
 if __name__ == "__main__":
