@@ -16,11 +16,13 @@ Phases, each printed as one JSON line:
      over pages of another dtype than q (fp8 e4m3 and int8 under bf16 and
      fp32 q, bf16 under fp32; ``check_q8``) at llama3.2-3b's, h2o-danube's
      (window, D 120), llama3-405b's (G 16) and zamba2's (D 80, G 1) decode
-     batches, in the reference's ``decode_attention`` function (two
-     passes) and upcast (``decode_unroll``), and its split passes over a
-     sequence-split share of zamba2 and h2o-danube; int8 pages also under
-     q times 12 and 40, where the output is not zeros and rows tell
-     truncation from rounding to nearest;
+     batches, in the reference's ``decode_attention`` function (the
+     one-launch cluster design there, the two-pass design at a batch past
+     the cluster's scores) and upcast (``decode_unroll``; fp32 pages under
+     a bf16 q too), and its split passes over a sequence-split share of
+     zamba2 and h2o-danube; int8 pages also under q times 12 and 40, where
+     the output is not zeros and rows tell truncation from rounding to
+     nearest;
   3. each kernel's time in bf16 at the main paths' shapes (K1 at S 137,
      1000, 512 and 2048, and at the prompts of qwen3-14b, h2o-danube (S
      5000, window 4096), kimi-k2, llama3-405b, zamba2-2.7b, musicgen-medium
@@ -32,8 +34,10 @@ Phases, each printed as one JSON line:
      beside its bound and the share of it reached, the wrapper's host time
      per call, its plain version's time and one PyTorch library call's time
      (for a window, SDPA with a boolean mask; the line names the kernels
-     the library ran); K2 over fp8 and int8 pages at llama3.2-3b's batch,
-     both modes (the upcast mode's yardstick SDPA on the upcast cache);
+     the library ran); K2 over fp8 and int8 pages under a bf16 q: the
+     cluster design at the four decode batches above, the two-pass design
+     past its scores, and the upcast mode at llama3.2-3b's batch (its
+     yardstick SDPA on the upcast cache);
   4. greedy tokens of a full-width 2-layer fp32 model served on the card
      equal those of the plain path on the CPU, with and without preemption;
   5. the main path: full-depth llama3.2-3b in bf16 serving 16 requests
@@ -64,11 +68,11 @@ Phases, each printed as one JSON line:
      sLSTM; fp32) on the card equal those of a CPU copy, each under a
      forced preemption that recomputes the state
      (``greedy_equality_hybrid``, ``greedy_equality_xlstm``); then
-     ``main_path`` in bf16 for zamba2-2.7b (full depth: 54 Mamba2 layers,
-     9 invocations of the shared block, so K1 and K2 launch in multiples
-     of 9) and xlstm-350m (full depth: 21 mLSTM and 3 sLSTM blocks, which
-     launch neither kernel), each with its state slot's bytes; and a
-     traced run of zamba2's decode steps (``profile``);
+     ``main_path`` in bf16 for zamba2-2.7b (18 of its 54 Mamba2 layers, 3
+     invocations of the shared block, so K1 and K2 launch in multiples of
+     3) and xlstm-350m (8 of its 24 blocks, which launch neither kernel),
+     each with its state slot's bytes; and a traced run of zamba2's decode
+     steps (``profile``);
   9. the vlm and audio families: internvl2-76b at full width (2 layers,
      fp32) with a prefix of 256 embeddings before 200 text tokens, its
      prefill logits on the card against a CPU copy's, then 8 paged decode
@@ -95,7 +99,8 @@ Phases, each printed as one JSON line:
      full-depth llama3.2-3b in bf16 served from an fp8 cache
      (``ParallelContext(kv_cache_dtype=)``, ``SERVE_REQUESTS``, a pool of
      704,643,072 B, half of bf16's) and from an int8 cache, each through
-     ``TorchRunner`` launching K1 and the two-pass K2 over its pages; a
+     ``TorchRunner`` launching K1 and the one-launch (cluster) K2 over its
+     pages; a
      2-layer fp32 model's tokens from fp8 and int8 caches on a preempting
      pool equal on the card and on the CPU; and the capacity traffic on
      an fp8 cache of the bf16 ``capacity`` run's bytes (768 pages) beside
@@ -370,6 +375,11 @@ L405_LAYERS = 8
 # dozen small kernels a token a block, bound by the host), so it serves
 # phi3.5-moe's fewer and shorter requests
 XLSTM_REQUESTS = PHI_REQUESTS
+# the recurrent main paths cut for the run's time: zamba2-2.7b at 18 of
+# its 54 layers (3 invocations of its shared attention block), xlstm-350m
+# at 8 of its 24 blocks (7 mLSTM, 1 sLSTM; its prefill loops over tokens)
+ZAMBA_MAIN_LAYERS = 18
+XLSTM_MAIN_BLOCKS = 8
 STARTED = time.perf_counter()
 # internvl2-76b at full width cut to 24 of its 80 layers (about 45.3 GB of
 # bf16 weights); musicgen-medium whole
@@ -432,10 +442,10 @@ XLSTM_EQ_ENGINE = dict(HYBRID_EQ_ENGINE, n_pages=15)
 # "model", AdamW moments as their parameters' shards). Equality: 2 layers,
 # B 4 x S 64, 3 steps against tp=1 on the card under train_equality's
 # tolerances; its params and AdamW state are then saved from (2,2) and
-# restored onto (1,4). Main path: 4 of 28 layers (full depth, 51.4 GB of
+# restored onto (1,4). Main path: 2 of 28 layers (full depth, 51.4 GB of
 # fp32 weights, gradients and moments, plus each rank's gathered fp32
 # weights kept for the backward, does not fit beside four CUDA contexts;
-# 4 keeps the whole run in its time), the reference launcher's B 8 x S 128, 4 steps; the median over steps 2-4
+# 2 keeps the whole run in its time), the reference launcher's B 8 x S 128, 4 steps; the median over steps 2-4
 SHARDED_TRAIN_MESH = (2, 2)
 # the sharded main paths, cut to keep the whole run in its time: 6 of
 # zamba2's 54 Mamba2 layers (1 invocation of its shared block, whose K1 and
@@ -445,7 +455,7 @@ SHARDED_ZAMBA_LAYERS = 6
 SHARDED_XLSTM_BLOCKS = 8
 SHARDED_LLAMA_LAYERS = 8
 SHARDED_TRAIN_EQ = dict(layers=2, batch=4, seq=64, steps=3, lr=1e-3, warmup=2)
-SHARDED_TRAIN_MAIN = dict(layers=4, batch=8, seq=128, steps=4)
+SHARDED_TRAIN_MAIN = dict(layers=2, batch=8, seq=128, steps=4)
 # the capacity runs' recorded events, one JSONL file a run (gitignored)
 TRACE_DIR = ROOT / "chiprun_out" / "capacity_traces"
 # the host-only fleet: four DS-Distill-8B replicas on H100 constants, 40
@@ -785,23 +795,33 @@ def time_paged(paged_ops, dtype, gen, m=MAIN_PAGED):
 
 # ------------------------------------------- K2 over pages of another dtype
 # (pages, q) dtypes of the kernels for a cache of the reference's
-# kv_cache_dtype: the two-pass default (decode_attention's function) and
-# the one-pass upcast mode (decode_unroll's)
+# kv_cache_dtype: the default mode (decode_attention's function) and the
+# one-pass upcast mode (decode_unroll's)
 Q8_PAIRS = ((torch.float8_e4m3fn, torch.bfloat16), (torch.float8_e4m3fn, torch.float32),
             (torch.int8, torch.bfloat16), (torch.int8, torch.float32),
             (torch.bfloat16, torch.float32))
+# fp32 pages under a bf16 q: the upcast mode only (the default rounds
+# nothing: the fp32 K2 on q in fp32)
+Q8_UPCAST_ONLY = ((torch.float32, torch.bfloat16),)
 # the table's K2 shapes: llama3.2-3b's decode batch (shuffled pages),
-# h2o-danube's window at D 120, llama3-405b's G 16, zamba2's D 80 at G 1
+# h2o-danube's window at D 120, llama3-405b's G 16, zamba2's D 80 at G 1;
+# the default mode runs the one-launch cluster design at each
 Q8_PAGED = [MAIN_PAGED, DANUBE_PAGED, L405_PAGED, ZAMBA_PAGED]
+# a batch whose sequences' scores do not fit the cluster's shared memory
+# (13,000 tokens, past 12,288 at G 16): the two-pass design
+Q8_TWO_PASS = dict(B=2, KV=8, G=16, D=128, min_ctx=12_400, max_ctx=13_000)
 # the default mode against the plain version: fp32 sums in another order
 # (1e-4 of the values' scale), the output's rounding to q's dtype (2^-8 of
 # it in bf16) and ``weight_slack`` (a weight near a rounding boundary of the
 # pages' dtype may round to the other neighbour); the upcast mode: TOL and
 # REL_RMS times the values' scale
 Q8_ATOL = 1e-4
-# K2's rows timed over 8-bit pages under a bf16 q at llama3.2-3b's batch
-Q8_TIMED = ((torch.float8_e4m3fn, False), (torch.int8, False),
-            (torch.float8_e4m3fn, True), (torch.int8, True))
+# K2's rows timed over 8-bit pages under a bf16 q: (pages, upcast, shape);
+# the default mode at the four shapes (the cluster) and past the cluster's
+# scores (the two passes), the upcast mode at llama3.2-3b's batch
+Q8_TIMED = tuple((p, False, m) for m in (*Q8_PAGED, Q8_TWO_PASS)
+                 for p in (torch.float8_e4m3fn, torch.int8)) + (
+    (torch.float8_e4m3fn, True, MAIN_PAGED), (torch.int8, True, MAIN_PAGED))
 # int8 pages are also checked under q times these, where q*scale truncates
 # to non-zero integers and the plain output is not zeros: at x12 most
 # rows' largest weight lies in [0.5, 1) (truncated to 0, where rounding to
@@ -868,31 +888,43 @@ def hold_q8(label, out, ref, q, vp, slack, upcast):
 
 def check_q8(paged_ops):
     """Each instance over pages of another dtype at the table's K2 shapes,
-    both modes, against the plain version; then the split decode's passes
-    over the two halves of zamba2's and h2o-danube's split share (stats
-    gathered and merged, values summed) against the one-call plain
-    version; int8 pages also under q times ``INT8_QX``. Returns the max
-    abs err of each (q, pages, mode), over all rows and over the rows
-    without slack."""
+    both modes, against the plain version (the default mode's one-launch
+    cluster design there, its two-pass design at ``Q8_TWO_PASS``, each
+    call's design read from ``CVT.by_instance``; fp32 pages under a bf16 q
+    in the upcast mode); then the split decode's passes over the two
+    halves of zamba2's and h2o-danube's split share (stats gathered and
+    merged, values summed) against the one-call plain version; int8 pages
+    also under q times ``INT8_QX``. Returns the max abs err of each (q,
+    pages, design or mode), over all rows and over the rows without
+    slack."""
     from repro_torch.kernels.paged_attention.ref import weight_slack
     from repro_torch.models.cache_dtype import to_cache_dtype
     gen = torch.Generator(device="cuda").manual_seed(25)
     errs, exacts, rels, nonzero = {}, {}, {}, {}
-    for pages, qdt in Q8_PAIRS:
+    for pages, qdt in Q8_PAIRS + Q8_UPCAST_ONLY:
+        up_only = (pages, qdt) in Q8_UPCAST_ONLY
         qxs = (1.0, *INT8_QX) if pages == torch.int8 else (1.0,)
         for qx in qxs:
-            for m in Q8_PAGED:
+            for m in Q8_PAGED + ([] if up_only else [Q8_TWO_PASS]):
                 q, kp, vp, tables, lens = q8_inputs(pages, qdt, gen, m, qx)
                 w = m.get("window", 0)
                 # the upcast mode truncates nothing: its rows at q x1 only
-                for upcast in (False, True) if qx == 1.0 else (False,):
+                modes = ((True,) if up_only else
+                         (False, True) if qx == 1.0 and m is not Q8_TWO_PASS else (False,))
+                for upcast in modes:
+                    design = "two_pass" if m is Q8_TWO_PASS else "cluster"
+                    inst = f"{_dt(qdt)}/{_dt(pages)} {design}"
+                    before = paged_ops.CVT.by_instance[inst]
                     out = paged_ops.paged_attention(q, kp, vp, tables, lens, window=w,
                                                     upcast=upcast)
                     torch.cuda.synchronize()
+                    if not upcast and paged_ops.CVT.by_instance[inst] != before + 1:
+                        raise AssertionError(f"paged_attention at {list(q.shape)}: not the "
+                                             f"{inst} design ({dict(paged_ops.CVT.by_instance)})")
                     ref = paged_ops.paged_attention_plain(q, kp, vp, tables, lens,
                                                           window=w, upcast=upcast)
                     slack = weight_slack(q, kp, vp, tables, lens, window=w, upcast=upcast)
-                    key = f"{_dt(qdt)}/{_dt(pages)} {'upcast' if upcast else 'default'}"
+                    key = f"{_dt(qdt)}/{_dt(pages)} {'upcast' if upcast else design}"
                     label = f"paged_attention {key} q x{qx:g} at {list(q.shape)}"
                     if pages == torch.int8 and not upcast:
                         nonzero[f"{key} q x{qx:g}"] = min(
@@ -903,6 +935,8 @@ def check_q8(paged_ops):
                     exacts[key] = max(exacts.get(key, 0.0), exact)
                     rels[key] = max(rels.get(key, 0.0), rel)
                 del q, kp, vp, ref, slack
+        if up_only:
+            continue
         for qx, m in [(x, m) for x in qxs for m in SPLIT_PAGED]:
             q, kb, vb, tables, lens, halves = _split_inputs(m, gen)
             q = (q.float() * qx).to(qdt)
@@ -940,10 +974,11 @@ def check_q8(paged_ops):
 def time_q8(paged_ops, pages, upcast, gen, m=MAIN_PAGED):
     """K2's row over ``pages`` under a bf16 q at ``m``: the bound reads
     each counted key's k and v once at the pages' width (one byte), q, the
-    table and lens once, and writes the output once. The library yardstick
-    of the upcast mode is SDPA on the pre-gathered cache upcast to bf16
-    (gathered outside the timed region); no library call computes the
-    default mode's rounding, so it has none."""
+    table and lens once, and writes the output once. The default mode's
+    row names the design that ran (``CVT.by_instance``). The library
+    yardstick of the upcast mode is SDPA on the pre-gathered cache upcast
+    to bf16 (gathered outside the timed region); no library call computes
+    the default mode's rounding, so it has none."""
     import torch.nn.functional as F
     q, kp, vp, tables, lens = q8_inputs(pages, torch.bfloat16, gen, m)
     window = m.get("window", 0)
@@ -954,15 +989,21 @@ def time_q8(paged_ops, pages, upcast, gen, m=MAIN_PAGED):
     tokens = int(counted.sum())
     flops = 4 * G * D * KV * tokens
     kw = {"window": window, "upcast": upcast}
+    before = dict(paged_ops.CVT.by_instance)
     out = paged_ops.paged_attention(q, kp, vp, tables, lens, **kw)
+    # a tree before the cluster design (tools/ab_flash.py's parent) names
+    # none: its default mode is the two passes
+    design = "upcast" if upcast else next(
+        k.partition(" ")[2] or "two_pass" for k, n in paged_ops.CVT.by_instance.items()
+        if n != before.get(k, 0))
     needed = 2 * tokens * KV * D * kp.element_size() + nbytes(q, out, tables, lens)
     b_ms, b_by = bound(flops, needed, torch.bfloat16)
     kernel = lambda: paged_ops.paged_attention(q, kp, vp, tables, lens, **kw)  # noqa: E731
     ms, host_ms = time_ms(kernel, 50)
     dev = device_ms(kernel, 50)
     row = dict(shape=[B, KV, G, D], pages=_dt(pages), mode="upcast" if upcast else "default",
-               window=window, contexts=(lens + 1).tolist(), dtype="bfloat16", ms=ms,
-               device_ms=dev, host_ms=host_ms, bound_ms=b_ms, bound_by=b_by,
+               design=design, window=window, contexts=(lens + 1).tolist(), dtype="bfloat16",
+               ms=ms, device_ms=dev, host_ms=host_ms, bound_ms=b_ms, bound_by=b_by,
                bound_share=b_ms / ms, device_bound_share=b_ms / dev, bytes=needed,
                gb_s=needed / ms / 1e6, device_gb_s=needed / dev / 1e6,
                plain_ms=time_ms(lambda: paged_ops.paged_attention_plain(
@@ -1692,8 +1733,8 @@ def kv_cache_dtype_phase(flash_ops, paged_ops):
     ``InferenceEngine`` -> ``TorchRunner``: the capacity traffic
     (``SERVE_REQUESTS``, naive admission, the sanitizer on) on the pool
     that holds it all, which is the bf16 ``capacity`` run's bytes (768
-    pages; ``KV_FP8_POOL_BYTES``), K1 and the two-pass K2 over fp8 pages
-    counted, and the same traffic and engine config on ``SimRunner``
+    pages; ``KV_FP8_POOL_BYTES``), K1 and K2 over fp8 pages counted (the
+    cluster design, and no other), and the same traffic and engine config on ``SimRunner``
     beside it: equal steps, preemptions and recomputed tokens. Then from
     an int8 cache (``KV_INT8_REQUESTS``). Then the equality run: a
     full-width 2-layer fp32 model on the card and its CPU copy, each from
@@ -1739,9 +1780,11 @@ def kv_cache_dtype_phase(flash_ops, paged_ops):
                                      f"{len(req.output)} of {want} tokens")
         pools = eng.runner.pools
         pool_bytes = sum(t.numel() * t.element_size() for t in pools)
-        instance = f"bfloat16/{_dt(cache)}"
+        # the main path's K2 over the cache: the one-launch cluster design
+        instance = f"bfloat16/{_dt(cache)} cluster"
         if any(t.dtype != cache for t in pools) or n["paged_attention"] \
-                or not n["flash_attention"] or not n["cvt"].get(instance):
+                or not n["flash_attention"] or not n["cvt"].get(instance) \
+                or sum(n["cvt"].values()) != n["cvt"][instance]:
             raise AssertionError(f"kv_cache_dtype {cache}: pools "
                                  f"{[t.dtype for t in pools]}, launches {n}")
         if fp8 and pool_bytes != KV_FP8_POOL_BYTES:
@@ -1805,7 +1848,7 @@ def kv_cache_dtype_phase(flash_ops, paged_ops):
                 raise AssertionError(f"kv_cache_dtype equality {cache}/{dev}: unfinished")
         n = _q8_launches(paged_ops)
         if outs["cuda"] != outs["cpu"] or not runs["cuda"]["preemptions"] \
-                or not n["cvt"].get(f"float32/{_dt(cache)}"):
+                or not n["cvt"].get(f"float32/{_dt(cache)} cluster"):
             raise AssertionError(f"kv_cache_dtype equality {cache}: card tokens "
                                  f"{outs['cuda']} against CPU {outs['cpu']}, runs {runs}, "
                                  f"launches {n}")
@@ -3028,7 +3071,7 @@ def long_decode(flash_ops, paged_ops):
 # two past its 4,096 window) served through ``TorchRunner`` behind the
 # engine, LEVER_STEPS tokens a request
 LEVER_LAYERS = 2
-LEVER_STEPS = 8
+LEVER_STEPS = 4
 LEVER_PROMPTS = dict(n=4, isl=(12, 200), seed=3)
 LEVER_DANUBE_PROMPTS = (4200, 4260)
 # the runner's prefill chunks: prompts of 12-200 tokens take uneven ones
@@ -3476,7 +3519,7 @@ def main():
     # no phase after this one calls the non-causal mode (the main paths'
     # prefills are causal): its count here must stay 0 to the end
     flash_ops.NONCAUSAL.launches = 0
-    q8_rows = [time_q8(paged_ops, pages, upcast, gen) for pages, upcast in Q8_TIMED]
+    q8_rows = [time_q8(paged_ops, pages, upcast, gen, m) for pages, upcast, m in Q8_TIMED]
     for row in q8_rows:
         emit("timing", kernel="paged_attention", **row)
 
@@ -3512,10 +3555,12 @@ def main():
     emit("greedy_equality_xlstm", **greedy_equality_xlstm())
     free_card()
     from repro_torch.configs.registry import get_config
-    for cfg, traffic in ((get_config("zamba2-2.7b"), SERVE_REQUESTS),
-                         (get_config("xlstm-350m"), XLSTM_REQUESTS)):
-        by_model[cfg.name], model = main_path(flash_ops, paged_ops, cfg,
-                                              traffic)
+    for name, depth, traffic in (("zamba2-2.7b", ZAMBA_MAIN_LAYERS, SERVE_REQUESTS),
+                                 ("xlstm-350m", XLSTM_MAIN_BLOCKS, XLSTM_REQUESTS)):
+        full = get_config(name)
+        cfg = dataclasses.replace(full, n_layers=depth)
+        by_model[cfg.name], model = main_path(flash_ops, paged_ops, cfg, traffic,
+                                              {"n_layers": [full.n_layers, depth]})
         if cfg.family == "hybrid":
             profile_main_path(model, traffic, decode_only=True)
         del model
@@ -3600,37 +3645,47 @@ def main():
         **{k: row[k] for k in ("shape", "ms", "device_ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms", "library_device_ms")}}
         for row in noncausal_rows]
-    # K2 over pages of another dtype: the two-pass instances (the main
-    # paths' fp8 and int8 caches under bf16 weights) with their rows, and
-    # the upcast mode (``decode_unroll``), which no main path calls
+    # K2 over pages of another dtype, the default mode in its two designs:
+    # the cluster (the main paths' fp8 and int8 caches under bf16 weights),
+    # with its rows at the four shapes, and the two passes, which no main
+    # path's table needs; the upcast mode (``decode_unroll``), which no main
+    # path calls, beside the cluster
+    sources = {"cluster": "src/repro_torch/csrc/paged_cluster.cuh",
+               "two_pass": "src/repro_torch/csrc/paged_cvt.cuh"}
+    keys = ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms", "shape")
     for pages in (torch.float8_e4m3fn, torch.int8):
-        inst = f"bfloat16/{_dt(pages)}"
-        row = next(r for r in q8_rows if r["pages"] == _dt(pages) and r["mode"] == "default")
-        up = next(r for r in q8_rows if r["pages"] == _dt(pages) and r["mode"] == "upcast")
-        kernels.append({
-            "name": f"paged_attention {_dt(pages)} pages", "route": "cuda",
-            "source": "src/repro_torch/csrc/paged_attention_cvt.cu",
-            "replaces": replaces["paged_attention"],
-            "launches": sum(n["cvt"].get(inst, 0) for n in q8_by_model.values()),
-            "launches_by_model": {m: n["cvt"].get(inst, 0) for m, n in q8_by_model.items()},
-            "max_abs_err": q8_err[f"{inst} default"],
-            "max_abs_err_by_instance": {k: v for k, v in q8_err.items()
-                                        if _dt(pages) in k},
-            # where ``weight_slack`` is 0: no weight lies at a rounding edge
-            "max_abs_err_without_slack": {k: v for k, v in q8_exact.items()
-                                          if _dt(pages) in k},
-            **{k: row[k] for k in ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
-                                   "bound_by", "library_ms", "library_device_ms",
-                                   "shape")},
-            "kernel_ms": row["ms"], "dtype": "bfloat16",
-            "modes": [{"mode": "upcast (decode_unroll)",
-                       "source": "src/repro_torch/csrc/paged_attention_upcast.cu",
-                       "launches": sum(n["upcast"].get(inst, 0)
-                                       for n in q8_by_model.values()),
-                       "max_abs_err": q8_err[f"{inst} upcast"],
-                       **{k: up[k] for k in ("shape", "ms", "device_ms", "plain_ms",
-                                             "bound_ms", "bound_by", "library_ms",
-                                             "library_device_ms")}}]})
+        rows = [r for r in q8_rows if r["pages"] == _dt(pages)]
+        up = next(r for r in rows if r["mode"] == "upcast")
+        for design in ("cluster", "two_pass"):
+            inst = f"bfloat16/{_dt(pages)} {design}"
+            mine = [r for r in rows if r["mode"] == "default" and r["design"] == design]
+            row = mine[0]   # the cluster at llama3.2-3b's batch; the two passes past it
+            entry = {
+                "name": f"paged_attention {_dt(pages)} pages"
+                        + (", two passes" if design == "two_pass" else ""),
+                "route": "cuda", "design": design, "source": sources[design],
+                "library": "src/repro_torch/csrc/paged_attention_cvt.cu",
+                "replaces": replaces["paged_attention"],
+                "launches": sum(n["cvt"].get(inst, 0) for n in q8_by_model.values()),
+                "launches_by_model": {m: n["cvt"].get(inst, 0) for m, n in q8_by_model.items()},
+                "max_abs_err": q8_err[inst],
+                "max_abs_err_by_instance": {k: v for k, v in q8_err.items()
+                                            if _dt(pages) in k and k.endswith(design)},
+                # where ``weight_slack`` is 0: no weight lies at a rounding edge
+                "max_abs_err_without_slack": {k: v for k, v in q8_exact.items()
+                                              if _dt(pages) in k and k.endswith(design)},
+                **{k: row[k] for k in keys}, "kernel_ms": row["ms"], "dtype": "bfloat16",
+                "shapes": [{k: r[k] for k in (*keys, "window")} for r in mine]}
+            if design == "cluster":
+                entry["modes"] = [{
+                    "mode": "upcast (decode_unroll)",
+                    "source": "src/repro_torch/csrc/paged_attention_upcast.cu",
+                    "launches": sum(n["upcast"].get(f"bfloat16/{_dt(pages)}", 0)
+                                    for n in q8_by_model.values()),
+                    "max_abs_err": q8_err[f"bfloat16/{_dt(pages)} upcast"],
+                    **{k: up[k] for k in keys}}]
+            kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks written as inline PTX: mbarriers, TMA
-// tile loads and their tensor maps, wgmma shared-memory descriptors and the
+// tile loads and their tensor maps, thread block clusters (their barrier
+// and distributed shared memory), wgmma shared-memory descriptors and the
 // wgmma shapes the port's kernels use, mma.sync with ldmatrix, and
 // cp.async. No library kernel is called; each wrapper is one or a few PTX
 // instructions.
@@ -135,6 +136,67 @@ inline cudaError_t make_tmap_bf16_4d(CUtensorMap* map, const void* base, uint64_
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A tensor map of `type` over a 4-d array of dims (d0 innermost .. d3) and
+// byte strides of dims 1..3 (multiples of 16), read in boxes `box`, with
+// the given swizzle; elements outside the array read as zeros. The 8-bit
+// pages of paged_cluster.cuh take CU_TENSOR_MAP_DATA_TYPE_UINT8. A box's
+// innermost start must lie on a 16-byte boundary: a copy from another
+// start faults (an illegal instruction on the card).
+inline cudaError_t make_tmap_4d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                                const uint64_t (&dims)[4], const uint64_t (&strides)[3],
+                                const uint32_t (&box)[4], int swizzle_bytes) {
+  const EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t s[3] = {strides[0], strides[1], strides[2]};
+  const cuuint32_t b[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle sw = swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(map, type, 4, const_cast<void*>(base), d, s, b, elem_strides,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------- thread block cluster
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives (release) and waits
+// (acquire): shared-memory writes before it are visible to the cluster's
+// reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// This block's shared-memory address `addr` mapped into block `rank` of
+// the cluster (distributed shared memory).
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float2 ld_cluster_f32x2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
 }
 
 // ------------------------------------------------------------------ wgmma
@@ -303,6 +365,16 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
                                           const uint32_t (&b)[2]) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The same with f16 operands (fp8 e4m3 and int8 values are exact in f16).
+__device__ __forceinline__ void mma_16816_f16(float (&d)[4], const uint32_t (&a)[4],
+                                              const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));

@@ -5,18 +5,24 @@
 // summed in fp32, out in q's dtype. Replaces the Pallas TPU kernel
 // paged_attention_kernel (src/repro/kernels/paged_attention/kernel.py:79)
 // for such pages: fp8 e4m3 or int8 under a bf16 or fp32 q, bf16 under an
-// fp32 q. The kernels, their bound and design are in paged_cvt.cuh.
+// fp32 q.
 //
-// One decode (paged_cvt_fwd) is four launches: pass 1 (the split kernel
-// in STATS mode, each partition's (m, l)), stats_merge (each row's (M, L)),
-// pass 2 (VALUES mode, each partition's sum of rounded weights times v)
-// and part_sum. The passes alone are entries too, for a decode whose cache
-// sequence is cut over ranks: each rank runs pass 1 on its share, the
-// ranks gather the (m, l) and merge them (paged_cvt_stats_merge), run pass
-// 2 on their shares with the global (M, L), gather the sums and add them
-// (paged_cvt_sum).
+// One decode (paged_cvt_fwd) runs one of two designs, which the caller
+// chooses (kernels/paged_attention/ops.py cvt_design):
+// - the cluster design (paged_cluster.cuh): one launch, a thread block
+//   cluster a (batch row, kv head) that reads k and v once, its scores
+//   kept in shared memory;
+// - the two-pass design (paged_cvt.cuh), for a sequence whose scores do not
+//   fit that shared memory: four launches, pass 1 (the split kernel in
+//   STATS mode, each partition's (m, l)), stats_merge (each row's (M, L)),
+//   pass 2 (VALUES mode, each partition's sum of rounded weights times v)
+//   and part_sum.
+// The passes alone are entries too, for a decode whose cache sequence is
+// cut over ranks: each rank runs pass 1 on its share, the ranks gather the
+// (m, l) and merge them (paged_cvt_stats_merge), run pass 2 on their shares
+// with the global (M, L), gather the sums and add them (paged_cvt_sum).
 
-#include "paged_cvt.cuh"
+#include "paged_cluster.cuh"
 
 using namespace paged_cvt;
 
@@ -47,19 +53,47 @@ cudaError_t pass(int mode, const void* q, int q_dtype, const void* k_pages, cons
   });
 }
 
+cudaError_t cluster(const void* q, int q_dtype, const void* k_pages, const void* v_pages,
+                    const void* tables, const void* lens, void* out, int B, int KV, int G, int D,
+                    int max_blocks, int window, float scale, int page_dtype, int n_pages,
+                    cudaStream_t s) {
+  if (q_dtype != 0 && q_dtype != 1) return cudaErrorInvalidValue;
+  return dispatch(page_dtype, D, G, [&](auto t, auto, auto nt) -> cudaError_t {
+    using TK = decltype(t);
+    constexpr int NT = decltype(nt)::value;
+    if (q_dtype == 0)
+      return paged_cluster::launch_cluster<TK, float, NT>(q, k_pages, v_pages, tables, lens, out,
+                                                          B, KV, G, D, max_blocks, window, scale,
+                                                          n_pages, s);
+    if constexpr (std::is_same_v<TK, __nv_bfloat16>) {
+      return cudaErrorInvalidValue;   // bf16 pages under a bf16 q: q's own dtype
+    } else {
+      return paged_cluster::launch_cluster<TK, __nv_bfloat16, NT>(
+          q, k_pages, v_pages, tables, lens, out, B, KV, G, D, max_blocks, window, scale,
+          n_pages, s);
+    }
+  });
+}
+
 }  // namespace
 
 // q (B,KV,G,D) of q_dtype (0 fp32, 1 bf16); pages (P,16,KV,D) of page_dtype
-// (1 bf16, 2 e4m3, 3 int8); out (B,KV,G,D) of q_dtype; window <= 0: none.
-// scratch holds B*KV*ceil(max_blocks/16)*G*(D+2) + B*KV*G*2 fp32 values.
-// Returns cudaGetLastError() after the last launch (or the first failure).
+// (1 bf16, 2 e4m3, 3 int8), n_pages = P; out (B,KV,G,D) of q_dtype; window
+// <= 0: none. design 1: the cluster design (scratch unused); 0: the two
+// passes, scratch holding B*KV*ceil(max_blocks/16)*G*(D+2) + B*KV*G*2 fp32
+// values. Returns cudaGetLastError() after the last launch (or the first
+// failure).
 extern "C" int paged_cvt_fwd(const void* q, const void* k_pages, const void* v_pages,
                              const void* tables, const void* lens, void* out, void* scratch,
                              int B, int KV, int G, int D, int max_blocks, int window, float scale,
-                             int q_dtype, int page_dtype, void* stream) {
+                             int q_dtype, int page_dtype, int design, int n_pages, void* stream) {
   if (B == 0 || KV == 0) return 0;
   if (max_blocks < 1) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (design == 1)
+    return cluster(q, q_dtype, k_pages, v_pages, tables, lens, out, B, KV, G, D, max_blocks,
+                   window, scale, page_dtype, n_pages, s);
+  if (design != 0) return cudaErrorInvalidValue;
   const int n_part = (max_blocks + PART - 1) / PART;
   float* acc = static_cast<float*>(scratch);
   float* ml = acc + (size_t)B * KV * n_part * G * D;

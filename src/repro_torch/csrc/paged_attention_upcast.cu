@@ -2,7 +2,8 @@
 // than q, upcast to q's: the reference's decode_unroll lever
 // (src/repro/models/transformer.py:485-488) casts the cache to q's dtype
 // before decode_attention, so q*scale and the weights round to q's dtype,
-// not the pages'. The one-pass split kernel of paged_attention.cu with its
+// not the pages'; an fp32 cache under a bf16 q is rounded down to bf16 on
+// load, as the reference's astype rounds it. The one-pass split kernel of paged_attention.cu with its
 // pages converted on load (paged_cvt.cuh's ONEPASS mode; a bf16 q's q*scale
 // and weights as bf16, an fp32 q's as three bf16 terms each), then a merge.
 // Replaces the Pallas TPU kernel paged_attention_kernel
@@ -21,28 +22,36 @@ cudaError_t split(const void* q, int q_dtype, const void* k_pages, const void* v
                   cudaStream_t s) {
   if (q_dtype == 1 && page_dtype == PAGE_BF16) return cudaErrorInvalidValue;  // q's own dtype
   if (q_dtype != 0 && q_dtype != 1) return cudaErrorInvalidValue;
-  return dispatch(page_dtype, D, G, [&](auto t, auto dp, auto nt) -> cudaError_t {
+  return dispatch<true>(page_dtype, D, G, [&](auto t, auto dp, auto nt) -> cudaError_t {
     using TK = decltype(t);
     constexpr int DP = decltype(dp)::value, NT = decltype(nt)::value;
-    if (q_dtype == 1) {
-      if constexpr (std::is_same_v<TK, __nv_bfloat16>) {
-        return cudaErrorInvalidValue;
-      } else {
-        return launch_split<TK, DP, NT, ONEPASS, 1>(q, 1, k_pages, v_pages, tables, lens,
-                                                    nullptr, part_acc, part_ml, B, KV, G, D,
-                                                    max_blocks, window, scale, s);
+    if constexpr (std::is_same_v<TK, float>) {  // under a bf16 q only: fp32 is q's own else
+      if (q_dtype != 1) return cudaErrorInvalidValue;
+      return launch_split<TK, DP, NT, ONEPASS, 1>(q, 1, k_pages, v_pages, tables, lens, nullptr,
+                                                  part_acc, part_ml, B, KV, G, D, max_blocks,
+                                                  window, scale, s);
+    } else {
+      if (q_dtype == 1) {
+        if constexpr (std::is_same_v<TK, __nv_bfloat16>) {
+          return cudaErrorInvalidValue;
+        } else {
+          return launch_split<TK, DP, NT, ONEPASS, 1>(q, 1, k_pages, v_pages, tables, lens,
+                                                      nullptr, part_acc, part_ml, B, KV, G, D,
+                                                      max_blocks, window, scale, s);
+        }
       }
+      return launch_split<TK, DP, NT, ONEPASS, 3>(q, 0, k_pages, v_pages, tables, lens, nullptr,
+                                                  part_acc, part_ml, B, KV, G, D, max_blocks,
+                                                  window, scale, s);
     }
-    return launch_split<TK, DP, NT, ONEPASS, 3>(q, 0, k_pages, v_pages, tables, lens, nullptr,
-                                                part_acc, part_ml, B, KV, G, D, max_blocks,
-                                                window, scale, s);
   });
 }
 
 }  // namespace
 
 // q (B,KV,G,D) of q_dtype (0 fp32, 1 bf16); pages (P,16,KV,D) of page_dtype
-// (1 bf16 under an fp32 q, 2 e4m3, 3 int8); out (B,KV,G,D) of q_dtype;
+// (1 bf16 under an fp32 q, 2 e4m3, 3 int8, 4 fp32 under a bf16 q); out
+// (B,KV,G,D) of q_dtype;
 // window <= 0: none. scratch holds B*KV*ceil(max_blocks/16)*G*(D+2) fp32
 // values. Returns cudaGetLastError() after the merge (or the failure).
 extern "C" int paged_upcast_fwd(const void* q, const void* k_pages, const void* v_pages,

@@ -2,8 +2,10 @@
 // reference's kv_cache_dtype): the split kernel of paged_attention.cu with
 // its pages converted to bf16 in shared memory, in three modes, and the
 // small kernels that finish each mode. Included by paged_attention_cvt.cu
-// (decode_attention's function, two passes) and paged_attention_upcast.cu
-// (the cache upcast to q's dtype, one pass).
+// (decode_attention's function, two passes, for the sequences the one-launch
+// design of paged_cluster.cuh cannot hold) and paged_attention_upcast.cu
+// (the cache upcast to q's dtype, one pass; fp32 pages under a bf16 q too,
+// each page rounded to bf16 on load as the reference's upcast rounds it).
 //
 // Replaces: the Pallas TPU kernel paged_attention_kernel (body
 // _paged_kernel, src/repro/kernels/paged_attention/kernel.py:79) for pages
@@ -71,7 +73,7 @@ struct E4M3 {  // an fp8 e4m3 pool element
 };
 
 // page dtype codes of the C entries (kernels/build.py PAGE_CODES)
-constexpr int PAGE_BF16 = 1, PAGE_E4M3 = 2, PAGE_INT8 = 3;
+constexpr int PAGE_BF16 = 1, PAGE_E4M3 = 2, PAGE_INT8 = 3, PAGE_F32 = 4;
 
 // x rounded to the pages' dtype as jnp.astype rounds, returned as the fp32
 // value (exact in bf16): e4m3 to nearest even with NaN past 464 (ml_dtypes;
@@ -107,6 +109,12 @@ template <> __device__ __forceinline__ uint4 unit_bf16<int8_t>(const uint8_t* sr
   return make_uint4(pack_bf16(e[0], e[1]), pack_bf16(e[2], e[3]), pack_bf16(e[4], e[5]),
                     pack_bf16(e[6], e[7]));
 }
+template <> __device__ __forceinline__ uint4 unit_bf16<float>(const uint8_t* src) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  const float4 b = *reinterpret_cast<const float4*>(src + 16);
+  return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y),
+                    pack_bf16(b.z, b.w));
+}
 template <> __device__ __forceinline__ uint4 unit_bf16<E4M3>(const uint8_t* src) {
   const uint2 raw = *reinterpret_cast<const uint2*>(src);
   uint32_t w[4];
@@ -121,10 +129,13 @@ template <> __device__ __forceinline__ uint4 unit_bf16<E4M3>(const uint8_t* src)
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// One unit from global to shared memory: 16 bytes (bf16 pages) bypassing
-// L1, or 8 (8-bit pages).
+// One unit from global to shared memory: 32 bytes (fp32 pages) or 16 (bf16
+// pages) bypassing L1, or 8 (8-bit pages).
 template <int BYTES> __device__ __forceinline__ void cp_async_unit(void* dst, const void* src) {
-  if constexpr (BYTES == 16) {
+  if constexpr (BYTES == 32) {
+    hw::cp_async_16(dst, src);
+    hw::cp_async_16(static_cast<uint8_t*>(dst) + 16, static_cast<const uint8_t*>(src) + 16);
+  } else if constexpr (BYTES == 16) {
     hw::cp_async_16(dst, src);
   } else {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
@@ -219,7 +230,7 @@ paged_split_cvt(const void* __restrict__ q, int q_bf16, const TK* __restrict__ k
       const size_t at = q_off + g * D + d;
       x = (q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[at])
                   : static_cast<const float*>(q)[at]) * scale;
-      if (MODE != ONEPASS) x = round_to<TK>(x);
+      if constexpr (MODE != ONEPASS) x = round_to<TK>(x);
     }
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
@@ -521,8 +532,9 @@ cudaError_t launch_split(const void* q, int q_bf16, const void* kp, const void* 
 
 // Calls f with the page type, the geometry DP and the n tiles NT as
 // std::integral_constant values (an unknown page code or head dim is
-// cudaErrorInvalidValue). D is a multiple of 8 up to 128.
-template <typename F>
+// cudaErrorInvalidValue). D is a multiple of 8 up to 128. fp32 pages only
+// with F32 (the upcast mode's).
+template <bool F32 = false, typename F>
 cudaError_t dispatch(int page_dtype, int D, int G, F&& f) {
   if (D < 8 || D > 128 || D % 8 || G < 1 || G > GMAX) return cudaErrorInvalidValue;
   auto with_nt = [&](auto t, auto dp) -> cudaError_t {
@@ -537,6 +549,8 @@ cudaError_t dispatch(int page_dtype, int D, int G, F&& f) {
   if (page_dtype == PAGE_E4M3) return with_dp(E4M3{});
   if (page_dtype == PAGE_INT8) return with_dp(int8_t{});
   if (page_dtype == PAGE_BF16) return with_dp(__nv_bfloat16{});
+  if constexpr (F32)
+    if (page_dtype == PAGE_F32) return with_dp(float{});
   return cudaErrorInvalidValue;
 }
 

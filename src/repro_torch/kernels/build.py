@@ -31,8 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # the ``dtype`` argument of every C entry
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the ``page_dtype`` argument of the entries that read pages of another
-# dtype than q (``csrc/paged_cvt.cuh``)
-PAGE_CODES = {torch.bfloat16: 1, torch.float8_e4m3fn: 2, torch.int8: 3}
+# dtype than q (``csrc/paged_cvt.cuh``; fp32 only in the upcast mode)
+PAGE_CODES = {torch.bfloat16: 1, torch.float8_e4m3fn: 2, torch.int8: 3, torch.float32: 4}
 
 
 def _nvcc() -> str:

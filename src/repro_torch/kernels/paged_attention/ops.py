@@ -14,12 +14,18 @@ pad zeroed; a group of 9 to 16 q heads takes a second tile of queries.
 Pages of another dtype than q (a cache of the reference's
 ``kv_cache_dtype``: fp8 e4m3 or int8 under a bf16 or fp32 q, bf16 under an
 fp32 q) take ``decode_attention``'s function, which rounds q*scale and the
-normalised weights to the pages' dtype: ``CVT``, two passes over the
+normalised weights to the pages' dtype: ``CVT``, in one of two designs that
+``cvt_design`` chooses from the table's width, the group and the window:
+one launch of a thread block cluster per (batch row, kv head) that reads k
+and v once and keeps the scores in shared memory (``csrc/paged_cluster.cuh``),
+or, for a sequence whose scores do not fit there, two passes over the
 split layout (four launches, one count). Under ``upcast=True`` (the
 reference's ``decode_unroll``, which upcasts the cache to q's dtype) they
-take the one-pass kernel with the pages converted on load, ``UPCAST``.
-fp32 pages under a bf16 q round nothing, so the fp32 kernel runs them on
-q in fp32. Each counter's ``by_instance`` names q's and the pages' dtype.
+take the one-pass kernel with the pages converted on load, ``UPCAST``; so
+do fp32 pages under a bf16 q, rounded to bf16 on load as the reference's
+upcast rounds them. Without it fp32 pages under a bf16 q round nothing, so
+the fp32 kernel runs them on q in fp32. Each counter's ``by_instance``
+names q's and the pages' dtype, and ``CVT``'s the design.
 
 Two more entries expose the halves, for a decode whose cache sequence is
 cut over ranks: ``paged_attention_partials`` runs the split kernel alone
@@ -53,7 +59,7 @@ from repro_torch.kernels.paged_attention.ref import (
     rounds_weights)
 
 __all__ = ["CVT", "KERNEL", "MERGE", "PARTIALS", "STATS", "STATS_MERGE", "SUM",
-           "UPCAST", "UPCAST_PARTIALS", "VALUES", "paged_attention",
+           "UPCAST", "UPCAST_PARTIALS", "VALUES", "cvt_design", "paged_attention",
            "paged_attention_partials", "paged_attention_plain",
            "paged_attention_partials_plain", "paged_attention_stats",
            "paged_attention_values", "paged_merge", "paged_merge_plain",
@@ -70,7 +76,9 @@ MERGE = CudaKernel("paged_attention", "paged_merge_fwd",
                    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
 _SPLIT_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                _I, _I, _P]
-CVT = CudaKernel("paged_attention_cvt", "paged_cvt_fwd", _SPLIT_ARGS)
+CVT = CudaKernel("paged_attention_cvt", "paged_cvt_fwd",
+                 [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+                  _I, _I, _I, _I, _P])
 UPCAST = CudaKernel("paged_attention_upcast", "paged_upcast_fwd", _SPLIT_ARGS)
 UPCAST_PARTIALS = CudaKernel("paged_attention_upcast", "paged_upcast_partials",
                              _SPLIT_ARGS)
@@ -91,6 +99,30 @@ HEAD_DIMS = (32, 64, 80, 112, 120, 128)
 PAGE = 16       # tokens per page, fixed in the kernel
 MAX_GROUP = 16  # most q heads per kv head the kernel takes
 PART = 16       # pages per partition of the split kernel, fixed in the kernel
+# the one-launch design over pages of another dtype (``csrc/paged_cluster.cuh``):
+# most blocks of a sequence's cluster, and the shared memory a block's
+# scores may take, both fixed in the kernel
+CLUSTER = 8
+SCORE_BYTES = 96 * 1024
+DESIGNS = {"two_pass": 0, "cluster": 1}   # the ``design`` argument of ``paged_cvt_fwd``
+
+
+def cvt_design(max_blocks: int, G: int, window: int, D: int, KV: int,
+               page_bytes: int) -> str:
+    """The design that runs ``decode_attention``'s function over pages of
+    ``page_bytes`` an element, as ``csrc/paged_cluster.cuh``'s launch
+    decides what it takes: "cluster" where a block's scores fit
+    ``SCORE_BYTES`` (a sequence spans at most the table's ``max_blocks``
+    pages, or (window - 1) // 16 + 2 within a window, cut over up to
+    ``CLUSTER`` blocks, 16 tokens a page and G query rows of fp32 each:
+    65,536 tokens at G 3, 12,288 at G 16) and TMA can address a kv head's
+    rows (16-byte strides: D times the element size, or KV times that);
+    else "two_pass"."""
+    span = max_blocks if window <= 0 else min(max_blocks, (window - 1) // PAGE + 2)
+    per = -(-span // min(CLUSTER, span))
+    rows = (D * page_bytes) % 16 == 0 or (KV * D * page_bytes) % 16 == 0
+    fits = per * PAGE * G * 4 <= SCORE_BYTES
+    return "cluster" if fits and rows else "two_pass"
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -112,8 +144,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         _book_split("paged_attention", q, k_pages, block_tables, lens, window, (out,))
         return out
     _check(q, k_pages, v_pages, block_tables, lens)
-    if k_pages.dtype == torch.float32 and q.dtype != torch.float32:
-        _no_upcast_wider(upcast, q, k_pages)
+    if k_pages.dtype == torch.float32 and q.dtype != torch.float32 and not upcast:
         return paged_attention(q.float(), k_pages, v_pages, block_tables, lens,
                                window=window).to(q.dtype)
     B, KV, G, D = q.shape
@@ -131,16 +162,24 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                       DTYPE_CODES[q.dtype],
                       torch.cuda.current_stream(q.device).cuda_stream)
         return out
-    # ... and, for the two passes, each row's (M, L)
-    kernel = UPCAST if upcast else CVT
-    scratch = torch.empty(B * KV * (n_part * G * (D + 2) + 2 * G),
-                          dtype=torch.float32, device=q.device)
-    kernel.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                  block_tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                  scratch.data_ptr(), B, KV, G, D, max_blocks, int(window),
-                  D ** -0.5, DTYPE_CODES[q.dtype], PAGE_CODES[k_pages.dtype],
-                  torch.cuda.current_stream(q.device).cuda_stream,
-                  instance=_instance(q, k_pages))
+    args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), lens.data_ptr(), out.data_ptr())
+    codes = (B, KV, G, D, max_blocks, int(window), D ** -0.5, DTYPE_CODES[q.dtype],
+             PAGE_CODES[k_pages.dtype])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if upcast:
+        scratch = torch.empty(B * KV * n_part * G * (D + 2), dtype=torch.float32,
+                              device=q.device)
+        UPCAST.launch(*args, scratch.data_ptr(), *codes, stream,
+                      instance=_instance(q, k_pages))
+        return out
+    design = cvt_design(max_blocks, G, window, D, KV, k_pages.element_size())
+    # the two passes' partitions and each row's (M, L); the cluster keeps
+    # its own in shared memory
+    scratch = torch.empty(B * KV * (n_part * G * (D + 2) + 2 * G) if design == "two_pass"
+                          else 0, dtype=torch.float32, device=q.device)
+    CVT.launch(*args, scratch.data_ptr(), *codes, DESIGNS[design], k_pages.shape[0], stream,
+               instance=f"{_instance(q, k_pages)} {design}")
     return out
 
 
@@ -178,8 +217,7 @@ def paged_attention_partials(q: torch.Tensor, k_pages: torch.Tensor,
                     window, (acc, ml))
         return acc, ml
     _check(q, k_pages, v_pages, block_tables, lens)
-    if k_pages.dtype == torch.float32 and q.dtype != torch.float32:
-        _no_upcast_wider(upcast, q, k_pages)
+    if k_pages.dtype == torch.float32 and q.dtype != torch.float32 and not upcast:
         q = q.float()
     ml[..., 0] = NEG_INF        # the partitions that no block writes
     args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -383,13 +421,6 @@ def _check(q, k_pages, v_pages, block_tables, lens):
 def _instance(q, k_pages) -> str:
     """The name of the instance a call ran: q's dtype / the pages'."""
     return f"{str(q.dtype)[6:]}/{str(k_pages.dtype)[6:]}"
-
-
-def _no_upcast_wider(upcast, q, k_pages):
-    if upcast:
-        raise NotImplementedError(
-            f"paged_attention: upcast of {k_pages.dtype} pages to a {q.dtype} q "
-            "rounds the cache down, which no kernel here computes")
 
 
 def _check_rounding(q, k_pages):

@@ -415,6 +415,9 @@ def test_paged_other_page_dtype_vs_plain(cuda, pair, qx, mode, case):
     out = paged_ops.paged_attention(q, kp, vp, tables, lens, window=window, upcast=upcast)
     torch.cuda.synchronize()
     assert (counter.launches, paged_ops.KERNEL.launches) == (before[0] + 1, before[1])
+    if not upcast:   # every case here fits the one-launch design
+        assert paged_ops.cvt_design(tables.shape[1], q.shape[2], window, q.shape[3],
+                                    q.shape[1], kp.element_size()) == "cluster"
     assert out.dtype == qdt
     ref = paged_ops.paged_attention_plain(q, kp, vp, tables, lens, window=window,
                                           upcast=upcast)
@@ -478,13 +481,18 @@ def test_paged_other_page_dtype_split_over_two_halves(cuda, pair, qx, case):
 
 @pytest.mark.gpu
 def test_paged_other_page_dtype_refusals(cuda):
-    """fp32 pages upcast to a bf16 q would round the cache down: refused;
-    bf16 pages under a bf16 q round nothing: no two-pass entry takes them;
-    fp32 pages under a bf16 q run the fp32 kernel on q in fp32."""
+    """fp32 pages upcast to a bf16 q round the cache down to bf16, as the
+    reference's unrolled decode does: the upcast kernel runs them; bf16
+    pages under a bf16 q round nothing: no two-pass entry takes them; fp32
+    pages under a bf16 q run the fp32 kernel on q in fp32."""
     case = Q8_CASES[-1]
     q, kp, vp, tables, lens, _ = _q8_inputs(case, torch.float32, torch.bfloat16, 1, cuda)
-    with pytest.raises(NotImplementedError):
-        paged_ops.paged_attention(q, kp, vp, tables, lens, upcast=True)
+    before = paged_ops.UPCAST.launches
+    up = paged_ops.paged_attention(q, kp, vp, tables, lens, upcast=True)
+    torch.cuda.synchronize()
+    assert paged_ops.UPCAST.launches == before + 1 and up.dtype == torch.bfloat16
+    _hold_q8(up, paged_ops.paged_attention_plain(q, kp, vp, tables, lens, upcast=True), q,
+             torch.zeros_like(up, dtype=torch.float32), vp, True)
     before = paged_ops.KERNEL.launches
     out = paged_ops.paged_attention(q, kp, vp, tables, lens)
     assert paged_ops.KERNEL.launches == before + 1 and out.dtype == torch.bfloat16
@@ -492,3 +500,99 @@ def test_paged_other_page_dtype_refusals(cuda):
     kb, vb = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
     with pytest.raises(ValueError, match="round nothing"):
         paged_ops.paged_attention_stats(q, kb, tables, lens)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", Q8_CASES)
+def test_paged_fp32_pages_upcast_to_bf16_vs_plain(cuda, case):
+    """The upcast mode over fp32 pages under a bf16 q (the reference's
+    unrolled decode rounds such a cache to bf16): one launch of the upcast
+    kernel, each page rounded to bf16 on load, against the plain version;
+    and its partials merged likewise."""
+    q, kp, vp, tables, lens, window = _q8_inputs(case, torch.float32, torch.bfloat16,
+                                                 800 + Q8_CASES.index(case), cuda)
+    inst = "bfloat16/float32"
+    before = (paged_ops.UPCAST.by_instance[inst], paged_ops.KERNEL.launches)
+    out = paged_ops.paged_attention(q, kp, vp, tables, lens, window=window, upcast=True)
+    torch.cuda.synchronize()
+    assert (paged_ops.UPCAST.by_instance[inst], paged_ops.KERNEL.launches) == \
+        (before[0] + 1, before[1])
+    ref = paged_ops.paged_attention_plain(q, kp, vp, tables, lens, window=window, upcast=True)
+    none = torch.zeros_like(ref, dtype=torch.float32)
+    _hold_q8(out, ref, q, none, vp, True)
+    acc, ml = paged_ops.paged_attention_partials(q, kp, vp, tables, lens, window=window,
+                                                 upcast=True)
+    _hold_q8(paged_ops.paged_merge(acc, ml, torch.bfloat16), ref, q, none, vp, True)
+
+
+# ------------------------------------- the one-launch design at the card's shapes
+# chip_smoke.Q8_PAGED: llama3.2-3b's decode batch (contexts 128-2048 in
+# shuffled pages), h2o-danube's window 4096 at D 120 (contexts 4096-6400),
+# llama3-405b's G 16, zamba2's D 80 at G 1; and a batch past the cluster's
+# scores (more than 12,288 tokens a sequence at G 16), which takes the
+# two-pass kernels
+Q8_FULL = {
+    "llama3.2-3b": dict(B=16, KV=8, G=3, D=128, min_ctx=128, max_ctx=2048),
+    "h2o-danube": dict(B=16, KV=8, G=4, D=120, min_ctx=4096, max_ctx=6400, window=4096),
+    "llama3-405b": dict(B=16, KV=8, G=16, D=128, min_ctx=128, max_ctx=1280),
+    "zamba2": dict(B=16, KV=32, G=1, D=80, min_ctx=128, max_ctx=1280),
+    "two-pass": dict(B=2, KV=2, G=16, D=128, min_ctx=12_400, max_ctx=13_000),
+}
+
+
+def _full_inputs(m, pages, qdt, seed, cuda, qx):
+    """B sequences of min_ctx..max_ctx tokens (the first max_ctx) in
+    shuffled pages of one pool, as chip_smoke.paged_main_inputs; int8's
+    values times 3."""
+    from repro_torch.models.cache_dtype import to_cache_dtype
+    rng = np.random.default_rng(seed)
+    ctx = rng.integers(m["min_ctx"], m["max_ctx"] + 1, size=m["B"])
+    ctx[0] = m["max_ctx"]
+    n_blocks = -(-ctx // 16)
+    P = int(n_blocks.sum()) + 64
+    perm = rng.permutation(P).astype(np.int32)
+    tables = np.zeros((m["B"], int(n_blocks.max())), np.int32)
+    used = 0
+    for b, n in enumerate(n_blocks):
+        tables[b, :n] = perm[used:used + n]
+        used += n
+    scale = 3.0 if pages == torch.int8 else 1.0
+    q = torch.from_numpy(rng.standard_normal((m["B"], m["KV"], m["G"], m["D"])).astype(
+        np.float32) * qx).to(cuda, qdt)
+    kp, vp = (to_cache_dtype(torch.from_numpy(rng.standard_normal(
+        (P, 16, m["KV"], m["D"])).astype(np.float32)).to(cuda) * scale, pages)
+        for _ in range(2))
+    return (q, kp, vp, torch.from_numpy(tables).to(cuda),
+            torch.from_numpy(ctx - 1).to(cuda, torch.int32), m.get("window", 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(Q8_FULL))
+@pytest.mark.parametrize("pair,qx", Q8_RUNS, ids=Q8_IDS)
+def test_paged_cvt_design_at_the_card_shapes(cuda, pair, qx, shape):
+    """K2's default mode at the card's shapes, every pair, int8 also under
+    q x12 and x40: one launch of the design ``cvt_design`` names (the
+    cluster at the four main shapes, the two passes past the scores'
+    shared memory), against the plain version under chip_smoke.hold_q8's
+    bounds; int8 rows without slack exactly."""
+    from repro_torch.kernels.paged_attention.ref import weight_slack
+    m = Q8_FULL[shape]
+    pages, qdt = (getattr(torch, n) for n in pair)
+    q, kp, vp, tables, lens, window = _full_inputs(m, pages, qdt,
+                                                   1000 + list(Q8_FULL).index(shape), cuda, qx)
+    design = paged_ops.cvt_design(tables.shape[1], m["G"], window, m["D"], m["KV"],
+                                  kp.element_size())
+    assert design == ("two_pass" if shape == "two-pass" else "cluster")
+    inst = f"{pair[1]}/{pair[0]} {design}"
+    before = (paged_ops.CVT.by_instance[inst], paged_ops.CVT.launches)
+    out = paged_ops.paged_attention(q, kp, vp, tables, lens, window=window)
+    torch.cuda.synchronize()
+    assert (paged_ops.CVT.by_instance[inst], paged_ops.CVT.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = paged_ops.paged_attention_plain(q, kp, vp, tables, lens, window=window)
+    slack = weight_slack(q, kp, vp, tables, lens, window=window)
+    _int8_scores(q, kp, tables, lens, window, ref, slack, qx)
+    _hold_q8(out, ref, q, slack, vp, False)
+    if pages == torch.int8:   # integer products, weights 0 or 1
+        exact = slack.amax(dim=-1) == 0
+        assert float((out.float() - ref.float()).abs()[exact].max()) == 0.0

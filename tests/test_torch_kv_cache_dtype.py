@@ -70,7 +70,7 @@ from repro_torch.configs.registry import get_smoke_config
 from repro_torch.core.engine import EngineConfig, InferenceEngine
 from repro_torch.core.runner import TorchRunner
 from repro_torch.kernels.paged_attention import ops
-from repro_torch.kernels.paged_attention.ref import decode_weights, weight_slack
+from repro_torch.kernels.paged_attention.ref import INT8_EDGE, decode_weights, weight_slack
 from repro_torch.launch.mesh import run_ranks
 from repro_torch.launch.serve import make_requests
 from repro_torch.models.bridge import from_jax_params
@@ -338,6 +338,86 @@ def test_the_reference_pallas_kernel_computes_another_function(name, qdt):
         mean = torch.stack([vc[b, :int(lens[b]) + 1].mean(0) for b in range(B)])
         np.testing.assert_allclose(pallas, mean[:, :, None, :].expand(B, KV, G, D).numpy(),
                                    rtol=2.0 ** -7, atol=1e-5)
+
+
+# int8 rows at the edge (``INT8_EDGE``): one key holds the row's largest
+# score and the other keys' exp(score - max) sum to s in [2^-26, 2^-14].
+# The largest weight 1 / (1 + s) is exactly 1 (truncated to 1: the output is
+# that key's v) where the fp32 sum 1 + s rounds to 1, else below 1
+# (truncated to 0: zeros). Which side a row falls on depends on s and on
+# the order the sum adds its terms (the largest first or last). Each row:
+# (gaps between the largest score and the others', the largest key's
+# position); the last row's s lies below the edge.
+INT8_EDGE_ROWS = [([10], 5), ([16], 5), ([17], 5), ([17, 17], 0), ([17, 17], 31),
+                  ([17, 17, 17], 3), ([18, 18, 18], 10), ([17] * 6, 20), ([16, 30], 7),
+                  ([25] * 20, 1)]
+
+
+def test_int8_edge_rows_fall_on_the_reference_side():
+    """Rows whose other keys' exp sum lies in ``INT8_EDGE``, against
+    ``repro.models.attention.decode_attention`` itself: the side of 1 the
+    reference's own sum falls on (printed) is the plain version's, row by
+    row, and both sides occur. ``weight_slack`` marks exactly the rows in
+    the edge, which a kernel summing in another order may put on the
+    other side."""
+    B, KV, G, D, nblk = len(INT8_EDGE_ROWS), 1, 1, 64, 2
+    rng = np.random.default_rng(26)
+    kp = np.zeros((B * nblk, PAGE, KV, D), np.float32)
+    vp = np.zeros_like(kp)
+    tables = np.arange(B * nblk, dtype=np.int32).reshape(B, nblk)
+    lens, sums = [], []
+    for b, (gaps, top) in enumerate(INT8_EDGE_ROWS):
+        others = [p for p in range(nblk * PAGE) if p != top][:len(gaps)]
+        k = np.zeros((nblk * PAGE, KV, D), np.float32)   # other positions score 0
+        k[top, 0, 0] = 100.0
+        for gap, p in zip(gaps, others):
+            k[p, 0, 0] = 100.0 - gap
+        kp[tables[b]] = k.reshape(nblk, PAGE, KV, D)
+        vp[tables[b]] = rng.integers(-5, 6, (nblk, PAGE, KV, D))
+        lens.append(max(top, *others))
+        sums.append(sum(np.exp(-np.float64(g)) for g in gaps))
+    # q*scale truncates to the unit vector: a key's score is its k[0]
+    q = np.zeros((B, KV, G, D), np.float32)
+    q[..., 0] = D ** 0.5
+    qt = torch.from_numpy(q)
+    kt, vt = (torch.from_numpy(a).to(torch.int8) for a in (kp, vp))
+    tt, lt = torch.from_numpy(tables), torch.tensor(lens, dtype=torch.int32)
+    got = ops.paged_attention(qt, kt, vt, tt, lt).numpy()[:, 0, 0]
+    want = _reference(qt, kt, vt, tt, lt, 0, False)[:, 0, 0]
+    slack = weight_slack(qt, kt, vt, tt, lt).numpy()[:, 0, 0].max(axis=-1)
+    sides = [int(np.abs(row).max() > 0) for row in want]
+    print("int8 edge rows, the reference's side of 1 (1: the largest weight is 1):",
+          [(f"{s:.3g}", side) for s, side in zip(sums, sides)])
+    for b, (s, side) in enumerate(zip(sums, sides)):
+        in_edge = INT8_EDGE[0] <= s <= INT8_EDGE[1]
+        assert bool(slack[b] > 0) == in_edge, (b, s)
+        top = INT8_EDGE_ROWS[b][1]
+        v_top = vp[tables[b]].reshape(-1, KV, D)[top, 0]
+        np.testing.assert_array_equal(want[b], v_top if side else np.zeros(D))
+        np.testing.assert_array_equal(got[b], want[b])
+    assert set(sides[:-1]) == {0, 1}
+
+
+@pytest.mark.parametrize("D", [64, 80, 120, 128])
+@pytest.mark.parametrize("G", [1, 3, 16])
+def test_plain_k2_upcasts_fp32_pages_as_the_unrolled_decode(G, D):
+    """fp32 pages under a bf16 q in the upcast mode: the reference's
+    unrolled decode reads ``kc[l].astype(q.dtype)``
+    (``src/repro/models/transformer.py:487-488``), the cache rounded down
+    to bf16 before ``decode_attention``; the plain version rounds the pages
+    to bf16 alike and attends in fp32 (the upcast mode's bound)."""
+    window = 37 if D in (80, 120) else 0
+    q, kp, vp, tables, lens = _k2_inputs(G * D + 26, torch.float32, torch.bfloat16, G=G, D=D)
+    got = ops.paged_attention(q, kp, vp, tables, lens, window=window, upcast=True)
+    assert got.dtype == torch.bfloat16
+    want = _reference(q, kp, vp, tables, lens, window, True)
+    _hold(got.float().numpy(), want, q, 0.0, True, _fp32_scale(q, kp, vp),
+          float(vp.float().std()))
+    # the rounding is the reference's: the plain version on the pages cast
+    # to bf16 first is the same function
+    same = ops.paged_attention(q, kp.to(torch.bfloat16), vp.to(torch.bfloat16), tables, lens,
+                               window=window)
+    np.testing.assert_array_equal(got.float().numpy(), same.float().numpy())
 
 
 # ------------------------------------------------------------------ model

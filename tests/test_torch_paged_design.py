@@ -1,0 +1,83 @@
+"""Which design runs K2's default mode over pages of another dtype than q
+(``kernels/paged_attention/ops.py`` ``cvt_design``), on the CPU: the
+one-launch cluster design (``csrc/paged_cluster.cuh``) at every shape the
+card runs, the two-pass kernels past the scores' shared memory (G rows of
+16 fp32 scores a page, at most 96 KB a block of 8: more than 65,536
+tokens in a window at G 3, 12,288 at G 16) and where TMA cannot
+address the pages' rows (8-bit pages of head dim 120 under an odd number of
+kv heads). The kernels themselves run on the card
+(``tests/test_torch_kernels_gpu.py``)."""
+import pytest
+import torch
+
+from repro_torch.kernels.paged_attention import ops
+
+# (max_blocks, G, window, D, KV, bytes an element): the card's K2 shapes
+# over an 8-bit cache (chip_smoke.Q8_PAGED), its fp8 and int8 serving runs
+# and equality runs, a bf16 cache under fp32 weights, and the test shapes
+CARD_SHAPES = {
+    "llama3.2-3b decode batch": (128, 3, 0, 128, 8, 1),
+    "h2o-danube window 4096, D 120": (400, 4, 4096, 120, 8, 1),
+    "llama3-405b G 16": (80, 16, 0, 128, 8, 1),
+    "zamba2 D 80, G 1": (80, 1, 0, 80, 32, 1),
+    "llama3.2-3b served from an 8-bit cache": (80, 3, 0, 128, 8, 1),
+    "the equality runs' 7-page pool": (7, 3, 0, 128, 8, 1),
+    "bf16 pages under an fp32 q": (128, 3, 0, 128, 8, 2),
+    "G 9, D 112, window": (40, 9, 100, 112, 2, 1),
+    "D 32": (20, 8, 0, 32, 4, 1),
+    "D 64, one page": (1, 1, 0, 64, 4, 1),
+}
+
+
+@pytest.mark.parametrize("shape", list(CARD_SHAPES.values()), ids=list(CARD_SHAPES))
+def test_the_card_shapes_take_the_cluster(shape):
+    assert ops.cvt_design(*shape) == "cluster"
+
+
+# past the scores' limit: (max_blocks, G, window) at the most pages the
+# cluster holds, 8 blocks of floor(96 KB / (64 G)) pages, and past it
+LIMITS = [((4096, 3, 0), (4097, 3, 0)),        # 65,536 tokens at G 3
+          ((12_288, 1, 0), (12_289, 1, 0)),    # G 1
+          ((1536, 8, 0), (2048, 8, 0)),        # 24,576 tokens at G 8
+          ((1360, 9, 0), (1361, 9, 0)),        # floor(98,304 / 576) = 170 pages a block
+          ((768, 16, 0), (769, 16, 0))]        # 12,288 tokens at G 16
+
+
+@pytest.mark.parametrize("fits,past", LIMITS, ids=[f"G{f[1]}-{p[0]}pages" for f, p in LIMITS])
+def test_a_sequence_past_the_scores_takes_two_passes(fits, past):
+    assert ops.cvt_design(*fits, 128, 8, 1) == "cluster"
+    assert ops.cvt_design(*past, 128, 8, 1) == "two_pass"
+
+
+def test_the_window_bounds_the_span():
+    """A window holds the span to (window - 1) // 16 + 2 pages, whatever
+    the table's width: h2o-danube's 4096 at any context."""
+    assert ops.cvt_design(100_000, 4, 4096, 120, 8, 1) == "cluster"
+    assert ops.cvt_design(100_000, 4, 0, 120, 8, 1) == "two_pass"
+    # a window of 65,536 tokens spans 4,097 pages at most, one past G 3's
+    assert ops.cvt_design(100_000, 3, 65_536 - 16, 128, 8, 1) == "cluster"
+    assert ops.cvt_design(100_000, 3, 65_536, 128, 8, 1) == "two_pass"
+
+
+@pytest.mark.parametrize("KV,page_bytes,design", [(8, 1, "cluster"), (1, 1, "two_pass"),
+                                                  (3, 1, "two_pass"), (1, 2, "cluster")])
+def test_rows_tma_cannot_address_take_two_passes(KV, page_bytes, design):
+    """A kv head's 8-bit row of 120 elements is not a 16-byte stride; the
+    cluster reads such rows through a map over all heads' rows, whose
+    stride (KV * 120 bytes) is one only for an even KV."""
+    assert ops.cvt_design(128, 3, 0, 120, KV, page_bytes) == design
+
+
+def test_on_the_cpu_the_wrapper_runs_the_plain_version():
+    """The design is the card's: a CPU tensor takes the plain version and
+    launches nothing."""
+    rng = torch.Generator().manual_seed(0)
+    q = torch.randn((2, 2, 3, 64), generator=rng)
+    kp, vp = (torch.randn((8, 16, 2, 64), generator=rng).to(torch.float8_e4m3fn)
+              for _ in range(2))
+    tables = torch.arange(8, dtype=torch.int32).reshape(2, 4)
+    lens = torch.tensor([63, 20], dtype=torch.int32)
+    before = ops.CVT.launches
+    out = ops.paged_attention(q, kp, vp, tables, lens)
+    assert ops.CVT.launches == before and out.dtype == torch.float32
+    torch.testing.assert_close(out, ops.paged_attention_plain(q, kp, vp, tables, lens))

@@ -5,19 +5,24 @@ device time at the main paths' shapes.
 
     git archive <parent> | tar -x -C build/ab_parent
     python3 tools/ab_flash.py --tree parent=build/ab_parent --tree change=. \
-        --order parent,change,change,parent,parent,change [--kernel paged]
+        --order parent,change,change,parent,parent,change [--kernel paged|cvt]
 
-Each checkout builds its own library (``flash_attention``, or
-``paged_attention`` with ``--kernel paged``, in its
+Each checkout builds its own library (``flash_attention``;
+``paged_attention`` with ``--kernel paged``; ``paged_attention_cvt``, K2
+over pages of another dtype than q, with ``--kernel cvt``; in its
 ``src/repro_torch/build``); ``cuobjdump -sass`` lists its functions, and a
 line per instance (``flash_fwd_wgmma``; ``paged_split_mma``,
-``paged_split_simt`` and ``paged_merge``) gives its instruction count and a
-hash of its instructions (addresses dropped), so two builds of the same
-device code hash alike. Then one process per entry of ``--order`` times
-the kernel with ``chip_smoke.time_flash`` (the causal kernel) or
-``chip_smoke.time_paged`` (bf16 and fp32 at llama3.2-3b's decode batch,
-bf16 at h2o-danube's and llama3-405b's; ``device_ms`` from a replayed CUDA
-graph). Lines also go to ``chiprun_out/ab_flash.jsonl``.
+``paged_split_simt`` and ``paged_merge``; ``paged_split_cvt``,
+``stats_merge``, ``part_sum`` and ``paged_cluster_cvt``) gives its
+instruction count and a hash of its instructions (addresses dropped), so
+two builds of the same device code hash alike. Then one process per entry
+of ``--order`` times the kernel with ``chip_smoke.time_flash`` (the causal
+kernel), ``chip_smoke.time_paged`` (bf16 and fp32 at llama3.2-3b's decode
+batch, bf16 at h2o-danube's and llama3-405b's) or ``chip_smoke.time_q8``
+(the default mode over fp8 and int8 pages under a bf16 q at the four
+``chip_smoke.Q8_PAGED`` shapes, each row naming the design that ran);
+``device_ms`` from a replayed CUDA graph. Lines also go to
+``chiprun_out/ab_flash.jsonl``.
 """
 from __future__ import annotations
 
@@ -47,7 +52,9 @@ def emit(**kw):
 # --kernel -> (library, the functions whose SASS is compared)
 KERNELS = {"flash": ("flash_attention", ("flash_fwd_wgmma",)),
            "paged": ("paged_attention", ("paged_split_mma", "paged_split_simt",
-                                         "paged_merge"))}
+                                         "paged_merge")),
+           "cvt": ("paged_attention_cvt", ("paged_split_cvt", "stats_merge", "part_sum",
+                                           "paged_cluster_cvt"))}
 
 
 def _import(tree: Path, kernel: str):
@@ -85,6 +92,15 @@ def timing(label: str, tree: Path, kernel: str):
     import chip_smoke as cs
     _import(tree, kernel)
     gen = torch.Generator(device="cuda").manual_seed(1)
+    if kernel == "cvt":
+        from repro_torch.kernels.paged_attention import ops as paged_ops
+        for m in cs.Q8_PAGED:
+            for pages in (torch.float8_e4m3fn, torch.int8):
+                r = cs.time_q8(paged_ops, pages, False, gen, m)
+                emit(phase="timing", tree=label, shape=r["shape"], window=r["window"],
+                     pages=r["pages"], design=r["design"], ms=r["ms"],
+                     device_ms=r["device_ms"], bound_ms=r["bound_ms"])
+        return
     if kernel == "paged":
         from repro_torch.kernels.paged_attention import ops as paged_ops
         for dtype, m in ((torch.bfloat16, cs.MAIN_PAGED), (torch.float32, cs.MAIN_PAGED),
