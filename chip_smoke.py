@@ -17,9 +17,13 @@ Phases, each printed as one JSON line:
      fp32 q, bf16 under fp32; ``check_q8``) at llama3.2-3b's, h2o-danube's
      (window, D 120), llama3-405b's (G 16) and zamba2's (D 80, G 1) decode
      batches, in the reference's ``decode_attention`` function (the
-     one-launch cluster design there, the two-pass design at a batch past
-     the cluster's scores) and upcast (``decode_unroll``; fp32 pages under
-     a bf16 q too), and its split passes over a sequence-split share of
+     one-launch cluster design there, at a small batch past its old scores
+     limit, at reasoning lengths of 12,288-33,792 tokens at G 16 and G 8,
+     and at 60,000-65,536 tokens, where each block's last pages are
+     recomputed from k; the two-pass design at 8-bit D 120 rows under one
+     kv head, which TMA cannot address) and upcast (``decode_unroll``;
+     fp32 pages under a bf16 q too), and its split passes over a
+     sequence-split share of
      zamba2 and h2o-danube; int8 pages also under q times 12 and 40, where
      the output is not zeros and rows tell truncation from rounding to
      nearest;
@@ -35,9 +39,10 @@ Phases, each printed as one JSON line:
      per call, its plain version's time and one PyTorch library call's time
      (for a window, SDPA with a boolean mask; the line names the kernels
      the library ran); K2 over fp8 and int8 pages under a bf16 q: the
-     cluster design at the four decode batches above, the two-pass design
-     past its scores, and the upcast mode at llama3.2-3b's batch (its
-     yardstick SDPA on the upcast cache);
+     cluster design at the four decode batches above and at the long
+     shapes of step 2, the two-pass design at the rows TMA cannot
+     address, and the upcast mode at llama3.2-3b's batch (its yardstick
+     SDPA on the upcast cache);
   4. greedy tokens of a full-width 2-layer fp32 model served on the card
      equal those of the plain path on the CPU, with and without preemption;
   5. the main path: full-depth llama3.2-3b in bf16 serving 16 requests
@@ -104,7 +109,11 @@ Phases, each printed as one JSON line:
      2-layer fp32 model's tokens from fp8 and int8 caches on a preempting
      pool equal on the card and on the CPU; and the capacity traffic on
      an fp8 cache of the bf16 ``capacity`` run's bytes (768 pages) beside
-     ``SimRunner``: equal steps and preemptions. Then ``cluster``, on the
+     ``SimRunner``: equal steps and preemptions. Then ``reasoning_decode``:
+     llama3-405b at full width (4 of its 126 layers), bf16 weights, 4
+     greedy decode steps of 16 sequences of 12,288-33,792 tokens from a
+     seeded fp8 pool, K2 launching only its cluster instance, its step
+     time beside K2's device time there. Then ``cluster``, on the
      host: ``repro_torch.cluster.ClusterRuntime(sanitize=True)`` over four
      DS-Distill-8B ``SimRunner`` replicas on H100 constants, colocated
      under ``MemoryAware`` routing and disaggregated 2 + 2, serving 40
@@ -807,9 +816,28 @@ Q8_UPCAST_ONLY = ((torch.float32, torch.bfloat16),)
 # h2o-danube's window at D 120, llama3-405b's G 16, zamba2's D 80 at G 1;
 # the default mode runs the one-launch cluster design at each
 Q8_PAGED = [MAIN_PAGED, DANUBE_PAGED, L405_PAGED, ZAMBA_PAGED]
-# a batch whose sequences' scores do not fit the cluster's shared memory
-# (13,000 tokens, past 12,288 at G 16): the two-pass design
+# a small batch past the cluster's old scores limit (13,000 tokens, past
+# 12,288 at G 16), which the two passes ran until the cluster took every
+# length: the cluster design
 Q8_TWO_PASS = dict(B=2, KV=8, G=16, D=128, min_ctx=12_400, max_ctx=13_000)
+# reasoning lengths (the reference's REASONING outputs up to 32,768 tokens
+# after prompts up to 1,024, past K2's old limits at G 16 and G 8): 16
+# contexts of 12,288-33,792 tokens drawn from a seed, at llama3-405b's G 16
+# and internvl2-76b's G 8 (kv 8 of 128): the cluster design
+Q8_REASONING = [dict(B=16, KV=8, G=16, D=128, min_ctx=12_288, max_ctx=33_792),
+                dict(B=16, KV=8, G=8, D=128, min_ctx=12_288, max_ctx=33_792)]
+# 60,000-65,536 tokens at G 16: past the scores a block's shared memory
+# keeps at any cluster size, so each block's last pages are its overflow,
+# their k read again in the same launch
+Q8_OVERFLOW = dict(B=2, KV=8, G=16, D=128, min_ctx=60_000, max_ctx=65_536)
+# rows TMA cannot address (8-bit D 120 under an odd KV: one rank's kv head
+# of h2o-danube at tp 8, its window): the two-pass design over 8-bit pages
+# (bf16 pages' rows of 240 bytes take the cluster there)
+Q8_TWO_PASS_ROWS = dict(B=16, KV=1, G=4, D=120, min_ctx=4096, max_ctx=6400, window=4096)
+# the default mode's shapes past the four main batches, with the design each
+# runs over 8-bit pages
+Q8_MORE = [(Q8_TWO_PASS, "cluster"), *((m, "cluster") for m in Q8_REASONING),
+           (Q8_OVERFLOW, "cluster"), (Q8_TWO_PASS_ROWS, "two_pass")]
 # the default mode against the plain version: fp32 sums in another order
 # (1e-4 of the values' scale), the output's rounding to q's dtype (2^-8 of
 # it in bf16) and ``weight_slack`` (a weight near a rounding boundary of the
@@ -817,9 +845,9 @@ Q8_TWO_PASS = dict(B=2, KV=8, G=16, D=128, min_ctx=12_400, max_ctx=13_000)
 # REL_RMS times the values' scale
 Q8_ATOL = 1e-4
 # K2's rows timed over 8-bit pages under a bf16 q: (pages, upcast, shape);
-# the default mode at the four shapes (the cluster) and past the cluster's
-# scores (the two passes), the upcast mode at llama3.2-3b's batch
-Q8_TIMED = tuple((p, False, m) for m in (*Q8_PAGED, Q8_TWO_PASS)
+# the default mode at the four shapes and past them (``Q8_MORE``), the
+# upcast mode at llama3.2-3b's batch
+Q8_TIMED = tuple((p, False, m) for m in (*Q8_PAGED, *(m for m, _ in Q8_MORE))
                  for p in (torch.float8_e4m3fn, torch.int8)) + (
     (torch.float8_e4m3fn, True, MAIN_PAGED), (torch.int8, True, MAIN_PAGED))
 # int8 pages are also checked under q times these, where q*scale truncates
@@ -889,8 +917,9 @@ def hold_q8(label, out, ref, q, vp, slack, upcast):
 def check_q8(paged_ops):
     """Each instance over pages of another dtype at the table's K2 shapes,
     both modes, against the plain version (the default mode's one-launch
-    cluster design there, its two-pass design at ``Q8_TWO_PASS``, each
-    call's design read from ``CVT.by_instance``; fp32 pages under a bf16 q
+    cluster design there and at ``Q8_MORE``'s long shapes, its two-pass
+    design at the rows TMA cannot address, each call's design read from
+    ``CVT.by_instance``: one launch of it; fp32 pages under a bf16 q
     in the upcast mode); then the split decode's passes over the two
     halves of zamba2's and h2o-danube's split share (stats gathered and
     merged, values summed) against the one-call plain version; int8 pages
@@ -905,14 +934,17 @@ def check_q8(paged_ops):
         up_only = (pages, qdt) in Q8_UPCAST_ONLY
         qxs = (1.0, *INT8_QX) if pages == torch.int8 else (1.0,)
         for qx in qxs:
-            for m in Q8_PAGED + ([] if up_only else [Q8_TWO_PASS]):
+            shapes = [(m, "cluster") for m in Q8_PAGED] + ([] if up_only else Q8_MORE)
+            for m, design in shapes:
                 q, kp, vp, tables, lens = q8_inputs(pages, qdt, gen, m, qx)
                 w = m.get("window", 0)
-                # the upcast mode truncates nothing: its rows at q x1 only
+                # the upcast mode truncates nothing: its rows at q x1 only,
+                # and at the four main batches
                 modes = ((True,) if up_only else
-                         (False, True) if qx == 1.0 and m is not Q8_TWO_PASS else (False,))
+                         (False, True) if qx == 1.0 and m in Q8_PAGED else (False,))
+                if kp.element_size() > 1:
+                    design = "cluster"   # 16-byte rows at every D
                 for upcast in modes:
-                    design = "two_pass" if m is Q8_TWO_PASS else "cluster"
                     inst = f"{_dt(qdt)}/{_dt(pages)} {design}"
                     before = paged_ops.CVT.by_instance[inst]
                     out = paged_ops.paged_attention(q, kp, vp, tables, lens, window=w,
@@ -965,7 +997,8 @@ def check_q8(paged_ops):
             exacts[key] = max(exacts.get(key, 0.0), exact)
             rels[key] = max(rels.get(key, 0.0), rel)
     emit("check", kernel="paged_attention other page dtypes", cases=len(errs),
-         shapes=[[m["B"], m["KV"], m["G"], m["D"]] for m in Q8_PAGED],
+         shapes=[[m["B"], m["KV"], m["G"], m["D"], m.get("max_ctx")]
+                 for m in Q8_PAGED + [m for m, _ in Q8_MORE]],
          max_abs_err=errs, max_abs_err_without_slack=exacts, rel_rms=rels,
          int8_nonzero_rows=nonzero)
     return errs, exacts
@@ -1857,6 +1890,113 @@ def kv_cache_dtype_phase(flash_ops, paged_ops):
     del card, host
     free_card()
     return launches
+
+
+# a decode step at reasoning lengths on the main path: llama3-405b's
+# published widths (128 q / 8 kv heads of 128, G 16), REASONING_LAYERS of
+# its 126 layers for the run's time, bf16 weights from a seed, an fp8
+# cache (``ParallelContext(kv_cache_dtype=)``) seeded on the card; 16
+# sequences whose contexts are drawn from ``Q8_REASONING``'s 12,288-33,792
+# tokens, decoded ``steps`` greedy tokens through ``Transformer.decode_step``
+REASONING_LAYERS = 4
+REASONING_DECODE = dict(B=16, min_ctx=12_288, max_ctx=33_792, steps=4, seed=27)
+
+
+def reasoning_decode(flash_ops, paged_ops):
+    """``reasoning_decode``: the decode steps of ``REASONING_DECODE`` on a
+    seeded fp8 pool, timed by CUDA events; K2 must launch only its
+    ``cluster`` instance, once a layer a step, and no other kernel; K2 then
+    held against its plain version on layer 0's pool at the last step's
+    tables (a seeded q, ``hold_q8``'s bounds) and its device time at those
+    inputs set beside the step's. Returns the step's launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.paged_attention.ref import weight_slack
+    from repro_torch.models.cache_dtype import to_cache_dtype, writable
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.parallel.sharding import ParallelContext
+
+    r = REASONING_DECODE
+    full = get_config("llama3-405b")
+    cfg = dataclasses.replace(full, n_layers=REASONING_LAYERS)
+    cache = torch.float8_e4m3fn
+    rng = np.random.default_rng(r["seed"])
+    ctx = rng.integers(r["min_ctx"], r["max_ctx"] + 1, size=r["B"])
+    ctx[0] = r["max_ctx"]
+    # each table covers its last step's token; the pad entries name the
+    # pool's last page, which no sequence reads
+    n_blocks = -(-(ctx + r["steps"]) // 16)
+    P = int(n_blocks.sum()) + 1
+    perm = rng.permutation(P - 1).astype(np.int32)
+    tables = np.full((r["B"], int(n_blocks.max())), P - 1, np.int32)
+    used = 0
+    for b, n in enumerate(n_blocks):
+        tables[b, :n] = perm[used:used + n]
+        used += n
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device="cuda", dtype=torch.bfloat16, seed=0,
+                        ctx=ParallelContext(kv_cache_dtype=cache))
+    gen = torch.Generator(device="cuda").manual_seed(r["seed"])
+    pools = [torch.empty(shape, dtype=model.pool_dtype(), device="cuda")
+             for shape in model.pool_shapes(P, 16)]
+    for pool in pools:
+        for layer in range(pool.shape[0]):
+            writable(pool[layer]).copy_(writable(to_cache_dtype(torch.randn(
+                pool.shape[1:], generator=gen, device="cuda"), cache)))
+    setup_s = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    tables_t = torch.from_numpy(tables).to(dev)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=r["B"])).to(dev)
+    _zero_launches(flash_ops, paged_ops)
+    _zero_q8(paged_ops)
+    steps_ms, out = [], []
+    with torch.no_grad():
+        for step in range(r["steps"]):
+            positions = torch.from_numpy(ctx + step).to(dev)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            logits = model.decode_step(tokens, positions, pools, tables_t)
+            end.record()
+            end.synchronize()
+            steps_ms.append(start.elapsed_time(end))
+            if not bool(torch.isfinite(logits.float()).all()):
+                raise AssertionError(f"reasoning_decode: step {step} logits not finite")
+            tokens = logits.argmax(dim=-1)
+            out.append(tokens.tolist())
+    n = dict(_launches(flash_ops, paged_ops), **_q8_launches(paged_ops))
+    instance = f"bfloat16/{_dt(cache)} cluster"
+    if n["flash_attention"] or n["paged_attention"] or n["upcast"] \
+            or n["cvt"] != {instance: cfg.n_layers * r["steps"]}:
+        raise AssertionError(f"reasoning_decode: launches {n}, want only "
+                             f"{cfg.n_layers * r['steps']} of {instance}")
+    # K2 on layer 0's pool at the last step's lens, against its plain version
+    lens = torch.from_numpy(ctx + r["steps"] - 1).to(dev, torch.int32)
+    q = torch.randn((r["B"], cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                     cfg.resolved_head_dim), generator=gen, device=dev).to(torch.bfloat16)
+    kp, vp = pools[0][0], pools[1][0]
+    got = paged_ops.paged_attention(q, kp, vp, tables_t, lens)
+    ref = paged_ops.paged_attention_plain(q, kp, vp, tables_t, lens)
+    slack = weight_slack(q, kp, vp, tables_t, lens)
+    err, exact, rel = hold_q8("reasoning_decode K2", got, ref, q, vp, slack, False)
+    del ref, slack
+    kernel = lambda: paged_ops.paged_attention(q, kp, vp, tables_t, lens)  # noqa: E731
+    k2_ms = device_ms(kernel, 20)
+    keys = int(lens.long().add(1).sum()) * cfg.n_kv_heads
+    needed = 2 * keys * cfg.resolved_head_dim + nbytes(q, got, tables_t, lens)
+    b_ms, b_by = bound(4 * keys * q.shape[2] * q.shape[3], needed, torch.bfloat16)
+    median = sorted(steps_ms[1:])[len(steps_ms[1:]) // 2]
+    emit("reasoning_decode", model=cfg.name, layers=cfg.n_layers,
+         reduced={"n_layers": [full.n_layers, cfg.n_layers]}, dtype="bfloat16",
+         cache_dtype=_dt(cache), batch=r["B"], contexts=ctx.tolist(),
+         n_pages=P, pool_bytes=sum(t.numel() * t.element_size() for t in pools),
+         setup_s=setup_s, steps_ms=steps_ms, step_ms_median=median,
+         k2_device_ms=k2_ms, k2_device_ms_per_step=k2_ms * cfg.n_layers,
+         k2_share_of_step=k2_ms * cfg.n_layers / median, k2_bound_ms=b_ms,
+         k2_bound_by=b_by, k2_device_bound_share=b_ms / k2_ms,
+         k2_max_abs_err=err, k2_max_abs_err_without_slack=exact, k2_rel_rms=rel,
+         tokens=out, launches=n)
+    del model, pools, kp, vp, q, got
+    free_card()
+    return {f"{cfg.name} reasoning_decode {_dt(cache)}": n}
 
 
 def cluster_phase():
@@ -3577,6 +3717,8 @@ def main():
         by_model[f"llama3.2-3b capacity {admission}"] = n
     free_card()
     q8_by_model = kv_cache_dtype_phase(flash_ops, paged_ops)
+    free_card()
+    q8_by_model.update(reasoning_decode(flash_ops, paged_ops))
     for key, n in q8_by_model.items():
         by_model[key] = {k: n[k] for k in ("flash_attention", "paged_attention")}
     free_card()
@@ -3646,10 +3788,11 @@ def main():
                                "bound_by", "library_ms", "library_device_ms")}}
         for row in noncausal_rows]
     # K2 over pages of another dtype, the default mode in its two designs:
-    # the cluster (the main paths' fp8 and int8 caches under bf16 weights),
-    # with its rows at the four shapes, and the two passes, which no main
-    # path's table needs; the upcast mode (``decode_unroll``), which no main
-    # path calls, beside the cluster
+    # the cluster (the main paths' fp8 and int8 caches under bf16 weights,
+    # at every length), with its rows at the four shapes and the long ones,
+    # and the two passes, which only 8-bit rows TMA cannot address take (no
+    # main path's); the upcast mode (``decode_unroll``), which no main path
+    # calls, beside the cluster
     sources = {"cluster": "src/repro_torch/csrc/paged_cluster.cuh",
                "two_pass": "src/repro_torch/csrc/paged_cvt.cuh"}
     keys = ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -3660,7 +3803,7 @@ def main():
         for design in ("cluster", "two_pass"):
             inst = f"bfloat16/{_dt(pages)} {design}"
             mine = [r for r in rows if r["mode"] == "default" and r["design"] == design]
-            row = mine[0]   # the cluster at llama3.2-3b's batch; the two passes past it
+            row = mine[0]   # the cluster at llama3.2-3b's batch; the two passes' rows
             entry = {
                 "name": f"paged_attention {_dt(pages)} pages"
                         + (", two passes" if design == "two_pass" else ""),

@@ -10,13 +10,14 @@
 // One decode (paged_cvt_fwd) runs one of two designs, which the caller
 // chooses (kernels/paged_attention/ops.py cvt_design):
 // - the cluster design (paged_cluster.cuh): one launch, a thread block
-//   cluster a (batch row, kv head) that reads k and v once, its scores
-//   kept in shared memory;
-// - the two-pass design (paged_cvt.cuh), for a sequence whose scores do not
-//   fit that shared memory: four launches, pass 1 (the split kernel in
-//   STATS mode, each partition's (m, l)), stats_merge (each row's (M, L)),
-//   pass 2 (VALUES mode, each partition's sum of rounded weights times v)
-//   and part_sum.
+//   cluster a (batch row, kv head) that reads v once and k once where a
+//   block's scores fit its shared memory (k again for the overflow past
+//   it), at every length a table holds;
+// - the two-pass design (paged_cvt.cuh), for 8-bit rows whose kv heads TMA
+//   cannot address (D 120 under an odd KV): four launches, pass 1 (the
+//   split kernel in STATS mode, each partition's (m, l)), stats_merge (each
+//   row's (M, L)), pass 2 (VALUES mode, each partition's sum of rounded
+//   weights times v) and part_sum.
 // The passes alone are entries too, for a decode whose cache sequence is
 // cut over ranks: each rank runs pass 1 on its share, the ranks gather the
 // (m, l) and merge them (paged_cvt_stats_merge), run pass 2 on their shares

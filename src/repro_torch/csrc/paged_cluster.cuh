@@ -2,9 +2,10 @@
 // model's decode_attention, src/repro/models/attention.py:102-124: q*scale
 // rounded to the pages' dtype, the normalised weights exp(s - M) / L
 // rounded to it, fp32 sums, out in q's dtype) as one launch that reads each
-// counted key's k and v once. Included by paged_attention_cvt.cu, beside the
-// two-pass kernels of paged_cvt.cuh, which keep the sequences whose scores
-// do not fit this design's shared memory.
+// counted key's v once and its k once where the block's scores fit its
+// shared memory. Included by paged_attention_cvt.cu, beside the two-pass
+// kernels of paged_cvt.cuh, which keep the sequence-split decode (its
+// (M, L) crosses ranks) and the 8-bit rows TMA cannot address.
 //
 // Replaces: the Pallas TPU kernel paged_attention_kernel (body
 // _paged_kernel, src/repro/kernels/paged_attention/kernel.py:79) for pages
@@ -16,12 +17,18 @@
 // at the pages' width. The weights need each row's global (M, L) before
 // p.v, which the two-pass design gets by reading k twice over four
 // launches. Design:
-// - One thread block cluster of C <= 8 blocks (the portable limit) per
-//   (batch row, kv head); each block takes a contiguous C-th of the
-//   sequence's pages in its window, and its four warps take the block's
-//   pages in turn. A block's work is a chain of latencies (the pages'
-//   copies, the cluster's barriers), so the launch picks C by occupancy:
-//   the largest that needs the fewest waves of clusters (launch_cluster).
+// - One thread block cluster of C <= 16 blocks (above 8 the non-portable
+//   size) per (batch row, kv head); each block takes a contiguous C-th of
+//   the row's pages in its window, and its warps (4 for G <= 8, 8 for two
+//   n tiles of queries: warps()) take the block's pages in turn. A block
+//   with no page of its row's share (a row shorter than C pages) returns
+//   at once; the others merge over the blocks that have pages. A block's
+//   work is a chain of latencies (the pages' copies, about 0.7 us of
+//   dependent instructions a page a warp, the cluster's barriers), so the
+//   launch picks C by a cost the occupancy gives: the clusters' waves
+//   (cudaOccupancyMaxActiveClusters at that C and shared memory) times a
+//   wave's fixed time, a warp's chain of pages and the cluster's exchange
+//   (launch_cluster).
 // - Whole pages come by TMA: a 4-d tensor map over the pool (P, 16, KV, D),
 //   a box of one page's 16 token rows of one kv head, 128 bytes a row
 //   (8-bit: D <= 128 elements, columns past D zero-filled; bf16: two boxes
@@ -34,16 +41,24 @@
 //   pages first and then v's, so v's first pages are in flight before the
 //   cluster barrier.
 // - Each block computes its scores from k with mma.sync (m16n8k16, fp32
-//   sums) and keeps them in shared memory as fp32 (pages x G query rows x
-//   16 tokens x 4 B: 6 KB a block for llama3.2-3b's longest sequence at
-//   C 8; the padded rows of the mma's n tile are not kept), with each
-//   warp's running (m, l).
+//   sums) and keeps them in shared memory as fp32 (G query rows x 16
+//   tokens x 4 B a page; the padded rows of the mma's n tile are not kept),
+//   with each warp's running (m, l). The launch reserves the scores of the
+//   table's longest share (the runner pads every table to the batch's
+//   longest), up to what a block's shared memory holds beside the ring:
+//   past that, a block's last pages are its overflow, whose scores count
+//   in (m, l) and are not kept; their k comes again by TMA after the
+//   cluster's (M, L) and their scores are recomputed (the same
+//   instructions on the same bytes: the same values) before p.v. So no
+//   length of a table falls back to another design; the bytes read are
+//   k + v + the overflow's k.
 // - The blocks exchange their (m, l) through distributed shared memory
 //   (mapa, ld.shared::cluster, the cluster barrier): every block merges
 //   them in the same order into the row's (M, L).
 // - Each block forms the rounded weights from its stored scores and runs
 //   p.v over its v pages; the blocks' fp32 sums are added through
-//   distributed shared memory, each block writing a C-th of the output once.
+//   distributed shared memory, each block with pages writing its share of
+//   the output once.
 // - exp is ex2.approx (fast_exp) and the weights' division by L a product
 //   by 1/L: each within a few ulps of the plain version's, so a weight
 //   flips to the other neighbour of the pages' dtype only within
@@ -57,13 +72,16 @@
 //   thread's bytes, q's fragments permuted alike), v as 4-byte loads of two
 //   tokens' rows, interleaved by byte permutes into the A operand of
 //   V^T P^T.
-// - The scores' shared memory is SCORE_BYTES at most: a sequence past it
-//   (at C 8 more than 8 * floor(SCORE_BYTES / (64 G)) pages in one window:
-//   65,536 tokens at G 3, 12,288 at G 16) takes the two-pass kernels
-//   (kernels/paged_attention/ops.py cvt_design).
+// - Where the card cannot hold one cluster of any size with the shared
+//   memory a launch needs, the launch fails (ops.py raises); nothing takes
+//   the two passes in its place (kernels/paged_attention/ops.py
+//   cvt_design sends there only the rows TMA cannot address).
 #pragma once
 
 #include <cuda_fp16.h>
+
+#include <cmath>
+#include <type_traits>
 
 #include "paged_cvt.cuh"
 
@@ -75,13 +93,11 @@ using paged_cvt::E4M3;
 using paged_cvt::round_to;
 namespace hw = repro_torch::hopper;
 
-constexpr int CLUSTER = 8;               // most blocks of a cluster
-constexpr int CW = 4;                    // warps of a block
+constexpr int CLUSTER = 16;              // most blocks of a cluster (non-portable above 8)
 constexpr int RING = 2;                  // pages in flight per warp
 constexpr int DPC = 128;                 // head-dim geometry
 constexpr int ROW = 128;                 // bytes of a token row in a box
 constexpr int BOX_BYTES = PAGE * ROW;    // one TMA box
-constexpr int SCORE_BYTES = 96 * 1024;   // the scores' shared memory, most
 
 // The pages' element type: bytes an element, 128-byte boxes a row, bytes
 // of one page of one kv head, 16-byte chunks of a row a thread reads, d
@@ -97,11 +113,30 @@ struct Pages {
   static constexpr int TILES = SPAN / 16;     // m tiles of a v group
 };
 
+// Warps of a block: 4 for one n tile of queries (G <= 8), 8 for two. A
+// warp's page is a chain of dependent instructions, twice as long at two
+// n tiles, and at long rows a block's scores leave room for one block an
+// SM: 8 warps keep its schedulers busy there, where 4 warps of several
+// blocks an SM serve one n tile better.
+template <int NT>
+__host__ __device__ constexpr int warps() { return NT == 1 ? 4 : 8; }
+
+// The dynamic shared memory's layout, from a 1024-byte aligned base: each
+// warp's ring of RING pages, each warp's scores of one overflow page (G x
+// 16 fp32), then the kept pages' scores; once every ring is drained, the
+// warps' fp32 sums (CW x GM x DPC) over all of it.
 template <int NT, typename TK>
-__host__ __device__ constexpr int region_bytes() {  // the rings, later the warps' fp32 sums
-  return CW * RING * Pages<TK>::BYTES > CW * NTILE * NT * DPC * 4
-             ? CW * RING * Pages<TK>::BYTES
-             : CW * NTILE * NT * DPC * 4;
+__host__ __device__ constexpr int ring_bytes() { return warps<NT>() * RING * Pages<TK>::BYTES; }
+__host__ __device__ constexpr int page_scores(int G) { return G * PAGE * 4; }
+template <int NT>
+__host__ __device__ constexpr int sums_bytes() { return warps<NT>() * NTILE * NT * DPC * 4; }
+// the bytes a launch asks for when a block keeps `keep` pages' scores
+template <int NT, typename TK>
+__host__ __device__ constexpr int dyn_bytes(int G, int keep) {
+  return (ring_bytes<NT, TK>() + (warps<NT>() + keep) * page_scores(G) > sums_bytes<NT>()
+              ? ring_bytes<NT, TK>() + (warps<NT>() + keep) * page_scores(G)
+              : sums_bytes<NT>()) +
+         1024;
 }
 
 // The head dim of pair i (two consecutive dims) of a k row held by the
@@ -190,19 +225,24 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float
 // One cluster per (batch row, kv head) (the grid (C, KV, B), cluster dims
 // (C, 1, 1)). q and out (B, KV, G, D) of TQ; the pages through tk and tv
 // (flat: the (KV*D, 1, 16, P) map, its box at the 16-byte boundary at or
-// before head kvh's row, kvh*D bytes); pmax the most
-// pages a block takes, which sizes its scores. NT n tiles of 8 queries.
-template <typename TK, typename TQ, int NT>
-__global__ void __launch_bounds__(CW * 32)
+// before head kvh's row, kvh*D bytes); keep the pages whose scores a block
+// keeps (dyn_bytes' layout), the rest of its pages its overflow. NT n tiles
+// of 8 queries. OVER: the instance with the overflow's path, for launches
+// whose blocks may have more pages than they keep; without it (keep at
+// least every block's pages) p.v's sums never share the registers with a
+// page of k, and the instance takes fewer registers.
+template <typename TK, typename TQ, int NT, bool OVER>
+__global__ void __launch_bounds__(warps<NT>() * 32)
 paged_cluster_cvt(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                   const TQ* __restrict__ q, const int* __restrict__ tables,
                   const int* __restrict__ lens, TQ* __restrict__ out, int KV, int G, int D,
-                  int max_blocks, int window, float scale, int flat, int pmax) {
+                  int max_blocks, int window, float scale, int flat, int keep) {
   using PG = Pages<TK>;
+  constexpr int CW = warps<NT>();
   constexpr int GM = NTILE * NT;   // query rows, padded
   constexpr int KS = DPC / 16;     // k steps of q.k, m tiles of p.v
-  constexpr int REGION = region_bytes<NT, TK>();
-  __shared__ __align__(16) uint16_t qs[GM][DPC];
+  constexpr int QROW = DPC + 2;    // a row of qs: 65 words, so a warp's fragment loads hit 32 banks
+  __shared__ __align__(16) uint16_t qs[GM][QROW];
   __shared__ float2 mlw[CW][GM];
   __shared__ float2 mlb[GM];       // the block's (m, l), read by the cluster
   __shared__ float Ms[GM], Ls[GM];
@@ -210,7 +250,6 @@ paged_cluster_cvt(const __grid_constant__ CUtensorMap tk, const __grid_constant_
   extern __shared__ uint8_t dsmem[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(dsmem) + 1023) & ~static_cast<uintptr_t>(1023));
-  float* scores = reinterpret_cast<float*>(base + REGION);   // [pmax][G][PAGE]
 
   const int C = gridDim.x;
   const uint32_t rank = hw::cluster_ctarank();
@@ -218,18 +257,25 @@ paged_cluster_cvt(const __grid_constant__ CUtensorMap tk, const __grid_constant_
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
 
-  // the block's pages: a C-th of the sequence's in its window
+  // the block's pages: a C-th of the sequence's in its window; the blocks
+  // past the last page have nothing, and the rest merge without them
   const int len = lens[b];
   const int lo = window_start(len, window);
   const int p_lo = lo / PAGE;
   const int n = max(0, pages_used(len, max_blocks) - p_lo);
-  const int per = (n + C - 1) / C;
-  if (per > pmax) __trap();   // the host sized the scores for pmax pages
+  const int per = max(1, (n + C - 1) / C);
+  const int n_act = max(1, (n + per - 1) / per);   // blocks with pages (rank 0 at least)
+  if ((int)rank >= n_act) return;
   const int begin = p_lo + (int)rank * per;
   const int n_b = max(0, min(per, n - (int)rank * per));
   const int n_w = n_b > warp ? (n_b - warp + CW - 1) / CW : 0;   // this warp's pages
-  const int items = 2 * n_w;                                      // k's, then v's
+  // the warp's kept pages are its first x_keep (block page warp + CW x < keep)
+  const int x_keep = !OVER ? n_w : keep > warp ? min(n_w, (keep - warp + CW - 1) / CW) : 0;
+  // k's pages; then v's, each overflow page's k again before its v
+  const int items = n_w + x_keep + 2 * (n_w - x_keep);
   uint8_t* ring = base + warp * RING * PG::BYTES;
+  float* spill = reinterpret_cast<float*>(base + ring_bytes<NT, TK>()) + warp * G * PAGE;
+  float* scores = reinterpret_cast<float*>(base + ring_bytes<NT, TK>()) + CW * G * PAGE;
   const int nbox = (D * PG::EB + ROW - 1) / ROW;                  // boxes a row fills
   const int shift = flat ? (kvh * D) & 15 : 0;   // the row's bytes into its box: 0 or 8
 
@@ -250,12 +296,25 @@ paged_cluster_cvt(const __grid_constant__ CUtensorMap tk, const __grid_constant_
       if (i % PG::BYTES >= nbox * BOX_BYTES)
         *reinterpret_cast<uint4*>(ring + i) = make_uint4(0, 0, 0, 0);
   __syncwarp();
-  // item it (k's page it, or v's page it - n_w) into its ring slot; every
-  // lane calls it, lane 0 issues
+  // item it: (is v, the warp's page x)
+  auto item = [&](int it, int& x) -> bool {
+    if (it < n_w) {
+      x = it;
+      return false;
+    }
+    const int j = it - n_w;
+    if (j < x_keep) {
+      x = j;
+      return true;
+    }
+    x = x_keep + ((j - x_keep) >> 1);
+    return (j - x_keep) & 1;
+  };
+  // item it into its ring slot; every lane calls it, lane 0 issues
   const CUtensorMap* maps[2] = {&tk, &tv};
   auto issue = [&](int it) {
-    const bool is_v = it >= n_w;
-    const int x = is_v ? it - n_w : it;
+    int x;
+    const bool is_v = item(it, x);
     const int page = x < 64 ? __shfl_sync(0xffffffffu, x < 32 ? pid[0] : pid[1], x & 31)
                             : tables[(size_t)b * max_blocks + begin + warp + CW * x];
     if (lane == 0) {
@@ -282,17 +341,18 @@ paged_cluster_cvt(const __grid_constant__ CUtensorMap tk, const __grid_constant_
   __syncthreads();
   // q^T as the B operand of K Q^T: k slots 2tig, 2tig+1 of step s are the
   // thread's pair 2s, slots 2tig+8, 2tig+9 its pair 2s+1
+  auto q_frag = [&](int nt, int i) {
+    return *reinterpret_cast<const uint32_t*>(qs[NTILE * nt + gid] + dpair<TK>(tig, i));
+  };
   uint32_t qb[NT][KS][2];
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int s = 0; s < KS; ++s) {
-      const uint16_t* row = qs[NTILE * nt + gid];
-      qb[nt][s][0] = *reinterpret_cast<const uint32_t*>(row + dpair<TK>(tig, 2 * s));
-      qb[nt][s][1] = *reinterpret_cast<const uint32_t*>(row + dpair<TK>(tig, 2 * s + 1));
+      qb[nt][s][0] = q_frag(nt, 2 * s);
+      qb[nt][s][1] = q_frag(nt, 2 * s + 1);
     }
 
-  // ---- k: scores into shared memory, the warp's running (m, l)
   // the mma's row gid is token rl (gid's bits rotated: the two rows of a
   // quarter warp lie 4 rows apart, so their swizzled chunks never collide)
   const int rl = (gid >> 1) | ((gid & 1) << 2);
@@ -304,10 +364,17 @@ paged_cluster_cvt(const __grid_constant__ CUtensorMap tk, const __grid_constant_
       m[nt][e] = NEG_INF;
       l[nt][e] = 0.f;
     }
-  for (int it = 0; it < n_w; ++it) {
+  // Item it, k's page x (block page warp + CW x): its scores into sp
+  // (nullptr: not kept) and, with `stats`, into the warp's (m, l); the
+  // slot's next item is issued once k is in registers. The overflow's
+  // second reading (no stats) runs the same products on the same bytes, so
+  // its scores equal the first reading's; it takes q's fragments from qs
+  // one k step at a time, so that they are not live beside p.v's sums.
+  auto k_page = [&](int it, int x, float* sp, auto stats_t) {
+    constexpr bool stats = decltype(stats_t)::value;
     const int slot = it % RING;
     hw::mbar_wait(&full[warp][slot], (it / RING) & 1);
-    const int k = warp + CW * it, j = begin + k;
+    const int j = begin + warp + CW * x;
     const int n_valid = min(PAGE, len + 1 - j * PAGE);   // tokens in the sequence
     const int n_skip = max(0, lo - j * PAGE);            // tokens left of the window
     const uint8_t* pg = ring + slot * PG::BYTES;
@@ -345,14 +412,20 @@ paged_cluster_cvt(const __grid_constant__ CUtensorMap tk, const __grid_constant_
       const uint32_t a[4] = {k_pair<TK>(kr[0], 2 * s), k_pair<TK>(kr[1], 2 * s),
                              k_pair<TK>(kr[0], 2 * s + 1), k_pair<TK>(kr[1], 2 * s + 1)};
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) mma_op<TK>(sc[nt], a, qb[nt][s]);
+      for (int nt = 0; nt < NT; ++nt) {
+        if constexpr (stats) {
+          mma_op<TK>(sc[nt], a, qb[nt][s]);
+        } else {
+          const uint32_t b2[2] = {q_frag(nt, 2 * s), q_frag(nt, 2 * s + 1)};
+          mma_op<TK>(sc[nt], a, b2);
+        }
+      }
     }
     __syncwarp();
     if (it + RING < items) issue(it + RING);   // the slot is free: its k is in registers
 
     const bool v0 = rl >= n_skip && rl < n_valid;
     const bool v1 = rl + 8 >= n_skip && rl + 8 < n_valid;
-    float* sp = scores + (size_t)k * G * PAGE;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -360,10 +433,11 @@ paged_cluster_cvt(const __grid_constant__ CUtensorMap tk, const __grid_constant_
         // sc[nt][r]: token rl + 8*(r >> 1), query 8*nt + 2*tig + (r & 1)
         const int g = NTILE * nt + 2 * tig + e;
         const float s0 = v0 ? sc[nt][e] : NEG_INF, s1 = v1 ? sc[nt][2 + e] : NEG_INF;
-        if (g < G) {   // the padded query rows' scores are not kept
+        if (sp != nullptr && g < G) {   // the padded query rows' scores are not kept
           sp[g * PAGE + rl] = s0;
           sp[g * PAGE + rl + 8] = s1;
         }
+        if constexpr (!stats) continue;
         // a query's 16 scores lie in the 8 lanes of one tig, two each
         float mx = fmaxf(s0, s1);
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
@@ -377,7 +451,12 @@ paged_cluster_cvt(const __grid_constant__ CUtensorMap tk, const __grid_constant_
         l[nt][e] = l[nt][e] * fast_exp(m[nt][e] - m_new) + rs;
         m[nt][e] = m_new;
       }
-  }
+  };
+
+  // ---- k: the kept pages' scores into shared memory, every page's into (m, l)
+  for (int x = 0; x < n_w; ++x)
+    k_page(x, x, x < x_keep ? scores + (size_t)(warp + CW * x) * G * PAGE : nullptr,
+           std::true_type{});
 
   // ---- the warps' (m, l) -> the block's -> the cluster's (M, L)
   if (gid == 0)
@@ -402,12 +481,13 @@ paged_cluster_cvt(const __grid_constant__ CUtensorMap tk, const __grid_constant_
     float M = NEG_INF, L = 0.f;
 #pragma unroll
     for (int c = 0; c < CLUSTER; ++c) {
-      mc[c] = c < C ? hw::ld_cluster_f32x2(hw::map_to_rank(at, c)) : make_float2(NEG_INF, 0.f);
+      mc[c] = c < n_act ? hw::ld_cluster_f32x2(hw::map_to_rank(at, c))
+                        : make_float2(NEG_INF, 0.f);
       M = fmaxf(M, mc[c].x);
     }
 #pragma unroll
     for (int c = 0; c < CLUSTER; ++c)
-      if (c < C) L += mc[c].y * fast_exp(mc[c].x - M);
+      if (c < n_act) L += mc[c].y * fast_exp(mc[c].x - M);
     Ms[tid] = M;
     Ls[tid] = L;
   }
@@ -430,16 +510,16 @@ paged_cluster_cvt(const __grid_constant__ CUtensorMap tk, const __grid_constant_
     Mq[nt] = Ms[NTILE * nt + gid];
     Linv[nt] = 1.f / Ls[NTILE * nt + gid];
   }
-  for (int it = n_w; it < items; ++it) {
+  // item it, v's page x, with its scores at sp
+  auto v_page = [&](int it, int x, const float* sp) {
+    const int j = begin + warp + CW * x;
     const int slot = it % RING;
     hw::mbar_wait(&full[warp][slot], (it / RING) & 1);
-    const int k = warp + CW * (it - n_w), j = begin + k;
     const int n_valid = min(PAGE, len + 1 - j * PAGE);
     const int n_skip = max(0, lo - j * PAGE);
     // P^T as the B operand: tokens 2tig, 2tig+1 (b0) and 2tig+8, 2tig+9
     // (b1) of query 8*nt + gid; a key that does not count has score NEG_INF
     // and weight 0, a padded query row weight 0
-    const float* sp = scores + (size_t)k * G * PAGE;
     uint32_t pb[NT][2];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
@@ -454,11 +534,11 @@ paged_cluster_cvt(const __grid_constant__ CUtensorMap tk, const __grid_constant_
     // v rows of the thread's tokens; rows of tokens that do not count read
     // as zeros (their bytes may not be finite, and 0 * NaN is NaN)
     int tok[4];
-    bool keep[4];
+    bool keep_row[4];
 #pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      tok[x] = 2 * tig + (x & 1) + 8 * (x >> 1);
-      keep[x] = tok[x] >= n_skip && tok[x] < n_valid;
+    for (int x2 = 0; x2 < 4; ++x2) {
+      tok[x2] = 2 * tig + (x2 & 1) + 8 * (x2 >> 1);
+      keep_row[x2] = tok[x2] >= n_skip && tok[x2] < n_valid;
     }
     const uint8_t* pg = ring + slot * PG::BYTES;
 #pragma unroll
@@ -468,11 +548,11 @@ paged_cluster_cvt(const __grid_constant__ CUtensorMap tk, const __grid_constant_
       const bool in_box = byte < PG::NBOX * ROW;    // else head dims past D
       uint32_t w[4];
 #pragma unroll
-      for (int x = 0; x < 4; ++x)
-        w[x] = keep[x] && in_box ? *reinterpret_cast<const uint32_t*>(
-                             pg + (byte >> 7) * BOX_BYTES + tok[x] * ROW +
-                             ((((byte & 127) >> 4) ^ (tok[x] & 7)) << 4) + (byte & 15))
-                       : 0u;
+      for (int x2 = 0; x2 < 4; ++x2)
+        w[x2] = keep_row[x2] && in_box ? *reinterpret_cast<const uint32_t*>(
+                               pg + (byte >> 7) * BOX_BYTES + tok[x2] * ROW +
+                               ((((byte & 127) >> 4) ^ (tok[x2] & 7)) << 4) + (byte & 15))
+                         : 0u;
 #pragma unroll
       for (int h = 0; h < PG::TILES; ++h) {
         uint32_t a[4];
@@ -494,9 +574,19 @@ paged_cluster_cvt(const __grid_constant__ CUtensorMap tk, const __grid_constant_
         for (int nt = 0; nt < NT; ++nt) mma_op<TK>(o[c * PG::TILES + h][nt], a, pb[nt]);
       }
     }
-    __syncwarp();
+    __syncwarp();   // the slot's and the spill's reads before they are written again
     if (it + RING < items) issue(it + RING);
-  }
+  };
+  // the kept pages, then the overflow: each page's k again, its scores
+  // into the warp's spill, then its v
+  for (int x = 0; x < x_keep; ++x)
+    v_page(n_w + x, x, scores + (size_t)(warp + CW * x) * G * PAGE);
+  if constexpr (OVER)
+    for (int x = x_keep, it = n_w + x_keep; x < n_w; ++x, it += 2) {
+      k_page(it, x, spill, std::false_type{});
+      __syncwarp();
+      v_page(it + 1, x, spill);
+    }
 
   // ---- the warps' sums, then the cluster's, into out
   __syncthreads();   // every ring is drained: its memory takes the warps' sums
@@ -521,7 +611,7 @@ paged_cluster_cvt(const __grid_constant__ CUtensorMap tk, const __grid_constant_
     accs[i] = A;
   }
   hw::cluster_sync();
-  const int total = G * D, share = (total + C - 1) / C;
+  const int total = G * D, share = (total + n_act - 1) / n_act;
   const int i_end = min(total, ((int)rank + 1) * share);
   for (int i = (int)rank * share + tid; i < i_end; i += CW * 32) {
     const int g = i / D, d = i % D;
@@ -529,7 +619,7 @@ paged_cluster_cvt(const __grid_constant__ CUtensorMap tk, const __grid_constant_
     float part[CLUSTER];   // every block's load in flight at once
 #pragma unroll
     for (int c = 0; c < CLUSTER; ++c)
-      part[c] = c < C ? hw::ld_cluster_f32(hw::map_to_rank(at, c)) : 0.f;
+      part[c] = c < n_act ? hw::ld_cluster_f32(hw::map_to_rank(at, c)) : 0.f;
     float A = 0.f;
 #pragma unroll
     for (int c = 0; c < CLUSTER; ++c) A += part[c];
@@ -546,28 +636,39 @@ __host__ __device__ constexpr int span_pages(int max_blocks, int window) {
 }
 
 // The launch of the design over every (batch row, kv head); n_pages the
-// pool's pages. The cluster's size C: of the sizes that keep a block's
-// scores within SCORE_BYTES (at most CLUSTER and the span's pages), the
-// largest of those that need the fewest waves of clusters, as
-// cudaOccupancyMaxActiveClusters counts them (a block's work is a chain of
-// latencies, so a second wave costs about as much as the first; the counts
-// are kept per size and shared memory, for the process's card).
-// cudaErrorInvalidValue for a table whose scores do not fit SCORE_BYTES at
-// C = CLUSTER, or 8-bit pages whose kv heads' rows TMA cannot address (D
-// 120 under an odd KV): ops.py cvt_design sends those to the two-pass
-// kernels.
+// pool's pages. A block of a cluster of c takes at most per = ceil(span /
+// c) pages and keeps the scores of as many of them as its shared memory
+// holds beside the ring (the opt-in most a block may ask for; the request
+// rounded up to 8 KB, so a decode's growing table changes it rarely). The
+// cluster's size C: of 1..CLUSTER (and the span's pages), the one whose
+// waves of clusters, as cudaOccupancyMaxActiveClusters counts them at that
+// size and shared memory, times (a wave's fixed time + a warp's chain of
+// k's and v's pages and the overflow's k again + the exchange's half a
+// page step a block) is least, the largest of equals (a block's work is a
+// chain of latencies, so a second wave of rows alike costs about as much
+// as the first; the counts are kept per instance, size and shared memory,
+// for the process's card). Past two waves a wave counts by its share (the
+// rows of a batch differ in length). A launch whose blocks keep every page
+// runs the instance without the overflow's path. cudaErrorInvalidValue for
+// 8-bit pages whose kv heads' rows TMA cannot address (D 120 under an odd
+// KV): ops.py cvt_design sends those to the two-pass kernels;
+// cudaErrorLaunchOutOfResources where the card holds no cluster of any
+// size.
 template <typename TK, typename TQ, int NT>
 cudaError_t launch_cluster(const void* q, const void* kp, const void* vp, const void* tables,
                            const void* lens, void* out, int B, int KV, int G, int D,
                            int max_blocks, int window, float scale, int n_pages,
                            cudaStream_t stream) {
   using PG = Pages<TK>;
-  constexpr int GM = NTILE * NT;
-  constexpr int SMEM_MAX = region_bytes<NT, TK>() + SCORE_BYTES + 1024;
+  constexpr int STEP = 8 * 1024;                   // the requests' granularity
+  constexpr int NSTEP = 232448 / STEP + 1;
+  // a wave's fixed time (the launch, q, the first copies, the cluster's
+  // barriers, the sums' exchange), about 10 us, in a warp's page steps:
+  // about 0.7 us a page at one n tile and 4 warps, 1.3 us at two and 8
+  // (H100)
+  constexpr int WAVE_PAGES = NT == 1 ? 16 : 8;
+  if (n_pages < 1) return cudaErrorInvalidValue;
   const int span = span_pages(max_blocks, window);
-  const int fit = SCORE_BYTES / (G * PAGE * 4);   // pages a block's scores may hold
-  const int c_min = (span + fit - 1) / fit;
-  if (c_min > CLUSTER || n_pages < 1) return cudaErrorInvalidValue;
   const uint64_t row = (uint64_t)D * PG::EB, tok = row * KV;
   const bool flat = row % 16 != 0;
   if (tok % 16 != 0) return cudaErrorInvalidValue;
@@ -581,23 +682,53 @@ cudaError_t launch_cluster(const void* q, const void* kp, const void* vp, const 
   cudaError_t e = hw::make_tmap_4d(&tk, type, kp, dims, strides, box, 128);
   if (e == cudaSuccess) e = hw::make_tmap_4d(&tv, type, vp, dims, strides, box, 128);
   if (e != cudaSuccess) return e;
-  auto kernel = paged_cluster_cvt<TK, TQ, NT>;
-  static bool attr_set = false;   // the opt-in above 48 KB, once per instance
-  if (!attr_set) {
-    e = cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_MAX);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
+  // the instances without and with the overflow's path
+  auto plain = paged_cluster_cvt<TK, TQ, NT, false>;
+  auto over = paged_cluster_cvt<TK, TQ, NT, true>;
+  const void* kernels[2] = {(const void*)plain, (const void*)over};
+  // the most dynamic shared memory a block may ask for (the card's opt-in
+  // limit less the kernels' static shared memory), and the opt-ins, once
+  // per instance
+  static int cap = 0;
+  if (cap == 0) {
+    int dev = 0, optin = 0, c = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+            cudaSuccess)
+      return e;
+    for (const void* k : kernels) {
+      cudaFuncAttributes fa;
+      if ((e = cudaFuncGetAttributes(&fa, k)) != cudaSuccess) return e;
+      const int ck = (optin - (int)fa.sharedSizeBytes) / STEP * STEP;
+      c = c == 0 || ck < c ? ck : c;
+    }
+    for (const void* k : kernels)
+      if ((e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, c)) !=
+              cudaSuccess ||
+          (e = cudaFuncSetAttribute(k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
+              cudaSuccess)
+        return e;
+    cap = c;
   }
-  auto smem_of = [&](int c) {   // the rings (later the sums), a block's scores, the alignment
-    return region_bytes<NT, TK>() + (span + c - 1) / c * G * PAGE * 4 + 1024;
+  // a block of a cluster of c: its pages, those whose scores it keeps, and
+  // the bytes it asks for
+  auto per_of = [&](int c) { return (span + c - 1) / c; };
+  auto keep_of = [&](int c) {
+    const int room =
+        (cap - 1024 - ring_bytes<NT, TK>() - warps<NT>() * page_scores(G)) / page_scores(G);
+    return per_of(c) < room ? per_of(c) : room;
   };
+  auto smem_of = [&](int c) {
+    const int bytes = (dyn_bytes<NT, TK>(G, keep_of(c)) + STEP - 1) / STEP * STEP;
+    return bytes < cap ? bytes : cap;
+  };
+  if (keep_of(1) < 0) return cudaErrorLaunchOutOfResources;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(CW * 32);
+  cfg.blockDim = dim3(warps<NT>() * 32);
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -606,33 +737,51 @@ cudaError_t launch_cluster(const void* q, const void* kp, const void* vp, const 
     cfg.dynamicSmemBytes = smem_of(c);
     attr[0].val.clusterDim.x = c;
   };
-  // the clusters of c blocks the card holds at once, by c and shared memory
-  static int seen_smem[CLUSTER + 1] = {}, seen_clusters[CLUSTER + 1] = {};
-  int C = c_min, fewest = 0;
-  for (int c = c_min; c <= CLUSTER && c <= span; ++c) {
+  // a block of a cluster of c has pages past those it keeps: the
+  // overflow's instance
+  auto over_of = [&](int c) { return keep_of(c) < per_of(c) ? 1 : 0; };
+  // the clusters of c blocks the card holds at once, by instance, c and
+  // shared memory (-1: not asked yet)
+  static int seen[2][CLUSTER + 1][NSTEP];
+  static bool seen_init = false;
+  if (!seen_init) {
+    for (auto& k : seen)
+      for (auto& r : k)
+        for (int& v : r) v = -1;
+    seen_init = true;
+  }
+  int C = 0;
+  double least = 0.0;
+  for (int c = 1; c <= CLUSTER && c <= span; ++c) {
     shape(c);
-    if (seen_smem[c] != (int)cfg.dynamicSmemBytes) {
-      int n = 0;
-      if (cudaOccupancyMaxActiveClusters(&n, (const void*)kernel, &cfg) != cudaSuccess) {
+    int& n = seen[over_of(c)][c][cfg.dynamicSmemBytes / STEP];
+    if (n < 0) {
+      if (cudaOccupancyMaxActiveClusters(&n, kernels[over_of(c)], &cfg) != cudaSuccess) {
         n = 0;
         cudaGetLastError();   // the failed query's error, which the launch must not report
       }
-      seen_smem[c] = (int)cfg.dynamicSmemBytes;
-      seen_clusters[c] = n;
     }
-    if (seen_clusters[c] < 1) continue;
-    const int waves = (B * KV + seen_clusters[c] - 1) / seen_clusters[c];
-    if (fewest == 0 || waves <= fewest) {
-      fewest = waves;
+    if (n < 1) continue;
+    // waves of clusters: whole up to two (a second wave of equal rows
+    // costs a whole chain), past that their mean (rows of a batch differ in
+    // length, and the last wave's clusters overlap the others' tails)
+    const double w = (double)(B * KV) / n;
+    const double waves = w <= 2.0 ? std::ceil(w) : w;
+    const int chain = (2 * per_of(c) + per_of(c) - keep_of(c) + warps<NT>() - 1) / warps<NT>();
+    // the cluster's barriers and its exchange of (m, l) and the sums grow
+    // with its blocks: about half a page step a block
+    const double cost = waves * (WAVE_PAGES + chain + 0.5 * c);
+    if (C == 0 || cost <= least) {
+      least = cost;
       C = c;
     }
   }
+  if (C == 0) return cudaErrorLaunchOutOfResources;
   shape(C);
-  const int pmax = (span + C - 1) / C;
-  e = cudaLaunchKernelEx(&cfg, kernel, tk, tv, static_cast<const TQ*>(q),
+  e = cudaLaunchKernelEx(&cfg, over_of(C) ? over : plain, tk, tv, static_cast<const TQ*>(q),
                          static_cast<const int*>(tables), static_cast<const int*>(lens),
                          static_cast<TQ*>(out), KV, G, D, max_blocks, window, scale, (int)flat,
-                         pmax);
+                         keep_of(C));
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }

@@ -28,6 +28,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# more flags for one library: the cluster design's 20 kernel instances
+# compile in parallel (a build of 23 s instead of 43 s on the card's host)
+EXTRA_FLAGS = {"paged_attention_cvt": ("-split-compile=0",)}
 # the ``dtype`` argument of every C entry
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the ``page_dtype`` argument of the entries that read pages of another
@@ -49,7 +52,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
     src = b"".join(p.read_bytes() for p in sources)
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = (*NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()))
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -66,7 +70,8 @@ def build(names: Iterable[str]) -> Dict[str, str]:
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            cmd = [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
             jobs.append((name, proc, tmp, out))

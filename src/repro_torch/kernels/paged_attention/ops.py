@@ -15,11 +15,11 @@ Pages of another dtype than q (a cache of the reference's
 ``kv_cache_dtype``: fp8 e4m3 or int8 under a bf16 or fp32 q, bf16 under an
 fp32 q) take ``decode_attention``'s function, which rounds q*scale and the
 normalised weights to the pages' dtype: ``CVT``, in one of two designs that
-``cvt_design`` chooses from the table's width, the group and the window:
-one launch of a thread block cluster per (batch row, kv head) that reads k
-and v once and keeps the scores in shared memory (``csrc/paged_cluster.cuh``),
-or, for a sequence whose scores do not fit there, two passes over the
-split layout (four launches, one count). Under ``upcast=True`` (the
+``cvt_design`` chooses: one launch of a thread block cluster per (batch
+row, kv head) that reads v once and k once where the scores fit a block's
+shared memory (k again for the overflow past it) at every length
+(``csrc/paged_cluster.cuh``), or, for 8-bit rows whose kv heads TMA cannot
+address, two passes over the split layout (four launches, one count). Under ``upcast=True`` (the
 reference's ``decode_unroll``, which upcasts the cache to q's dtype) they
 take the one-pass kernel with the pages converted on load, ``UPCAST``; so
 do fp32 pages under a bf16 q, rounded to bf16 on load as the reference's
@@ -99,11 +99,6 @@ HEAD_DIMS = (32, 64, 80, 112, 120, 128)
 PAGE = 16       # tokens per page, fixed in the kernel
 MAX_GROUP = 16  # most q heads per kv head the kernel takes
 PART = 16       # pages per partition of the split kernel, fixed in the kernel
-# the one-launch design over pages of another dtype (``csrc/paged_cluster.cuh``):
-# most blocks of a sequence's cluster, and the shared memory a block's
-# scores may take, both fixed in the kernel
-CLUSTER = 8
-SCORE_BYTES = 96 * 1024
 DESIGNS = {"two_pass": 0, "cluster": 1}   # the ``design`` argument of ``paged_cvt_fwd``
 
 
@@ -111,18 +106,15 @@ def cvt_design(max_blocks: int, G: int, window: int, D: int, KV: int,
                page_bytes: int) -> str:
     """The design that runs ``decode_attention``'s function over pages of
     ``page_bytes`` an element, as ``csrc/paged_cluster.cuh``'s launch
-    decides what it takes: "cluster" where a block's scores fit
-    ``SCORE_BYTES`` (a sequence spans at most the table's ``max_blocks``
-    pages, or (window - 1) // 16 + 2 within a window, cut over up to
-    ``CLUSTER`` blocks, 16 tokens a page and G query rows of fp32 each:
-    65,536 tokens at G 3, 12,288 at G 16) and TMA can address a kv head's
-    rows (16-byte strides: D times the element size, or KV times that);
-    else "two_pass"."""
-    span = max_blocks if window <= 0 else min(max_blocks, (window - 1) // PAGE + 2)
-    per = -(-span // min(CLUSTER, span))
+    decides what it takes: "cluster" wherever TMA can address a kv head's
+    rows (16-byte strides: D times the element size, or KV times that),
+    at every table width, group and window (a block's scores past its
+    shared memory are recomputed from k, not sent elsewhere); else
+    "two_pass" (8-bit pages of head dim 120 under an odd KV). The split
+    decode under ``seq_shard_decode`` runs the two passes' entries
+    (``paged_attention_stats`` ... ``paged_sum``) whatever this says."""
     rows = (D * page_bytes) % 16 == 0 or (KV * D * page_bytes) % 16 == 0
-    fits = per * PAGE * G * 4 <= SCORE_BYTES
-    return "cluster" if fits and rows else "two_pass"
+    return "cluster" if rows else "two_pass"
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,

@@ -96,8 +96,9 @@ reference upcasts the cache to the model's dtype first (dense, vlm, audio
 and MoE stacks with GQA), and so does K2 (``upcast``). MLA reads its
 latent pools upcast to the model's dtype, the reference's promotion; it
 refuses fp8, where the reference's ``mla_decode`` raises, and a cache
-wider than the model, where the reference's promotion turns the residual
-stream to fp32. The recurrent states stay in the model's dtype (their
+wider than the model, where the reference's ``decode_step`` raises (its
+layer scan refuses the carry that ``mla_decode`` promotes against the
+wider latents). The recurrent states stay in the model's dtype (their
 conv windows included): the reference's prefill replaces its cache-dtype
 state by one harvested in the model's dtype, and its decode promotes.
 
@@ -539,8 +540,13 @@ def cache_dtype_of(cfg: ModelConfig, ctx: ParallelContext, dtype: torch.dtype,
     where the reference does not serve it: MLA with fp8, whose
     ``mla_decode`` einsum has no implicit promotion of float8_e4m3fn
     (``TypePromotionError``, ``src/repro/models/attention.py:171``), and
-    MLA with a cache wider than the model, which the reference's promotion
-    carries into an fp32 residual stream."""
+    MLA with a cache wider than the model (fp32 under bf16), where the
+    reference's ``decode_step`` raises ``TypeError``: ``mla_decode``
+    (``src/repro/models/attention.py:159``) promotes the layer's output
+    against the wider latents, and the layer scan
+    (``src/repro/models/transformer.py:669-674``) refuses a carry whose
+    dtype the body changed. Its prefill builds such a cache; the first
+    decode step fails."""
     cdt = ctx.kv_cache_dtype or cache_dtype or dtype
     if cdt != dtype:
         check_cache_dtype(cdt)
@@ -552,7 +558,10 @@ def cache_dtype_of(cfg: ModelConfig, ctx: ParallelContext, dtype: torch.dtype,
     if cfg.attention == "mla" and cdt.itemsize > dtype.itemsize:
         raise NotImplementedError(
             f"{cfg.name}: MLA with a {cdt} cache under a {dtype} model: the "
-            "reference's promotion turns the residual stream to the cache's dtype")
+            "reference's decode_step raises TypeError there (mla_decode promotes "
+            "against the wider latents, src/repro/models/attention.py:159, and the "
+            "layer scan refuses the promoted carry, "
+            "src/repro/models/transformer.py:669-674)")
     return cdt
 
 

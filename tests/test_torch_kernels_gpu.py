@@ -528,16 +528,26 @@ def test_paged_fp32_pages_upcast_to_bf16_vs_plain(cuda, case):
 # ------------------------------------- the one-launch design at the card's shapes
 # chip_smoke.Q8_PAGED: llama3.2-3b's decode batch (contexts 128-2048 in
 # shuffled pages), h2o-danube's window 4096 at D 120 (contexts 4096-6400),
-# llama3-405b's G 16, zamba2's D 80 at G 1; and a batch past the cluster's
-# scores (more than 12,288 tokens a sequence at G 16), which takes the
-# two-pass kernels
+# llama3-405b's G 16, zamba2's D 80 at G 1; chip_smoke.Q8_MORE: a small
+# batch past the cluster's old scores limit (more than 12,288 tokens a
+# sequence at G 16, which the two passes ran before), reasoning lengths
+# (12,288-33,792 tokens) at G 16 and G 8, sequences past what a block's
+# shared memory keeps at any cluster size (their last pages recomputed
+# from k), all the cluster; and 8-bit D 120 rows under one kv head, which
+# TMA cannot address: the two passes
 Q8_FULL = {
     "llama3.2-3b": dict(B=16, KV=8, G=3, D=128, min_ctx=128, max_ctx=2048),
     "h2o-danube": dict(B=16, KV=8, G=4, D=120, min_ctx=4096, max_ctx=6400, window=4096),
     "llama3-405b": dict(B=16, KV=8, G=16, D=128, min_ctx=128, max_ctx=1280),
     "zamba2": dict(B=16, KV=32, G=1, D=80, min_ctx=128, max_ctx=1280),
     "two-pass": dict(B=2, KV=2, G=16, D=128, min_ctx=12_400, max_ctx=13_000),
+    "reasoning-G16": dict(B=16, KV=8, G=16, D=128, min_ctx=12_288, max_ctx=33_792),
+    "reasoning-G8": dict(B=16, KV=8, G=8, D=128, min_ctx=12_288, max_ctx=33_792),
+    "overflow": dict(B=2, KV=8, G=16, D=128, min_ctx=60_000, max_ctx=65_536),
+    "rows-tma-cannot-address": dict(B=16, KV=1, G=4, D=120, min_ctx=4096, max_ctx=6400,
+                                    window=4096),
 }
+TWO_PASS_SHAPES = ("rows-tma-cannot-address",)
 
 
 def _full_inputs(m, pages, qdt, seed, cuda, qx):
@@ -572,9 +582,9 @@ def _full_inputs(m, pages, qdt, seed, cuda, qx):
 def test_paged_cvt_design_at_the_card_shapes(cuda, pair, qx, shape):
     """K2's default mode at the card's shapes, every pair, int8 also under
     q x12 and x40: one launch of the design ``cvt_design`` names (the
-    cluster at the four main shapes, the two passes past the scores'
-    shared memory), against the plain version under chip_smoke.hold_q8's
-    bounds; int8 rows without slack exactly."""
+    cluster at every length, the two passes only for rows TMA cannot
+    address), against the plain version under chip_smoke.hold_q8's bounds;
+    int8 rows without slack exactly."""
     from repro_torch.kernels.paged_attention.ref import weight_slack
     m = Q8_FULL[shape]
     pages, qdt = (getattr(torch, n) for n in pair)
@@ -582,7 +592,9 @@ def test_paged_cvt_design_at_the_card_shapes(cuda, pair, qx, shape):
                                                    1000 + list(Q8_FULL).index(shape), cuda, qx)
     design = paged_ops.cvt_design(tables.shape[1], m["G"], window, m["D"], m["KV"],
                                   kp.element_size())
-    assert design == ("two_pass" if shape == "two-pass" else "cluster")
+    # 8-bit rows of D 120 under one kv head; bf16 pages' rows are 240 bytes
+    two_pass = shape in TWO_PASS_SHAPES and kp.element_size() == 1
+    assert design == ("two_pass" if two_pass else "cluster")
     inst = f"{pair[1]}/{pair[0]} {design}"
     before = (paged_ops.CVT.by_instance[inst], paged_ops.CVT.launches)
     out = paged_ops.paged_attention(q, kp, vp, tables, lens, window=window)

@@ -75,7 +75,7 @@ from repro_torch.launch.mesh import run_ranks
 from repro_torch.launch.serve import make_requests
 from repro_torch.models.bridge import from_jax_params
 from repro_torch.models.cache_dtype import to_cache_dtype
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.transformer import Transformer, cache_dtype_of
 from repro_torch.parallel.sharding import ParallelContext, make_test_mesh
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
@@ -257,6 +257,33 @@ def test_plain_k2_on_int8_scores_is_the_reference_decode_attention(qdt, G, D, qx
         assert ((top >= 0.5) & (top < 1)).any()
     else:
         assert (nonzero & exact).any()
+
+
+# one sequence past the 12,288 tokens at G 16 that the cluster's scores
+# held before it took every length (the two passes ran there), at a narrow
+# D and two kv heads: (pages, q, q times)
+LONG_PAIRS = [("fp8", "fp32", 1.0), ("int8", "bf16", 40.0)]
+
+
+@pytest.mark.parametrize("pages,qdt,qx", LONG_PAIRS,
+                         ids=[f"{p}/{q}" for p, q, _ in LONG_PAIRS])
+def test_plain_k2_past_the_old_cluster_limit_is_the_reference_decode_attention(
+        pages, qdt, qx):
+    """13,000 tokens at G 16 in shuffled pages: the plain version (which
+    the card's kernel is held to) is ``decode_attention`` itself."""
+    pages, qdt = DTYPES[pages], DTYPES[qdt]
+    B, KV, G, D, tokens = 1, 2, 16, 32, 13_000
+    nblk = -(-tokens // PAGE)
+    rng = np.random.default_rng(2700)
+    q = torch.from_numpy(rng.standard_normal((B, KV, G, D)).astype(np.float32) * qx).to(qdt)
+    kp, vp = (_cache(rng, (nblk + 3, PAGE, KV, D), pages) for _ in range(2))
+    tables = torch.from_numpy(rng.permutation(nblk + 3)[:nblk][None].astype(np.int32))
+    lens = torch.tensor([tokens - 1], dtype=torch.int32)
+    got = ops.paged_attention(q, kp, vp, tables, lens)
+    want = _reference(q, kp, vp, tables, lens, 0, False)
+    slack = weight_slack(q, kp, vp, tables, lens).numpy()
+    _hold(got.float().numpy(), want, q, slack, fp32=_fp32_scale(q, kp, vp))
+    assert np.abs(want).max() > 0
 
 
 def test_int8_checks_tell_truncation_from_rounding():
@@ -552,6 +579,30 @@ def test_mla_with_fp8_raises_on_both_sides():
         TorchRunner(Transformer(get_smoke_config("deepseek-r1-671b"), device="cpu",
                                 dtype=torch.float32, seed=0), device="cpu",
                     cache_dtype=torch.float8_e4m3fn)
+
+
+def test_mla_with_a_wider_cache_raises_in_the_reference_decode():
+    """bf16 MLA over an fp32 cache: the reference's prefill builds the
+    cache, and its first ``decode_step`` raises the scan's carry
+    ``TypeError`` (``mla_decode`` promotes against the fp32 latents). The
+    port refuses the same pair and names that failure."""
+    jcfg = jax_smoke_config("deepseek-r1-671b")
+    jctx = JaxContext()
+    params = T.init_params(jcfg, jax.random.PRNGKey(0), jctx, mode="serve",
+                           dtype=jnp.bfloat16)
+    tokens = jnp.zeros((1, 6), jnp.int32)
+    _, state = T.prefill(params, tokens, jcfg, jctx, max_len=8, cache_dtype=jnp.float32)
+    assert state["caches"]["dense_stack"]["ckv"].dtype == jnp.float32
+    with pytest.raises(TypeError, match="carry"):
+        T.decode_step(params, state, tokens[:, :1], jcfg, jctx)
+    cfg = get_smoke_config("deepseek-r1-671b")
+    with pytest.raises(NotImplementedError, match="decode_step raises TypeError"):
+        cache_dtype_of(cfg, ParallelContext(), torch.bfloat16, torch.float32)
+    with pytest.raises(NotImplementedError, match="layer scan"):
+        TorchRunner(Transformer(cfg, device="cpu", dtype=torch.bfloat16, seed=0),
+                    device="cpu", cache_dtype=torch.float32)
+    # the same model over a cache of its own dtype decodes on both sides
+    assert cache_dtype_of(cfg, ParallelContext(), torch.bfloat16) == torch.bfloat16
 
 
 @pytest.mark.parametrize("name", ["int8", "fp8"])

@@ -1,12 +1,11 @@
 """Which design runs K2's default mode over pages of another dtype than q
 (``kernels/paged_attention/ops.py`` ``cvt_design``), on the CPU: the
 one-launch cluster design (``csrc/paged_cluster.cuh``) at every shape the
-card runs, the two-pass kernels past the scores' shared memory (G rows of
-16 fp32 scores a page, at most 96 KB a block of 8: more than 65,536
-tokens in a window at G 3, 12,288 at G 16) and where TMA cannot
-address the pages' rows (8-bit pages of head dim 120 under an odd number of
-kv heads). The kernels themselves run on the card
-(``tests/test_torch_kernels_gpu.py``)."""
+card runs and at every length a table holds (a block's scores past its
+shared memory are recomputed from k in the same launch), and the two-pass
+kernels only where TMA cannot address the pages' rows (8-bit pages of head
+dim 120 under an odd number of kv heads). The kernels themselves run on
+the card (``tests/test_torch_kernels_gpu.py``)."""
 import pytest
 import torch
 
@@ -34,8 +33,10 @@ def test_the_card_shapes_take_the_cluster(shape):
     assert ops.cvt_design(*shape) == "cluster"
 
 
-# past the scores' limit: (max_blocks, G, window) at the most pages the
-# cluster holds, 8 blocks of floor(96 KB / (64 G)) pages, and past it
+# the old limits of the cluster's scores (8 blocks of floor(96 KB / (64 G))
+# pages: 65,536 tokens at G 3, 12,288 at G 16) and past them, where the
+# two passes ran until the cluster took every length: (max_blocks, G,
+# window) at the old limit and one page or more past it
 LIMITS = [((4096, 3, 0), (4097, 3, 0)),        # 65,536 tokens at G 3
           ((12_288, 1, 0), (12_289, 1, 0)),    # G 1
           ((1536, 8, 0), (2048, 8, 0)),        # 24,576 tokens at G 8
@@ -45,18 +46,23 @@ LIMITS = [((4096, 3, 0), (4097, 3, 0)),        # 65,536 tokens at G 3
 
 @pytest.mark.parametrize("fits,past", LIMITS, ids=[f"G{f[1]}-{p[0]}pages" for f, p in LIMITS])
 def test_a_sequence_past_the_scores_takes_two_passes(fits, past):
+    """Named for the rule it pinned: past the old limit the two passes ran.
+    The cluster now takes those lengths in one launch (its overflow pages'
+    scores recomputed from k)."""
     assert ops.cvt_design(*fits, 128, 8, 1) == "cluster"
-    assert ops.cvt_design(*past, 128, 8, 1) == "two_pass"
+    assert ops.cvt_design(*past, 128, 8, 1) == "cluster"
+    # the reasoning lengths (up to 33,792 tokens) and far past them
+    assert ops.cvt_design(33_792 // 16, fits[1], 0, 128, 8, 1) == "cluster"
+    assert ops.cvt_design(1 << 20, fits[1], 0, 128, 8, 1) == "cluster"
 
 
 def test_the_window_bounds_the_span():
-    """A window holds the span to (window - 1) // 16 + 2 pages, whatever
-    the table's width: h2o-danube's 4096 at any context."""
+    """A window holds the span to (window - 1) // 16 + 2 pages; without one
+    the span is the table's width: the cluster takes both, at any width."""
     assert ops.cvt_design(100_000, 4, 4096, 120, 8, 1) == "cluster"
-    assert ops.cvt_design(100_000, 4, 0, 120, 8, 1) == "two_pass"
-    # a window of 65,536 tokens spans 4,097 pages at most, one past G 3's
+    assert ops.cvt_design(100_000, 4, 0, 120, 8, 1) == "cluster"
     assert ops.cvt_design(100_000, 3, 65_536 - 16, 128, 8, 1) == "cluster"
-    assert ops.cvt_design(100_000, 3, 65_536, 128, 8, 1) == "two_pass"
+    assert ops.cvt_design(100_000, 3, 65_536, 128, 8, 1) == "cluster"
 
 
 @pytest.mark.parametrize("KV,page_bytes,design", [(8, 1, "cluster"), (1, 1, "two_pass"),
@@ -64,8 +70,10 @@ def test_the_window_bounds_the_span():
 def test_rows_tma_cannot_address_take_two_passes(KV, page_bytes, design):
     """A kv head's 8-bit row of 120 elements is not a 16-byte stride; the
     cluster reads such rows through a map over all heads' rows, whose
-    stride (KV * 120 bytes) is one only for an even KV."""
+    stride (KV * 120 bytes) is one only for an even KV. The only rows the
+    two passes keep, at any length."""
     assert ops.cvt_design(128, 3, 0, 120, KV, page_bytes) == design
+    assert ops.cvt_design(4096, 16, 0, 120, KV, page_bytes) == design
 
 
 def test_on_the_cpu_the_wrapper_runs_the_plain_version():

@@ -20,7 +20,9 @@ of ``--order`` times the kernel with ``chip_smoke.time_flash`` (the causal
 kernel), ``chip_smoke.time_paged`` (bf16 and fp32 at llama3.2-3b's decode
 batch, bf16 at h2o-danube's and llama3-405b's) or ``chip_smoke.time_q8``
 (the default mode over fp8 and int8 pages under a bf16 q at the four
-``chip_smoke.Q8_PAGED`` shapes, each row naming the design that ran);
+``chip_smoke.Q8_PAGED`` shapes and the long ones of ``chip_smoke.Q8_MORE``,
+each row naming the design that ran: a parent before the cluster took
+every length runs its two passes there);
 ``device_ms`` from a replayed CUDA graph. Lines also go to
 ``chiprun_out/ab_flash.jsonl``.
 """
@@ -94,7 +96,7 @@ def timing(label: str, tree: Path, kernel: str):
     gen = torch.Generator(device="cuda").manual_seed(1)
     if kernel == "cvt":
         from repro_torch.kernels.paged_attention import ops as paged_ops
-        for m in cs.Q8_PAGED:
+        for m in cs.Q8_PAGED + [m for m, _ in cs.Q8_MORE]:
             for pages in (torch.float8_e4m3fn, torch.int8):
                 r = cs.time_q8(paged_ops, pages, False, gen, m)
                 emit(phase="timing", tree=label, shape=r["shape"], window=r["window"],
