@@ -844,12 +844,17 @@ Q8_MORE = [(Q8_TWO_PASS, "cluster"), *((m, "cluster") for m in Q8_REASONING),
 # pages' dtype may round to the other neighbour); the upcast mode: TOL and
 # REL_RMS times the values' scale
 Q8_ATOL = 1e-4
-# K2's rows timed over 8-bit pages under a bf16 q: (pages, upcast, shape);
-# the default mode at the four shapes and past them (``Q8_MORE``), the
-# upcast mode at llama3.2-3b's batch
+# the upcast mode's shapes over 8-bit pages under a bf16 q, its one-launch
+# cluster design at each: the four main batches and reasoning lengths
+Q8_UPCAST = [*Q8_PAGED, *Q8_REASONING]
+# K2's rows timed under a bf16 q: (pages, upcast, shape); the default mode
+# over 8-bit pages at the four shapes and past them (``Q8_MORE``), the
+# upcast mode's cluster at ``Q8_UPCAST``, and its split design over fp32
+# pages at llama3.2-3b's batch
 Q8_TIMED = tuple((p, False, m) for m in (*Q8_PAGED, *(m for m, _ in Q8_MORE))
-                 for p in (torch.float8_e4m3fn, torch.int8)) + (
-    (torch.float8_e4m3fn, True, MAIN_PAGED), (torch.int8, True, MAIN_PAGED))
+                 for p in (torch.float8_e4m3fn, torch.int8)) + tuple(
+    (p, True, m) for m in Q8_UPCAST for p in (torch.float8_e4m3fn, torch.int8)) + (
+    (torch.float32, True, MAIN_PAGED),)
 # int8 pages are also checked under q times these, where q*scale truncates
 # to non-zero integers and the plain output is not zeros: at x12 most
 # rows' largest weight lies in [0.5, 1) (truncated to 0, where rounding to
@@ -919,13 +924,15 @@ def check_q8(paged_ops):
     both modes, against the plain version (the default mode's one-launch
     cluster design there and at ``Q8_MORE``'s long shapes, its two-pass
     design at the rows TMA cannot address, each call's design read from
-    ``CVT.by_instance``: one launch of it; fp32 pages under a bf16 q
-    in the upcast mode); then the split decode's passes over the two
-    halves of zamba2's and h2o-danube's split share (stats gathered and
-    merged, values summed) against the one-call plain version; int8 pages
-    also under q times ``INT8_QX``. Returns the max abs err of each (q,
-    pages, design or mode), over all rows and over the rows without
-    slack."""
+    ``CVT.by_instance``: one launch of it; the upcast mode's design, which
+    ``upcast_design`` names, from ``UPCAST.by_instance`` likewise: the
+    cluster for 8-bit pages under a bf16 q, there and at reasoning
+    lengths, the split for the other pairs and fp32 pages under a bf16
+    q); then the split decode's passes over the two halves of zamba2's
+    and h2o-danube's split share (stats gathered and merged, values
+    summed) against the one-call plain version; int8 pages also under q
+    times ``INT8_QX``. Returns the max abs err of each (q, pages, design
+    or mode and design), over all rows and over the rows without slack."""
     from repro_torch.kernels.paged_attention.ref import weight_slack
     from repro_torch.models.cache_dtype import to_cache_dtype
     gen = torch.Generator(device="cuda").manual_seed(25)
@@ -938,25 +945,30 @@ def check_q8(paged_ops):
             for m, design in shapes:
                 q, kp, vp, tables, lens = q8_inputs(pages, qdt, gen, m, qx)
                 w = m.get("window", 0)
+                up = paged_ops.upcast_design(qdt, pages, m["D"], m["KV"])
                 # the upcast mode truncates nothing: its rows at q x1 only,
-                # and at the four main batches
+                # at the four main batches and, where its cluster runs, at
+                # reasoning lengths
                 modes = ((True,) if up_only else
-                         (False, True) if qx == 1.0 and m in Q8_PAGED else (False,))
+                         (False, True) if qx == 1.0 and (
+                             m in Q8_PAGED or (m in Q8_UPCAST and up == "cluster"))
+                         else (False,))
                 if kp.element_size() > 1:
                     design = "cluster"   # 16-byte rows at every D
                 for upcast in modes:
-                    inst = f"{_dt(qdt)}/{_dt(pages)} {design}"
-                    before = paged_ops.CVT.by_instance[inst]
+                    counter = paged_ops.UPCAST if upcast else paged_ops.CVT
+                    inst = f"{_dt(qdt)}/{_dt(pages)} {up if upcast else design}"
+                    before = counter.by_instance[inst]
                     out = paged_ops.paged_attention(q, kp, vp, tables, lens, window=w,
                                                     upcast=upcast)
                     torch.cuda.synchronize()
-                    if not upcast and paged_ops.CVT.by_instance[inst] != before + 1:
+                    if counter.by_instance[inst] != before + 1:
                         raise AssertionError(f"paged_attention at {list(q.shape)}: not the "
-                                             f"{inst} design ({dict(paged_ops.CVT.by_instance)})")
+                                             f"{inst} design ({dict(counter.by_instance)})")
                     ref = paged_ops.paged_attention_plain(q, kp, vp, tables, lens,
                                                           window=w, upcast=upcast)
                     slack = weight_slack(q, kp, vp, tables, lens, window=w, upcast=upcast)
-                    key = f"{_dt(qdt)}/{_dt(pages)} {'upcast' if upcast else design}"
+                    key = f"{_dt(qdt)}/{_dt(pages)} {'upcast ' + up if upcast else design}"
                     label = f"paged_attention {key} q x{qx:g} at {list(q.shape)}"
                     if pages == torch.int8 and not upcast:
                         nonzero[f"{key} q x{qx:g}"] = min(
@@ -999,6 +1011,8 @@ def check_q8(paged_ops):
     emit("check", kernel="paged_attention other page dtypes", cases=len(errs),
          shapes=[[m["B"], m["KV"], m["G"], m["D"], m.get("max_ctx")]
                  for m in Q8_PAGED + [m for m, _ in Q8_MORE]],
+         upcast_shapes=[[m["B"], m["KV"], m["G"], m["D"], m.get("max_ctx")]
+                        for m in Q8_UPCAST],
          max_abs_err=errs, max_abs_err_without_slack=exacts, rel_rms=rels,
          int8_nonzero_rows=nonzero)
     return errs, exacts
@@ -1006,12 +1020,13 @@ def check_q8(paged_ops):
 
 def time_q8(paged_ops, pages, upcast, gen, m=MAIN_PAGED):
     """K2's row over ``pages`` under a bf16 q at ``m``: the bound reads
-    each counted key's k and v once at the pages' width (one byte), q, the
-    table and lens once, and writes the output once. The default mode's
-    row names the design that ran (``CVT.by_instance``). The library
-    yardstick of the upcast mode is SDPA on the pre-gathered cache upcast
-    to bf16 (gathered outside the timed region); no library call computes
-    the default mode's rounding, so it has none."""
+    each counted key's k and v once at the pages' width (one byte an 8-bit
+    element, four an fp32 one), q, the table and lens once, and writes the
+    output once. The row names the design that ran (``CVT.by_instance``,
+    or ``UPCAST.by_instance`` in the upcast mode). The library yardstick
+    of the upcast mode is SDPA on the pre-gathered cache upcast to bf16
+    (gathered outside the timed region); no library call computes the
+    default mode's rounding, so it has none."""
     import torch.nn.functional as F
     q, kp, vp, tables, lens = q8_inputs(pages, torch.bfloat16, gen, m)
     window = m.get("window", 0)
@@ -1022,13 +1037,13 @@ def time_q8(paged_ops, pages, upcast, gen, m=MAIN_PAGED):
     tokens = int(counted.sum())
     flops = 4 * G * D * KV * tokens
     kw = {"window": window, "upcast": upcast}
-    before = dict(paged_ops.CVT.by_instance)
+    counter = paged_ops.UPCAST if upcast else paged_ops.CVT
+    before = dict(counter.by_instance)
     out = paged_ops.paged_attention(q, kp, vp, tables, lens, **kw)
-    # a tree before the cluster design (tools/ab_flash.py's parent) names
-    # none: its default mode is the two passes
-    design = "upcast" if upcast else next(
-        k.partition(" ")[2] or "two_pass" for k, n in paged_ops.CVT.by_instance.items()
-        if n != before.get(k, 0))
+    # a tree before a mode's cluster design (tools/ab_flash.py's parent)
+    # names none: its default mode is the two passes, its upcast the split
+    design = next(k.partition(" ")[2] or ("split" if upcast else "two_pass")
+                  for k, n in counter.by_instance.items() if n != before.get(k, 0))
     needed = 2 * tokens * KV * D * kp.element_size() + nbytes(q, out, tables, lens)
     b_ms, b_by = bound(flops, needed, torch.bfloat16)
     kernel = lambda: paged_ops.paged_attention(q, kp, vp, tables, lens, **kw)  # noqa: E731
@@ -1768,10 +1783,14 @@ def kv_cache_dtype_phase(flash_ops, paged_ops):
     that holds it all, which is the bf16 ``capacity`` run's bytes (768
     pages; ``KV_FP8_POOL_BYTES``), K1 and K2 over fp8 pages counted (the
     cluster design, and no other), and the same traffic and engine config on ``SimRunner``
-    beside it: equal steps, preemptions and recomputed tokens. Then from
-    an int8 cache (``KV_INT8_REQUESTS``). Then the equality run: a
-    full-width 2-layer fp32 model on the card and its CPU copy, each from
-    an fp8 and from an int8 cache on a preempting pool, tokens equal.
+    beside it: equal steps, preemptions and recomputed tokens. Then the
+    same traffic and engine config under ``decode_unroll`` (the cache read
+    upcast to bf16): every request finishes, and K2's upcast cluster
+    instance alone launches, once a layer a decode step; its TPOT beside
+    the default mode's. Then from an int8 cache (``KV_INT8_REQUESTS``).
+    Then the equality run: a full-width 2-layer fp32 model on the card and
+    its CPU copy, each from an fp8 and from an int8 cache on a preempting
+    pool, and from an fp8 cache under ``decode_unroll``, tokens equal.
     Returns the launches of each card run by model."""
     import dataclasses as dc
 
@@ -1784,12 +1803,13 @@ def kv_cache_dtype_phase(flash_ops, paged_ops):
     from repro_torch.parallel.sharding import ParallelContext
 
     cfg = get_config("llama3.2-3b")
-    launches = {}
-    for cache, traffic in ((torch.float8_e4m3fn, SERVE_REQUESTS),
-                           (torch.int8, KV_INT8_REQUESTS)):
+    launches, tpot = {}, {}
+    for cache, traffic, unroll in ((torch.float8_e4m3fn, SERVE_REQUESTS, False),
+                                   (torch.float8_e4m3fn, SERVE_REQUESTS, True),
+                                   (torch.int8, KV_INT8_REQUESTS, False)):
         r = traffic
         requests = make_requests(cfg.vocab, r["n"], r["isl"], r["osl"], r["seed"])
-        # the fp8 run is the capacity traffic: naive admission and the
+        # the fp8 runs are the capacity traffic: naive admission and the
         # sanitizer, as the bf16 ``capacity`` runs
         fp8 = cache == torch.float8_e4m3fn
         ecfg = EngineConfig(n_pages=pages_to_hold(requests), max_num_seqs=16,
@@ -1797,9 +1817,17 @@ def kv_cache_dtype_phase(flash_ops, paged_ops):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         model = Transformer(cfg, device="cuda", dtype=torch.bfloat16, seed=0,
-                            ctx=ParallelContext(kv_cache_dtype=cache))
-        eng = InferenceEngine(cfg, ecfg, TorchRunner(model, device="cuda"),
-                              virtual_clock=False)
+                            ctx=ParallelContext(kv_cache_dtype=cache, decode_unroll=unroll))
+        runner = TorchRunner(model, device="cuda")
+        steps = [0]
+        decode = runner.decode
+
+        def counted(reqs, decode=decode, steps=steps):
+            steps[0] += 1
+            return decode(reqs)
+
+        runner.decode = counted
+        eng = InferenceEngine(cfg, ecfg, runner, virtual_clock=False)
         reqs = [eng.submit(p, n) for p, n in requests]
         _zero_launches(flash_ops, paged_ops)
         _zero_q8(paged_ops)
@@ -1807,38 +1835,46 @@ def kv_cache_dtype_phase(flash_ops, paged_ops):
         torch.cuda.synchronize()
         n = dict(_launches(flash_ops, paged_ops), **_q8_launches(paged_ops))
         wall = time.perf_counter() - t0
+        label = f"kv_cache_dtype {_dt(cache)}" + (" decode_unroll" if unroll else "")
         for (_, want), req in zip(requests, reqs):
             if len(req.output) != want or req.t_finished is None:
-                raise AssertionError(f"kv_cache_dtype {cache}: request {req.rid} has "
+                raise AssertionError(f"{label}: request {req.rid} has "
                                      f"{len(req.output)} of {want} tokens")
         pools = eng.runner.pools
         pool_bytes = sum(t.numel() * t.element_size() for t in pools)
-        # the main path's K2 over the cache: the one-launch cluster design
+        # the main path's K2 over the cache: the default mode's one-launch
+        # cluster design, or under decode_unroll the upcast mode's, once a
+        # layer a decode step
         instance = f"bfloat16/{_dt(cache)} cluster"
+        used, unused = ("upcast", "cvt") if unroll else ("cvt", "upcast")
         if any(t.dtype != cache for t in pools) or n["paged_attention"] \
-                or not n["flash_attention"] or not n["cvt"].get(instance) \
-                or sum(n["cvt"].values()) != n["cvt"][instance]:
-            raise AssertionError(f"kv_cache_dtype {cache}: pools "
-                                 f"{[t.dtype for t in pools]}, launches {n}")
+                or not n["flash_attention"] or not n[used].get(instance) \
+                or sum(n[used].values()) != n[used][instance] or any(n[unused].values()) \
+                or (unroll and n[used][instance] != steps[0] * cfg.n_layers):
+            raise AssertionError(f"{label}: pools {[t.dtype for t in pools]}, "
+                                 f"{steps[0]} decode steps, launches {n}")
         if fp8 and pool_bytes != KV_FP8_POOL_BYTES:
-            raise AssertionError(f"kv_cache_dtype fp8: pool of {pool_bytes} B, want "
+            raise AssertionError(f"{label}: pool of {pool_bytes} B, want "
                                  f"{KV_FP8_POOL_BYTES}")
         s = eng.metrics.summary()
         card = _schedule(eng, reqs)
+        tpot[label] = s["tpot_s"]["mean"]
         emit("kv_cache_dtype", model=cfg.name, layers=cfg.n_layers, dtype="bfloat16",
-             cache_dtype=_dt(cache), n_requests=len(requests),
+             cache_dtype=_dt(cache), decode_unroll=unroll, n_requests=len(requests),
              admission=ecfg.admission_mode, sanitize=ecfg.sanitize,
              gen_tokens=s["gen_tokens"], gen_tok_s=s["gen_throughput_tok_s"],
              ttft_p50_s=s["ttft_s"]["p50"], tpot_mean_s=s["tpot_s"]["mean"],
-             engine_s=s["duration_s"], wall_s_with_weight_init=wall,
+             tpot_mean_s_default_mode=tpot.get(f"kv_cache_dtype {_dt(cache)}"),
+             decode_steps=steps[0], engine_s=s["duration_s"],
+             wall_s_with_weight_init=wall,
              max_memory_allocated=torch.cuda.max_memory_allocated(),
              n_pages=pools[0].shape[1], pool_bytes=pool_bytes,
              pool_bytes_bf16=2 * pool_bytes // pools[0].element_size(), card=card,
              launches=n)
-        launches[f"llama3.2-3b kv_cache_dtype {_dt(cache)}"] = n
-        del model, eng, reqs, pools
+        launches[f"llama3.2-3b {label}"] = n
+        del model, eng, reqs, pools, runner
         free_card()
-        if not fp8:
+        if not fp8 or unroll:
             continue
         # the same traffic and engine config on the port's SimRunner
         sim = InferenceEngine(cfg, ecfg, SimRunner(cfg, pm.ParallelismPlan(), pm.H100))
@@ -1857,13 +1893,17 @@ def kv_cache_dtype_phase(flash_ops, paged_ops):
     small = dc.replace(cfg, n_layers=2)
     rng = np.random.default_rng(4)
     requests = [(rng.integers(0, cfg.vocab, size=30).tolist(), 20) for _ in range(4)]
-    card = Transformer(small, device="cuda", dtype=torch.float32, seed=1)
-    host = Transformer(small, device="cpu", dtype=torch.float32, seed=None)
-    on_card = dict(card.named_parameters())
-    with torch.no_grad():
-        for name, p in host.named_parameters():
-            p.copy_(on_card[name])
-    for cache in (torch.float8_e4m3fn, torch.int8):
+    for cache, unroll in ((torch.float8_e4m3fn, False), (torch.int8, False),
+                          (torch.float8_e4m3fn, True)):
+        if cache == torch.float8_e4m3fn:   # the models of the context
+            ctx = ParallelContext(decode_unroll=unroll)
+            card = Transformer(small, device="cuda", dtype=torch.float32, seed=1, ctx=ctx)
+            host = Transformer(small, device="cpu", dtype=torch.float32, seed=None, ctx=ctx)
+            on_card = dict(card.named_parameters())
+            with torch.no_grad():
+                for name, p in host.named_parameters():
+                    p.copy_(on_card[name])
+            del on_card
         outs, runs = {}, {}
         _zero_q8(paged_ops)
         for dev, model in (("cuda", card), ("cpu", host)):
@@ -1880,13 +1920,17 @@ def kv_cache_dtype_phase(flash_ops, paged_ops):
             if any(len(q.output) != n for (_, n), q in zip(requests, reqs)):
                 raise AssertionError(f"kv_cache_dtype equality {cache}/{dev}: unfinished")
         n = _q8_launches(paged_ops)
+        # an fp32 q: the default mode's cluster, or the upcast mode's split
+        counter, instance = ("upcast", f"float32/{_dt(cache)} split") if unroll else \
+            ("cvt", f"float32/{_dt(cache)} cluster")
         if outs["cuda"] != outs["cpu"] or not runs["cuda"]["preemptions"] \
-                or not n["cvt"].get(f"float32/{_dt(cache)} cluster"):
+                or not n[counter].get(instance):
             raise AssertionError(f"kv_cache_dtype equality {cache}: card tokens "
                                  f"{outs['cuda']} against CPU {outs['cpu']}, runs {runs}, "
                                  f"launches {n}")
         emit("kv_cache_dtype_equality", model=cfg.name, layers=2, dtype="float32",
-             cache_dtype=_dt(cache), tokens_equal=True, runs=runs, launches=n)
+             cache_dtype=_dt(cache), decode_unroll=unroll, tokens_equal=True, runs=runs,
+             launches=n)
     del card, host
     free_card()
     return launches
@@ -3356,16 +3400,19 @@ def _lever_run(cfg, ctx, lever, path):
 def _lever_runner(cfg, ctx, prompts, lever):
     """The prompts served by ``TorchRunner`` behind the engine (sharded
     over ``ctx``'s mesh, or at tp=1 without one), LEVER_STEPS tokens each,
-    the leader running the engine and the other ranks following it. The
-    pool holds them all, but for ``seq_shard_decode``: there it holds the
-    longest request (with the kv-aware reserve), so that a rank's share
-    (half the pool) is shorter than the longer sequences, which reach the
-    second rank; the requests take turns under kv-aware admission (naive
-    admission's concurrent chunked prefills would exhaust that pool and
-    wait on each other for good). The engine stops after LEVER_MAX_STEPS
-    steps, so a run that stalls fails its token check at once. Returns the
-    leader's tokens, TTFT and TPOT, and every rank's decode steps, the
-    weights its decode steps gathered and its pools' bytes."""
+    the leader running the engine and the other ranks following it, on a
+    pool that holds them all. The runner takes the reference's bound
+    ``max_len`` (``lever_max_len``), so a rank's pool holds its share of
+    the reference's cache (its data rank's slots, its share of a sequence
+    under ``seq_shard_decode``: half of ``max_len``, which the longer
+    sequences pass and so reach the second rank) where the engine's pool
+    holds that much, else the engine's pool; plus the pad page where it
+    pads. The engine stops after LEVER_MAX_STEPS steps, so a run that
+    stalls fails its token check at once. Returns the leader's tokens,
+    TTFT and TPOT, and every rank's decode steps, the weights its decode
+    steps gathered, its pools' bytes beside the reference's share (the
+    formula: rows x max_len / sp positions at the rank's bytes a position)
+    and the pools' bytes without ``max_len``."""
     from repro_torch.core.engine import EngineConfig, InferenceEngine
     from repro_torch.core.runner import TorchRunner
     from repro_torch.launch.serve import pages_to_hold
@@ -3387,11 +3434,9 @@ def _lever_runner(cfg, ctx, prompts, lever):
     requests = [(p, LEVER_STEPS) for p in prompts]
     page = 16
     engine = dict(LEVER_ENGINE, n_pages=pages_to_hold(requests))
-    if lever == "seq_shard_decode":
-        engine.update(admission_mode="kv_aware", n_pages=pages_to_hold(
-            [max(requests, key=lambda r: len(r[0]))]))
+    max_len = lever_max_len(requests, ctx)
     runner = Runner(Transformer(cfg, device="cuda", dtype=torch.float32, seed=1,
-                                ctx=ctx), device="cuda")
+                                ctx=ctx), device="cuda", max_len=max_len)
     out = {}
     if runner.leads:
         try:
@@ -3408,11 +3453,30 @@ def _lever_runner(cfg, ctx, prompts, lever):
                    longest=max(len(r.prompt) + len(r.output) for r in reqs))
     else:
         runner.follow()
+    # a position's bytes on this rank: every pool's row of one token
+    position = sum(int(np.prod(shape)) for shape in runner.model.pool_shapes(1, 1)) \
+        * runner.pools[0].element_size()
+    pad = page * position if runner.pad_page is not None else 0
     out.update(decode_steps=runner.steps, decode_weight_gathers=runner.weights,
                pool_pages=engine["n_pages"], share_tokens=runner.share_blocks * page,
+               max_len=max_len, rows=runner.rows,
                pool_bytes=sum(t.numel() * t.element_size() for t in runner.pools),
+               reference_share_bytes=runner.rows * (max_len // runner.sp) * position,
+               engine_pool_bytes=engine["n_pages"] * page * position, pad_page_bytes=pad,
+               pool_bytes_without_max_len=engine["n_pages"] * page * position + pad,
                state_bytes=sum(t.numel() * t.element_size() for t in runner.states))
     return out
+
+
+def lever_max_len(requests, ctx):
+    """The runner's ``max_len`` for a lever run: the requests' peak
+    context, rounded up to whole pages over the cache's sequence axis (so
+    that the reference's ``max_len / sp`` positions a rank are whole
+    pages, as the port's share is)."""
+    from repro_torch.launch.serve import peak_context
+    seq = ctx.spec("cache_seq")[0] if ctx is not None and ctx.mesh is not None else None
+    step = 16 * (ctx.axis_size(seq) if seq else 1)
+    return -(-peak_context(requests) // step) * step
 
 
 def _lever_train(cfg, ctx):
@@ -3549,6 +3613,25 @@ def _lever_count(res):
                 bottleneck_hier=r["bottleneck_hier"])
 
 
+# the lever runs whose ranks must hold exactly the reference's cache share
+# (and the pad page): the runner at "data" 2, and the sequence cut over 2
+LEVER_SHARE_RUNS = ("serve_2d_tp", "seq_shard_decode")
+
+
+def _check_pools(run, name, r):
+    """A serving run's pools on rank r: the smaller of the reference's
+    share and the engine's pool, plus the pad page; the reference's share
+    itself for ``LEVER_SHARE_RUNS``' lever runs."""
+    want = min(r["reference_share_bytes"], r["engine_pool_bytes"]) + r["pad_page_bytes"]
+    if r["pool_bytes"] != want or (
+            name == "with_lever" and run in LEVER_SHARE_RUNS
+            and r["pool_bytes"] != r["reference_share_bytes"] + r["pad_page_bytes"]):
+        return [f"{name}: pools of {r['pool_bytes']} B, the reference's share "
+                f"{r['reference_share_bytes']} B (engine pool {r['engine_pool_bytes']} B, "
+                f"pad page {r['pad_page_bytes']} B)"]
+    return []
+
+
 def _check_lever(ranks):
     """Raise unless a run's rows meet the phase's checks (``levers``)."""
     lead = ranks[0]
@@ -3570,6 +3653,10 @@ def _check_lever(ranks):
         want = lead["tp1"]["tokens"]
         if not all(len(t) == LEVER_STEPS for t in want):
             fail.append(f"tp=1 served {[len(t) for t in want]} tokens")
+        fail += _check_pools(run, "tp1", lead["tp1"])
+        for r in ranks:
+            for name in ("baseline", "with_lever"):
+                fail += [f"rank {r['rank']} {m}" for m in _check_pools(run, name, r[name])]
         for name in ("baseline", "with_lever"):
             if lead[name]["tokens"] != want:
                 fail.append(f"{name} tokens {lead[name]['tokens']} != tp=1's {want}")
@@ -3628,8 +3715,10 @@ def main():
     t0 = time.perf_counter()
     built = kbuild.build([flash_ops.KERNEL.name, flash_ops.NONCAUSAL.name,
                           paged_ops.KERNEL.name, paged_ops.CVT.name, paged_ops.UPCAST.name])
+    # each library's kernel instances (ptxas's entry functions) with their
+    # registers and spills
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "entry function" in ln or "registers" in ln or "spill" in ln]
              for name, log in built.items()}
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
 
@@ -3791,44 +3880,60 @@ def main():
     # the cluster (the main paths' fp8 and int8 caches under bf16 weights,
     # at every length), with its rows at the four shapes and the long ones,
     # and the two passes, which only 8-bit rows TMA cannot address take (no
-    # main path's); the upcast mode (``decode_unroll``), which no main path
-    # calls, beside the cluster
+    # main path's); the upcast mode (``decode_unroll``) in its two designs:
+    # the cluster (the fp8 serve under ``decode_unroll``), with its rows at
+    # ``Q8_UPCAST``, and the split (an fp32 q, fp32 pages under a bf16 q:
+    # the equality run's fp32 model), timed over fp32 pages
     sources = {"cluster": "src/repro_torch/csrc/paged_cluster.cuh",
-               "two_pass": "src/repro_torch/csrc/paged_cvt.cuh"}
+               "two_pass": "src/repro_torch/csrc/paged_cvt.cuh",
+               "upcast cluster": "src/repro_torch/csrc/paged_cluster_upcast.cuh",
+               "upcast split": "src/repro_torch/csrc/paged_cvt.cuh"}
     keys = ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_device_ms", "shape")
+
+    def q8_entry(name, pages, mode, design, rows, launched):
+        row = rows[0]   # llama3.2-3b's batch; the two passes' rows
+        key = f"{mode} {design}" if mode == "upcast" else design
+        counter = "upcast" if mode == "upcast" else "cvt"
+
+        def mine(k):   # "q/pages key": this entry's pages and design
+            pair, _, rest = k.partition(" ")
+            return _dt(pages) in pair and rest == key
+        return {
+            "name": name, "route": "cuda", "mode": mode, "design": design,
+            "source": sources[key],
+            "library": "src/repro_torch/csrc/paged_attention_"
+                       + ("upcast.cu" if mode == "upcast" else "cvt.cu"),
+            "replaces": replaces["paged_attention"],
+            "launches": sum(n[counter].get(i, 0) for n in q8_by_model.values()
+                            for i in launched),
+            "launches_by_model": {m: sum(n[counter].get(i, 0) for i in launched)
+                                  for m, n in q8_by_model.items()},
+            "max_abs_err": q8_err[f"bfloat16/{_dt(pages)} {key}"],
+            "max_abs_err_by_instance": {k: v for k, v in q8_err.items() if mine(k)},
+            # where ``weight_slack`` is 0: no weight lies at a rounding edge
+            "max_abs_err_without_slack": {k: v for k, v in q8_exact.items() if mine(k)},
+            **{k: row[k] for k in keys}, "kernel_ms": row["ms"], "dtype": "bfloat16",
+            "shapes": [{k: r[k] for k in (*keys, "window")} for r in rows]}
+
     for pages in (torch.float8_e4m3fn, torch.int8):
         rows = [r for r in q8_rows if r["pages"] == _dt(pages)]
-        up = next(r for r in rows if r["mode"] == "upcast")
         for design in ("cluster", "two_pass"):
-            inst = f"bfloat16/{_dt(pages)} {design}"
-            mine = [r for r in rows if r["mode"] == "default" and r["design"] == design]
-            row = mine[0]   # the cluster at llama3.2-3b's batch; the two passes' rows
-            entry = {
-                "name": f"paged_attention {_dt(pages)} pages"
-                        + (", two passes" if design == "two_pass" else ""),
-                "route": "cuda", "design": design, "source": sources[design],
-                "library": "src/repro_torch/csrc/paged_attention_cvt.cu",
-                "replaces": replaces["paged_attention"],
-                "launches": sum(n["cvt"].get(inst, 0) for n in q8_by_model.values()),
-                "launches_by_model": {m: n["cvt"].get(inst, 0) for m, n in q8_by_model.items()},
-                "max_abs_err": q8_err[inst],
-                "max_abs_err_by_instance": {k: v for k, v in q8_err.items()
-                                            if _dt(pages) in k and k.endswith(design)},
-                # where ``weight_slack`` is 0: no weight lies at a rounding edge
-                "max_abs_err_without_slack": {k: v for k, v in q8_exact.items()
-                                              if _dt(pages) in k and k.endswith(design)},
-                **{k: row[k] for k in keys}, "kernel_ms": row["ms"], "dtype": "bfloat16",
-                "shapes": [{k: r[k] for k in (*keys, "window")} for r in mine]}
-            if design == "cluster":
-                entry["modes"] = [{
-                    "mode": "upcast (decode_unroll)",
-                    "source": "src/repro_torch/csrc/paged_attention_upcast.cu",
-                    "launches": sum(n["upcast"].get(f"bfloat16/{_dt(pages)}", 0)
-                                    for n in q8_by_model.values()),
-                    "max_abs_err": q8_err[f"bfloat16/{_dt(pages)} upcast"],
-                    **{k: up[k] for k in keys}}]
-            kernels.append(entry)
+            kernels.append(q8_entry(
+                f"paged_attention {_dt(pages)} pages"
+                + (", two passes" if design == "two_pass" else ""), pages, "default", design,
+                [r for r in rows if r["mode"] == "default" and r["design"] == design],
+                [f"bfloat16/{_dt(pages)} {design}"]))
+        kernels.append(q8_entry(
+            f"paged_attention {_dt(pages)} pages, upcast (decode_unroll)", pages, "upcast",
+            "cluster", [r for r in rows if r["mode"] == "upcast"],
+            [f"bfloat16/{_dt(pages)} cluster"]))
+    kernels.append(q8_entry(
+        "paged_attention upcast (decode_unroll), split: fp32 pages under a bf16 q, "
+        "an fp32 q", torch.float32, "upcast", "split",
+        [r for r in q8_rows if r["pages"] == "float32"],
+        [f"{q}/{p} split" for q, p in (("bfloat16", "float32"), ("float32", "float8_e4m3fn"),
+                                        ("float32", "int8"), ("float32", "bfloat16"))]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

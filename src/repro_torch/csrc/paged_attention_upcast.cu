@@ -3,14 +3,23 @@
 // (src/repro/models/transformer.py:485-488) casts the cache to q's dtype
 // before decode_attention, so q*scale and the weights round to q's dtype,
 // not the pages'; an fp32 cache under a bf16 q is rounded down to bf16 on
-// load, as the reference's astype rounds it. The one-pass split kernel of paged_attention.cu with its
-// pages converted on load (paged_cvt.cuh's ONEPASS mode; a bf16 q's q*scale
-// and weights as bf16, an fp32 q's as three bf16 terms each), then a merge.
+// load, as the reference's astype rounds it. One decode (paged_upcast_fwd)
+// runs one of two designs, which the caller chooses
+// (kernels/paged_attention/ops.py upcast_design):
+// - the cluster design (paged_cluster_upcast.cuh), for fp8 e4m3 or int8
+//   pages under a bf16 q: one launch, a thread block cluster a (batch row,
+//   kv head) that reads each page's k and v once by TMA, an online softmax
+//   a block, merged through distributed shared memory;
+// - the split design: the one-pass split kernel of paged_attention.cu with
+//   its pages converted on load (paged_cvt.cuh's ONEPASS mode; a bf16 q's
+//   q*scale and weights as bf16, an fp32 q's as three bf16 terms each),
+//   then cvt_merge; for an fp32 q, fp32 pages under a bf16 q and 8-bit
+//   rows TMA cannot address. Its split half alone is paged_upcast_partials.
 // Replaces the Pallas TPU kernel paged_attention_kernel
-// (src/repro/kernels/paged_attention/kernel.py:79) for such pages; bound
-// and design in paged_cvt.cuh.
+// (src/repro/kernels/paged_attention/kernel.py:79) for such pages; bounds
+// and designs in the two headers.
 
-#include "paged_cvt.cuh"
+#include "paged_cluster_upcast.cuh"
 
 using namespace paged_cvt;
 
@@ -47,20 +56,47 @@ cudaError_t split(const void* q, int q_dtype, const void* k_pages, const void* v
   });
 }
 
+cudaError_t cluster(const void* q, int q_dtype, const void* k_pages, const void* v_pages,
+                    const void* tables, const void* lens, void* out, int B, int KV, int G, int D,
+                    int max_blocks, int window, float scale, int page_dtype, int n_pages,
+                    cudaStream_t s) {
+  if (q_dtype != 1 || D < 8 || D > 128 || D % 8 || G < 1 || G > GMAX)
+    return cudaErrorInvalidValue;   // a bf16 q only
+  auto with_nt = [&](auto t) -> cudaError_t {
+    using TK = decltype(t);
+    if (G <= NTILE)
+      return paged_cluster_upcast::launch_upcast<TK, 1>(q, k_pages, v_pages, tables, lens, out,
+                                                        B, KV, G, D, max_blocks, window, scale,
+                                                        n_pages, s);
+    return paged_cluster_upcast::launch_upcast<TK, 2>(q, k_pages, v_pages, tables, lens, out, B,
+                                                      KV, G, D, max_blocks, window, scale,
+                                                      n_pages, s);
+  };
+  if (page_dtype == PAGE_E4M3) return with_nt(E4M3{});
+  if (page_dtype == PAGE_INT8) return with_nt(int8_t{});
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // q (B,KV,G,D) of q_dtype (0 fp32, 1 bf16); pages (P,16,KV,D) of page_dtype
 // (1 bf16 under an fp32 q, 2 e4m3, 3 int8, 4 fp32 under a bf16 q); out
-// (B,KV,G,D) of q_dtype;
-// window <= 0: none. scratch holds B*KV*ceil(max_blocks/16)*G*(D+2) fp32
-// values. Returns cudaGetLastError() after the merge (or the failure).
+// (B,KV,G,D) of q_dtype; window <= 0: none. design 1: the cluster (n_pages
+// the pool's pages, for its tensor maps; no scratch); 0: the split, whose
+// scratch holds B*KV*ceil(max_blocks/16)*G*(D+2) fp32 values. Returns
+// cudaGetLastError() after the last launch (or the failure).
 extern "C" int paged_upcast_fwd(const void* q, const void* k_pages, const void* v_pages,
                                 const void* tables, const void* lens, void* out, void* scratch,
                                 int B, int KV, int G, int D, int max_blocks, int window,
-                                float scale, int q_dtype, int page_dtype, void* stream) {
+                                float scale, int q_dtype, int page_dtype, int design, int n_pages,
+                                void* stream) {
   if (B == 0 || KV == 0) return 0;
   if (max_blocks < 1) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (design == 1)
+    return cluster(q, q_dtype, k_pages, v_pages, tables, lens, out, B, KV, G, D, max_blocks,
+                   window, scale, page_dtype, n_pages, s);
+  if (design != 0) return cudaErrorInvalidValue;
   const int n_part = (max_blocks + PART - 1) / PART;
   float* acc = static_cast<float*>(scratch);
   float* ml = acc + (size_t)B * KV * n_part * G * D;

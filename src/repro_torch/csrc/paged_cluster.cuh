@@ -635,53 +635,142 @@ __host__ __device__ constexpr int span_pages(int max_blocks, int window) {
                                                            : max_blocks;
 }
 
+// Host helpers of the cluster launches: this design's and the upcast
+// mode's (paged_cluster_upcast.cuh).
+
+// The 4-d tensor maps over the k and v pools, n_pages pages of (PAGE, KV,
+// D) TK values, each box ROW bytes of a row by a page's tokens, 128-byte
+// swizzle; rows that are no multiple of 16 bytes (8-bit D 120) take the
+// flat map over all heads (*flat), whose box starts at the 16-byte boundary
+// before the row, since TMA faults on another start. cudaErrorInvalidValue
+// for an empty pool or rows TMA cannot address (8-bit D 120 under an odd
+// KV).
+template <typename TK>
+cudaError_t make_page_maps(CUtensorMap* tk, CUtensorMap* tv, const void* kp, const void* vp,
+                           int KV, int D, int n_pages, bool* flat) {
+  using PG = Pages<TK>;
+  if (n_pages < 1) return cudaErrorInvalidValue;
+  const uint64_t row = (uint64_t)D * PG::EB, tok = row * KV;
+  *flat = row % 16 != 0;
+  if (tok % 16 != 0) return cudaErrorInvalidValue;
+  const uint64_t dims[4] = {*flat ? (uint64_t)KV * D : (uint64_t)D, *flat ? 1u : (uint64_t)KV,
+                            (uint64_t)PAGE, (uint64_t)n_pages};
+  const uint64_t strides[3] = {*flat ? tok : row, tok, tok * PAGE};
+  const uint32_t box[4] = {ROW / PG::EB, 1, PAGE, 1};
+  const CUtensorMapDataType type =
+      PG::EB == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  cudaError_t e = hw::make_tmap_4d(tk, type, kp, dims, strides, box, 128);
+  if (e == cudaSuccess) e = hw::make_tmap_4d(tv, type, vp, dims, strides, box, 128);
+  return e;
+}
+
+// The opt-ins of n kernel instances: smem bytes of dynamic shared memory
+// and clusters past 8 blocks.
+inline cudaError_t opt_in(const void* const* kernels, int n, int smem) {
+  cudaError_t e = cudaSuccess;
+  for (int i = 0; i < n && e == cudaSuccess; ++i)
+    if ((e = cudaFuncSetAttribute(kernels[i], cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem)) == cudaSuccess)
+      e = cudaFuncSetAttribute(kernels[i], cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+// A launch of clusters over (c, KV, B) blocks of `threads` threads;
+// shape(c, smem) sets the grid, the cluster's size c and the dynamic
+// shared memory.
+struct ClusterLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = {};
+  int KV, B;
+  ClusterLaunch(int threads, int KV_, int B_, cudaStream_t stream) : KV(KV_), B(B_) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.blockDim = dim3(threads);
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  ClusterLaunch(const ClusterLaunch&) = delete;   // cfg points at attr
+  void shape(int c, int smem) {
+    cfg.gridDim = dim3(c, KV, B);
+    cfg.dynamicSmemBytes = smem;
+    attr[0].val.clusterDim.x = c;
+  }
+};
+
+// The clusters of cfg's shape the card holds at once, asked of
+// cudaOccupancyMaxActiveClusters once: seen keeps that count + 1, 0 until
+// asked (a static array of them needs no set-up). A failed query counts no
+// cluster, and its error, which the launch must not report, is cleared.
+inline int active_clusters(int& seen, const void* kernel, const cudaLaunchConfig_t& cfg) {
+  if (seen == 0) {
+    int n = 0;
+    if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
+      n = 0;
+      cudaGetLastError();
+    }
+    seen = n + 1;
+  }
+  return seen - 1;
+}
+
+// The cluster's size C for B * KV clusters: of 1..CLUSTER (and the span's
+// pages), the one whose waves of clusters (active(c): the clusters of c
+// blocks the card holds at once) times (a wave's fixed time + chain(c), a
+// warp's chain of page steps at c + the exchange's half a page step a
+// block) is least, the largest of equals; 0 where the card holds no
+// cluster of any size. A block's work is a chain of latencies, so waves
+// count whole up to two (a second wave of rows alike costs a whole chain);
+// past that by their mean (rows of a batch differ in length, and the last
+// wave's clusters overlap the others' tails). A wave's fixed time (the
+// launch, q, the first copies, the cluster's barriers, the sums'
+// exchange), about 10 us, in a warp's page steps: about 0.7 us a page at
+// one n tile and 4 warps, 1.3 us at two and 8 (H100).
+template <int NT, typename Active, typename Chain>
+int cluster_size(int B, int KV, int span, Active active, Chain chain) {
+  constexpr int WAVE_PAGES = NT == 1 ? 16 : 8;
+  int C = 0;
+  double least = 0.0;
+  for (int c = 1; c <= CLUSTER && c <= span; ++c) {
+    const int n = active(c);
+    if (n < 1) continue;
+    const double w = (double)(B * KV) / n;
+    const double waves = w <= 2.0 ? std::ceil(w) : w;
+    const double cost = waves * (WAVE_PAGES + chain(c) + 0.5 * c);
+    if (C == 0 || cost <= least) {
+      least = cost;
+      C = c;
+    }
+  }
+  return C;
+}
+
 // The launch of the design over every (batch row, kv head); n_pages the
 // pool's pages. A block of a cluster of c takes at most per = ceil(span /
 // c) pages and keeps the scores of as many of them as its shared memory
 // holds beside the ring (the opt-in most a block may ask for; the request
-// rounded up to 8 KB, so a decode's growing table changes it rarely). The
-// cluster's size C: of 1..CLUSTER (and the span's pages), the one whose
-// waves of clusters, as cudaOccupancyMaxActiveClusters counts them at that
-// size and shared memory, times (a wave's fixed time + a warp's chain of
-// k's and v's pages and the overflow's k again + the exchange's half a
-// page step a block) is least, the largest of equals (a block's work is a
-// chain of latencies, so a second wave of rows alike costs about as much
-// as the first; the counts are kept per instance, size and shared memory,
-// for the process's card). Past two waves a wave counts by its share (the
-// rows of a batch differ in length). A launch whose blocks keep every page
-// runs the instance without the overflow's path. cudaErrorInvalidValue for
-// 8-bit pages whose kv heads' rows TMA cannot address (D 120 under an odd
-// KV): ops.py cvt_design sends those to the two-pass kernels;
-// cudaErrorLaunchOutOfResources where the card holds no cluster of any
-// size.
+// rounded up to 8 KB, so a decode's growing table changes it rarely). C by
+// cluster_size, a warp's chain being its k's and v's pages and the
+// overflow's k again; the counts of clusters are kept per instance, size
+// and shared memory, for the process's card. A launch whose blocks keep
+// every page runs the instance without the overflow's path.
+// cudaErrorInvalidValue for 8-bit pages whose kv heads' rows TMA cannot
+// address (D 120 under an odd KV): ops.py cvt_design sends those to the
+// two-pass kernels; cudaErrorLaunchOutOfResources where the card holds no
+// cluster of any size.
 template <typename TK, typename TQ, int NT>
 cudaError_t launch_cluster(const void* q, const void* kp, const void* vp, const void* tables,
                            const void* lens, void* out, int B, int KV, int G, int D,
                            int max_blocks, int window, float scale, int n_pages,
                            cudaStream_t stream) {
-  using PG = Pages<TK>;
   constexpr int STEP = 8 * 1024;                   // the requests' granularity
   constexpr int NSTEP = 232448 / STEP + 1;
-  // a wave's fixed time (the launch, q, the first copies, the cluster's
-  // barriers, the sums' exchange), about 10 us, in a warp's page steps:
-  // about 0.7 us a page at one n tile and 4 warps, 1.3 us at two and 8
-  // (H100)
-  constexpr int WAVE_PAGES = NT == 1 ? 16 : 8;
-  if (n_pages < 1) return cudaErrorInvalidValue;
-  const int span = span_pages(max_blocks, window);
-  const uint64_t row = (uint64_t)D * PG::EB, tok = row * KV;
-  const bool flat = row % 16 != 0;
-  if (tok % 16 != 0) return cudaErrorInvalidValue;
-  const uint64_t dims[4] = {flat ? (uint64_t)KV * D : (uint64_t)D, flat ? 1u : (uint64_t)KV,
-                            (uint64_t)PAGE, (uint64_t)n_pages};
-  const uint64_t strides[3] = {flat ? tok : row, tok, tok * PAGE};
-  const uint32_t box[4] = {ROW / PG::EB, 1, PAGE, 1};
-  const CUtensorMapDataType type =
-      PG::EB == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap tk, tv;
-  cudaError_t e = hw::make_tmap_4d(&tk, type, kp, dims, strides, box, 128);
-  if (e == cudaSuccess) e = hw::make_tmap_4d(&tv, type, vp, dims, strides, box, 128);
+  bool flat = false;
+  cudaError_t e = make_page_maps<TK>(&tk, &tv, kp, vp, KV, D, n_pages, &flat);
   if (e != cudaSuccess) return e;
+  const int span = span_pages(max_blocks, window);
   // the instances without and with the overflow's path
   auto plain = paged_cluster_cvt<TK, TQ, NT, false>;
   auto over = paged_cluster_cvt<TK, TQ, NT, true>;
@@ -702,12 +791,7 @@ cudaError_t launch_cluster(const void* q, const void* kp, const void* vp, const 
       const int ck = (optin - (int)fa.sharedSizeBytes) / STEP * STEP;
       c = c == 0 || ck < c ? ck : c;
     }
-    for (const void* k : kernels)
-      if ((e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, c)) !=
-              cudaSuccess ||
-          (e = cudaFuncSetAttribute(k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
-              cudaSuccess)
-        return e;
+    if ((e = opt_in(kernels, 2, c)) != cudaSuccess) return e;
     cap = c;
   }
   // a block of a cluster of c: its pages, those whose scores it keeps, and
@@ -723,62 +807,24 @@ cudaError_t launch_cluster(const void* q, const void* kp, const void* vp, const 
     return bytes < cap ? bytes : cap;
   };
   if (keep_of(1) < 0) return cudaErrorLaunchOutOfResources;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(warps<NT>() * 32);
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  auto shape = [&](int c) {
-    cfg.gridDim = dim3(c, KV, B);
-    cfg.dynamicSmemBytes = smem_of(c);
-    attr[0].val.clusterDim.x = c;
-  };
   // a block of a cluster of c has pages past those it keeps: the
   // overflow's instance
   auto over_of = [&](int c) { return keep_of(c) < per_of(c) ? 1 : 0; };
-  // the clusters of c blocks the card holds at once, by instance, c and
-  // shared memory (-1: not asked yet)
-  static int seen[2][CLUSTER + 1][NSTEP];
-  static bool seen_init = false;
-  if (!seen_init) {
-    for (auto& k : seen)
-      for (auto& r : k)
-        for (int& v : r) v = -1;
-    seen_init = true;
-  }
-  int C = 0;
-  double least = 0.0;
-  for (int c = 1; c <= CLUSTER && c <= span; ++c) {
-    shape(c);
-    int& n = seen[over_of(c)][c][cfg.dynamicSmemBytes / STEP];
-    if (n < 0) {
-      if (cudaOccupancyMaxActiveClusters(&n, kernels[over_of(c)], &cfg) != cudaSuccess) {
-        n = 0;
-        cudaGetLastError();   // the failed query's error, which the launch must not report
-      }
-    }
-    if (n < 1) continue;
-    // waves of clusters: whole up to two (a second wave of equal rows
-    // costs a whole chain), past that their mean (rows of a batch differ in
-    // length, and the last wave's clusters overlap the others' tails)
-    const double w = (double)(B * KV) / n;
-    const double waves = w <= 2.0 ? std::ceil(w) : w;
-    const int chain = (2 * per_of(c) + per_of(c) - keep_of(c) + warps<NT>() - 1) / warps<NT>();
-    // the cluster's barriers and its exchange of (m, l) and the sums grow
-    // with its blocks: about half a page step a block
-    const double cost = waves * (WAVE_PAGES + chain + 0.5 * c);
-    if (C == 0 || cost <= least) {
-      least = cost;
-      C = c;
-    }
-  }
+  ClusterLaunch L(warps<NT>() * 32, KV, B, stream);
+  static int seen[2][CLUSTER + 1][NSTEP];   // by instance, c and shared memory
+  const int C = cluster_size<NT>(
+      B, KV, span,
+      [&](int c) {
+        L.shape(c, smem_of(c));
+        return active_clusters(seen[over_of(c)][c][smem_of(c) / STEP], kernels[over_of(c)],
+                               L.cfg);
+      },
+      [&](int c) {
+        return (2 * per_of(c) + per_of(c) - keep_of(c) + warps<NT>() - 1) / warps<NT>();
+      });
   if (C == 0) return cudaErrorLaunchOutOfResources;
-  shape(C);
-  e = cudaLaunchKernelEx(&cfg, over_of(C) ? over : plain, tk, tv, static_cast<const TQ*>(q),
+  L.shape(C, smem_of(C));
+  e = cudaLaunchKernelEx(&L.cfg, over_of(C) ? over : plain, tk, tv, static_cast<const TQ*>(q),
                          static_cast<const int*>(tables), static_cast<const int*>(lens),
                          static_cast<TQ*>(out), KV, G, D, max_blocks, window, scale, (int)flat,
                          keep_of(C));

@@ -28,9 +28,11 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# more flags for one library: the cluster design's 20 kernel instances
-# compile in parallel (a build of 23 s instead of 43 s on the card's host)
-EXTRA_FLAGS = {"paged_attention_cvt": ("-split-compile=0",)}
+# more flags for a library: the cluster designs' kernel instances compile
+# in parallel (the cvt library's 20 in 23 s instead of 43 s on the card's
+# host)
+EXTRA_FLAGS = {"paged_attention_cvt": ("-split-compile=0",),
+               "paged_attention_upcast": ("-split-compile=0",)}
 # the ``dtype`` argument of every C entry
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the ``page_dtype`` argument of the entries that read pages of another

@@ -21,11 +21,15 @@ shared memory (k again for the overflow past it) at every length
 (``csrc/paged_cluster.cuh``), or, for 8-bit rows whose kv heads TMA cannot
 address, two passes over the split layout (four launches, one count). Under ``upcast=True`` (the
 reference's ``decode_unroll``, which upcasts the cache to q's dtype) they
-take the one-pass kernel with the pages converted on load, ``UPCAST``; so
+take ``UPCAST`` in one of two designs that ``upcast_design`` chooses: one
+launch of a thread block cluster per (batch row, kv head), an online
+softmax a block over pages read once by TMA, for 8-bit pages under a bf16
+q (``csrc/paged_cluster_upcast.cuh``), or the one-pass split kernel with
+the pages converted on load and its merge (two launches, one count); so
 do fp32 pages under a bf16 q, rounded to bf16 on load as the reference's
 upcast rounds them. Without it fp32 pages under a bf16 q round nothing, so
 the fp32 kernel runs them on q in fp32. Each counter's ``by_instance``
-names q's and the pages' dtype, and ``CVT``'s the design.
+names q's and the pages' dtype, and ``CVT``'s and ``UPCAST``'s the design.
 
 Two more entries expose the halves, for a decode whose cache sequence is
 cut over ranks: ``paged_attention_partials`` runs the split kernel alone
@@ -47,6 +51,7 @@ window: the count of the rank that holds the newest token.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -63,7 +68,7 @@ __all__ = ["CVT", "KERNEL", "MERGE", "PARTIALS", "STATS", "STATS_MERGE", "SUM",
            "paged_attention_partials", "paged_attention_plain",
            "paged_attention_partials_plain", "paged_attention_stats",
            "paged_attention_values", "paged_merge", "paged_merge_plain",
-           "paged_stats_merge", "paged_sum"]
+           "paged_stats_merge", "paged_sum", "upcast_design"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("paged_attention", "paged_attention_fwd",
@@ -79,7 +84,9 @@ _SPLIT_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_floa
 CVT = CudaKernel("paged_attention_cvt", "paged_cvt_fwd",
                  [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                   _I, _I, _I, _I, _P])
-UPCAST = CudaKernel("paged_attention_upcast", "paged_upcast_fwd", _SPLIT_ARGS)
+UPCAST = CudaKernel("paged_attention_upcast", "paged_upcast_fwd",
+                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+                     _I, _I, _I, _I, _P])
 UPCAST_PARTIALS = CudaKernel("paged_attention_upcast", "paged_upcast_partials",
                              _SPLIT_ARGS)
 STATS = CudaKernel("paged_attention_cvt", "paged_cvt_stats",
@@ -100,6 +107,33 @@ PAGE = 16       # tokens per page, fixed in the kernel
 MAX_GROUP = 16  # most q heads per kv head the kernel takes
 PART = 16       # pages per partition of the split kernel, fixed in the kernel
 DESIGNS = {"two_pass": 0, "cluster": 1}   # the ``design`` argument of ``paged_cvt_fwd``
+UPCAST_DESIGNS = {"split": 0, "cluster": 1}   # ... and of ``paged_upcast_fwd``
+
+
+def _tma_rows(D: int, KV: int, page_bytes: int) -> bool:
+    """Whether TMA can address a kv head's rows: 16-byte strides, D times
+    the element size or KV times that (``csrc/paged_cluster.cuh``)."""
+    return (D * page_bytes) % 16 == 0 or (KV * D * page_bytes) % 16 == 0
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's address, or a null pointer for none."""
+    return None if t is None else t.data_ptr()
+
+
+def upcast_design(q_dtype: torch.dtype, page_dtype: torch.dtype, D: int, KV: int) -> str:
+    """The design that runs ``paged_attention(upcast=True)`` over pages of
+    ``page_dtype``, another dtype than q's ``q_dtype`` (pages of q's dtype
+    take the same-dtype kernel, with nothing to upcast): "cluster" for fp8
+    e4m3 or int8 pages under a bf16 q whose rows TMA can address (one
+    launch, ``csrc/paged_cluster_upcast.cuh``); else "split" (an fp32 q,
+    fp32 pages under a bf16 q, 8-bit D 120 under an odd KV). The split
+    half under ``seq_shard_decode`` (``paged_attention_partials``) runs the
+    split kernel whatever this says."""
+    if q_dtype == torch.bfloat16 and page_dtype in (torch.float8_e4m3fn, torch.int8) \
+            and _tma_rows(D, KV, 1):
+        return "cluster"
+    return "split"
 
 
 def cvt_design(max_blocks: int, G: int, window: int, D: int, KV: int,
@@ -113,8 +147,7 @@ def cvt_design(max_blocks: int, G: int, window: int, D: int, KV: int,
     "two_pass" (8-bit pages of head dim 120 under an odd KV). The split
     decode under ``seq_shard_decode`` runs the two passes' entries
     (``paged_attention_stats`` ... ``paged_sum``) whatever this says."""
-    rows = (D * page_bytes) % 16 == 0 or (KV * D * page_bytes) % 16 == 0
-    return "cluster" if rows else "two_pass"
+    return "cluster" if _tma_rows(D, KV, page_bytes) else "two_pass"
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -160,17 +193,19 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
              PAGE_CODES[k_pages.dtype])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if upcast:
+        design = upcast_design(q.dtype, k_pages.dtype, D, KV)
+        # the split's partitions; the cluster merges in shared memory
         scratch = torch.empty(B * KV * n_part * G * (D + 2), dtype=torch.float32,
-                              device=q.device)
-        UPCAST.launch(*args, scratch.data_ptr(), *codes, stream,
-                      instance=_instance(q, k_pages))
+                              device=q.device) if design == "split" else None
+        UPCAST.launch(*args, _ptr(scratch), *codes, UPCAST_DESIGNS[design],
+                      k_pages.shape[0], stream, instance=f"{_instance(q, k_pages)} {design}")
         return out
     design = cvt_design(max_blocks, G, window, D, KV, k_pages.element_size())
     # the two passes' partitions and each row's (M, L); the cluster keeps
     # its own in shared memory
-    scratch = torch.empty(B * KV * (n_part * G * (D + 2) + 2 * G) if design == "two_pass"
-                          else 0, dtype=torch.float32, device=q.device)
-    CVT.launch(*args, scratch.data_ptr(), *codes, DESIGNS[design], k_pages.shape[0], stream,
+    scratch = torch.empty(B * KV * (n_part * G * (D + 2) + 2 * G), dtype=torch.float32,
+                          device=q.device) if design == "two_pass" else None
+    CVT.launch(*args, _ptr(scratch), *codes, DESIGNS[design], k_pages.shape[0], stream,
                instance=f"{_instance(q, k_pages)} {design}")
     return out
 

@@ -91,6 +91,11 @@ def build_engine(cfg: ModelConfig, n_pages: int, *, device="cuda",
                            virtual_clock=False)
 
 
+def peak_context(requests: Sequence[Tuple[List[int], int]]) -> int:
+    """The most positions a request holds: its prompt and its outputs."""
+    return max(len(p) + n for p, n in requests)
+
+
 def serve_sharded(cfg: ModelConfig, requests: Sequence[Tuple[List[int], int]],
                   ctx: ParallelContext, *, device="cuda",
                   dtype: torch.dtype = torch.bfloat16, seed: int = 0,
@@ -99,11 +104,13 @@ def serve_sharded(cfg: ModelConfig, requests: Sequence[Tuple[List[int], int]],
     """``serve`` over ``ctx``'s mesh, called on every rank: each builds its
     shard of the seeded model (the same model as one device's); the
     leading rank runs the engine and returns it with the requests, the
-    others follow it and return (None, []). ``engine`` overrides the
-    ``EngineConfig`` (its ``n_pages`` defaults to a pool that holds every
-    request)."""
+    others follow it and return (None, []). The runner's ``max_len`` (a
+    rank's pool holds its share of that many positions a slot) is the
+    requests' ``peak_context``, as the reference's launcher bounds its
+    ``JaxRunner`` by ``max_len``. ``engine`` overrides the ``EngineConfig``
+    (its ``n_pages`` defaults to a pool that holds every request)."""
     model = Transformer(cfg, device=device, dtype=dtype, seed=seed, ctx=ctx)
-    runner = TorchRunner(model, device=device)
+    runner = TorchRunner(model, device=device, max_len=peak_context(requests))
     if not runner.leads:
         runner.follow()
         return None, []

@@ -511,7 +511,8 @@ def test_paged_fp32_pages_upcast_to_bf16_vs_plain(cuda, case):
     and its partials merged likewise."""
     q, kp, vp, tables, lens, window = _q8_inputs(case, torch.float32, torch.bfloat16,
                                                  800 + Q8_CASES.index(case), cuda)
-    inst = "bfloat16/float32"
+    assert paged_ops.upcast_design(q.dtype, kp.dtype, q.shape[3], q.shape[1]) == "split"
+    inst = "bfloat16/float32 split"
     before = (paged_ops.UPCAST.by_instance[inst], paged_ops.KERNEL.launches)
     out = paged_ops.paged_attention(q, kp, vp, tables, lens, window=window, upcast=True)
     torch.cuda.synchronize()
@@ -608,3 +609,47 @@ def test_paged_cvt_design_at_the_card_shapes(cuda, pair, qx, shape):
     if pages == torch.int8:   # integer products, weights 0 or 1
         exact = slack.amax(dim=-1) == 0
         assert float((out.float() - ref.float()).abs()[exact].max()) == 0.0
+
+
+# ------------------------------------- the upcast mode's cluster design
+# The upcast mode (``decode_unroll``) over fp8 e4m3 and int8 pages under a
+# bf16 q runs one launch of a thread block cluster per (batch row, kv head)
+# (``csrc/paged_cluster_upcast.cuh``): at the card's four main shapes and at
+# reasoning lengths (Q8_FULL), and at the edges of its split into blocks:
+# single-page rows, rows shorter than a cluster's blocks beside one long row
+# (its span sets C), a window with rows shorter than it, all in shuffled
+# pages
+UPCAST_FULL = {
+    **{k: Q8_FULL[k] for k in ("llama3.2-3b", "h2o-danube", "llama3-405b", "zamba2",
+                               "reasoning-G16", "reasoning-G8")},
+    "single-page rows": dict(B=16, KV=8, G=16, D=128, min_ctx=1, max_ctx=16),
+    "rows shorter than C pages": dict(B=16, KV=8, G=3, D=128, min_ctx=1, max_ctx=4096),
+    "window, rows shorter than it": dict(B=8, KV=8, G=4, D=120, min_ctx=16, max_ctx=5000,
+                                         window=4096),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(UPCAST_FULL))
+@pytest.mark.parametrize("pages", ["float8_e4m3fn", "int8"])
+def test_paged_upcast_cluster_vs_plain(cuda, pages, shape):
+    """One launch of the upcast mode's cluster instance (``upcast_design``),
+    against the plain version under the upcast tolerance; none of the
+    same-dtype kernel's or the default mode's."""
+    m = UPCAST_FULL[shape]
+    pt = getattr(torch, pages)
+    q, kp, vp, tables, lens, window = _full_inputs(m, pt, torch.bfloat16,
+                                                   1100 + list(UPCAST_FULL).index(shape), cuda,
+                                                   1.0)
+    assert paged_ops.upcast_design(q.dtype, pt, m["D"], m["KV"]) == "cluster"
+    inst = f"bfloat16/{pages} cluster"
+    before = (paged_ops.UPCAST.by_instance[inst], paged_ops.UPCAST.launches,
+              paged_ops.CVT.launches, paged_ops.KERNEL.launches)
+    out = paged_ops.paged_attention(q, kp, vp, tables, lens, window=window, upcast=True)
+    torch.cuda.synchronize()
+    assert (paged_ops.UPCAST.by_instance[inst], paged_ops.UPCAST.launches,
+            paged_ops.CVT.launches, paged_ops.KERNEL.launches) == \
+        (before[0] + 1, before[1] + 1, before[2], before[3])
+    assert out.dtype == torch.bfloat16
+    ref = paged_ops.paged_attention_plain(q, kp, vp, tables, lens, window=window, upcast=True)
+    _hold_q8(out, ref, q, torch.zeros_like(ref, dtype=torch.float32), vp, True)

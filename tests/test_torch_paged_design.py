@@ -1,11 +1,15 @@
 """Which design runs K2's default mode over pages of another dtype than q
-(``kernels/paged_attention/ops.py`` ``cvt_design``), on the CPU: the
+(``kernels/paged_attention/ops.py`` ``cvt_design``), and its upcast mode
+(``upcast_design``), on the CPU. The default mode: the
 one-launch cluster design (``csrc/paged_cluster.cuh``) at every shape the
 card runs and at every length a table holds (a block's scores past its
 shared memory are recomputed from k in the same launch), and the two-pass
 kernels only where TMA cannot address the pages' rows (8-bit pages of head
-dim 120 under an odd number of kv heads). The kernels themselves run on
-the card (``tests/test_torch_kernels_gpu.py``)."""
+dim 120 under an odd number of kv heads). The upcast mode: the one-launch
+cluster design (``csrc/paged_cluster_upcast.cuh``) for fp8 e4m3 and int8
+pages under a bf16 q wherever TMA addresses their rows, the split kernel
+for every other pair. The kernels themselves run on the card
+(``tests/test_torch_kernels_gpu.py``)."""
 import pytest
 import torch
 
@@ -89,3 +93,32 @@ def test_on_the_cpu_the_wrapper_runs_the_plain_version():
     out = ops.paged_attention(q, kp, vp, tables, lens)
     assert ops.CVT.launches == before and out.dtype == torch.float32
     torch.testing.assert_close(out, ops.paged_attention_plain(q, kp, vp, tables, lens))
+
+
+# (q, pages) -> the upcast mode's design at D 128 under 8 kv heads: every
+# pair of two dtypes the wrapper takes (pages of q's dtype take the
+# same-dtype kernel)
+F32, BF16, E4M3, INT8 = torch.float32, torch.bfloat16, torch.float8_e4m3fn, torch.int8
+UPCAST_PAIRS = {(BF16, E4M3): "cluster", (BF16, INT8): "cluster", (BF16, F32): "split",
+                (F32, E4M3): "split", (F32, INT8): "split", (F32, BF16): "split"}
+
+
+@pytest.mark.parametrize("pair", list(UPCAST_PAIRS),
+                         ids=[f"{str(q)[6:]}-{str(p)[6:]}" for q, p in UPCAST_PAIRS])
+def test_the_upcast_design_routes_every_dtype_pair(pair):
+    q, pages = pair
+    assert ops.upcast_design(q, pages, 128, 8) == UPCAST_PAIRS[pair]
+    # the card's other head dims: the same route
+    for D, KV in ((120, 8), (112, 8), (80, 32), (64, 24), (32, 4)):
+        assert ops.upcast_design(q, pages, D, KV) == UPCAST_PAIRS[pair]
+
+
+@pytest.mark.parametrize("KV,design", [(8, "cluster"), (2, "cluster"), (1, "split"),
+                                       (3, "split")])
+def test_upcast_rows_tma_cannot_address_take_the_split(KV, design):
+    """8-bit rows of D 120 under an odd KV are no 16-byte stride, as in
+    ``cvt_design``: the split kernel reads them."""
+    for pages in (E4M3, INT8):
+        assert ops.upcast_design(BF16, pages, 120, KV) == design
+        assert ops.cvt_design(128, 3, 0, 120, KV, 1) == \
+            ("cluster" if design == "cluster" else "two_pass")

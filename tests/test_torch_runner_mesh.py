@@ -19,10 +19,23 @@ requests under the same ``EngineConfig``. Cases, fp32:
     latter held to the reference's baseline, since the reference's lever
     is wrong on "data" > 1 (ROADMAP §3);
   * ``seq_shard_decode`` on (1,2): llama, zamba2 and deepseek-r1 (MLA),
-    4-token pages on a pool whose half (a rank's share) the longer
-    sequences pass;
+    4-token pages, a rank's share of ``MAX_LEN`` passed by the longer
+    sequences, on a pool smaller than the ranks' shares of every slot and
+    on one that holds them;
   * deepseek-r1 on (2,1) against the port's tp=1 (the reference's runner
-    raises there: ROADMAP §3), with an odd prompt length.
+    raises there: ROADMAP §3), with an odd prompt length;
+  * llama on (2,1) with requests that all land on data rank 0 (three
+    requests for its three slots).
+
+Every port case runs under the reference's bound ``max_len=MAX_LEN``
+(``TorchRunner``'s per-rank page map): each rank's pool must hold the
+reference's per-device cache shard (its k and v, or latents, as
+``state_shardings`` cuts them) plus one pad page where the engine's pool
+holds the share (``n_pages >= rows * share_blocks``), and ``n_pages`` plus
+the pad page where it is smaller (the 7-page and 24-page pools). Without
+``max_len`` each rank's pool holds ``n_pages`` plus the pad page, as
+before. Only the leader is given ``max_len``: the followers size their
+pools by the one it sends them.
 
 The MoE models' capacity factor is raised to ``MOE_CF`` in both packages,
 so that no assignment drops: the reference's decode runs all its slots,
@@ -54,16 +67,24 @@ MOE_CF = 64.0
 POOLS = {
     "ample": (dict(n_pages=64), ((9, 31), (8, 14))),
     "preempting": (dict(n_pages=7), ((9, 31), (8, 14))),
-    # a rank's share is 12 of 24 pages of 4 tokens: 48 positions, which the
-    # longer sequences (up to 54 tokens) pass; kv-aware admission, since
-    # naive admission's concurrent chunked prefills can exhaust so small a
-    # pool and wait on each other for good
+    # a rank's share of MAX_LEN's 16 pages of 4 tokens is 8 pages: 32
+    # positions, which the longer sequences (up to 54 tokens) pass; 24
+    # pages hold less than the ranks' shares of all SLOTS (48), so a rank's
+    # pool is the engine's; kv-aware admission, since naive admission's
+    # concurrent chunked prefills can exhaust a small pool and wait on
+    # each other for good
     "split": (dict(n_pages=24, page_size=4, admission_mode="kv_aware"),
               ((20, 40), (8, 14))),
+    # the same with a pool that holds every slot's share: a rank's pool is
+    # the reference's cache shard
+    "split-shares": (dict(n_pages=48, page_size=4, admission_mode="kv_aware"),
+                     ((20, 40), (8, 14))),
 }
 ENGINE = dict(max_num_seqs=SLOTS, max_num_batched_tokens=512, chunk_size=16,
               admission_mode="naive")
 N_REQUESTS = 4
+# cases with another number of requests: a data rank's slots alone
+N_OF = {"llama-2x1-one-data-rank": 3}
 # name -> (arch, mesh (data, model), ParallelContext options, pool, the
 #          reference run it is held to: under the "lever" or its "baseline")
 CASES = {
@@ -71,6 +92,7 @@ CASES = {
     "llama-2x2-preempting": ("llama3.2-3b", (2, 2), {}, "preempting", "lever"),
     "zamba2-2x1-preempting": ("zamba2-2.7b", (2, 1), {}, "preempting", "lever"),
     "zamba2-2x2-ample": ("zamba2-2.7b", (2, 2), {}, "ample", "lever"),
+    "llama-2x1-one-data-rank": ("llama3.2-3b", (2, 1), {}, "ample", "lever"),
     "serve_2d_tp-llama-2x2": ("llama3.2-3b", (2, 2), {"serve_2d_tp": True},
                               "preempting", "lever"),
     "moe_ff_shard-phi-2x2": ("phi3.5-moe-42b-a6.6b", (2, 2),
@@ -82,6 +104,15 @@ CASES = {
                                     "split", "lever"),
     "seq_shard_decode-r1-1x2": ("deepseek-r1-671b", (1, 2), {"seq_shard_decode": True},
                                 "split", "lever"),
+    "seq_shard_decode-llama-1x2-shares": ("llama3.2-3b", (1, 2),
+                                          {"seq_shard_decode": True},
+                                          "split-shares", "lever"),
+    "seq_shard_decode-zamba2-1x2-shares": ("zamba2-2.7b", (1, 2),
+                                           {"seq_shard_decode": True},
+                                           "split-shares", "lever"),
+    "seq_shard_decode-r1-1x2-shares": ("deepseek-r1-671b", (1, 2),
+                                       {"seq_shard_decode": True},
+                                       "split-shares", "lever"),
 }
 
 REFERENCE = textwrap.dedent("""
@@ -93,6 +124,7 @@ REFERENCE = textwrap.dedent("""
     from repro.configs.registry import get_smoke_config
     from repro.core.engine import EngineConfig, InferenceEngine
     from repro.core.runner import JaxRunner
+    from repro.launch.specs import state_shardings
     from repro.models import transformer as T
     from repro.parallel.sharding import ParallelContext
 
@@ -125,9 +157,16 @@ REFERENCE = textwrap.dedent("""
         reqs = [eng.submit(p, n) for p, n in spec["requests"][name]]
         eng.run(max_steps=2000)
         np.savez(os.path.join(out, name + ".npz"), **dict(flat(params)))
+        # a device's shard of the cache's k and v (or latents), as the
+        # decode state's shardings cut them
+        cut = state_shardings(cfg, run)["caches"]
+        shard = sum(int(np.prod(sh.shard_shape(a.shape))) * a.dtype.itemsize
+                    for a, sh in zip(jax.tree_util.tree_leaves(runner.state["caches"]),
+                                     jax.tree_util.tree_leaves(cut)))
         with open(os.path.join(out, name + ".json"), "w") as f:
             json.dump(dict(outputs=[r.output for r in reqs],
-                           preemptions=sum(r.n_preemptions for r in reqs)), f)
+                           preemptions=sum(r.n_preemptions for r in reqs),
+                           cache_shard_bytes=shard), f)
 """)
 
 
@@ -151,7 +190,8 @@ def _requests(name):
     lens = (lo + lo % 2 + 1, hi - hi % 2)
     if cfg.moe is not None and data > 1:
         lens = (lens[0] + 1, lens[1])
-    reqs = make_requests(cfg.vocab, N_REQUESTS, (hi, hi), osl, seed=len(name))
+    reqs = make_requests(cfg.vocab, N_OF.get(name, N_REQUESTS), (hi, hi), osl,
+                         seed=len(name))
     return [(p[:lens[i % 2]], n) for i, (p, n) in enumerate(reqs)]
 
 
@@ -188,13 +228,27 @@ def _serve_case(rank, name, ref, out):
     z = np.load(os.path.join(ref, name + ".npz"))
     model = from_jax_params(_nest({k: z[k] for k in z.files}), cfg, device="cpu",
                             dtype=torch.float32, ctx=ctx)
-    runner = TorchRunner(model, device="cpu")
+    # rank 0 leads; the followers take its max_len with the engine's pool
+    runner = TorchRunner(model, device="cpu", max_len=MAX_LEN if rank == 0 else None)
+    engine = _engine(name)
+    # the same rank's pools without max_len (bound alone: no collective)
+    legacy = TorchRunner(model, device="cpu")
+    legacy._bind(engine["n_pages"], engine.get("page_size", 16), SLOTS, None)
     if not runner.leads:
         runner.follow()
+        _write(out, rank, name + ".pools", _pools(runner, legacy))
         return
+    data_ranks = set()
+    prefill = runner.prefill
+
+    def tracked(req, chunk):
+        tok = prefill(req, chunk)
+        data_ranks.add(runner._slot_of[req.rid] // runner.rows)
+        return tok
+
+    runner.prefill = tracked
     try:
-        eng = InferenceEngine(cfg, EngineConfig(**_engine(name)), runner,
-                              virtual_clock=False)
+        eng = InferenceEngine(cfg, EngineConfig(**engine), runner, virtual_clock=False)
         reqs = [eng.submit(p, n) for p, n in _requests(name)]
         eng.run(max_steps=2000)
     finally:
@@ -202,7 +256,19 @@ def _serve_case(rank, name, ref, out):
     _write(out, rank, name, dict(
         outputs=[r.output for r in reqs], preemptions=sum(r.n_preemptions for r in reqs),
         dp=runner.dp, sp=runner.sp, share=runner.share_blocks * eng.ecfg.page_size,
-        longest=max(len(r.prompt) + len(r.output) for r in reqs)))
+        longest=max(len(r.prompt) + len(r.output) for r in reqs),
+        data_ranks=sorted(data_ranks)))
+    _write(out, rank, name + ".pools", _pools(runner, legacy))
+
+
+def _pools(runner, legacy):
+    """A rank's pool bytes and pages (the pad page included), with and
+    without max_len, and the geometry that sizes them."""
+    def size(r):
+        return dict(bytes=sum(t.numel() * t.element_size() for t in r.pools),
+                    pages=r.pools[0].shape[1] if r.pools else 0)
+    return dict(with_max_len=size(runner), without=size(legacy), rows=runner.rows,
+                share_blocks=runner.share_blocks, pad=runner.pad_page is not None)
 
 
 def _r1_data2(rank, out):
@@ -287,7 +353,34 @@ def test_runner_tokens_equal_the_reference_engine(results, name):
     if "seq_shard_decode" in CASES[name][2]:
         # the second rank's share is reached
         assert r["sp"] == model and r["longest"] > r["share"]
+    if name in N_OF:
+        assert r["data_ranks"] == [0]
     print(name, "preemptions", r["preemptions"])
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_each_rank_holds_the_reference_cache_shard(results, name):
+    """Every rank's pool under max_len: the reference's per-device cache
+    shard plus one pad page where the engine's pool holds the ranks' share
+    of every slot, else the engine's pool plus the pad page; without
+    max_len the engine's whole pool plus the pad page, as before."""
+    got, want = results
+    data, model = CASES[name][1]
+    ranks = got[name + ".pools"]
+    assert sorted(ranks) == list(range(data * model))
+    n_pages = _engine(name)["n_pages"]
+    for rank, p in ranks.items():
+        pool, legacy = p["with_max_len"], p["without"]
+        assert p["pad"] and legacy["pages"] == n_pages + 1
+        assert legacy["bytes"] == pool["bytes"] // pool["pages"] * legacy["pages"]
+        page_bytes = pool["bytes"] // pool["pages"]
+        if n_pages >= p["rows"] * p["share_blocks"]:
+            assert pool["bytes"] - page_bytes == want[name]["cache_shard_bytes"], rank
+            assert pool["pages"] == p["rows"] * p["share_blocks"] + 1
+        else:
+            assert pool["pages"] == n_pages + 1
+    print(name, "rank pool", ranks[0]["with_max_len"], "without max_len",
+          ranks[0]["without"], "reference shard", want[name]["cache_shard_bytes"])
 
 
 def test_r1_on_data2_equals_tp1(results):

@@ -5,24 +5,30 @@ device time at the main paths' shapes.
 
     git archive <parent> | tar -x -C build/ab_parent
     python3 tools/ab_flash.py --tree parent=build/ab_parent --tree change=. \
-        --order parent,change,change,parent,parent,change [--kernel paged|cvt]
+        --order parent,change,change,parent,parent,change \
+        [--kernel flash|paged|cvt|upcast] [--sass-only]
 
 Each checkout builds its own library (``flash_attention``;
 ``paged_attention`` with ``--kernel paged``; ``paged_attention_cvt``, K2
-over pages of another dtype than q, with ``--kernel cvt``; in its
-``src/repro_torch/build``); ``cuobjdump -sass`` lists its functions, and a
-line per instance (``flash_fwd_wgmma``; ``paged_split_mma``,
+over pages of another dtype than q, with ``--kernel cvt``;
+``paged_attention_upcast``, K2's upcast mode, with ``--kernel upcast``; in
+its ``src/repro_torch/build``); ``cuobjdump -sass`` lists its functions,
+and a line per instance (``flash_fwd_wgmma``; ``paged_split_mma``,
 ``paged_split_simt`` and ``paged_merge``; ``paged_split_cvt``,
-``stats_merge``, ``part_sum`` and ``paged_cluster_cvt``) gives its
+``stats_merge``, ``part_sum`` and ``paged_cluster_cvt``;
+``paged_split_cvt``, ``cvt_merge`` and ``paged_cluster_upcast``) gives its
 instruction count and a hash of its instructions (addresses dropped), so
-two builds of the same device code hash alike. Then one process per entry
-of ``--order`` times the kernel with ``chip_smoke.time_flash`` (the causal
-kernel), ``chip_smoke.time_paged`` (bf16 and fp32 at llama3.2-3b's decode
-batch, bf16 at h2o-danube's and llama3-405b's) or ``chip_smoke.time_q8``
-(the default mode over fp8 and int8 pages under a bf16 q at the four
-``chip_smoke.Q8_PAGED`` shapes and the long ones of ``chip_smoke.Q8_MORE``,
-each row naming the design that ran: a parent before the cluster took
-every length runs its two passes there);
+two builds of the same device code hash alike. Then (unless
+``--sass-only``) one process per entry of ``--order`` times the kernel
+with ``chip_smoke.time_flash`` (the causal kernel),
+``chip_smoke.time_paged`` (bf16 and fp32 at llama3.2-3b's decode batch,
+bf16 at h2o-danube's and llama3-405b's) or ``chip_smoke.time_q8`` (the
+default mode over fp8 and int8 pages under a bf16 q at the four
+``chip_smoke.Q8_PAGED`` shapes and the long ones of ``chip_smoke.Q8_MORE``;
+the upcast mode over fp8 and int8 pages at ``chip_smoke.Q8_UPCAST`` and
+over fp32 pages at llama3.2-3b's batch, with SDPA's time on the
+pre-gathered upcast cache; each row naming the design that ran: a parent
+before a mode's cluster runs its two passes, or its split, there);
 ``device_ms`` from a replayed CUDA graph. Lines also go to
 ``chiprun_out/ab_flash.jsonl``.
 """
@@ -56,7 +62,9 @@ KERNELS = {"flash": ("flash_attention", ("flash_fwd_wgmma",)),
            "paged": ("paged_attention", ("paged_split_mma", "paged_split_simt",
                                          "paged_merge")),
            "cvt": ("paged_attention_cvt", ("paged_split_cvt", "stats_merge", "part_sum",
-                                           "paged_cluster_cvt"))}
+                                           "paged_cluster_cvt")),
+           "upcast": ("paged_attention_upcast", ("paged_split_cvt", "cvt_merge",
+                                                 "paged_cluster_upcast"))}
 
 
 def _import(tree: Path, kernel: str):
@@ -94,6 +102,18 @@ def timing(label: str, tree: Path, kernel: str):
     import chip_smoke as cs
     _import(tree, kernel)
     gen = torch.Generator(device="cuda").manual_seed(1)
+    if kernel == "upcast":
+        from repro_torch.kernels.paged_attention import ops as paged_ops
+        for pages, m in [(p, m) for m in cs.Q8_UPCAST for p in (torch.float8_e4m3fn,
+                                                                torch.int8)] + [
+                (torch.float32, cs.MAIN_PAGED)]:
+            r = cs.time_q8(paged_ops, pages, True, gen, m)
+            emit(phase="timing", tree=label, shape=r["shape"], window=r["window"],
+                 pages=r["pages"], mode="upcast", design=r["design"], ms=r["ms"],
+                 device_ms=r["device_ms"], bound_ms=r["bound_ms"],
+                 plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+                 library_device_ms=r["library_device_ms"])
+        return
     if kernel == "cvt":
         from repro_torch.kernels.paged_attention import ops as paged_ops
         for m in cs.Q8_PAGED + [m for m, _ in cs.Q8_MORE]:
@@ -123,6 +143,7 @@ def main():
     ap.add_argument("--tree", action="append", default=[], help="label=path")
     ap.add_argument("--order", help="comma-separated labels, one timing run each")
     ap.add_argument("--kernel", choices=sorted(KERNELS), default="flash")
+    ap.add_argument("--sass-only", action="store_true", help="compare SASS, time nothing")
     ap.add_argument("--run", nargs=3, metavar=("WHAT", "LABEL", "PATH"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -138,7 +159,7 @@ def main():
     for label, path in trees.items():
         subprocess.run([sys.executable, __file__, "--kernel", args.kernel, "--run",
                         "sass", label, path], check=True, cwd=ROOT)
-    for label in (args.order or ",".join(trees)).split(","):
+    for label in [] if args.sass_only else (args.order or ",".join(trees)).split(","):
         subprocess.run([sys.executable, __file__, "--kernel", args.kernel, "--run",
                         "timing", label, trees[label]], check=True, cwd=ROOT)
 

@@ -14,7 +14,9 @@ them), then the main path's end-to-end metrics (``main_path``:
 full-depth llama3.2-3b in bf16 serving 16 requests, as ``chip_smoke.py``
 phase 5 serves them; ``--arch`` serves another registry model instead,
 xlstm-350m with ``XLSTM_REQUESTS`` as ``chip_smoke.py`` does, any other
-with ``SERVE_REQUESTS``). Runs alternate between the checkouts in the order
+with ``SERVE_REQUESTS``; ``--sharded`` runs ``chip_smoke.py``'s
+``sharded_main_path`` instead: its four models on two gloo ranks of a
+(1, 2) mesh through ``serve_sharded``). Runs alternate between the checkouts in the order
 given so that a drift of the shared host falls on both. The last line
 gives each checkout's values of every run side by side. All lines also
 go to ``chiprun_out/ab_main_path.jsonl``.
@@ -36,7 +38,7 @@ SUMMARY_TIMING = ("ms", "device_ms", "host_ms")
 SUMMARY_MAIN = ("gen_tok_s", "ttft_p50_s", "tpot_mean_s", "max_memory_allocated")
 
 
-def run_one(tree: Path, arch: str):
+def run_one(tree: Path, arch: str, sharded: bool):
     """One run against the checkout at ``tree``, in this process."""
     sys.path.insert(0, str(ROOT))
     import torch
@@ -61,6 +63,9 @@ def run_one(tree: Path, arch: str):
     for m in (cs.MAIN_PAGED, cs.LONG_PAGED):
         cs.emit("timing", kernel="paged_attention",
                 **cs.time_paged(paged_ops, torch.bfloat16, gen, m))
+    if sharded:
+        cs.sharded("main_path")
+        return
     from repro_torch.configs.registry import get_config
     traffic = cs.XLSTM_REQUESTS if arch == "xlstm-350m" else cs.SERVE_REQUESTS
     cs.main_path(flash_ops, paged_ops, get_config(arch), traffic)
@@ -74,9 +79,11 @@ def main():
     ap.add_argument("--run", help="run once against this checkout")
     ap.add_argument("--timeout", type=float, default=600.0)
     ap.add_argument("--arch", default="llama3.2-3b")
+    ap.add_argument("--sharded", action="store_true",
+                    help="serve chip_smoke.py's sharded_main_path")
     args = ap.parse_args()
     if args.run:
-        return run_one(Path(args.run), args.arch)
+        return run_one(Path(args.run), args.arch, args.sharded)
 
     trees = dict(t.split("=", 1) for t in args.tree)
     order = args.order.split(",")
@@ -86,7 +93,7 @@ def main():
         for i, label in enumerate(order):
             proc = subprocess.run(
                 [sys.executable, __file__, "--run", trees[label], "--arch",
-                 args.arch],
+                 args.arch] + ["--sharded"] * args.sharded,
                 cwd=ROOT, capture_output=True, text=True, timeout=args.timeout)
             if proc.returncode != 0:
                 sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-8000:])
@@ -105,6 +112,10 @@ def main():
                 elif row["phase"] == "main_path":
                     for m in SUMMARY_MAIN:
                         summary[label].setdefault(m, []).append(row[m])
+                elif row["phase"] == "sharded_main_path" and "tpot_mean_s" in row:
+                    # the leading rank's engine metrics
+                    summary[label].setdefault(f"{row['model']}.tpot_mean_s", []).append(
+                        row["tpot_mean_s"])
         text = json.dumps({"summary": summary, "order": order})
         log.write(text + "\n")
     print(text, flush=True)
