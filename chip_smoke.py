@@ -22,9 +22,13 @@ Phases, each printed as one JSON line:
      and at 60,000-65,536 tokens, where each block's last pages are
      recomputed from k; the two-pass design at 8-bit D 120 rows under one
      kv head, which TMA cannot address) and upcast (``decode_unroll``;
-     fp32 pages under a bf16 q too), and its split passes over a
-     sequence-split share of
-     zamba2 and h2o-danube; int8 pages also under q times 12 and 40, where
+     fp32 pages under a bf16 q too), and its sequence split (pass 1, the
+     gathered (m, l), pass 2, the sum: two cluster launches a share where
+     TMA addresses the rows, the partition passes where not) over rank shares
+     of the four decode batches and the reasoning lengths (each table's
+     halves, and the whole table then a share with no key: each share's
+     (m, l) and scores against the plain version's) and of zamba2's and
+     h2o-danube's split share; int8 pages also under q times 12 and 40, where
      the output is not zeros and rows tell truncation from rounding to
      nearest;
   3. each kernel's time in bf16 at the main paths' shapes (K1 at S 137,
@@ -42,7 +46,9 @@ Phases, each printed as one JSON line:
      cluster design at the four decode batches above and at the long
      shapes of step 2, the two-pass design at the rows TMA cannot
      address, and the upcast mode at llama3.2-3b's batch (its yardstick
-     SDPA on the upcast cache);
+     SDPA on the upcast cache); the sequence split's launches on each half
+     of the reasoning lengths at G 16 over fp8 pages, its two cluster
+     passes and the sum beside the partition design's four launches;
   4. greedy tokens of a full-width 2-layer fp32 model served on the card
      equal those of the plain path on the CPU, with and without preemption;
   5. the main path: full-depth llama3.2-3b in bf16 serving 16 requests
@@ -60,10 +66,10 @@ Phases, each printed as one JSON line:
      share, time in matmuls, in the MoE dispatch ranges and elsewhere,
      top kernels);
   7. the rest of the attention decoders: greedy tokens of h2o-danube-3-4b
-     at full width (2 layers, fp32) on the card equal those of a CPU copy
+     at full width (1 layer, fp32) on the card equal those of a CPU copy
      for two 4200-token prompts, so its window binds in K1 and in K2
      (``greedy_equality_swa``); then ``main_path`` in bf16 for qwen3-14b
-     (qk-norm, full depth), h2o-danube-3-4b (full depth, prompts of
+     (qk-norm, 20 of its 40 layers), h2o-danube-3-4b (full depth, prompts of
      4096-6144 tokens), kimi-k2 (full width, 2 layers: 1 dense, 1 MoE of
      all 384 experts) and llama3-405b (full width, 8 layers), each
      launching both kernels;
@@ -82,11 +88,11 @@ Phases, each printed as one JSON line:
      fp32) with a prefix of 256 embeddings before 200 text tokens, its
      prefill logits on the card against a CPU copy's, then 8 paged decode
      steps with equal tokens (``prefix_equality``); ``main_path`` in bf16
-     for musicgen-medium (full depth: 48 layers, MHA at head dim 64) and
+     for musicgen-medium (24 of its 48 layers, MHA at head dim 64) and
      internvl2-76b (full width, 24 of its 80 layers), each launching both
      kernels;
- 10. the capacity-bound regime (``capacity``): full-depth llama3.2-3b in
-     bf16 on half the pool its requests need, with naive and with kv-aware
+ 10. the capacity-bound regime (``capacity``): llama3.2-3b at 7 of its 28
+     layers in bf16 on half the pool its requests need, with naive and with kv-aware
      admission and the engine's sanitizer on, each beside the port's
      ``SimRunner`` on H100 constants for the same requests and engine
      config: the same steps and preemptions on both sides, naive
@@ -101,9 +107,9 @@ Phases, each printed as one JSON line:
      finished card request's span sums to its measured latency, the naive
      card run reads ``capacity_bound`` for some of its time and no window
      of the kv-aware one is a preemption storm. Then ``kv_cache_dtype``:
-     full-depth llama3.2-3b in bf16 served from an fp8 cache
+     llama3.2-3b at 7 layers in bf16 served from an fp8 cache
      (``ParallelContext(kv_cache_dtype=)``, ``SERVE_REQUESTS``, a pool of
-     704,643,072 B, half of bf16's) and from an int8 cache, each through
+     176,160,768 B, half of bf16's) and from an int8 cache, each through
      ``TorchRunner`` launching K1 and the one-launch (cluster) K2 over its
      pages; a
      2-layer fp32 model's tokens from fp8 and int8 caches on a preempting
@@ -113,7 +119,15 @@ Phases, each printed as one JSON line:
      llama3-405b at full width (4 of its 126 layers), bf16 weights, 4
      greedy decode steps of 16 sequences of 12,288-33,792 tokens from a
      seeded fp8 pool, K2 launching only its cluster instance, its step
-     time beside K2's device time there. Then ``cluster``, on the
+     time beside K2's device time there. Then ``split_reasoning``: the same
+     model, pool and steps with the cache's sequence cut over two gloo
+     ranks of a (data 2, model 1) mesh on the card, each rank's pools only
+     its half of every table's positions (rows shorter than half hold no
+     key on the second rank): tokens equal ``reasoning_decode``'s, the first
+     step's logits within a stated share of the unsplit ones', K2's split
+     pass 1, pass 2 and sum launched 16 times a rank and no other K2 or K1
+     instance; one line a rank with its step time and K2's device time a
+     step. Then ``cluster``, on the
      host: ``repro_torch.cluster.ClusterRuntime(sanitize=True)`` over four
      DS-Distill-8B ``SimRunner`` replicas on H100 constants, colocated
      under ``MemoryAware`` routing and disaggregated 2 + 2, serving 40
@@ -132,10 +146,10 @@ Phases, each printed as one JSON line:
  11. training, through the autograd forward that launches neither kernel
      (as the reference trains through its jnp attention; each phase
      prints the kernels' launches over its run, which must be 0):
-     ``train_equality``, three AdamW steps of llama3.2-3b at full width
+     ``train_equality``, two AdamW steps of llama3.2-3b at full width
      (2 layers, fp32, B 2 x S 64) on the card and on a CPU copy filled
      from the card's initial weights, each step's loss and grad norm and
-     the parameters after step 3 held to each other; ``train_main_path``,
+     the parameters after step 2 held to each other; ``train_main_path``,
      ``repro_torch.launch.train.train`` on full-depth llama3.2-3b (fp32
      weights and AdamW state, B 8 x S 128, 6 steps): per-step loss and
      grad norm, the median step time of steps 2-6, tokens/s, the step's
@@ -151,8 +165,8 @@ Phases, each printed as one JSON line:
      zamba2-2.7b (12 layers) and xlstm-350m (8 blocks), fp32, through the
      sharded runner equal those of a tp=1 model seeded alike on the card,
      under forced preemption (the recurrent states recomputed in fresh
-     slots); ``sharded_main_path``, llama3.2-3b at 8 of its 28 layers, R1
-     at 5 layers with all 256 experts, zamba2-2.7b at 6 of its 54 layers
+     slots); ``sharded_main_path``, llama3.2-3b at 4 of its 28 layers, R1
+     at 4 layers with all 256 experts, zamba2-2.7b at 6 of its 54 layers
      and xlstm-350m at 8 of its 24 blocks, in bf16, each rank on its
      shard (K1 and K2 on llama's 12 q / 4 kv heads and zamba2's 16 / 16
      heads of 80 a rank, zamba2's in multiples of its shared-block
@@ -160,16 +174,16 @@ Phases, each printed as one JSON line:
      ranks; xlstm launches neither). One line per model and rank: the
      leader's TTFT, TPOT and throughput, each rank's peak memory, kernel
      launches and collectives per engine step with their host time, the
-     backend and the ops staged through host memory. Steps 2 and 3 also
-     hold and time K1 and K2 at llama's and zamba2's per-rank shapes;
+     backend and the ops staged through host memory. Step 2 also
+     holds K1 and K2 at llama's and zamba2's per-rank shapes;
  13. multi-device training, four ranks spawned on the card on a (data 2,
-     model 2) mesh over gloo (``sharded_train``): three AdamW steps of
+     model 2) mesh over gloo (``sharded_train``): two AdamW steps of
      llama3.2-3b at full width (2 layers, fp32, B 4 x S 64) on the mesh
      against tp=1 on the card (losses, grad norms, every parameter after
-     step 3, under ``train_equality``'s tolerances; each rank's moments
+     step 2, under ``train_equality``'s tolerances; each rank's moments
      its parameter shards); that model's params and AdamW state saved from
      (2,2) and restored onto (1,4), every rank's shards against the
-     written arrays; then 4 of llama's 28 layers for 4 steps (B 8 x S
+     written arrays; then 2 of llama's 28 layers for 3 steps (B 8 x S
      128): median step time, tokens/s, peak memory and collectives per
      step a rank. No kernel launches;
  14. the dry-run (``dryrun``): every (arch x shape) cell of the
@@ -192,8 +206,8 @@ Phases, each printed as one JSON line:
      and timed (``check_split``,
      ``timing``); then the sequence-split decode on two gloo ranks of a
      (data 2, model 1) mesh on the card (``split_decode``): zamba2-2.7b and
-     h2o-danube-3-4b at full depth in bf16, an 8,000-token prompt, each
-     rank holding 4,096 positions of the cache, 8 greedy tokens equal to
+     h2o-danube-3-4b (18 and 12 layers) in bf16, an 8,000-token prompt, each
+     rank holding 4,096 positions of the cache, 4 greedy tokens equal to
      the unsplit model's on the card, the partials and the merge launched
      on every rank and one-call K2 never;
  16. the reference's §Perf levers (``levers``), each on gloo ranks on the
@@ -206,9 +220,9 @@ Phases, each printed as one JSON line:
      ``seq_shard_decode`` (h2o-danube, (1,2), two prompts past its 4,096
      window: K2's partials and merge, never the one-call K2),
      ``seq_parallel_norm`` and ``decode_unroll`` (llama3.2-3b, (1,2))
-     through ``TorchRunner`` with uneven prefill chunks, all with 8 greedy
+     through ``TorchRunner`` with uneven prefill chunks, all with 2 greedy
      tokens equal to the baseline's and tp=1's; and ``train_kv_2d``
-     (llama3.2-3b, (2,2), three AdamW steps against tp=1 under
+     (llama3.2-3b, (2,2), two AdamW steps against tp=1 under
      ``train_equality``'s tolerances). One line a lever and rank (tokens,
      launches, collectives by op, host-clock times); then each lever's
      target cells of the 16x16 grid counted on meta beside the baseline's
@@ -216,9 +230,14 @@ Phases, each printed as one JSON line:
  17. the ``kernels`` line (launches summed over every main path, and by
      model and rank; K2's partials and merge entries from the split
      decode; ``levers/<lever>`` the levers phase's; K2 over fp8 and over
-     int8 pages with their upcast mode), then the card line,
+     int8 pages with their upcast mode; K2's 8-bit sequence split, its two
+     passes and sum from ``split_reasoning``), then the card line,
      then as the last line ``{"ok": true, "device": {...}}``.
-Each line's ``t_s`` is the seconds since the script started. Any
+For the run's time, every main path but llama3.2-3b's serves
+half of its requests' output tokens, the sharded ones a quarter
+(``fewer_steps``; each line's ``reduced`` says so).
+Each line's ``t_s`` is the seconds since the script started, ``dt_s``
+those since the line before. Any
 failure raises and exits non-zero. It needs a CUDA card and fails without
 one.
 """
@@ -365,6 +384,28 @@ FP32_ONLY_SYMBOLS = ("flash_fwd_simt", "paged_split_simt")
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 SERVE_REQUESTS = dict(n=16, isl=(128, 1024), osl=(128, 256), seed=0)
+# cuts for the run's time (each stands in its phase's line as
+# ``reduced``): llama3.2-3b at 7 of its 28 layers in ``capacity`` and the
+# ``kv_cache_dtype`` serves (their scheduling, pools' pages and checks are
+# the same at any depth); musicgen-medium at 24 of 48 layers and qwen3-14b
+# at 20 of 40 in ``main_path``, and every main path but llama3.2-3b's at
+# half its requests' output tokens (``fewer_steps``), the sharded ones at a
+# quarter; h2o-danube at 1 layer and 8 new tokens in
+# ``greedy_equality_swa``, R1 at 12 new tokens in ``greedy_equality_moe``;
+# ``split_decode`` at 18 of zamba2's 54 layers and 12 of h2o-danube's 24
+CAPACITY_LAYERS = 7
+MUSICGEN_LAYERS = 24
+QWEN3_LAYERS = 20
+SWA_EQ = dict(layers=1, new_tokens=8)
+MOE_EQ_NEW_TOKENS = 12
+SPLIT_LAYERS = {"zamba2-2.7b": 18, "h2o-danube-3-4b": 12}
+
+
+def fewer_steps(traffic, reduced, div=2):
+    """``traffic`` with its output lengths over ``div`` (fewer decode steps
+    a request), and ``reduced`` with that cut."""
+    cut = dict(traffic, osl=tuple(max(1, n // div) for n in traffic["osl"]))
+    return cut, {**reduced, "osl": [list(traffic["osl"]), list(cut["osl"])]}
 # the MoE family's main path: DeepSeek-R1 at full width with its depth cut
 # to the 3 leading dense layers and 2 MoE layers (about 53 GB of bf16
 # weights), and phi3.5-moe at full width and 8 of its 32 layers, with
@@ -400,15 +441,16 @@ INTERNVL_LAYERS = 24
 PREFIX_LAYERS = 2
 PREFIX_DECODE_STEPS = 8
 PREFIX_ATOL = 1e-3
-# train_equality: llama3.2-3b at full width and 2 layers in fp32, 3 AdamW
+# train_equality: llama3.2-3b at full width and 2 layers in fp32, 2 AdamW
 # steps (lr 1e-3, warmup 2) at B 2 x S 64 on the card and on the CPU. The
 # same fp32 products summed in another order: losses within TRAIN_LOSS_RTOL,
-# grad norms within TRAIN_GNORM_RTOL; after step 3 every parameter within
+# grad norms within TRAIN_GNORM_RTOL; after step 2 every parameter within
 # TRAIN_PARAM_ATOL (a step moves one by about lr, rounding that by about
 # 1e-7) but for at most TRAIN_FLIP_SHARE of them, each within 4 lr: an
 # element whose first moment sits within rounding of zero takes its Adam
-# step in either direction (tests/test_torch_train.py counts them on the CPU)
-TRAIN_EQ = dict(layers=2, batch=2, seq=64, steps=3, lr=1e-3, warmup=2)
+# step in either direction (tests/test_torch_train.py counts them on the CPU).
+# cut from 3 steps for the run's time
+TRAIN_EQ = dict(layers=2, batch=2, seq=64, steps=2, lr=1e-3, warmup=2)
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GNORM_RTOL = 1e-4
 TRAIN_PARAM_ATOL = 1e-5
@@ -436,8 +478,9 @@ RANK_PAGED = dict(B=16, KV=4, G=3, D=128, max_ctx=2048)
 # contexts of 128-1280 tokens
 ZAMBA_RANK_FLASH = [(1, 1000, 1000, 16, 16, 80, 0)]
 ZAMBA_RANK_PAGED = dict(B=16, KV=16, G=1, D=80, max_ctx=1280)
-# sharded_equality: four 30-token prompts, 20 new tokens each, on a 7-page
-# pool (the engine preempts), as greedy_equality_moe
+# sharded_equality: four 30-token prompts, MOE_EQ_NEW_TOKENS new tokens
+# each (cut from 20), on a 7-page pool (the engine preempts), as
+# greedy_equality_moe
 SHARDED_EQ_ENGINE = dict(n_pages=7, max_num_seqs=4, max_num_batched_tokens=512,
                          chunk_size=192, admission_mode="naive")
 # the recurrent families' sharded_equality: greedy_equality_hybrid's and
@@ -449,22 +492,25 @@ XLSTM_EQ_ENGINE = dict(HYBRID_EQ_ENGINE, n_pages=15)
 # sharded_train: four ranks on the card, a (data 2, model 2) mesh over gloo;
 # llama3.2-3b at full width in the train layout (FSDP over "data", TP over
 # "model", AdamW moments as their parameters' shards). Equality: 2 layers,
-# B 4 x S 64, 3 steps against tp=1 on the card under train_equality's
+# B 4 x S 64, 2 steps (cut from 3) against tp=1 on the card under train_equality's
 # tolerances; its params and AdamW state are then saved from (2,2) and
 # restored onto (1,4). Main path: 2 of 28 layers (full depth, 51.4 GB of
 # fp32 weights, gradients and moments, plus each rank's gathered fp32
 # weights kept for the backward, does not fit beside four CUDA contexts;
-# 2 keeps the whole run in its time), the reference launcher's B 8 x S 128, 4 steps; the median over steps 2-4
+# 2 keeps the whole run in its time), the reference launcher's B 8 x S 128, 3 steps (cut
+# from 4); the median over steps 2-3
 SHARDED_TRAIN_MESH = (2, 2)
 # the sharded main paths, cut to keep the whole run in its time: 6 of
 # zamba2's 54 Mamba2 layers (1 invocation of its shared block, whose K1 and
 # K2 still run at 16 heads of 80 a rank; 93 s of gloo-bound engine time
-# whole), 8 of xlstm's 24 blocks and 8 of llama3.2-3b's 28 layers
+# whole), 8 of xlstm's 24 blocks, 4 of llama3.2-3b's 28 layers (cut from
+# 8) and 4 of R1's 61 (3 dense + 1 MoE; cut from 5)
 SHARDED_ZAMBA_LAYERS = 6
 SHARDED_XLSTM_BLOCKS = 8
-SHARDED_LLAMA_LAYERS = 8
-SHARDED_TRAIN_EQ = dict(layers=2, batch=4, seq=64, steps=3, lr=1e-3, warmup=2)
-SHARDED_TRAIN_MAIN = dict(layers=2, batch=8, seq=128, steps=4)
+SHARDED_LLAMA_LAYERS = 4
+SHARDED_R1_LAYERS = 4   # 3 dense + 1 MoE; the single card's R1_LAYERS is 5
+SHARDED_TRAIN_EQ = dict(layers=2, batch=4, seq=64, steps=2, lr=1e-3, warmup=2)
+SHARDED_TRAIN_MAIN = dict(layers=2, batch=8, seq=128, steps=3)
 # the capacity runs' recorded events, one JSONL file a run (gitignored)
 TRACE_DIR = ROOT / "chiprun_out" / "capacity_traces"
 # the host-only fleet: four DS-Distill-8B replicas on H100 constants, 40
@@ -484,9 +530,15 @@ REASONING_REAL = dict(n_finished=10, gen_tokens=468, preemptions=0,
 
 def emit(phase: str, **kw):
     """One phase's JSON line; ``t_s`` is the seconds since the script
-    started, so the lines show where the run's time goes."""
-    print(json.dumps({"phase": phase, **kw,
-                      "t_s": time.perf_counter() - STARTED}), flush=True)
+    started and ``dt_s`` those since the line before (the phase's own, for
+    a phase of one line), so the lines show where the run's time goes."""
+    now = time.perf_counter()
+    print(json.dumps({"phase": phase, **kw, "t_s": now - STARTED,
+                      "dt_s": now - _LAST_EMIT[0]}), flush=True)
+    _LAST_EMIT[0] = now
+
+
+_LAST_EMIT = [STARTED]
 
 
 def nvidia_smi() -> str:
@@ -855,6 +907,18 @@ Q8_TIMED = tuple((p, False, m) for m in (*Q8_PAGED, *(m for m, _ in Q8_MORE))
                  for p in (torch.float8_e4m3fn, torch.int8)) + tuple(
     (p, True, m) for m in Q8_UPCAST for p in (torch.float8_e4m3fn, torch.int8)) + (
     (torch.float32, True, MAIN_PAGED),)
+# the sequence split's passes (``paged_attention_stats`` ->
+# ``paged_attention_values`` -> ``paged_sum``) at the default mode's four
+# main batches and at reasoning lengths, each table cut into rank shares
+# (``split_shares``): its two halves, and the whole table then a share that
+# holds no key; every pair, int8 also under ``INT8_QX``
+Q8_SPLIT = [*Q8_PAGED, *Q8_REASONING]
+SPLIT_CUTS = ("halves", "empty")
+# each share's (m, l) and scores against the plain version's: within this
+# share of the scores' scale (fp32 sums of exact products in another
+# order) and, for l, of its value (ex2.approx within 2^-21 a term)
+SPLIT_ML_TOL = 1e-4
+SPLIT_L_RTOL = 1e-3
 # int8 pages are also checked under q times these, where q*scale truncates
 # to non-zero integers and the plain output is not zeros: at x12 most
 # rows' largest weight lies in [0.5, 1) (truncated to 0, where rounding to
@@ -928,11 +992,13 @@ def check_q8(paged_ops):
     ``upcast_design`` names, from ``UPCAST.by_instance`` likewise: the
     cluster for 8-bit pages under a bf16 q, there and at reasoning
     lengths, the split for the other pairs and fp32 pages under a bf16
-    q); then the split decode's passes over the two halves of zamba2's
-    and h2o-danube's split share (stats gathered and merged, values
-    summed) against the one-call plain version; int8 pages also under q
-    times ``INT8_QX``. Returns the max abs err of each (q, pages, design
-    or mode and design), over all rows and over the rows without slack."""
+    q); the sequence split's passes (``split_design``'s design) on the
+    same inputs at ``Q8_SPLIT``'s shapes over each of ``SPLIT_CUTS``
+    (``hold_split_q8``); then the split passes over the two halves of
+    zamba2's and h2o-danube's split share against the one-call plain
+    version; int8 pages also under q times ``INT8_QX``. Returns the max
+    abs err of each (q, pages, design or mode and design; "split" and the
+    split's design), over all rows and over the rows without slack."""
     from repro_torch.kernels.paged_attention.ref import weight_slack
     from repro_torch.models.cache_dtype import to_cache_dtype
     gen = torch.Generator(device="cuda").manual_seed(25)
@@ -978,6 +1044,19 @@ def check_q8(paged_ops):
                     errs[key] = max(errs.get(key, 0.0), err)
                     exacts[key] = max(exacts.get(key, 0.0), exact)
                     rels[key] = max(rels.get(key, 0.0), rel)
+                    if upcast or not any(m is x for x in Q8_SPLIT):
+                        continue
+                    # the sequence split of the same call, against the same
+                    # plain output
+                    skey = (f"{_dt(qdt)}/{_dt(pages)} split "
+                            f"{paged_ops.split_design(m['D'], m['KV'], kp.element_size())}")
+                    for cut in SPLIT_CUTS:
+                        err, exact, rel = hold_split_q8(
+                            paged_ops, f"{label} split {cut}", q, kp, vp, tables, lens, w,
+                            cut, ref, slack)
+                        errs[skey] = max(errs.get(skey, 0.0), err)
+                        exacts[skey] = max(exacts.get(skey, 0.0), exact)
+                        rels[skey] = max(rels.get(skey, 0.0), rel)
                 del q, kp, vp, ref, slack
         if up_only:
             continue
@@ -988,17 +1067,13 @@ def check_q8(paged_ops):
             kp, vp = (to_cache_dtype(t.float() * scale, pages) for t in (kb, vb))
             w = m["window"]
             shift = [0, SPLIT_LEN // 2]
-            ml = torch.cat([paged_ops.paged_attention_stats(q, kp, h, lens - s, window=w)
-                            for h, s in zip(halves, shift)], dim=2)
-            stats = paged_ops.paged_stats_merge(ml)
-            acc = torch.cat([paged_ops.paged_attention_values(q, kp, vp, h, lens - s, stats,
-                                                              window=w)
-                             for h, s in zip(halves, shift)], dim=2)
-            out = paged_ops.paged_sum(acc, qdt)
+            out = run_split(paged_ops, q, kp, vp,
+                            [(h, lens - s) for h, s in zip(halves, shift)], w)[0]
             torch.cuda.synchronize()
             ref = paged_ops.paged_attention_plain(q, kp, vp, tables, lens, window=w)
             slack = weight_slack(q, kp, vp, tables, lens, window=w)
-            key = f"{_dt(qdt)}/{_dt(pages)} split"
+            key = (f"{_dt(qdt)}/{_dt(pages)} split "
+                   f"{paged_ops.split_design(m['D'], m['KV'], kp.element_size())}")
             label = f"paged split {key} q x{qx:g} {m['model']}"
             if pages == torch.int8:
                 nonzero[f"{key} q x{qx:g}"] = min(
@@ -1013,6 +1088,8 @@ def check_q8(paged_ops):
                  for m in Q8_PAGED + [m for m, _ in Q8_MORE]],
          upcast_shapes=[[m["B"], m["KV"], m["G"], m["D"], m.get("max_ctx")]
                         for m in Q8_UPCAST],
+         split_shapes=[[m["B"], m["KV"], m["G"], m["D"], m.get("max_ctx")]
+                       for m in Q8_SPLIT], split_cuts=list(SPLIT_CUTS),
          max_abs_err=errs, max_abs_err_without_slack=exacts, rel_rms=rels,
          int8_nonzero_rows=nonzero)
     return errs, exacts
@@ -1069,6 +1146,164 @@ def time_q8(paged_ops, pages, upcast, gen, m=MAIN_PAGED):
                    library_device_ms=device_ms(library, 50),
                    library_kernels=library_kernels(library))
     return row
+
+
+def split_shares(tables, lens, cut):
+    """Rank shares of every row's table, each (table, lens counted from the
+    share's first position): ``cut`` "halves", two of equal width (the
+    runner's cut; the table padded with page 0, past every row's newest
+    token), or "empty", the whole table and then 16 pages that hold no key
+    (past every row's newest token)."""
+    B, n = tables.shape
+    if cut == "halves":
+        w = -(-n // 2)
+        t = torch.nn.functional.pad(tables, (0, 2 * w - n))
+        return [(t[:, :w].contiguous(), lens), (t[:, w:].contiguous(), lens - w * 16)]
+    return [(tables, lens), (torch.zeros((B, 16), dtype=tables.dtype, device=tables.device),
+                             lens - n * 16)]
+
+
+def run_split(paged_ops, q, kp, vp, shares, window, design=None):
+    """The sequence split on one device: pass 1 on each share, the shares'
+    (m, l) gathered, pass 2 on each, the sums gathered and added. Returns
+    (out, [(ml, scores)] a share, the gathered ml, [sum] a share)."""
+    passes = [paged_ops.paged_attention_stats(q, kp, t, l, window=window, design=design)
+              for t, l in shares]
+    ml = torch.cat([m for m, _ in passes], dim=2)
+    parts = [paged_ops.paged_attention_values(q, kp, vp, t, l, ml, sc, window=window,
+                                              design=design)
+             for (t, l), (_, sc) in zip(shares, passes)]
+    return paged_ops.paged_sum(torch.cat(parts, dim=2), q.dtype), passes, ml, parts
+
+
+def _split_counts(paged_ops):
+    return {k.symbol: k.launches for k in (paged_ops.SHARE_STATS, paged_ops.SHARE_VALUES,
+                                           paged_ops.STATS, paged_ops.STATS_MERGE,
+                                           paged_ops.VALUES, paged_ops.SUM, paged_ops.CVT)}
+
+
+def hold_split_q8(paged_ops, label, q, kp, vp, tables, lens, window, cut, ref, slack):
+    """The split passes over ``cut``'s shares (``split_shares``) against
+    their plain versions and the one-call plain output ``ref``: one launch
+    of the design's pass 1 and pass 2 a share (``split_design``; the partition
+    design also its merge a share) and one of the sum; each share's (m, l)
+    (the cluster design's; the partition design's merged over its partitions) and the
+    cluster's scores where a key counts within ``SPLIT_ML_TOL`` of the
+    scores' scale (l within ``SPLIT_L_RTOL`` of itself); a share with no
+    key (NEG_INF, 0) and a sum of zeros exactly; the summed output under
+    ``hold_q8``'s bounds. Returns hold_q8's (max abs err, without slack,
+    relative rms)."""
+    from repro_torch.kernels.paged_attention.ref import NEG_INF
+    B, KV, G, D = q.shape
+    shares = split_shares(tables, lens, cut)
+    design = paged_ops.split_design(D, KV, kp.element_size())
+    before = _split_counts(paged_ops)
+    out, passes, ml, parts = run_split(paged_ops, q, kp, vp, shares, window)
+    torch.cuda.synchronize()
+    n = {k: v - before[k] for k, v in _split_counts(paged_ops).items()}
+    R = len(shares)
+    want = {"paged_cvt_share_stats": R, "paged_cvt_share_values": R} if design == "cluster" \
+        else {"paged_cvt_stats": R, "paged_cvt_stats_merge": R, "paged_cvt_values": R}
+    want = {k: want.get(k, 0) for k in n} | {"paged_cvt_sum": 1}
+    if n != want:
+        raise AssertionError(f"{label}: launches {n}, want {want}")
+    for i, ((m, sc), (t, l)) in enumerate(zip(passes, shares)):
+        m_p, sc_p = paged_ops.paged_attention_stats_plain(q, kp, t, l, window=window)
+        if design == "two_pass":
+            m = paged_ops.paged_stats_merge_plain(m)[:, :, None]
+        counts = m_p[..., 1] > 0                                      # (B,KV,1,G)
+        part = parts[i].sum(dim=2, keepdim=True)   # the partition design's: a sum a partition
+        if bool((m[..., 0][~counts] != NEG_INF).any()) or bool((m[..., 1][~counts] != 0).any()) \
+                or bool((part.transpose(2, 3)[~counts.transpose(2, 3)] != 0).any()):
+            raise AssertionError(f"{label} share {i}: a row with no key holds (m, l) or a sum")
+        valid = sc_p > NEG_INF / 2
+        scale = float(sc_p[valid].abs().max()) + 1.0 if bool(valid.any()) else 1.0
+        if bool(counts.any()):
+            dm = float((m[..., 0] - m_p[..., 0])[counts].abs().max())
+            dl = float(((m[..., 1] - m_p[..., 1]) / m_p[..., 1])[counts].abs().max())
+            if dm > SPLIT_ML_TOL * scale or dl > SPLIT_L_RTOL:
+                raise AssertionError(f"{label} share {i}: (m, l) off by {dm}, {dl}")
+        if sc is not None and bool(valid.any()):
+            ds = float((sc - sc_p)[valid].abs().max())
+            if ds > SPLIT_ML_TOL * scale:
+                raise AssertionError(f"{label} share {i}: scores off by {ds}")
+    return hold_q8(label, out, ref, q, vp, slack, False)
+
+
+def time_split_q8(paged_ops, pages, gen, m):
+    """The sequence split's launches on each share of ``m``'s table over
+    ``pages`` under a bf16 q, in both designs of the same call (the
+    cluster's pass 1, pass 2 and sum; the partition design's pass 1, merge, pass 2 and
+    sum), the gathers left out: each launch's device time (a replayed CUDA
+    graph) and each pass's eager time, beside each pass's bytes bound
+    (pass 1: the share's counted keys' k and their fp32 scores written;
+    pass 2: those scores and v read; q, the tables, lens, the (m, l) and
+    the sums once) and its plain version's time. No PyTorch call rounds
+    the weights to the cache's dtype: no library time. One row a share."""
+    q, kp, vp, tables, lens = q8_inputs(pages, torch.bfloat16, gen, m)
+    w = m.get("window", 0)
+    B, KV, G, D = q.shape
+    shares = split_shares(tables, lens, "halves")
+    _, passes, ml, parts = run_split(paged_ops, q, kp, vp, shares, w)
+    _, _, old_ml, old_parts = run_split(paged_ops, q, kp, vp, shares, w, design="two_pass")
+    cat, old_cat = torch.cat(parts, dim=2), torch.cat(old_parts, dim=2)
+    ml_p = torch.cat([paged_ops.paged_attention_stats_plain(q, kp, t, l, window=w)[0]
+                      for t, l in shares], dim=2)
+    rows = []
+    for i, (t, l) in enumerate(shares):
+        pos = torch.arange(t.shape[1] * 16, device=q.device)
+        valid = pos[None, :] <= l.long()[:, None]
+        if w:
+            valid &= pos[None, :] > l.long()[:, None] - w
+        keys = int(valid.sum()) * KV
+        sc = passes[i][1]
+        b1 = nbytes(q, t, l, passes[i][0]) + keys * (D * kp.element_size() + G * 4)
+        b2 = nbytes(t, l, ml, parts[i]) + keys * (D * kp.element_size() + G * 4)
+        fns = {
+            "pass1": lambda t=t, l=l: paged_ops.paged_attention_stats(q, kp, t, l, window=w),
+            "pass2": lambda t=t, l=l, sc=sc: paged_ops.paged_attention_values(
+                q, kp, vp, t, l, ml, sc, window=w),
+            "sum": lambda: paged_ops.paged_sum(cat, q.dtype),
+        }
+        old_fns = {
+            "pass1": lambda t=t, l=l: paged_ops.paged_attention_stats(
+                q, kp, t, l, window=w, design="two_pass"),
+            "merge": lambda: paged_ops.paged_stats_merge(old_ml),
+            "pass2": lambda t=t, l=l: paged_ops.paged_attention_values(
+                q, kp, vp, t, l, old_ml, None, window=w, design="two_pass"),
+            "sum": lambda: paged_ops.paged_sum(old_cat, q.dtype),
+        }
+        dev = {k: device_ms(f, 20) for k, f in fns.items()}
+        both = lambda: [f() for f in fns.values()]   # noqa: E731
+        old_dev = {k: device_ms(f, 20) for k, f in old_fns.items()}
+        # the partition design's pass 2 is its merge's launch and its own
+        old_dev["pass2"] -= old_dev["merge"]
+        old_both = lambda: [old_fns[k]() for k in ("pass1", "pass2", "sum")]   # noqa: E731
+        bounds = {k: bound(f, b, torch.bfloat16) for k, f, b in (
+            ("pass1", 2 * keys * G * D, b1), ("pass2", 2 * keys * G * D, b2),
+            ("sum", 0, nbytes(cat) + nbytes(q)))}
+        sc_p = paged_ops.paged_attention_stats_plain(q, kp, t, l, window=w)[1]
+        plain = {"pass1": time_ms(lambda t=t, l=l: paged_ops.paged_attention_stats_plain(
+                     q, kp, t, l, window=w), 3)[0],
+                 "pass2": time_ms(lambda t=t, l=l: paged_ops.paged_attention_values_plain(
+                     q, kp, vp, t, l, ml_p, sc_p, window=w), 3)[0],
+                 "sum": time_ms(lambda: paged_ops.paged_sum_plain(cat, q.dtype), 3)[0]}
+        rows.append(dict(
+            shape=[B, KV, G, D], pages=_dt(pages), window=w, cut="halves", share=i,
+            positions=[int(shares[0][0].shape[1]) * 16 * i,
+                       int(shares[0][0].shape[1]) * 16 * i + int(t.shape[1]) * 16], keys=keys,
+            ms={k: time_ms(f, 20)[0] for k, f in fns.items()},
+            device_ms=dev, device_ms_total=sum(dev.values()),
+            two_pass_device_ms=old_dev,
+            two_pass_device_ms_total=old_dev["pass1"] + old_dev["merge"] + old_dev["pass2"]
+            + old_dev["sum"],
+            three_launches_device_ms=device_ms(both, 20),
+            two_pass_four_launches_device_ms=device_ms(old_both, 20),
+            bound_ms={k: b[0] for k, b in bounds.items()},
+            bound_by={k: b[1] for k, b in bounds.items()},
+            device_bound_share={k: bounds[k][0] / dev[k] for k in bounds},
+            plain_ms=plain, library_ms=None))
+    return rows
 
 
 def greedy_equality():
@@ -1212,7 +1447,7 @@ def main_path(flash_ops, paged_ops, cfg=None, traffic=SERVE_REQUESTS,
 MOE_RANGES = ("moe_dispatch", "moe_combine")
 # output tokens a request in a traced run, few for the run's time: reading
 # a trace's events takes several times the traced run
-PROFILE_OSL = 8
+PROFILE_OSL = 4   # cut from 8 for the run's time
 
 
 def free_card():
@@ -1375,7 +1610,7 @@ def greedy_on_card_and_cpu(cfg, requests, label, **engine):
 def greedy_equality_moe():
     """DeepSeek-R1 at full width (d_model, MLA, dense d_ff, expert d_ff,
     vocab) with 2 layers (1 dense, 1 MoE) and 16 experts, on the card and
-    on a CPU copy. Four 30-token prompts, 20 new tokens each, on a 7-page
+    on a CPU copy. Four 30-token prompts, ``MOE_EQ_NEW_TOKENS`` new tokens each, on a 7-page
     pool: the engine preempts, decode batches of up to 4 give each expert
     2 slots, so assignments drop on both sides alike."""
     from repro_torch.configs.registry import get_config
@@ -1384,7 +1619,7 @@ def greedy_equality_moe():
     cfg = dataclasses.replace(full, n_layers=2, moe=dataclasses.replace(
         full.moe, n_experts=16, first_dense_layers=1))
     rng = np.random.default_rng(2)
-    requests = [(rng.integers(0, cfg.vocab, size=30).tolist(), 20)
+    requests = [(rng.integers(0, cfg.vocab, size=30).tolist(), MOE_EQ_NEW_TOKENS)
                 for _ in range(4)]
     params, runs = greedy_on_card_and_cpu(
         cfg, requests, "moe", n_pages=7, max_num_seqs=4,
@@ -1401,23 +1636,23 @@ def greedy_equality_moe():
 
 def greedy_equality_swa():
     """h2o-danube-3-4b at full width (d_model 3840, 32 q / 8 kv heads of
-    120, window 4096, vocab 32000) with 2 layers, on the card and on a CPU
-    copy. Two 4200-token prompts, 16 new tokens each: prompt rows past 4096
+    120, window 4096, vocab 32000) with ``SWA_EQ``'s layers, on the card and on a CPU
+    copy. Two 4200-token prompts, ``SWA_EQ``'s new tokens each: prompt rows past 4096
     lose their first keys in K1, and every decode step's window in K2
     starts past position 0."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import pages_to_hold
 
     full = get_config("h2o-danube-3-4b")
-    cfg = dataclasses.replace(full, n_layers=2)
+    cfg = dataclasses.replace(full, n_layers=SWA_EQ["layers"])
     rng = np.random.default_rng(3)
-    requests = [(rng.integers(0, cfg.vocab, size=4200).tolist(), 16)
+    requests = [(rng.integers(0, cfg.vocab, size=4200).tolist(), SWA_EQ["new_tokens"])
                 for _ in range(2)]
     params, runs = greedy_on_card_and_cpu(
         cfg, requests, "swa", n_pages=pages_to_hold(requests), max_num_seqs=2)
     return dict(model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
                 head_dim=cfg.head_dim, window=cfg.swa_window, dtype="float32",
-                reduced={"n_layers": [full.n_layers, 2]},
+                reduced={"n_layers": [full.n_layers, cfg.n_layers]},
                 prompt_tokens=[len(p) for p, _ in requests],
                 params=params, tokens_equal=True, runs=runs)
 
@@ -1474,13 +1709,15 @@ def greedy_equality_xlstm():
 
 def gqa_configs():
     """The rest of the attention decoders, as the main path serves them:
-    qwen3-14b and h2o-danube-3-4b whole, kimi-k2 and llama3-405b at full
+    h2o-danube-3-4b whole, qwen3-14b, kimi-k2 and llama3-405b at full
     width with their depth cut, with the cuts and their traffic."""
     from repro_torch.configs.registry import get_config
 
     kimi = get_config("kimi-k2-1t-a32b")
     l405 = get_config("llama3-405b")
-    return [(get_config("qwen3-14b"), {}, SERVE_REQUESTS),
+    qwen3 = get_config("qwen3-14b")
+    return [(dataclasses.replace(qwen3, n_layers=QWEN3_LAYERS),
+             {"n_layers": [qwen3.n_layers, QWEN3_LAYERS]}, SERVE_REQUESTS),
             (get_config("h2o-danube-3-4b"), {}, DANUBE_REQUESTS),
             (dataclasses.replace(kimi, n_layers=KIMI_LAYERS),
              {"n_layers": [kimi.n_layers, KIMI_LAYERS]}, SERVE_REQUESTS),
@@ -1562,12 +1799,14 @@ def prefix_equality():
 
 
 def vlm_audio_configs():
-    """musicgen-medium whole and internvl2-76b at full width with its depth
+    """musicgen-medium and internvl2-76b at full width with their depth
     cut, as the main path serves them, with the cuts and their traffic."""
     from repro_torch.configs.registry import get_config
 
     vlm = get_config("internvl2-76b")
-    return [(get_config("musicgen-medium"), {}, SERVE_REQUESTS),
+    musicgen = get_config("musicgen-medium")
+    return [(dataclasses.replace(musicgen, n_layers=MUSICGEN_LAYERS),
+             {"n_layers": [musicgen.n_layers, MUSICGEN_LAYERS]}, SERVE_REQUESTS),
             (dataclasses.replace(vlm, n_layers=INTERNVL_LAYERS),
              {"n_layers": [vlm.n_layers, INTERNVL_LAYERS]}, SERVE_REQUESTS)]
 
@@ -1635,8 +1874,8 @@ def trace_diff(a, b):
 
 
 def capacity(flash_ops, paged_ops):
-    """The capacity-bound regime on the card: full-depth llama3.2-3b in bf16
-    serves ``SERVE_REQUESTS`` with 16 sequences at most on half the pool
+    """The capacity-bound regime on the card: llama3.2-3b in bf16 at
+    ``CAPACITY_LAYERS`` of its 28 layers serves ``SERVE_REQUESTS`` with 16 sequences at most on half the pool
     that holds them all, once with naive and once with kv-aware admission,
     the engine's sanitizer on. Beside each run, the port's ``SimRunner``
     with H100 constants serves the same lengths behind the same
@@ -1656,7 +1895,8 @@ def capacity(flash_ops, paged_ops):
     from repro_torch.launch.serve import make_requests, pages_to_hold
     from repro_torch.models.transformer import Transformer
 
-    cfg = get_config("llama3.2-3b")
+    full = get_config("llama3.2-3b")
+    cfg = dataclasses.replace(full, n_layers=CAPACITY_LAYERS)
     r = SERVE_REQUESTS
     requests = make_requests(cfg.vocab, r["n"], r["isl"], r["osl"], r["seed"])
     n_pages = pages_to_hold(requests) // 2
@@ -1701,6 +1941,7 @@ def capacity(flash_ops, paged_ops):
         diffs = {"card_card": trace_diff(folds["card"]["trace"], folds["card"]["trace"]),
                  "card_sim": trace_diff(folds["card"]["trace"], folds["sim"]["trace"])}
         emit("capacity", model=cfg.name, layers=cfg.n_layers, dtype="bfloat16",
+             reduced={"n_layers": [full.n_layers, cfg.n_layers]},
              admission=admission, n_pages=n_pages,
              pages_to_hold=pages_to_hold(requests), max_num_seqs=16,
              sanitize=True, sim_hw=pm.H100.name, card=card, sim=sim,
@@ -1744,9 +1985,10 @@ def capacity(flash_ops, paged_ops):
 
 
 # the kv_cache_dtype phase: llama3.2-3b's pool of SERVE_REQUESTS in fp8
-# (768 pages of 28 layers x 8 kv heads x 128, k and v, one byte each); the
-# int8 serve's requests; the equality run's pools (7 pages: preempting)
-KV_FP8_POOL_BYTES = 704_643_072
+# (768 pages of CAPACITY_LAYERS layers x 8 kv heads x 128, k and v, one byte
+# each: 704,643,072 B at 28 layers); the int8 serve's requests; the
+# equality run's pools (7 pages: preempting)
+KV_FP8_POOL_BYTES = 768 * 16 * 8 * 128 * 2 * CAPACITY_LAYERS
 KV_INT8_REQUESTS = PHI_REQUESTS
 KV_EQ_ENGINE = dict(n_pages=7, max_num_seqs=4, max_num_batched_tokens=512,
                     chunk_size=192, admission_mode="naive")
@@ -1775,8 +2017,8 @@ def _schedule(eng, reqs):
 
 
 def kv_cache_dtype_phase(flash_ops, paged_ops):
-    """The reference's ``kv_cache_dtype`` lever on the card: full-depth
-    llama3.2-3b, bf16 weights, served from an fp8 cache
+    """The reference's ``kv_cache_dtype`` lever on the card: llama3.2-3b at
+    ``CAPACITY_LAYERS`` of its 28 layers, bf16 weights, served from an fp8 cache
     (``ParallelContext(kv_cache_dtype=float8_e4m3fn)``) through
     ``InferenceEngine`` -> ``TorchRunner``: the capacity traffic
     (``SERVE_REQUESTS``, naive admission, the sanitizer on) on the pool
@@ -1802,7 +2044,8 @@ def kv_cache_dtype_phase(flash_ops, paged_ops):
     from repro_torch.models.transformer import Transformer
     from repro_torch.parallel.sharding import ParallelContext
 
-    cfg = get_config("llama3.2-3b")
+    full = get_config("llama3.2-3b")
+    cfg = dataclasses.replace(full, n_layers=CAPACITY_LAYERS)
     launches, tpot = {}, {}
     for cache, traffic, unroll in ((torch.float8_e4m3fn, SERVE_REQUESTS, False),
                                    (torch.float8_e4m3fn, SERVE_REQUESTS, True),
@@ -1860,6 +2103,7 @@ def kv_cache_dtype_phase(flash_ops, paged_ops):
         card = _schedule(eng, reqs)
         tpot[label] = s["tpot_s"]["mean"]
         emit("kv_cache_dtype", model=cfg.name, layers=cfg.n_layers, dtype="bfloat16",
+             reduced={"n_layers": [full.n_layers, cfg.n_layers]},
              cache_dtype=_dt(cache), decode_unroll=unroll, n_requests=len(requests),
              admission=ecfg.admission_mode, sanitize=ecfg.sanitize,
              gen_tokens=s["gen_tokens"], gen_tok_s=s["gen_throughput_tok_s"],
@@ -1946,28 +2190,16 @@ REASONING_LAYERS = 4
 REASONING_DECODE = dict(B=16, min_ctx=12_288, max_ctx=33_792, steps=4, seed=27)
 
 
-def reasoning_decode(flash_ops, paged_ops):
-    """``reasoning_decode``: the decode steps of ``REASONING_DECODE`` on a
-    seeded fp8 pool, timed by CUDA events; K2 must launch only its
-    ``cluster`` instance, once a layer a step, and no other kernel; K2 then
-    held against its plain version on layer 0's pool at the last step's
-    tables (a seeded q, ``hold_q8``'s bounds) and its device time at those
-    inputs set beside the step's. Returns the step's launches."""
-    from repro_torch.configs.registry import get_config
-    from repro_torch.kernels.paged_attention.ref import weight_slack
-    from repro_torch.models.cache_dtype import to_cache_dtype, writable
-    from repro_torch.models.transformer import Transformer
-    from repro_torch.parallel.sharding import ParallelContext
-
+def reasoning_inputs(vocab):
+    """``REASONING_DECODE``'s draws from its numpy seed, in order: the 16
+    contexts (the first the longest), the tables (each covering its last
+    step's token in shuffled pages; the pad entries name the pool's last
+    page, which no sequence reads) and the first tokens. Returns (contexts,
+    tables (B, n) int32, the pool's pages P, tokens)."""
     r = REASONING_DECODE
-    full = get_config("llama3-405b")
-    cfg = dataclasses.replace(full, n_layers=REASONING_LAYERS)
-    cache = torch.float8_e4m3fn
     rng = np.random.default_rng(r["seed"])
     ctx = rng.integers(r["min_ctx"], r["max_ctx"] + 1, size=r["B"])
     ctx[0] = r["max_ctx"]
-    # each table covers its last step's token; the pad entries name the
-    # pool's last page, which no sequence reads
     n_blocks = -(-(ctx + r["steps"]) // 16)
     P = int(n_blocks.sum()) + 1
     perm = rng.permutation(P - 1).astype(np.int32)
@@ -1976,20 +2208,58 @@ def reasoning_decode(flash_ops, paged_ops):
     for b, n in enumerate(n_blocks):
         tables[b, :n] = perm[used:used + n]
         used += n
+    return ctx, tables, P, rng.integers(0, vocab, size=r["B"])
+
+
+def seed_reasoning_pools(model, P, gen, keep=None):
+    """The fp8 pools of ``model`` for ``REASONING_DECODE``: every layer's k
+    and v pages drawn in order from ``gen`` (seeded with its seed) on the
+    card, as a pool of P pages; with ``keep`` (page ids) only those pages,
+    in that order, then a zero pad page."""
+    from repro_torch.models.cache_dtype import to_cache_dtype, writable
+    cache = torch.float8_e4m3fn
+    n = P if keep is None else len(keep) + 1
+    pools = [torch.zeros(shape, dtype=model.pool_dtype(), device="cuda")
+             for shape in model.pool_shapes(n, 16)]
+    for pool in pools:
+        for layer in range(pool.shape[0]):
+            drawn = writable(to_cache_dtype(torch.randn(
+                (P, *pool.shape[2:]), generator=gen, device="cuda"), cache))
+            writable(pool[layer])[:n if keep is None else n - 1].copy_(
+                drawn if keep is None else drawn[keep])
+            del drawn
+    return pools
+
+
+def reasoning_decode(flash_ops, paged_ops):
+    """``reasoning_decode``: the decode steps of ``REASONING_DECODE`` on a
+    seeded fp8 pool, timed by CUDA events; K2 must launch only its
+    ``cluster`` instance, once a layer a step, and no other kernel; K2 then
+    held against its plain version on layer 0's pool at the last step's
+    tables (a seeded q, ``hold_q8``'s bounds) and its device time at those
+    inputs set beside the step's. Returns the step's launches and what
+    ``split_reasoning`` holds its ranks to: the greedy tokens, the first
+    step's logits (fp32, on the host), the median step and K2's device
+    time a step."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.paged_attention.ref import weight_slack
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.parallel.sharding import ParallelContext
+
+    r = REASONING_DECODE
+    full = get_config("llama3-405b")
+    cfg = dataclasses.replace(full, n_layers=REASONING_LAYERS)
+    cache = torch.float8_e4m3fn
+    ctx, tables, P, first = reasoning_inputs(cfg.vocab)
     t0 = time.perf_counter()
     model = Transformer(cfg, device="cuda", dtype=torch.bfloat16, seed=0,
                         ctx=ParallelContext(kv_cache_dtype=cache))
     gen = torch.Generator(device="cuda").manual_seed(r["seed"])
-    pools = [torch.empty(shape, dtype=model.pool_dtype(), device="cuda")
-             for shape in model.pool_shapes(P, 16)]
-    for pool in pools:
-        for layer in range(pool.shape[0]):
-            writable(pool[layer]).copy_(writable(to_cache_dtype(torch.randn(
-                pool.shape[1:], generator=gen, device="cuda"), cache)))
+    pools = seed_reasoning_pools(model, P, gen)
     setup_s = time.perf_counter() - t0
     dev = torch.device("cuda")
     tables_t = torch.from_numpy(tables).to(dev)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=r["B"])).to(dev)
+    tokens = torch.from_numpy(first).to(dev)
     _zero_launches(flash_ops, paged_ops)
     _zero_q8(paged_ops)
     steps_ms, out = [], []
@@ -2004,6 +2274,8 @@ def reasoning_decode(flash_ops, paged_ops):
             steps_ms.append(start.elapsed_time(end))
             if not bool(torch.isfinite(logits.float()).all()):
                 raise AssertionError(f"reasoning_decode: step {step} logits not finite")
+            if step == 0:
+                logits0 = logits.float().cpu()
             tokens = logits.argmax(dim=-1)
             out.append(tokens.tolist())
     n = dict(_launches(flash_ops, paged_ops), **_q8_launches(paged_ops))
@@ -2040,7 +2312,178 @@ def reasoning_decode(flash_ops, paged_ops):
          tokens=out, launches=n)
     del model, pools, kp, vp, q, got
     free_card()
-    return {f"{cfg.name} reasoning_decode {_dt(cache)}": n}
+    return {f"{cfg.name} reasoning_decode {_dt(cache)}": n}, dict(
+        tokens=out, logits0=logits0, step_ms_median=median,
+        k2_device_ms_per_step=k2_ms * cfg.n_layers)
+
+
+# split_reasoning: ``reasoning_decode``'s model, pool and traffic with the
+# cache's sequence cut over two gloo ranks of a (data 2, model 1) mesh on
+# the card (``SPLIT_OVERRIDE``; weights whole on each rank), each rank's
+# pools holding only its half of every table's positions: K2's sequence
+# split over fp8 pages, three launches a layer. The first step's logits
+# against the unsplit model's: within this share of their largest
+# magnitude (a weight rounded to the other e4m3 neighbour, where the split's
+# (M, L) differs from the one launch's by ulps, moves an attention output
+# by one e4m3 step times |v|; the bf16 layers carry that to the logits)
+SPLIT_REASONING_LOGITS_RTOL = 2.0 ** -5
+
+
+def split_reasoning_rank(rank, out_dir):
+    """One rank of ``split_reasoning`` (``run_ranks`` spawns two on the
+    card): llama3-405b at ``REASONING_LAYERS`` in bf16 from seed 0 on the
+    (2, 1) mesh, its fp8 pools this rank's half of every table's positions
+    (``reasoning_inputs``' tables padded to an even width and cut in two;
+    the pages seeded as ``reasoning_decode`` seeds them), then
+    ``REASONING_DECODE``'s steps. Every kernel's count and the
+    collectives' counters set to 0 just before the first step and read
+    after the last; each step timed by CUDA events, and K2's three launches
+    a layer (pass 1, pass 2, the sum) by CUDA events around each. Writes its
+    row to ``out_dir``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import transformer as tm
+    from repro_torch.parallel.sharding import ParallelContext
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    r = REASONING_DECODE
+    cfg = dataclasses.replace(get_config("llama3-405b"), n_layers=REASONING_LAYERS)
+    data, model_axis = SPLIT_MESH
+    ctx = ParallelContext(mesh=make_mesh_for(data * model_axis, model_axis,
+                                             device_type="cuda"),
+                          fsdp_axis=None, rules_override=SPLIT_OVERRIDE,
+                          kv_cache_dtype=torch.float8_e4m3fn)
+    lens, tables, P, first = reasoning_inputs(cfg.vocab)
+    W = -(-tables.shape[1] // data)                  # a rank's table width
+    tables = np.pad(tables, ((0, 0), (0, data * W - tables.shape[1])), constant_values=P - 1)
+    mine = tables[:, rank * W:(rank + 1) * W]
+    keep = np.unique(mine[mine != P - 1])            # this rank's pages
+    local = np.full(P, len(keep), np.int32)          # the pad entries: the local pad page
+    local[keep] = np.arange(len(keep), dtype=np.int32)
+    t0 = time.perf_counter()
+    model = tm.Transformer(cfg, device="cuda", dtype=torch.bfloat16, seed=0, ctx=ctx)
+    torch.cuda.empty_cache()   # the init's buffers, for the other rank
+    pools = seed_reasoning_pools(model, P,
+                                 torch.Generator(device="cuda").manual_seed(r["seed"]),
+                                 torch.from_numpy(keep).long().cuda())
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    tables_t = torch.from_numpy(local[mine]).to(dev)
+    tokens = torch.from_numpy(first).to(dev)
+    # K2's launches on the path, each between CUDA events
+    marks = []
+
+    def timed_op(fn):
+        def call(*a, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            marks.append((start, end))
+            return out
+        return call
+
+    for name in ("paged_attention_stats", "paged_attention_values", "paged_sum"):
+        setattr(tm, name, timed_op(getattr(tm, name)))
+    for k in (flash_ops.KERNEL, flash_ops.NONCAUSAL, *paged_ops.COUNTERS):
+        k.reset()
+    ctx.comm.reset()
+    steps_ms, k2_ms, out = [], [], []
+    with torch.inference_mode():
+        for step in range(r["steps"]):
+            marks.clear()
+            positions = torch.from_numpy(lens + step).to(dev)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            logits = model.decode_step(tokens, positions, pools, tables_t)
+            end.record()
+            end.synchronize()
+            steps_ms.append(start.elapsed_time(end))
+            k2_ms.append(sum(a.elapsed_time(b) for a, b in marks))
+            if step == 0:
+                torch.save(logits.float().cpu(), Path(out_dir) / f"logits0.rank{rank}.pt")
+            tokens = logits.argmax(dim=-1)
+            out.append(tokens.tolist())
+    launches = {"flash_attention": flash_ops.KERNEL.launches + flash_ops.NONCAUSAL.launches,
+                **{k.symbol: k.launches for k in paged_ops.COUNTERS},
+                "by_instance": {k.symbol: dict(k.by_instance) for k in paged_ops.COUNTERS
+                                if k.by_instance}}
+    row = dict(rank=rank, tokens=out, steps_ms=steps_ms, k2_device_ms=k2_ms,
+               setup_s=setup_s, table_width=W, pages=len(keep) + 1,
+               pool_bytes=sum(t.numel() * t.element_size() for t in pools),
+               no_key_rows=int((lens + r["steps"] <= rank * W * 16).sum()),
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               launches=launches,
+               comm={k: v["calls"] for k, v in ctx.comm.stats.items()})
+    with open(Path(out_dir) / f"split_reasoning.rank{rank}.json", "w") as f:
+        json.dump(row, f)
+
+
+def split_reasoning(unsplit):
+    """``split_reasoning``: ``split_reasoning_rank`` on two gloo ranks.
+    Each rank's greedy tokens must equal ``unsplit``'s (``reasoning_decode``
+    in this run), its first step's logits lie within
+    ``SPLIT_REASONING_LOGITS_RTOL`` of the unsplit ones' largest magnitude,
+    and it must launch K2's split pass 1, pass 2 and the sum (the cluster
+    design) ``REASONING_LAYERS`` x steps times each, and no other K2
+    instance (not the one-launch cluster, not the partition passes, not the
+    upcast library) and no K1. One line a rank. Returns the launches by
+    rank."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import run_ranks
+
+    r = REASONING_DECODE
+    out = tempfile.mkdtemp(prefix="split_reasoning_")
+    world = SPLIT_MESH[0] * SPLIT_MESH[1]
+    try:
+        run_ranks(split_reasoning_rank, world, (out,), backend="gloo", device_type="cuda")
+        ranks = [json.loads((Path(out) / f"split_reasoning.rank{i}.json").read_text())
+                 for i in range(world)]
+        logits = [torch.load(Path(out) / f"logits0.rank{i}.pt") for i in range(world)]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    n_calls = REASONING_LAYERS * r["steps"]
+    want = {"paged_cvt_share_stats": n_calls, "paged_cvt_share_values": n_calls,
+            "paged_cvt_sum": n_calls}
+    ref = unsplit["logits0"]
+    scale = float(ref.abs().max())
+    launches = {}
+    for row, lg in zip(ranks, logits):
+        n = row["launches"]
+        others = {k: v for k, v in n.items() if k not in want and k != "by_instance" and v}
+        diff = float((lg - ref).abs().max())
+        if row["tokens"] != unsplit["tokens"] or any(n[k] != v for k, v in want.items()) \
+                or others or not bool(torch.isfinite(lg).all()) \
+                or diff > SPLIT_REASONING_LOGITS_RTOL * scale:
+            raise AssertionError(
+                f"split_reasoning rank {row['rank']}: tokens {row['tokens']} against "
+                f"unsplit {unsplit['tokens']}, launches {n} (want {want} and no other), "
+                f"first logits off by {diff} of {scale}")
+        median = sorted(row["steps_ms"][1:])[len(row["steps_ms"][1:]) // 2]
+        k2 = sorted(row["k2_device_ms"][1:])[len(row["k2_device_ms"][1:]) // 2]
+        emit("split_reasoning", model="llama3-405b", rank=row["rank"],
+             mesh={"data": SPLIT_MESH[0], "model": SPLIT_MESH[1]},
+             layers=REASONING_LAYERS, reduced={"n_layers": [126, REASONING_LAYERS]},
+             dtype="bfloat16", cache_dtype="float8_e4m3fn", batch=r["B"],
+             table_width=row["table_width"], pages=row["pages"],
+             pool_bytes=row["pool_bytes"], rows_without_a_key=row["no_key_rows"],
+             tokens=row["tokens"], tokens_equal_unsplit=True,
+             first_logits_max_abs_diff=diff, first_logits_scale=scale,
+             first_logits_rtol=SPLIT_REASONING_LOGITS_RTOL,
+             launches={k: v for k, v in n.items() if k == "by_instance" or v},
+             collectives=row["comm"], steps_ms=row["steps_ms"], step_ms_median=median,
+             k2_device_ms_per_step=row["k2_device_ms"], k2_device_ms_median=k2,
+             unsplit_step_ms_median=unsplit["step_ms_median"],
+             unsplit_k2_device_ms_per_step=unsplit["k2_device_ms_per_step"],
+             setup_s=row["setup_s"], max_memory_allocated=row["max_memory_allocated"])
+        launches[f"llama3-405b split_reasoning rank{row['rank']}"] = n
+    return launches
 
 
 def cluster_phase():
@@ -2200,7 +2643,7 @@ def examples_phase(flash_ops, paged_ops):
 
 
 def train_equality(flash_ops, paged_ops):
-    """Three ``make_train_step`` steps of llama3.2-3b at full width and
+    """``TRAIN_EQ``'s ``make_train_step`` steps of llama3.2-3b at full width and
     ``TRAIN_EQ["layers"]`` layers in fp32 (TF32 off) on the card and on a
     CPU copy filled from the card's initial weights, on the same batches.
     Raises beyond the tolerances above; returns both sides' losses and
@@ -2382,7 +2825,8 @@ def sharded_jobs(phase):
     layers with all 256 experts in bf16, serving ``SERVE_REQUESTS`` on a
     pool that holds them; zamba2-2.7b at ``SHARDED_ZAMBA_LAYERS`` of its 54 layers
     (``SERVE_REQUESTS``) and xlstm-350m at ``SHARDED_XLSTM_BLOCKS`` of its
-    24 blocks (``XLSTM_REQUESTS``)."""
+    24 blocks (``XLSTM_REQUESTS``); each traffic at a quarter of its output
+    tokens (``fewer_steps``)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import make_requests
 
@@ -2390,7 +2834,7 @@ def sharded_jobs(phase):
     zamba, xlstm = get_config("zamba2-2.7b"), get_config("xlstm-350m")
     if phase == "equality":
         rng = np.random.default_rng(2)
-        requests = [(rng.integers(0, llama.vocab, size=30).tolist(), 20)
+        requests = [(rng.integers(0, llama.vocab, size=30).tolist(), MOE_EQ_NEW_TOKENS)
                     for _ in range(4)]
         no_drop = 16 / r1.moe.top_k
         r1_eq = dataclasses.replace(r1, n_layers=2, moe=dataclasses.replace(
@@ -2413,17 +2857,20 @@ def sharded_jobs(phase):
                          "n_experts": [r1.moe.n_experts, 16],
                          "capacity_factor": [r1.moe.capacity_factor, no_drop]},
                  requests, torch.float32, SHARDED_EQ_ENGINE), *recurrent]
-    return [(cfg, reduced, make_requests(cfg.vocab, r["n"], r["isl"], r["osl"],
-                                         r["seed"]), torch.bfloat16, {})
-            for cfg, reduced, r in (
-                (dataclasses.replace(llama, n_layers=SHARDED_LLAMA_LAYERS),
-                 {"n_layers": [llama.n_layers, SHARDED_LLAMA_LAYERS]}, SERVE_REQUESTS),
-                (dataclasses.replace(r1, n_layers=R1_LAYERS),
-                 {"n_layers": [r1.n_layers, R1_LAYERS]}, SERVE_REQUESTS),
-                (dataclasses.replace(zamba, n_layers=SHARDED_ZAMBA_LAYERS),
-                 {"n_layers": [zamba.n_layers, SHARDED_ZAMBA_LAYERS]}, SERVE_REQUESTS),
-                (dataclasses.replace(xlstm, n_layers=SHARDED_XLSTM_BLOCKS),
-                 {"n_layers": [xlstm.n_layers, SHARDED_XLSTM_BLOCKS]}, XLSTM_REQUESTS))]
+    jobs = []
+    for cfg, reduced, r in (
+            (dataclasses.replace(llama, n_layers=SHARDED_LLAMA_LAYERS),
+             {"n_layers": [llama.n_layers, SHARDED_LLAMA_LAYERS]}, SERVE_REQUESTS),
+            (dataclasses.replace(r1, n_layers=SHARDED_R1_LAYERS),
+             {"n_layers": [r1.n_layers, SHARDED_R1_LAYERS]}, SERVE_REQUESTS),
+            (dataclasses.replace(zamba, n_layers=SHARDED_ZAMBA_LAYERS),
+             {"n_layers": [zamba.n_layers, SHARDED_ZAMBA_LAYERS]}, SERVE_REQUESTS),
+            (dataclasses.replace(xlstm, n_layers=SHARDED_XLSTM_BLOCKS),
+             {"n_layers": [xlstm.n_layers, SHARDED_XLSTM_BLOCKS]}, XLSTM_REQUESTS)):
+        r, reduced = fewer_steps(r, reduced, div=4)
+        jobs.append((cfg, reduced, make_requests(cfg.vocab, r["n"], r["isl"], r["osl"],
+                                                 r["seed"]), torch.bfloat16, {}))
+    return jobs
 
 
 def sharded_rank(rank, phase, out_dir):
@@ -2722,12 +3169,12 @@ def sharded_train_rank(rank, out_dir):
 
 def sharded_train(flash_ops, paged_ops):
     """Four ranks spawned on the card, a (2, 2) mesh over gloo. Prints
-    ``sharded_train_equality`` (the mesh's three AdamW steps against tp=1 on
-    the card: losses, grad norms and every parameter after step 3 under
+    ``sharded_train_equality`` (the mesh's two AdamW steps against tp=1 on
+    the card: losses, grad norms and every parameter after step 2 under
     ``train_equality``'s tolerances), ``sharded_train_restore`` (the
     checkpoint saved from (2,2) restored onto (1,4), every rank's shards
     against the written arrays) and one ``sharded_train_main_path`` line a
-    rank (median step time of steps 2-4, tokens/s, peak memory, collectives
+    rank (median step time of steps 2-3, tokens/s, peak memory, collectives
     per step). Fails if any check fails or a rank launched a kernel. Gloo
     moves every collective through host memory on one card."""
     import shutil
@@ -2801,7 +3248,7 @@ def sharded_train(flash_ops, paged_ops):
              params_local=mm["params_local"], steps=steps,
              loss=[h["loss"] for h in hist],
              grad_norm=[h["grad_norm"] for h in hist],
-             step_s=[h["seconds"] for h in hist], median_step_s_2_to_4=median_s,
+             step_s=[h["seconds"] for h in hist], median_step_s_from_2=median_s,
              tok_s=t["batch"] * t["seq"] / median_s,
              max_memory_allocated=mm["max_memory_allocated"],
              collectives_per_step={op: dict(calls=v["calls"] / steps,
@@ -2832,13 +3279,13 @@ DRYRUN_ITERS = 5
 # tokens of seeded cache in its 9 shared-block pools, about 48 GB); then the
 # sequence-split decode on two gloo ranks of a (data 2, model 1) mesh on the
 # card (weights whole on each rank, the cache's positions cut in two):
-# zamba2-2.7b and h2o-danube-3-4b at full depth in bf16, an 8,000-token
+# zamba2-2.7b and h2o-danube-3-4b at ``SPLIT_LAYERS`` in bf16, an 8,000-token
 # prompt in a 8,192-position cache (danube's window of 4096 spans both
 # shares), SPLIT_STEPS greedy tokens against the unsplit model on the card
 SPLIT_MESH = (2, 1)
 SPLIT_OVERRIDE = {"batch": None, "cache_batch": None, "cache_seq": "data"}
 SPLIT_ARCHS = ("zamba2-2.7b", "h2o-danube-3-4b")
-SPLIT_LEN, SPLIT_PROMPT, SPLIT_STEPS = 8192, 8000, 8
+SPLIT_LEN, SPLIT_PROMPT, SPLIT_STEPS = 8192, 8000, 4
 # K2's partials and merge at the split run's shapes: each half (4,096
 # positions) of one 8,192-position sequence, the newest token at 7,999
 SPLIT_PAGED = [dict(model="zamba2-2.7b", KV=32, G=1, D=80, window=0),
@@ -3104,7 +3551,7 @@ def time_split(paged_ops, m, gen):
 
 def split_rank(rank, out_dir):
     """One rank of the split decode (``run_ranks`` spawns two on the card):
-    each of ``SPLIT_ARCHS`` at full depth in bf16 on a (2, 1) mesh whose
+    each of ``SPLIT_ARCHS`` at ``SPLIT_LAYERS`` in bf16 on a (2, 1) mesh whose
     cache sequence is cut over "data" (weights whole), the prompt
     prefilled whole, this rank's 4,096 positions of it written into its
     pool, then ``SPLIT_STEPS`` greedy decode steps through K2's partials,
@@ -3155,7 +3602,7 @@ def split_rank(rank, out_dir):
 
     rows = []
     for arch in SPLIT_ARCHS:
-        cfg = get_config(arch)
+        cfg = dataclasses.replace(get_config(arch), n_layers=SPLIT_LAYERS[arch])
         free_card()
         model = Transformer(cfg, device="cuda", dtype=torch.bfloat16, seed=0, ctx=ctx)
         for k in (flash_ops.KERNEL, paged_ops.KERNEL, paged_ops.PARTIALS, paged_ops.MERGE):
@@ -3164,7 +3611,7 @@ def split_rank(rank, out_dir):
         t0 = time.perf_counter()
         with torch.inference_mode():
             tokens = greedy(model, rank * share, (rank + 1) * share)
-        row = dict(model=arch, rank=rank, tokens=tokens,
+        row = dict(model=arch, rank=rank, tokens=tokens, layers=cfg.n_layers,
                    seconds=time.perf_counter() - t0,
                    launches={"flash_attention": flash_ops.KERNEL.launches,
                              "paged_attention": paged_ops.KERNEL.launches,
@@ -3196,6 +3643,7 @@ def long_decode(flash_ops, paged_ops):
     import shutil
     import tempfile
 
+    from repro_torch.configs.registry import get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import run_ranks
 
@@ -3242,6 +3690,7 @@ def long_decode(flash_ops, paged_ops):
                     f"{row['tokens']} against unsplit {lead['unsplit_tokens']}, "
                     f"launches {ln}")
             emit("split_decode", model=row["model"], rank=row["rank"],
+                 reduced={"n_layers": [get_config(row["model"]).n_layers, row["layers"]]},
                  mesh={"data": SPLIT_MESH[0], "model": SPLIT_MESH[1]},
                  positions=[SPLIT_LEN // world, SPLIT_LEN], prompt=SPLIT_PROMPT,
                  steps=SPLIT_STEPS, tokens=row["tokens"],
@@ -3255,7 +3704,7 @@ def long_decode(flash_ops, paged_ops):
 # two past its 4,096 window) served through ``TorchRunner`` behind the
 # engine, LEVER_STEPS tokens a request
 LEVER_LAYERS = 2
-LEVER_STEPS = 4
+LEVER_STEPS = 2   # cut from 4 for the run's time
 LEVER_PROMPTS = dict(n=4, isl=(12, 200), seed=3)
 LEVER_DANUBE_PROMPTS = (4200, 4260)
 # the runner's prefill chunks: prompts of 12-200 tokens take uneven ones
@@ -3480,7 +3929,7 @@ def lever_max_len(requests, ctx):
 
 
 def _lever_train(cfg, ctx):
-    """Three AdamW steps on ``SHARDED_TRAIN_EQ``'s batches from the seeded
+    """``SHARDED_TRAIN_EQ``'s AdamW steps on its batches from the seeded
     train layout (sharded over ``ctx``'s mesh, or at tp=1 without one):
     (losses, grad norms and step seconds; the trained model)."""
     from repro_torch.launch.train import synthetic_batch
@@ -3714,7 +4163,8 @@ def main():
 
     t0 = time.perf_counter()
     built = kbuild.build([flash_ops.KERNEL.name, flash_ops.NONCAUSAL.name,
-                          paged_ops.KERNEL.name, paged_ops.CVT.name, paged_ops.UPCAST.name])
+                          paged_ops.KERNEL.name, paged_ops.CVT.name, paged_ops.UPCAST.name,
+                          paged_ops.SHARE_STATS.name])
     # each library's kernel instances (ptxas's entry functions) with their
     # registers and spills
     ptxas = {name: [ln.strip() for ln in log.splitlines()
@@ -3726,15 +4176,14 @@ def main():
     q8_err, q8_exact = check_q8(paged_ops)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
+    # K1's rows at the other models' prompts are held by ``check_kernels``,
+    # not timed (for the run's time)
     timings = {"flash_attention": [time_flash(flash_ops, c, torch.bfloat16, gen)
-                                   for c in RAGGED_FLASH[::-1] + MAIN_FLASH
-                                   + GQA_FLASH + ZAMBA_FLASH + VLM_AUDIO_FLASH
-                                   + RANK_FLASH + ZAMBA_RANK_FLASH],
+                                   for c in RAGGED_FLASH[::-1] + MAIN_FLASH],
                "paged_attention": [time_paged(paged_ops, torch.bfloat16, gen, m)
                                    for m in (LONG_PAGED, MAIN_PAGED, *GQA_PAGED,
                                              ZAMBA_PAGED, MUSICGEN_PAGED,
-                                             INTERNVL_PAGED, RANK_PAGED,
-                                             ZAMBA_RANK_PAGED)]}
+                                             INTERNVL_PAGED)]}
     # the kernels line takes K1 at S=2048 and K2 at llama3.2-3b's decode batch
     main_row = {"flash_attention": len(RAGGED_FLASH) + len(MAIN_FLASH) - 1,
                 "paged_attention": 1}
@@ -3751,6 +4200,11 @@ def main():
     q8_rows = [time_q8(paged_ops, pages, upcast, gen, m) for pages, upcast, m in Q8_TIMED]
     for row in q8_rows:
         emit("timing", kernel="paged_attention", **row)
+    # the sequence split's launches on each half of reasoning lengths at G
+    # 16 over fp8 pages, both designs in turn
+    split_rows = time_split_q8(paged_ops, torch.float8_e4m3fn, gen, Q8_REASONING[0])
+    for row in split_rows:
+        emit("timing", kernel="paged_attention split", **row)
 
     emit("greedy_equality", **greedy_equality())
     free_card()
@@ -3764,6 +4218,7 @@ def main():
     emit("greedy_equality_moe", **greedy_equality_moe())
     free_card()
     for cfg, reduced, traffic in moe_configs():
+        traffic, reduced = fewer_steps(traffic, reduced)
         by_model[cfg.name], model = main_path(flash_ops, paged_ops, cfg,
                                               traffic, reduced)
         if cfg.attention == "mla":
@@ -3774,6 +4229,7 @@ def main():
     emit("greedy_equality_swa", **greedy_equality_swa())
     free_card()
     for cfg, reduced, traffic in gqa_configs():
+        traffic, reduced = fewer_steps(traffic, reduced)
         by_model[cfg.name], model = main_path(flash_ops, paged_ops, cfg,
                                               traffic, reduced)
         del model
@@ -3788,8 +4244,8 @@ def main():
                                  ("xlstm-350m", XLSTM_MAIN_BLOCKS, XLSTM_REQUESTS)):
         full = get_config(name)
         cfg = dataclasses.replace(full, n_layers=depth)
-        by_model[cfg.name], model = main_path(flash_ops, paged_ops, cfg, traffic,
-                                              {"n_layers": [full.n_layers, depth]})
+        traffic, reduced = fewer_steps(traffic, {"n_layers": [full.n_layers, depth]})
+        by_model[cfg.name], model = main_path(flash_ops, paged_ops, cfg, traffic, reduced)
         if cfg.family == "hybrid":
             profile_main_path(model, traffic, decode_only=True)
         del model
@@ -3798,6 +4254,7 @@ def main():
     emit("prefix_equality", **prefix_equality())
     free_card()
     for cfg, reduced, traffic in vlm_audio_configs():
+        traffic, reduced = fewer_steps(traffic, reduced)
         by_model[cfg.name], model = main_path(flash_ops, paged_ops, cfg,
                                               traffic, reduced)
         del model
@@ -3807,9 +4264,16 @@ def main():
     free_card()
     q8_by_model = kv_cache_dtype_phase(flash_ops, paged_ops)
     free_card()
-    q8_by_model.update(reasoning_decode(flash_ops, paged_ops))
+    reasoning_launches, unsplit = reasoning_decode(flash_ops, paged_ops)
+    q8_by_model.update(reasoning_launches)
     for key, n in q8_by_model.items():
         by_model[key] = {k: n[k] for k in ("flash_attention", "paged_attention")}
+    free_card()
+    split_by_rank = split_reasoning(unsplit)
+    del unsplit
+    for key, n in split_by_rank.items():
+        by_model[key] = {"flash_attention": n["flash_attention"],
+                         "paged_attention": n["paged_attention_fwd"]}
     free_card()
     cluster_phase()
     by_model.update(examples_phase(flash_ops, paged_ops))
@@ -3934,6 +4398,32 @@ def main():
         [r for r in q8_rows if r["pages"] == "float32"],
         [f"{q}/{p} split" for q, p in (("bfloat16", "float32"), ("float32", "float8_e4m3fn"),
                                         ("float32", "int8"), ("float32", "bfloat16"))]))
+    # K2's sequence split over 8-bit pages (the cluster design), each
+    # launch on split_reasoning's path with its row at reasoning lengths'
+    # first half (G 16, fp8); the sum is the cvt library's part_sum
+    split_err = q8_err["bfloat16/float8_e4m3fn split cluster"]
+    first = split_rows[0]
+    for name, key, symbol, source, library in (
+            ("paged_attention split pass 1 (scores and the share's (m, l))", "pass1",
+             "paged_cvt_share_stats", "src/repro_torch/csrc/paged_split_cluster.cuh",
+             "paged_attention_split.cu"),
+            ("paged_attention split pass 2 (the share's rounded weights times v)", "pass2",
+             "paged_cvt_share_values", "src/repro_torch/csrc/paged_split_cluster.cuh",
+             "paged_attention_split.cu"),
+            ("paged_attention split sum (the ranks' sums)", "sum", "paged_cvt_sum",
+             "src/repro_torch/csrc/paged_cvt.cuh", "paged_attention_cvt.cu")):
+        b_ms, b_by = first["bound_ms"][key], first["bound_by"][key]
+        ms, plain_ms = first["ms"][key], first["plain_ms"][key]
+        kernels.append({
+            "name": name, "route": "cuda", "mode": "default", "design": "split cluster",
+            "source": source, "library": f"src/repro_torch/csrc/{library}",
+            "replaces": replaces["paged_attention"],
+            "launches": sum(n[symbol] for n in split_by_rank.values()),
+            "launches_by_model": {m: n[symbol] for m, n in split_by_rank.items()},
+            "max_abs_err": split_err, "ms": ms, "kernel_ms": ms,
+            "device_ms": first["device_ms"][key], "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "library_device_ms": None,
+            "shape": first["shape"], "dtype": "bfloat16", "pages": first["pages"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -78,6 +78,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* tmap, 
       : "memory");
 }
 
+// `bytes` (a multiple of 16) of global memory at `src` into shared memory
+// at `dst`, both 16-byte aligned, by the bulk copy engine (TMA without a
+// tensor map), completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // Orders this thread's generic-proxy shared-memory writes before later
 // async-proxy reads (wgmma operands, TMA).
 __device__ __forceinline__ void fence_proxy_async() {

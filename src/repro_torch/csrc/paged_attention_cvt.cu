@@ -22,6 +22,9 @@
 // cut over ranks: each rank runs pass 1 on its share, the ranks gather the
 // (m, l) and merge them (paged_cvt_stats_merge), run pass 2 on their shares
 // with the global (M, L), gather the sums and add them (paged_cvt_sum).
+// Only the rows TMA cannot address take them there
+// (kernels/paged_attention/ops.py split_design); the others take the two
+// cluster launches of paged_attention_split.cu, then paged_cvt_sum.
 
 #include "paged_cluster.cuh"
 

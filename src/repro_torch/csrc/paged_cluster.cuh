@@ -4,8 +4,9 @@
 // rounded to it, fp32 sums, out in q's dtype) as one launch that reads each
 // counted key's v once and its k once where the block's scores fit its
 // shared memory. Included by paged_attention_cvt.cu, beside the two-pass
-// kernels of paged_cvt.cuh, which keep the sequence-split decode (its
-// (M, L) crosses ranks) and the 8-bit rows TMA cannot address.
+// kernels of paged_cvt.cuh, which keep the 8-bit rows TMA cannot address;
+// the sequence-split decode (its (M, L) crosses ranks) takes the two
+// cluster launches of paged_split_cluster.cuh, built on its helpers.
 //
 // Replaces: the Pallas TPU kernel paged_attention_kernel (body
 // _paged_kernel, src/repro/kernels/paged_attention/kernel.py:79) for pages
@@ -635,8 +636,8 @@ __host__ __device__ constexpr int span_pages(int max_blocks, int window) {
                                                            : max_blocks;
 }
 
-// Host helpers of the cluster launches: this design's and the upcast
-// mode's (paged_cluster_upcast.cuh).
+// Host helpers of the cluster launches: this design's, the upcast mode's
+// (paged_cluster_upcast.cuh) and the split passes' (paged_split_cluster.cuh).
 
 // The 4-d tensor maps over the k and v pools, n_pages pages of (PAGE, KV,
 // D) TK values, each box ROW bytes of a row by a page's tokens, 128-byte

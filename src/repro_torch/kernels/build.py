@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # in parallel (the cvt library's 20 in 23 s instead of 43 s on the card's
 # host)
 EXTRA_FLAGS = {"paged_attention_cvt": ("-split-compile=0",),
-               "paged_attention_upcast": ("-split-compile=0",)}
+               "paged_attention_upcast": ("-split-compile=0",),
+               "paged_attention_split": ("-split-compile=0",)}
 # the ``dtype`` argument of every C entry
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the ``page_dtype`` argument of the entries that read pages of another

@@ -37,10 +37,17 @@ over a rank's share of the table and returns its partitions' fp32
 partials, and ``paged_merge`` merges any number of partitions, those the
 ranks gathered. ``PARTIALS.launches`` and ``MERGE.launches`` count them
 (``UPCAST_PARTIALS`` the upcast pages'). ``decode_attention``'s function
-splits in four: ``paged_attention_stats`` (pass 1, each partition's
-(m, l)), ``paged_stats_merge`` (the sequence's (M, L) from the gathered
-partitions), ``paged_attention_values`` (pass 2, each partition's sum of
-the rounded weights times v) and ``paged_sum``.
+splits in two passes and a sum, in one of two designs that
+``split_design`` chooses: ``paged_attention_stats`` (pass 1: the share's
+(m, l) and its scores), ``paged_attention_values`` (pass 2: the ranks'
+gathered (m, l) merged into the sequence's (M, L), then the share's sum of
+the rounded weights times v) and ``paged_sum`` (the gathered sums added).
+The "cluster" design runs each pass as one thread block cluster launch
+(``csrc/paged_attention_split.cu``; ``SHARE_STATS``, ``SHARE_VALUES``): pass
+1 stores the scores, pass 2 reads them and v, never k. The "two_pass"
+design, for 8-bit rows TMA cannot address, runs the partition passes
+(``STATS``, then ``STATS_MERGE`` and ``VALUES`` inside pass 2's wrapper),
+one (m, l) and one sum a 16-page partition.
 
 On a meta tensor (``repro_torch.analysis``'s dry-run) each wrapper books
 its kernel's operations and device-memory bytes with the active op counter
@@ -63,12 +70,12 @@ from repro_torch.kernels.paged_attention.ref import (
     paged_merge_plain, paged_stats_merge_plain, paged_sum_plain,
     rounds_weights)
 
-__all__ = ["CVT", "KERNEL", "MERGE", "PARTIALS", "STATS", "STATS_MERGE", "SUM",
-           "UPCAST", "UPCAST_PARTIALS", "VALUES", "cvt_design", "paged_attention",
-           "paged_attention_partials", "paged_attention_plain",
+__all__ = ["CVT", "KERNEL", "MERGE", "PARTIALS", "SHARE_STATS", "SHARE_VALUES", "STATS",
+           "STATS_MERGE", "SUM", "UPCAST", "UPCAST_PARTIALS", "VALUES", "cvt_design",
+           "paged_attention", "paged_attention_partials", "paged_attention_plain",
            "paged_attention_partials_plain", "paged_attention_stats",
            "paged_attention_values", "paged_merge", "paged_merge_plain",
-           "paged_stats_merge", "paged_sum", "upcast_design"]
+           "paged_stats_merge", "paged_sum", "split_design", "upcast_design"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("paged_attention", "paged_attention_fwd",
@@ -99,15 +106,21 @@ VALUES = CudaKernel("paged_attention_cvt", "paged_cvt_values",
                      ctypes.c_float, _I, _I, _P])
 SUM = CudaKernel("paged_attention_cvt", "paged_cvt_sum",
                  [_P, _P, _I, _I, _I, _I, _I, _I, _P])
+SHARE_STATS = CudaKernel("paged_attention_split", "paged_cvt_share_stats",
+                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+                          _I, _I, _I, _P])
+SHARE_VALUES = CudaKernel("paged_attention_split", "paged_cvt_share_values",
+                          [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P])
 # every counter of the module, for a caller that sets them to 0
 COUNTERS = (KERNEL, PARTIALS, MERGE, CVT, UPCAST, UPCAST_PARTIALS, STATS,
-            STATS_MERGE, VALUES, SUM)
+            STATS_MERGE, VALUES, SUM, SHARE_STATS, SHARE_VALUES)
 HEAD_DIMS = (32, 64, 80, 112, 120, 128)
 PAGE = 16       # tokens per page, fixed in the kernel
 MAX_GROUP = 16  # most q heads per kv head the kernel takes
 PART = 16       # pages per partition of the split kernel, fixed in the kernel
 DESIGNS = {"two_pass": 0, "cluster": 1}   # the ``design`` argument of ``paged_cvt_fwd``
 UPCAST_DESIGNS = {"split": 0, "cluster": 1}   # ... and of ``paged_upcast_fwd``
+SPLIT_DESIGNS = ("cluster", "two_pass")         # the sequence split's (``split_design``)
 
 
 def _tma_rows(D: int, KV: int, page_bytes: int) -> bool:
@@ -147,6 +160,16 @@ def cvt_design(max_blocks: int, G: int, window: int, D: int, KV: int,
     "two_pass" (8-bit pages of head dim 120 under an odd KV). The split
     decode under ``seq_shard_decode`` runs the two passes' entries
     (``paged_attention_stats`` ... ``paged_sum``) whatever this says."""
+    return "cluster" if _tma_rows(D, KV, page_bytes) else "two_pass"
+
+
+def split_design(D: int, KV: int, page_bytes: int) -> str:
+    """The design that runs ``decode_attention``'s function split over the
+    sequence (``paged_attention_stats`` ... ``paged_sum``) over pages of
+    ``page_bytes`` an element: "cluster" wherever TMA can address a kv
+    head's rows (two cluster launches, ``csrc/paged_split_cluster.cuh``),
+    else "two_pass" (the partition passes: 8-bit pages of head dim 120 under an
+    odd KV)."""
     return "cluster" if _tma_rows(D, KV, page_bytes) else "two_pass"
 
 
@@ -262,37 +285,57 @@ def paged_attention_partials(q: torch.Tensor, k_pages: torch.Tensor,
 
 def paged_attention_stats(q: torch.Tensor, k_pages: torch.Tensor,
                           block_tables: torch.Tensor, lens: torch.Tensor, *,
-                          window: int = 0) -> torch.Tensor:
+                          window: int = 0, design: Optional[str] = None):
     """Pass 1 of ``decode_attention``'s function over a share of each
-    sequence (``lens`` as ``paged_attention_partials``'): each partition's
-    fp32 ml (B,KV,P,G,2) = (m, l) of the scores of q*scale rounded to the
-    pages' dtype; (NEG_INF, 0) where no key counts."""
+    sequence (``lens`` as ``paged_attention_partials``'), in the design
+    ``split_design`` names (``design`` another, to time one against the
+    other; the CPU has one): (ml, scores) fp32. "cluster": ml (B,KV,1,G,2)
+    the share's (m, l) of the scores of q*scale rounded to the pages'
+    dtype, (NEG_INF, 0) where no key counts, and scores
+    (B,KV,max_blocks,G,16) each page's scores where the share's keys lie in
+    the window (pass 2 reads those alone). "two_pass": ml (B,KV,P,G,2) each
+    16-page partition's, and no scores. Gather ml over the ranks along dim
+    2 for ``paged_attention_values``."""
     if q.device.type == "cpu":
-        return paged_attention_stats_plain(q, k_pages, block_tables, lens,
-                                           window=window, part=PART)
+        return paged_attention_stats_plain(q, k_pages, block_tables, lens, window=window)
     B, KV, G, D = q.shape
-    n_part = -(-block_tables.shape[1] // PART)
-    ml = torch.zeros((B, KV, n_part, G, 2), dtype=torch.float32, device=q.device)
+    max_blocks = block_tables.shape[1]
+    design = _split_design(design, D, KV, k_pages)
+    if design == "two_pass":
+        n_part = -(-max_blocks // PART)
+        ml = torch.zeros((B, KV, n_part, G, 2), dtype=torch.float32, device=q.device)
+        scores = None
+    else:
+        ml = torch.empty((B, KV, 1, G, 2), dtype=torch.float32, device=q.device)
+        scores = torch.empty((B, KV, max_blocks, G, PAGE), dtype=torch.float32,
+                             device=q.device)
     if q.device.type == "meta":
-        _book_split("paged_attention_stats", q, k_pages, block_tables, lens,
-                    window, (ml,), values=False)
-        return ml
+        _book_split("paged_attention_stats", q, k_pages, block_tables, lens, window,
+                    (ml,), rows=1, scores=scores is not None)
+        return ml, scores
     _check(q, k_pages, k_pages, block_tables, lens)
     _check_rounding(q, k_pages)
-    ml[..., 0] = NEG_INF        # the partitions that no block writes
-    STATS.launch(q.data_ptr(), k_pages.data_ptr(), block_tables.data_ptr(),
-                 lens.data_ptr(), ml.data_ptr(), B, KV, G, D,
-                 block_tables.shape[1], int(window), D ** -0.5,
-                 DTYPE_CODES[q.dtype], PAGE_CODES[k_pages.dtype],
-                 torch.cuda.current_stream(q.device).cuda_stream,
-                 instance=_instance(q, k_pages))
-    return ml
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if design == "two_pass":
+        ml[..., 0] = NEG_INF        # the partitions that no block writes
+        STATS.launch(q.data_ptr(), k_pages.data_ptr(), block_tables.data_ptr(),
+                     lens.data_ptr(), ml.data_ptr(), B, KV, G, D, max_blocks, int(window),
+                     D ** -0.5, DTYPE_CODES[q.dtype], PAGE_CODES[k_pages.dtype], stream,
+                     instance=f"{_instance(q, k_pages)} two_pass")
+        return ml, None
+    SHARE_STATS.launch(q.data_ptr(), k_pages.data_ptr(), block_tables.data_ptr(),
+                       lens.data_ptr(), scores.data_ptr(), ml.data_ptr(), B, KV, G, D,
+                       max_blocks, int(window), D ** -0.5, DTYPE_CODES[q.dtype],
+                       PAGE_CODES[k_pages.dtype], k_pages.shape[0], stream,
+                       instance=f"{_instance(q, k_pages)} cluster")
+    return ml, scores
 
 
 def paged_stats_merge(ml: torch.Tensor) -> torch.Tensor:
     """Every partition's (m, l) of ml (B,KV,P,G,2) fp32 (of one rank, or
     several gathered along dim 2) merged into the sequence's (M, L)
-    (B,KV,G,2): M the largest m, L = sum l e^(m - M)."""
+    (B,KV,G,2): M the largest m, L = sum l e^(m - M). Pass 2's wrapper
+    launches it in the "two_pass" design."""
     if ml.device.type == "cpu":
         return paged_stats_merge_plain(ml)
     B, KV, P, G, _ = ml.shape
@@ -309,40 +352,63 @@ def paged_stats_merge(ml: torch.Tensor) -> torch.Tensor:
 
 def paged_attention_values(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
-                           lens: torch.Tensor, stats: torch.Tensor, *,
-                           window: int = 0) -> torch.Tensor:
-    """Pass 2 over a share of each sequence: each partition's fp32 sum
-    (B,KV,P,G,D) of the weights exp(s - M) / L rounded to the pages' dtype
-    times v, ``stats`` (B,KV,G,2) the sequence's (M, L)
-    (``paged_stats_merge``); zeros where no key counts."""
+                           lens: torch.Tensor, ml: torch.Tensor,
+                           scores: Optional[torch.Tensor], *,
+                           window: int = 0, design: Optional[str] = None) -> torch.Tensor:
+    """Pass 2 over the same share as ``paged_attention_stats``: ``ml`` its
+    (m, l) gathered over the ranks along dim 2 (B,KV,R,G,2), merged here
+    into the sequence's (M, L); ``scores`` its scores. Returns the fp32
+    sum of the weights exp(s - M) / L rounded to the pages' dtype times v:
+    (B,KV,1,G,D) in the "cluster" design (from the scores and v; k is not
+    read), (B,KV,P,G,D) a partition in the "two_pass" design (the merge's
+    launch, then k and v again); zeros where no key counts. Gather it over
+    the ranks along dim 2 for ``paged_sum``. ``design`` as pass 1's."""
     if q.device.type == "cpu":
-        return paged_attention_values_plain(q, k_pages, v_pages, block_tables, lens,
-                                            stats, window=window, part=PART)
+        return paged_attention_values_plain(q, k_pages, v_pages, block_tables, lens, ml,
+                                            scores, window=window)
     B, KV, G, D = q.shape
-    n_part = -(-block_tables.shape[1] // PART)
-    acc = torch.zeros((B, KV, n_part, G, D), dtype=torch.float32, device=q.device)
+    max_blocks = block_tables.shape[1]
+    two_pass = _split_design(design, D, KV, k_pages) == "two_pass"
+    acc = torch.zeros((B, KV, -(-max_blocks // PART), G, D), dtype=torch.float32,
+                      device=q.device) if two_pass else \
+        torch.empty((B, KV, 1, G, D), dtype=torch.float32, device=q.device)
     if q.device.type == "meta":
-        _book_split("paged_attention_values", q, k_pages, block_tables, lens,
-                    window, (stats, acc))
+        if two_pass:
+            paged_stats_merge(ml)
+        _book_split("paged_attention_values", q, k_pages, block_tables, lens, window,
+                    (ml, acc), rows=2 if two_pass else 1, scores=not two_pass)
         return acc
     _check(q, k_pages, v_pages, block_tables, lens)
     _check_rounding(q, k_pages)
-    _check_f32("paged_attention_values", stats)
-    if tuple(stats.shape) != (B, KV, G, 2):
-        raise ValueError(f"paged_attention_values: stats {tuple(stats.shape)}, "
-                         f"need {(B, KV, G, 2)}")
-    VALUES.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                  block_tables.data_ptr(), lens.data_ptr(), stats.data_ptr(),
-                  acc.data_ptr(), B, KV, G, D, block_tables.shape[1], int(window),
-                  D ** -0.5, DTYPE_CODES[q.dtype], PAGE_CODES[k_pages.dtype],
-                  torch.cuda.current_stream(q.device).cuda_stream,
-                  instance=_instance(q, k_pages))
+    _check_f32("paged_attention_values", ml)
+    if ml.ndim != 5 or tuple(ml.shape[:2]) != (B, KV) or tuple(ml.shape[3:]) != (G, 2):
+        raise ValueError(f"paged_attention_values: ml {tuple(ml.shape)}, need "
+                         f"(B={B}, KV={KV}, R, G={G}, 2)")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if two_pass:
+        stats = paged_stats_merge(ml)
+        VALUES.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                      block_tables.data_ptr(), lens.data_ptr(), stats.data_ptr(),
+                      acc.data_ptr(), B, KV, G, D, max_blocks, int(window), D ** -0.5,
+                      DTYPE_CODES[q.dtype], PAGE_CODES[k_pages.dtype], stream,
+                      instance=f"{_instance(q, k_pages)} two_pass")
+        return acc
+    if scores is None or tuple(scores.shape) != (B, KV, max_blocks, G, PAGE):
+        raise ValueError(f"paged_attention_values: scores "
+                         f"{None if scores is None else tuple(scores.shape)}, need "
+                         f"{(B, KV, max_blocks, G, PAGE)} from paged_attention_stats")
+    _check_f32("paged_attention_values", scores)
+    SHARE_VALUES.launch(v_pages.data_ptr(), scores.data_ptr(), ml.data_ptr(), ml.shape[2],
+                        block_tables.data_ptr(), lens.data_ptr(), acc.data_ptr(), B, KV, G, D,
+                        max_blocks, int(window), PAGE_CODES[v_pages.dtype], v_pages.shape[0],
+                        stream, instance=f"{_instance(q, v_pages)} cluster")
     return acc
 
 
 def paged_sum(acc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Pass 2's partitions (B,KV,P,G,D) fp32 (of one rank, or several
-    gathered along dim 2) added up -> (B,KV,G,D) in ``dtype``."""
+    """Pass 2's sums (B,KV,P,G,D) fp32 (the shares' or the partitions' of
+    one rank, or several gathered along dim 2) added up -> (B,KV,G,D) in
+    ``dtype``."""
     if acc.device.type == "cpu":
         return paged_sum_plain(acc, dtype)
     B, KV, P, G, D = acc.shape
@@ -392,20 +458,26 @@ def counted_tokens(block_tables: torch.Tensor, window: int) -> int:
     return min(n, window) if window > 0 else n
 
 
-def _book_split(name, q, k_pages, block_tables, lens, window, outs, values=True):
+def _book_split(name, q, k_pages, block_tables, lens, window, outs, rows=2,
+                scores=False):
     """On meta: the split kernel's products (q.k and p.v over the counted
     keys) and bytes (those keys' k and v rows in the pages' dtype, an int8
     pool's at one byte, q, the table and lens read once, ``outs`` written
-    once); without ``values`` q.k and k alone."""
+    once); with ``rows`` 1 one product and one of k or v (a pass of
+    ``decode_attention``'s split), and with ``scores`` each counted key's
+    fp32 score a query row, written by pass 1 and read by pass 2 (strict:
+    at ``FLOAT_BYTES``, as every float)."""
     B, KV, G, D = q.shape
     keys = B * KV * counted_tokens(block_tables, window)
-    kv_elem = (2 if values else 1) * keys * D
+    kv_elem = rows * keys * D
     ts = (q, block_tables, lens, *outs)
+    n_scores = keys * G if scores else 0
     page_bytes = scopes.FLOAT_BYTES if k_pages.is_floating_point() else \
         k_pages.element_size()
-    scopes.book(flops=(4.0 if values else 2.0) * keys * G * D, name=name,
-                hbm=kv_elem * page_bytes + sum(scopes.strict_bytes(t) for t in ts),
-                eager=kv_elem * k_pages.element_size()
+    scopes.book(flops=2.0 * rows * keys * G * D, name=name,
+                hbm=kv_elem * page_bytes + n_scores * scopes.FLOAT_BYTES
+                + sum(scopes.strict_bytes(t) for t in ts),
+                eager=kv_elem * k_pages.element_size() + n_scores * 4
                 + sum(t.numel() * t.element_size() for t in ts))
 
 
@@ -443,6 +515,15 @@ def _check(q, k_pages, v_pages, block_tables, lens):
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         if t.data_ptr() % 16:
             raise ValueError(f"paged_attention: {name} is not 16-byte aligned")
+
+
+def _split_design(design, D, KV, k_pages) -> str:
+    """``design``, one of ``SPLIT_DESIGNS``, or ``split_design``'s."""
+    design = design or split_design(D, KV, k_pages.element_size())
+    if design not in SPLIT_DESIGNS:
+        raise ValueError(f"paged_attention split: design {design!r}, need one of "
+                         f"{SPLIT_DESIGNS}")
+    return design
 
 
 def _instance(q, k_pages) -> str:

@@ -11,11 +11,13 @@ are attended in fp32. Pages of another dtype (a cache of
 function: q*scale rounded to the pages' dtype, the normalised weights
 exp(s - M) / L rounded to it, products summed in fp32 (``to_cache_dtype``
 rounds as the reference does). fp32 pages round nothing, so they take the
-fp32 path. Split over the sequence, that function is two passes:
-``paged_attention_stats_plain`` gives each partition's (m, l),
-``paged_stats_merge_plain`` the sequence's (M, L), and
-``paged_attention_values_plain`` each partition's sum of the rounded
-weights times v, which ``paged_sum_plain`` adds up."""
+fp32 path. Split over the sequence (a rank's share of its positions), that
+function is two passes: ``paged_attention_stats_plain`` gives the share's
+(m, l) and its scores, and ``paged_attention_values_plain``, given the
+shares' (m, l) gathered (merged into the sequence's (M, L) by
+``paged_stats_merge_plain``) and the share's scores, the share's sum of the
+rounded weights times v, which ``paged_sum_plain`` adds up over the
+shares."""
 from __future__ import annotations
 
 import torch
@@ -213,22 +215,30 @@ def paged_merge_plain(acc: torch.Tensor, ml: torch.Tensor,
 
 def paged_attention_stats_plain(q: torch.Tensor, k_pages: torch.Tensor,
                                 block_tables: torch.Tensor, lens: torch.Tensor, *,
-                                window: int = 0, part: int = 16) -> torch.Tensor:
-    """Pass 1 of ``decode_attention``'s function split over the sequence:
-    each partition's ml (B,KV,P,G,2) fp32 = (m, l) of the scores of q*scale
-    rounded to the pages' dtype, as ``paged_attention_partials_plain``'s
-    ml; (NEG_INF, 0) where no key counts."""
-    D = q.shape[-1]
+                                window: int = 0):
+    """Pass 1 of ``decode_attention``'s function over a share of each
+    sequence (``lens`` counted from the table's first position, as
+    ``paged_attention_partials_plain``'s): (ml, scores) in fp32, ml
+    (B,KV,1,G,2) the share's (m, l) of the scores of q*scale rounded to the
+    pages' dtype ((NEG_INF, 0) where no key counts), scores
+    (B,KV,max_blocks,G,page) each page's scores, NEG_INF where a key does
+    not count."""
+    B, KV, G, D = q.shape
+    nblk, page = block_tables.shape[1], k_pages.shape[1]
     qs = to_cache_dtype(q.float() * D ** -0.5, k_pages.dtype).float()
-    s, valid = _partitioned_scores(qs, k_pages, block_tables, lens, window, part)
+    s = torch.einsum("bkgd,bskd->bkgs", qs, _gathered(k_pages, block_tables))
+    valid = _valid(lens, nblk * page, window)[:, None, None, :]
+    s = torch.where(valid, s, NEG_INF)
     m = s.amax(dim=-1)
     l = torch.where(valid, torch.exp(s - m[..., None]), 0.0).sum(dim=-1)
-    return torch.stack([m, l], dim=-1).transpose(2, 3).contiguous()
+    scores = s.reshape(B, KV, G, nblk, page).transpose(2, 3).contiguous()
+    return torch.stack([m, l], dim=-1)[:, :, None].contiguous(), scores
 
 
 def paged_stats_merge_plain(ml: torch.Tensor) -> torch.Tensor:
-    """Every partition's (m, l) of ml (B,KV,P,G,2) merged into the
-    sequence's (M, L) (B,KV,G,2): M the largest m, L = sum l e^(m - M)."""
+    """Every entry's (m, l) of ml (B,KV,P,G,2) (shares or partitions)
+    merged into the sequence's (M, L) (B,KV,G,2): M the largest m, L = sum
+    l e^(m - M)."""
     m, l = ml[..., 0], ml[..., 1]
     M = m.amax(dim=2)
     return torch.stack([M, (l * torch.exp(m - M[:, :, None])).sum(dim=2)], dim=-1)
@@ -236,22 +246,25 @@ def paged_stats_merge_plain(ml: torch.Tensor) -> torch.Tensor:
 
 def paged_attention_values_plain(q: torch.Tensor, k_pages: torch.Tensor,
                                  v_pages: torch.Tensor, block_tables: torch.Tensor,
-                                 lens: torch.Tensor, stats: torch.Tensor, *,
-                                 window: int = 0, part: int = 16) -> torch.Tensor:
-    """Pass 2: each partition's fp32 sum (B,KV,P,G,D) of the weights
-    exp(s - M) / L, rounded to the pages' dtype, times v; ``stats``
-    (B,KV,G,2) the sequence's (M, L) (``paged_stats_merge_plain``)."""
-    D = q.shape[-1]
-    qs = to_cache_dtype(q.float() * D ** -0.5, k_pages.dtype).float()
-    s, valid = _partitioned_scores(qs, k_pages, block_tables, lens, window, part)
-    M, L = (stats[..., i][:, :, :, None, None] for i in (0, 1))
-    w = torch.where(valid, torch.exp(s - M) / L, 0.0)
+                                 lens: torch.Tensor, ml: torch.Tensor,
+                                 scores: torch.Tensor, *, window: int = 0) -> torch.Tensor:
+    """Pass 2 over the same share: its fp32 sum (B,KV,1,G,D) of the
+    weights exp(s - M) / L, rounded to the pages' dtype, times v; s the
+    share's ``scores`` (pass 1's), (M, L) the sequence's, merged here from
+    ``ml`` (B,KV,R,G,2), the R shares' (m, l) gathered in position order;
+    zeros where no key of the share counts. q and the k pages give the
+    shapes only."""
+    B, KV, G, D = q.shape
+    nblk, page = block_tables.shape[1], v_pages.shape[1]
+    M, L = paged_stats_merge_plain(ml).unbind(dim=-1)                # (B,KV,G)
+    s = scores.transpose(2, 3).reshape(B, KV, G, nblk * page)
+    valid = _valid(lens, nblk * page, window)[:, None, None, :]
+    w = torch.where(valid, torch.exp(s - M[..., None]) / L[..., None], 0.0)
     w = to_cache_dtype(w, v_pages.dtype).float()
-    return torch.einsum("bkgpt,bptkd->bkpgd", w,
-                        _partitioned_values(v_pages, block_tables, part))
+    return torch.einsum("bkgs,bskd->bkgd", w, _gathered(v_pages, block_tables))[:, :, None]
 
 
 def paged_sum_plain(acc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Pass 2's partitions summed: acc (B,KV,P,G,D) -> (B,KV,G,D) in
-    ``dtype``."""
+    """Pass 2's sums (shares or partitions) added: acc (B,KV,P,G,D) ->
+    (B,KV,G,D) in ``dtype``."""
     return acc.sum(dim=2).to(dtype)

@@ -121,7 +121,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import (
     paged_attention, paged_attention_partials, paged_attention_stats,
-    paged_attention_values, paged_merge, paged_stats_merge, paged_sum)
+    paged_attention_values, paged_merge, paged_sum)
 from repro_torch.kernels.paged_attention.ref import rounds_weights
 from repro_torch.models.attention import (flash_prefill, mla_absorb,
                                           mla_decode_paged, mla_latents,
@@ -1040,17 +1040,19 @@ class Transformer(nn.Module):
         over ``seq_axis`` (the ranks' partitions in position order) and
         merged once. Pages that ``decode_attention`` rounds to (the cache's
         dtype is not q's) split in two passes, since its weights are
-        normalised by the whole sequence's (M, L): each rank's partitions'
-        (m, l) gathered and merged, then each rank's sums of the rounded
-        weights times v gathered and added. On meta the dry-run counts one
-        pass, as before."""
+        normalised by the whole sequence's (M, L): pass 1's (m, l) of each
+        rank's share gathered, pass 2 (which merges them) on each rank's
+        share with its pass 1 scores, the ranks' sums gathered and added:
+        three launches a layer (``ops.split_design``'s cluster design; PR
+        25's passes add the merge's launch where TMA cannot address the
+        rows)."""
         local_lens = local_lens.to(torch.int32)
-        if rounds_weights(q, pool_k, self.upcast) and q.device.type != "meta":
-            ml = self.ctx.comm.all_gather(
-                paged_attention_stats(q, pool_k, block_tables, local_lens,
-                                      window=self.window), self.seq_axis, 2)
-            acc = paged_attention_values(q, pool_k, pool_v, block_tables, local_lens,
-                                         paged_stats_merge(ml), window=self.window)
+        if rounds_weights(q, pool_k, self.upcast):
+            ml, scores = paged_attention_stats(q, pool_k, block_tables, local_lens,
+                                               window=self.window)
+            ml = self.ctx.comm.all_gather(ml, self.seq_axis, 2)
+            acc = paged_attention_values(q, pool_k, pool_v, block_tables, local_lens, ml,
+                                         scores, window=self.window)
             return paged_sum(self.ctx.comm.all_gather(acc, self.seq_axis, 2), q.dtype)
         acc, ml = paged_attention_partials(q, pool_k, pool_v, block_tables,
                                            local_lens, window=self.window,

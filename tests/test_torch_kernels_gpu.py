@@ -381,7 +381,12 @@ def _int8_scores(q, kp, tables, lens, window, ref, slack, qx):
         assert bool((nonzero & exact).any())
 
 
-def _hold_q8(out, ref, q, slack, vp, upcast):
+def _hold_q8(out, ref, q, slack, vp, upcast, ulp=False):
+    """``ulp``: the outputs' rounding to a bf16 q's dtype as one whole ulp
+    (2^-7 of the value at most) where 2^-8 takes half: a weight within the
+    slack can move one side's fp32 sum across a rounding point, and the
+    two bf16 values then differ by the slack and one ulp (the one-call
+    kernel did at the split test's llama3-405b input too)."""
     out, ref = out.float(), ref.float()
     assert bool(torch.isfinite(out).all())
     v_scale = float(vp.float().std())
@@ -389,7 +394,7 @@ def _hold_q8(out, ref, q, slack, vp, upcast):
         tol = DTYPES[str(q.dtype)[6:]][1] * v_scale
         bound = tol + tol * ref.abs()
     else:
-        rel = 2.0 ** -8 if q.dtype == torch.bfloat16 else 1e-6
+        rel = (2.0 ** -7 if ulp else 2.0 ** -8) if q.dtype == torch.bfloat16 else 1e-6
         bound = Q8_ATOL * v_scale + rel * ref.abs() + slack
     assert bool(((out - ref).abs() <= bound).all()), float(((out - ref).abs() - bound).max())
     rel_rms = REL_RMS[str(q.dtype)[6:]]
@@ -427,14 +432,68 @@ def test_paged_other_page_dtype_vs_plain(cuda, pair, qx, mode, case):
     _hold_q8(out, ref, q, slack, vp, upcast)
 
 
+# the split passes' (m, l) and scores against their plain versions: fp32
+# sums of exact products in another order, within this share of the
+# scores' scale; l (ex2.approx within 2^-21 a term) within this share of
+# itself
+SPLIT_ML_TOL, SPLIT_L_RTOL = 1e-4, 1e-3
+SPLIT_COUNTERS = ("SHARE_STATS", "SHARE_VALUES", "STATS", "STATS_MERGE", "VALUES", "SUM",
+                  "CVT")
+
+
+def _split_counts():
+    return {k: getattr(paged_ops, k).launches for k in SPLIT_COUNTERS}
+
+
+def _run_split(q, kp, vp, shares, window, design=None):
+    """Pass 1 on each share, the (m, l) gathered, pass 2 on each, the sums
+    added: (out, [(ml, scores)], the gathered ml, [sum])."""
+    passes = [paged_ops.paged_attention_stats(q, kp, t, l, window=window, design=design)
+              for t, l in shares]
+    ml = torch.cat([m for m, _ in passes], dim=2)
+    parts = [paged_ops.paged_attention_values(q, kp, vp, t, l, ml, sc, window=window,
+                                              design=design)
+             for (t, l), (_, sc) in zip(shares, passes)]
+    return paged_ops.paged_sum(torch.cat(parts, dim=2), q.dtype), passes, ml, parts
+
+
+def _hold_split_passes(q, kp, vp, shares, window, passes, ml, parts, slack):
+    """Each share's pass 1 against its plain version (the (m, l) where a
+    key counts, (NEG_INF, 0) exactly where none does, the scores where a
+    key counts) and its pass 2 against the plain pass 2 on the kernel's
+    gathered (m, l) and the plain scores (zeros exactly where no key
+    counts)."""
+    from repro_torch.kernels.paged_attention.ref import NEG_INF
+    for (t, l), (m, sc), part in zip(shares, passes, parts):
+        m_p, sc_p = paged_ops.paged_attention_stats_plain(q, kp, t, l, window=window)
+        counts = m_p[..., 1] > 0
+        assert bool((m[..., 0][~counts] == NEG_INF).all())
+        assert bool((m[..., 1][~counts] == 0).all())
+        assert bool((part.transpose(2, 3)[~counts.transpose(2, 3)] == 0).all())
+        valid = sc_p > NEG_INF / 2
+        if not bool(valid.any()):
+            continue
+        scale = float(sc_p[valid].abs().max()) + 1.0
+        assert float((sc - sc_p)[valid].abs().max()) <= SPLIT_ML_TOL * scale
+        assert float((m[..., 0] - m_p[..., 0])[counts].abs().max()) <= SPLIT_ML_TOL * scale
+        assert float(((m[..., 1] - m_p[..., 1]) / m_p[..., 1])[counts].abs().max()) \
+            <= SPLIT_L_RTOL
+        want = paged_ops.paged_attention_values_plain(q, kp, vp, t, l, ml, sc_p,
+                                                      window=window)
+        _hold_q8(part[:, :, 0], want[:, :, 0], q, slack, vp, False)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", SPLIT_CASES)
 @pytest.mark.parametrize("pair,qx", Q8_RUNS, ids=Q8_IDS)
 def test_paged_other_page_dtype_split_over_two_halves(cuda, pair, qx, case):
-    """Each half of the table as a rank's share: pass 1 of both halves
-    gathered and merged into (M, L), pass 2 of both with them, summed;
-    against the one-call kernel and the plain version. The upcast mode's
-    partials merged by the same-dtype merge kernel likewise."""
+    """Each half of the table as a rank's share: pass 1 of both halves (the
+    split cluster design: its scores and one (m, l) a share), the (m, l)
+    gathered, pass 2 of both (which merges them), the sums added: two
+    launches of each pass and one of the sum, none of the partition passes;
+    against the one-call kernel and the plain version, and each pass
+    against its plain version. The upcast mode's partials merged by the
+    same-dtype merge kernel likewise."""
     from repro_torch.kernels.paged_attention.ref import weight_slack
     B, KV, G, D, nblk, newest, window = case
     pages, qdt = (getattr(torch, n) for n in pair)
@@ -451,24 +510,21 @@ def test_paged_other_page_dtype_split_over_two_halves(cuda, pair, qx, case):
     half = nblk // 2
     shares = [(tables[:, i * half:(i + 1) * half].contiguous(), lens - i * half * 16)
               for i in range(2)]
-    ml = torch.cat([paged_ops.paged_attention_stats(q, kp, t, l, window=window)
-                    for t, l in shares], dim=2)
-    stats = paged_ops.paged_stats_merge(ml)
-    acc = torch.cat([paged_ops.paged_attention_values(q, kp, vp, t, l, stats, window=window)
-                     for t, l in shares], dim=2)
-    out = paged_ops.paged_sum(acc, qdt)
+    assert paged_ops.split_design(D, KV, kp.element_size()) == "cluster"
+    before = _split_counts()
+    out, passes, ml, parts = _run_split(q, kp, vp, shares, window)
     torch.cuda.synchronize()
+    after = _split_counts()
+    assert {k: after[k] - before[k] for k in after} == dict(
+        SHARE_STATS=2, SHARE_VALUES=2, STATS=0, STATS_MERGE=0, VALUES=0, SUM=1, CVT=0)
+    assert ml.shape == (B, KV, 2, G, 2) and parts[0].shape == (B, KV, 1, G, D)
     ref = paged_ops.paged_attention_plain(q, kp, vp, tables, lens, window=window)
     slack = weight_slack(q, kp, vp, tables, lens, window=window)
     _int8_scores(q, kp, tables, lens, window, ref, slack, qx)
     _hold_q8(out, ref, q, slack, vp, False)
     _hold_q8(out, paged_ops.paged_attention(q, kp, vp, tables, lens, window=window), q,
              slack, vp, False)
-    # the plain passes: the kernels' layouts
-    plain = paged_ops.paged_stats_merge_plain(torch.cat(
-        [paged_ops.paged_attention_stats_plain(q, kp, t, l, window=window) for t, l in shares],
-        dim=2))
-    np.testing.assert_allclose(stats.cpu().numpy(), plain.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    _hold_split_passes(q, kp, vp, shares, window, passes, ml, parts, slack)
     if qx != 1.0:
         return   # the upcast mode truncates nothing: its partials at x1 only
     parts = [paged_ops.paged_attention_partials(q, kp, vp, t, l, window=window, upcast=True)
@@ -477,6 +533,98 @@ def test_paged_other_page_dtype_split_over_two_halves(cuda, pair, qx, case):
                                torch.cat([m for _, m in parts], 2), qdt)
     _hold_q8(up, paged_ops.paged_attention_plain(q, kp, vp, tables, lens, window=window,
                                                  upcast=True), q, slack, vp, True)
+
+
+# the split at the card's shapes: each table cut into rank shares (its two
+# halves, three shares, and the whole table then a share past every row's
+# newest token, which holds no key)
+SPLIT_FULL = ("llama3.2-3b", "h2o-danube", "llama3-405b", "zamba2", "reasoning-G16",
+              "reasoning-G8", "rows-tma-cannot-address")
+SPLIT_CUTS = ("halves", "thirds", "empty")
+
+
+def _cut(tables, lens, cut):
+    B, n = tables.shape
+    if cut == "empty":
+        return [(tables, lens), (torch.zeros((B, 16), dtype=tables.dtype,
+                                             device=tables.device), lens - n * 16)]
+    k = 2 if cut == "halves" else 3
+    w = -(-n // k)
+    t = torch.nn.functional.pad(tables, (0, k * w - n))
+    return [(t[:, i * w:(i + 1) * w].contiguous(), lens - i * w * 16) for i in range(k)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cut", SPLIT_CUTS)
+@pytest.mark.parametrize("shape", SPLIT_FULL)
+@pytest.mark.parametrize("pair", Q8_PAIRS, ids=["/".join(p) for p in Q8_PAIRS])
+def test_paged_split_at_the_card_shapes(cuda, pair, shape, cut):
+    """The sequence split at the card's shapes in the design
+    ``split_design`` names (the partition passes only for 8-bit rows TMA cannot
+    address), every pair: one launch of each pass a share and one sum,
+    no other K2 launch; against the one-call kernel and the plain version,
+    each pass against its plain version (the cluster design's); a share
+    with no key (NEG_INF, 0) and zeros."""
+    from repro_torch.kernels.paged_attention.ref import weight_slack
+    m = Q8_FULL[shape]
+    pages, qdt = (getattr(torch, n) for n in pair)
+    q, kp, vp, tables, lens, window = _full_inputs(
+        m, pages, qdt, 1200 + SPLIT_FULL.index(shape), cuda, 1.0)
+    shares = _cut(tables, lens, cut)
+    design = paged_ops.split_design(m["D"], m["KV"], kp.element_size())
+    assert design == ("two_pass" if shape in TWO_PASS_SHAPES and kp.element_size() == 1
+                      else "cluster")
+    before = _split_counts()
+    out, passes, ml, parts = _run_split(q, kp, vp, shares, window)
+    torch.cuda.synchronize()
+    after = _split_counts()
+    R = len(shares)
+    want = dict(SHARE_STATS=R, SHARE_VALUES=R, STATS=0, STATS_MERGE=0, VALUES=0) \
+        if design == "cluster" else dict(SHARE_STATS=0, SHARE_VALUES=0, STATS=R,
+                                         STATS_MERGE=R, VALUES=R)
+    assert {k: after[k] - before[k] for k in after} == dict(want, SUM=1, CVT=0)
+    ref = paged_ops.paged_attention_plain(q, kp, vp, tables, lens, window=window)
+    slack = weight_slack(q, kp, vp, tables, lens, window=window)
+    _hold_q8(out, ref, q, slack, vp, False, ulp=True)
+    _hold_q8(out, paged_ops.paged_attention(q, kp, vp, tables, lens, window=window), q,
+             slack, vp, False, ulp=True)
+    if design == "cluster":
+        _hold_split_passes(q, kp, vp, shares, window, passes, ml, parts, slack)
+    if cut == "empty":
+        from repro_torch.kernels.paged_attention.ref import NEG_INF
+        last = passes[-1][0] if design == "cluster" else \
+            paged_ops.paged_stats_merge_plain(passes[-1][0])[:, :, None]
+        assert bool((last[..., 0] == NEG_INF).all()) and bool((last[..., 1] == 0).all())
+        assert bool((parts[-1] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pages", ["float8_e4m3fn", "int8"])
+def test_paged_split_passes_refuse_and_choose(cuda, pages):
+    """The two designs of the split are the wrappers' to choose, and each
+    names itself: the cluster's instances in ``by_instance``, the partition passes under
+    ``design="two_pass"`` (equal outputs within the bound); pass 2 of the
+    cluster design without pass 1's scores raises before any launch."""
+    from repro_torch.kernels.paged_attention.ref import weight_slack
+    m = Q8_FULL["llama3-405b"]
+    pt = getattr(torch, pages)
+    q, kp, vp, tables, lens, _ = _full_inputs(m, pt, torch.bfloat16, 1300, cuda, 1.0)
+    shares = _cut(tables, lens, "halves")
+    inst = f"bfloat16/{pages}"
+    before = (paged_ops.SHARE_STATS.by_instance[f"{inst} cluster"],
+              paged_ops.STATS.by_instance[f"{inst} two_pass"])
+    new = _run_split(q, kp, vp, shares, 0)[0]
+    old = _run_split(q, kp, vp, shares, 0, design="two_pass")[0]
+    torch.cuda.synchronize()
+    assert (paged_ops.SHARE_STATS.by_instance[f"{inst} cluster"],
+            paged_ops.STATS.by_instance[f"{inst} two_pass"]) == (before[0] + 2, before[1] + 2)
+    slack = weight_slack(q, kp, vp, tables, lens)
+    _hold_q8(new, old, q, 2 * slack, vp, False)
+    ml, _ = paged_ops.paged_attention_stats(q, kp, *shares[0])
+    n = paged_ops.SHARE_VALUES.launches
+    with pytest.raises(ValueError, match="scores"):
+        paged_ops.paged_attention_values(q, kp, vp, *shares[0], ml, None)
+    assert paged_ops.SHARE_VALUES.launches == n
 
 
 @pytest.mark.gpu

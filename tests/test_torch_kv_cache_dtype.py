@@ -70,7 +70,8 @@ from repro_torch.configs.registry import get_smoke_config
 from repro_torch.core.engine import EngineConfig, InferenceEngine
 from repro_torch.core.runner import TorchRunner
 from repro_torch.kernels.paged_attention import ops
-from repro_torch.kernels.paged_attention.ref import INT8_EDGE, decode_weights, weight_slack
+from repro_torch.kernels.paged_attention.ref import (INT8_EDGE, NEG_INF, decode_weights,
+                                                     weight_slack)
 from repro_torch.launch.mesh import run_ranks
 from repro_torch.launch.serve import make_requests
 from repro_torch.models.bridge import from_jax_params
@@ -306,25 +307,68 @@ def test_int8_checks_tell_truncation_from_rounding():
             assert (np.abs(wrong - want) > bound).any()
 
 
+def _split(q, kp, vp, tables, lens, window, n_shares):
+    """The table cut into ``n_shares`` runs of whole pages (a rank's share
+    each, lens counted from the share's start): pass 1 on each share, the
+    shares' (m, l) gathered, pass 2 on each with its scores, the sums
+    gathered and added. Returns (out, each share's pass 1 (ml, scores), the
+    gathered sums)."""
+    cuts = np.linspace(0, tables.shape[1], n_shares + 1).round().astype(int)
+    shares = [(tables[:, a:b].contiguous(), lens - int(a) * PAGE)
+              for a, b in zip(cuts[:-1], cuts[1:])]
+    passes = [ops.paged_attention_stats(q, kp, t, l, window=window) for t, l in shares]
+    ml = torch.cat([m for m, _ in passes], dim=2)
+    acc = torch.cat([ops.paged_attention_values(q, kp, vp, t, l, ml, sc, window=window)
+                     for (t, l), (_, sc) in zip(shares, passes)], dim=2)
+    return ops.paged_sum(acc, q.dtype), passes, acc
+
+
 @pytest.mark.parametrize("window", [0, 50])
 @pytest.mark.parametrize("pair", PAIRS, ids=["/".join(p) for p in PAIRS])
 def test_split_passes_over_two_shares_equal_one_call(pair, window):
     """The sequence cut into two shares of 4 blocks (a rank's each, lens
-    counted from the share's start): stats gathered and merged, values
-    gathered and summed, against the one-call function."""
+    counted from the share's start): pass 1's (m, l), one a share,
+    gathered, pass 2 (which merges them) on each share with its scores,
+    the shares' sums gathered and added, against the one-call function."""
     pages, qdt = (DTYPES[n] for n in pair)
     q, kp, vp, tables, lens = _k2_inputs(7, pages, qdt, G=4, D=64)
-    shares = [(tables[:, :4].contiguous(), lens), (tables[:, 4:].contiguous(),
-                                                    lens - 4 * PAGE)]
-    ml = torch.cat([ops.paged_attention_stats(q, kp, t, l, window=window)
-                    for t, l in shares], dim=2)
-    stats = ops.paged_stats_merge(ml)
-    acc = torch.cat([ops.paged_attention_values(q, kp, vp, t, l, stats, window=window)
-                     for t, l in shares], dim=2)
-    got = ops.paged_sum(acc, qdt)
+    got, passes, acc = _split(q, kp, vp, tables, lens, window, 2)
+    B, KV, G, D = q.shape
+    for ml, scores in passes:
+        assert ml.shape == (B, KV, 1, G, 2) and scores.shape == (B, KV, 4, G, PAGE)
+    assert acc.shape == (B, KV, 2, G, D)
     one = ops.paged_attention(q, kp, vp, tables, lens, window=window)
     slack = weight_slack(q, kp, vp, tables, lens, window=window).numpy()
     _hold(got.float().numpy(), one.float().numpy(), q, slack, fp32=_fp32_scale(q, kp, vp))
+
+
+@pytest.mark.parametrize("window", [0, 50])
+@pytest.mark.parametrize("n_shares", [2, 3, 4])
+@pytest.mark.parametrize("pair", PAIRS, ids=["/".join(p) for p in PAIRS])
+def test_split_passes_over_shares_equal_decode_attention(pair, n_shares, window):
+    """The passes over 2, 3 and 4 shares, gathered and summed, against the
+    reference's ``decode_attention`` on the whole sequence. The rows' lens
+    (127, 40, 5 of 128 positions) leave shares wholly past the newest
+    token, and the window of 50 shares wholly before it: such a share's
+    (m, l) is (NEG_INF, 0) and its sum zeros."""
+    pages, qdt = (DTYPES[n] for n in pair)
+    q, kp, vp, tables, lens = _k2_inputs(11, pages, qdt)
+    got, passes, acc = _split(q, kp, vp, tables, lens, window, n_shares)
+    ml = torch.cat([m for m, _ in passes], dim=2)
+    empty = ml[..., 1] == 0                                       # (B,KV,R,G)
+    assert bool(empty.any()) and bool((ml[..., 0][empty] == NEG_INF).all())
+    assert bool((acc.transpose(2, 3)[empty.transpose(2, 3)] == 0).all())
+    if window:   # row 0's first share lies wholly before the window
+        assert bool(empty[0, :, 0].all())
+    if (pair, window) not in _SPLIT_WANT:   # one reference call for every share count
+        _SPLIT_WANT[pair, window] = _reference(q, kp, vp, tables, lens, window, False)
+    want = _SPLIT_WANT[pair, window]
+    slack = weight_slack(q, kp, vp, tables, lens, window=window).numpy()
+    _hold(got.float().numpy(), want, q, slack, fp32=_fp32_scale(q, kp, vp))
+    assert np.abs(want).max() > 0 or pages == torch.int8
+
+
+_SPLIT_WANT = {}
 
 
 def test_one_pass_partials_refuse_rounded_pages():

@@ -122,3 +122,64 @@ def test_upcast_rows_tma_cannot_address_take_the_split(KV, design):
         assert ops.upcast_design(BF16, pages, 120, KV) == design
         assert ops.cvt_design(128, 3, 0, 120, KV, 1) == \
             ("cluster" if design == "cluster" else "two_pass")
+
+
+# the sequence split's design (``split_design``) at the card's shapes and
+# the served configs' under ``seq_shard_decode``, whose pools hold every kv
+# head: (D, KV, bytes an element)
+SPLIT_SHAPES = {
+    "llama3.2-3b": (128, 8, 1), "h2o-danube D 120": (120, 8, 1), "zamba2 D 80": (80, 32, 1),
+    "musicgen D 64": (64, 24, 1), "kimi-k2 D 112": (112, 8, 1), "D 32": (32, 4, 1),
+    "bf16 pages under an fp32 q, D 120 under one kv head": (120, 1, 2),
+}
+
+
+@pytest.mark.parametrize("shape", list(SPLIT_SHAPES.values()), ids=list(SPLIT_SHAPES))
+def test_the_split_takes_its_cluster_design_where_tma_addresses_the_rows(shape):
+    assert ops.split_design(*shape) == "cluster"
+
+
+@pytest.mark.parametrize("KV", [1, 3, 5])
+def test_the_split_keeps_two_passes_for_rows_tma_cannot_address(KV):
+    """8-bit rows of D 120 under an odd KV: the partition passes (as the one
+    launch's ``cvt_design``); an even KV takes the all-heads map."""
+    assert ops.split_design(120, KV, 1) == "two_pass" == ops.cvt_design(128, 3, 0, 120, KV, 1)
+    assert ops.split_design(120, KV + 1, 1) == "cluster"
+
+
+def test_the_split_passes_book_their_bytes_on_meta():
+    """On meta (the dry-run) nothing launches; pass 1 of the cluster design
+    books q.k and, beyond the partition design's pass 1, the fp32 scores it writes; its
+    pass 2 books p.v and the scores it reads with v, where the partition design's books
+    both products over k and v, and its merge."""
+    from repro_torch.analysis import scopes
+    from repro_torch.analysis.counter import OpCounter
+    B, KV, G, D, nblk = 2, 8, 4, 128, 4     # one 16-page partition
+    q = torch.empty((B, KV, G, D), dtype=torch.bfloat16, device="meta")
+    pages = torch.empty((16, 16, KV, D), dtype=torch.float8_e4m3fn, device="meta")
+    tables = torch.zeros((B, nblk), dtype=torch.int32, device="meta")
+    lens = torch.zeros((B,), dtype=torch.int32, device="meta")
+    counts = [k.launches for k in ops.COUNTERS]
+    booked = {}
+    for design in ("cluster", "two_pass"):
+        with OpCounter() as c1:
+            ml, scores = ops.paged_attention_stats(q, pages, tables, lens, design=design)
+        with OpCounter() as c2:
+            acc = ops.paged_attention_values(q, pages, pages, tables, lens,
+                                             torch.cat([ml, ml], dim=2), scores, design=design)
+        booked[design] = c1, c2
+        assert ml.shape == (B, KV, 1, G, 2) and acc.shape == (B, KV, 1, G, D)
+        assert (scores is None) == (design == "two_pass")
+    assert [k.launches for k in ops.COUNTERS] == counts
+    keys = B * KV * nblk * 16
+    (s1, v1), (s0, v0) = booked["cluster"], booked["two_pass"]
+    assert s1.flops_by_op["paged_attention_stats"] == s0.flops_by_op["paged_attention_stats"] \
+        == 2 * keys * G * D
+    assert v1.flops_by_op["paged_attention_values"] * 2 == \
+        v0.flops_by_op["paged_attention_values"] == 4 * keys * G * D
+    assert s1.hbm_bytes - s0.hbm_bytes == keys * G * scopes.FLOAT_BYTES
+    # pass 2: the scores in place of k (the pages' bytes an element at
+    # FLOAT_BYTES strict), and no merge of partitions
+    merge = (B * KV * 2 * G * 2 + B * KV * G * 2) * scopes.FLOAT_BYTES   # ml read, (M, L)
+    assert v0.hbm_bytes - v1.hbm_bytes == \
+        keys * D * scopes.FLOAT_BYTES - keys * G * scopes.FLOAT_BYTES + merge

@@ -6,7 +6,7 @@ device time at the main paths' shapes.
     git archive <parent> | tar -x -C build/ab_parent
     python3 tools/ab_flash.py --tree parent=build/ab_parent --tree change=. \
         --order parent,change,change,parent,parent,change \
-        [--kernel flash|paged|cvt|upcast] [--sass-only]
+        [--kernel flash|paged|cvt|upcast|split] [--sass-only]
 
 Each checkout builds its own library (``flash_attention``;
 ``paged_attention`` with ``--kernel paged``; ``paged_attention_cvt``, K2
@@ -29,8 +29,15 @@ the upcast mode over fp8 and int8 pages at ``chip_smoke.Q8_UPCAST`` and
 over fp32 pages at llama3.2-3b's batch, with SDPA's time on the
 pre-gathered upcast cache; each row naming the design that ran: a parent
 before a mode's cluster runs its two passes, or its split, there);
-``device_ms`` from a replayed CUDA graph. Lines also go to
-``chiprun_out/ab_flash.jsonl``.
+``device_ms`` from a replayed CUDA graph. ``--kernel split``: the SASS of
+every library (K1's two, the same-dtype K2's, the cvt and upcast
+libraries', and ``paged_attention_split``'s ``paged_split_stats`` and
+``paged_split_values``, which a parent before it lacks), then ``chip_smoke.time_split_q8`` on each half
+of llama3.2-3b's and h2o-danube's decode batches and of the reasoning
+lengths at G 16 and G 8, fp8 and int8 pages: the sequence split's
+launches in both designs of the tree, in turns within the process (a
+tree without the split cluster design says so and times nothing). Lines
+also go to ``ab_flash.jsonl`` in the output directory (``OUT``).
 """
 from __future__ import annotations
 
@@ -57,14 +64,19 @@ def emit(**kw):
         f.write(line + "\n")
 
 
-# --kernel -> (library, the functions whose SASS is compared)
-KERNELS = {"flash": ("flash_attention", ("flash_fwd_wgmma",)),
-           "paged": ("paged_attention", ("paged_split_mma", "paged_split_simt",
-                                         "paged_merge")),
-           "cvt": ("paged_attention_cvt", ("paged_split_cvt", "stats_merge", "part_sum",
-                                           "paged_cluster_cvt")),
-           "upcast": ("paged_attention_upcast", ("paged_split_cvt", "cvt_merge",
-                                                 "paged_cluster_upcast"))}
+# --kernel -> [(library, the functions whose SASS is compared)]
+KERNELS = {"flash": [("flash_attention", ("flash_fwd_wgmma",))],
+           "paged": [("paged_attention", ("paged_split_mma", "paged_split_simt",
+                                          "paged_merge"))],
+           "cvt": [("paged_attention_cvt", ("paged_split_cvt", "stats_merge", "part_sum",
+                                            "paged_cluster_cvt"))],
+           "upcast": [("paged_attention_upcast", ("paged_split_cvt", "cvt_merge",
+                                                  "paged_cluster_upcast"))]}
+KERNELS["split"] = [("flash_attention", ("flash_fwd",)),
+                    ("flash_attention_noncausal", ("flash_fwd",)),
+                    *KERNELS["paged"],
+                    *KERNELS["cvt"], *KERNELS["upcast"],
+                    ("paged_attention_split", ("paged_split_stats", "paged_split_values"))]
 
 
 def _import(tree: Path, kernel: str):
@@ -73,24 +85,33 @@ def _import(tree: Path, kernel: str):
     from repro_torch.kernels import build
     if not Path(build.__file__).resolve().is_relative_to(src):
         raise AssertionError(f"imported {build.__file__}, not {src}")
-    build.build([KERNELS[kernel][0]])
+    build.build(_libraries(build, kernel))
     return build
+
+
+def _libraries(build, kernel: str):
+    """The kernel's libraries that the checkout has (a parent may predate
+    one)."""
+    return [lib for lib, _ in KERNELS[kernel] if (build.CSRC / f"{lib}.cu").exists()]
 
 
 def sass(label: str, tree: Path, kernel: str):
     """One line per instance of the checkout's build."""
-    lib, names = KERNELS[kernel]
-    so = _import(tree, kernel).library_path(lib)
-    text = subprocess.run([CUOBJDUMP, "-sass", str(so)], capture_output=True,
-                          text=True, check=True).stdout
-    for fn in re.split(r"\n\s*Function : ", text)[1:]:
-        name, body = fn.split("\n", 1)
-        if not any(n in name for n in names):
+    build = _import(tree, kernel)
+    for lib, names in KERNELS[kernel]:
+        if lib not in _libraries(build, kernel):
             continue
-        ins = [re.sub(r"/\*[0-9a-f]{4,}\*/", "", ln).strip()
-               for ln in body.splitlines() if "/*" in ln]
-        emit(phase="sass", tree=label, function=name.strip(), instructions=len(ins),
-             sha1=hashlib.sha1("\n".join(ins).encode()).hexdigest()[:12])
+        text = subprocess.run([CUOBJDUMP, "-sass", str(build.library_path(lib))],
+                              capture_output=True, text=True, check=True).stdout
+        for fn in re.split(r"\n\s*Function : ", text)[1:]:
+            name, body = fn.split("\n", 1)
+            if not any(n in name for n in names):
+                continue
+            ins = [re.sub(r"/\*[0-9a-f]{4,}\*/", "", ln).strip()
+                   for ln in body.splitlines() if "/*" in ln]
+            emit(phase="sass", tree=label, library=lib, function=name.strip(),
+                 instructions=len(ins),
+                 sha1=hashlib.sha1("\n".join(ins).encode()).hexdigest()[:12])
 
 
 def timing(label: str, tree: Path, kernel: str):
@@ -102,6 +123,16 @@ def timing(label: str, tree: Path, kernel: str):
     import chip_smoke as cs
     _import(tree, kernel)
     gen = torch.Generator(device="cuda").manual_seed(1)
+    if kernel == "split":
+        from repro_torch.kernels.paged_attention import ops as paged_ops
+        if not hasattr(paged_ops, "split_design"):
+            emit(phase="timing", tree=label, note="no split cluster design in this tree")
+            return
+        for m in (cs.MAIN_PAGED, cs.DANUBE_PAGED, *cs.Q8_REASONING):
+            for pages in (torch.float8_e4m3fn, torch.int8):
+                for r in cs.time_split_q8(paged_ops, pages, gen, m):
+                    emit(phase="timing", tree=label, **r)
+        return
     if kernel == "upcast":
         from repro_torch.kernels.paged_attention import ops as paged_ops
         for pages, m in [(p, m) for m in cs.Q8_UPCAST for p in (torch.float8_e4m3fn,
