@@ -20,14 +20,15 @@ Phases, each printed as one JSON line:
      one-launch cluster design there, at a small batch past its old scores
      limit, at reasoning lengths of 12,288-33,792 tokens at G 16 and G 8,
      and at 60,000-65,536 tokens, where each block's last pages are
-     recomputed from k; the two-pass design at 8-bit D 120 rows under one
-     kv head, which TMA cannot address) and upcast (``decode_unroll``;
-     fp32 pages under a bf16 q too), and its sequence split (pass 1, the
-     gathered (m, l), pass 2, the sum: two cluster launches a share where
-     TMA addresses the rows, the partition passes where not) over rank shares
-     of the four decode batches and the reasoning lengths (each table's
-     halves, and the whole table then a share with no key: each share's
-     (m, l) and scores against the plain version's) and of zamba2's and
+     recomputed from k; and at 8-bit D 120 rows under one and three kv
+     heads, whose token stride TMA cannot take, through the map over token
+     pairs) and upcast (``decode_unroll``; its cluster there too; fp32
+     pages under a bf16 q), and its sequence split (pass 1, the gathered
+     (m, l), pass 2, the sum: two cluster launches a share) over rank
+     shares of the four decode batches, the reasoning lengths and the rows
+     of an odd KV (each table's halves, and the whole table then a share
+     with no key: each share's (m, l) and scores against the plain
+     version's) and of zamba2's and
      h2o-danube's split share; int8 pages also under q times 12 and 40, where
      the output is not zeros and rows tell truncation from rounding to
      nearest;
@@ -44,11 +45,11 @@ Phases, each printed as one JSON line:
      (for a window, SDPA with a boolean mask; the line names the kernels
      the library ran); K2 over fp8 and int8 pages under a bf16 q: the
      cluster design at the four decode batches above and at the long
-     shapes of step 2, the two-pass design at the rows TMA cannot
-     address, and the upcast mode at llama3.2-3b's batch (its yardstick
-     SDPA on the upcast cache); the sequence split's launches on each half
-     of the reasoning lengths at G 16 over fp8 pages, its two cluster
-     passes and the sum beside the partition design's four launches;
+     shapes of step 2 (the map over token pairs at the rows of an odd KV),
+     and the upcast mode there (its yardstick SDPA on the upcast cache);
+     the sequence split's launches on each half of the reasoning lengths
+     at G 16 and of h2o-danube's one kv head a rank over fp8 pages, its
+     two cluster passes and the sum;
   4. greedy tokens of a full-width 2-layer fp32 model served on the card
      equal those of the plain path on the CPU, with and without preemption;
   5. the main path: full-depth llama3.2-3b in bf16 serving 16 requests
@@ -127,7 +128,17 @@ Phases, each printed as one JSON line:
      step's logits within a stated share of the unsplit ones', K2's split
      pass 1, pass 2 and sum launched 16 times a rank and no other K2 or K1
      instance; one line a rank with its step time and K2's device time a
-     step. Then ``cluster``, on the
+     step. Then ``danube_tp8``: h2o-danube-3-4b at full width (2 of its
+     24 layers), bf16 weights, served at tp 8 on eight gloo ranks of a
+     (data 1, model 8) mesh on the card from an fp8 cache, one kv head of
+     120 a rank, 4 prompts of 4,200-4,400 tokens past its window and 8
+     greedy tokens each through ``InferenceEngine`` -> ``TorchRunner``:
+     K2 launches only its cluster instance of the map over token pairs,
+     once a layer a decode step on every rank, its first launch held
+     against the plain version; tokens equal the same model's at tp 1 on
+     the card but at near ties of the top two logits; one line a rank
+     with its collectives, decode step and K2's device time a step. Then
+     ``cluster``, on the
      host: ``repro_torch.cluster.ClusterRuntime(sanitize=True)`` over four
      DS-Distill-8B ``SimRunner`` replicas on H100 constants, colocated
      under ``MemoryAware`` routing and disaggregated 2 + 2, serving 40
@@ -230,7 +241,8 @@ Phases, each printed as one JSON line:
  17. the ``kernels`` line (launches summed over every main path, and by
      model and rank; K2's partials and merge entries from the split
      decode; ``levers/<lever>`` the levers phase's; K2 over fp8 and over
-     int8 pages with their upcast mode; K2's 8-bit sequence split, its two
+     int8 pages with their upcast mode, each also through the map over
+     token pairs (``danube_tp8``'s); K2's 8-bit sequence split, its two
      passes and sum from ``split_reasoning``), then the card line,
      then as the last line ``{"ok": true, "device": {...}}``.
 For the run's time, every main path but llama3.2-3b's serves
@@ -869,8 +881,7 @@ Q8_UPCAST_ONLY = ((torch.float32, torch.bfloat16),)
 # the default mode runs the one-launch cluster design at each
 Q8_PAGED = [MAIN_PAGED, DANUBE_PAGED, L405_PAGED, ZAMBA_PAGED]
 # a small batch past the cluster's old scores limit (13,000 tokens, past
-# 12,288 at G 16), which the two passes ran until the cluster took every
-# length: the cluster design
+# 12,288 at G 16): the cluster design
 Q8_TWO_PASS = dict(B=2, KV=8, G=16, D=128, min_ctx=12_400, max_ctx=13_000)
 # reasoning lengths (the reference's REASONING outputs up to 32,768 tokens
 # after prompts up to 1,024, past K2's old limits at G 16 and G 8): 16
@@ -882,14 +893,16 @@ Q8_REASONING = [dict(B=16, KV=8, G=16, D=128, min_ctx=12_288, max_ctx=33_792),
 # keeps at any cluster size, so each block's last pages are its overflow,
 # their k read again in the same launch
 Q8_OVERFLOW = dict(B=2, KV=8, G=16, D=128, min_ctx=60_000, max_ctx=65_536)
-# rows TMA cannot address (8-bit D 120 under an odd KV: one rank's kv head
-# of h2o-danube at tp 8, its window): the two-pass design over 8-bit pages
-# (bf16 pages' rows of 240 bytes take the cluster there)
-Q8_TWO_PASS_ROWS = dict(B=16, KV=1, G=4, D=120, min_ctx=4096, max_ctx=6400, window=4096)
-# the default mode's shapes past the four main batches, with the design each
-# runs over 8-bit pages
-Q8_MORE = [(Q8_TWO_PASS, "cluster"), *((m, "cluster") for m in Q8_REASONING),
-           (Q8_OVERFLOW, "cluster"), (Q8_TWO_PASS_ROWS, "two_pass")]
+# 8-bit rows of D 120 under an odd KV (a token's KV x 120 bytes no 16-byte
+# stride): one rank's kv head of h2o-danube at tp 8, its window, and the
+# same rows under three kv heads (an even head's box shifted 8 bytes in the
+# pair's second half); the cluster designs read them through the map over
+# token pairs (bf16 pages' rows of 240 bytes take the per-head map there)
+Q8_ODD_KV = [dict(B=16, KV=1, G=4, D=120, min_ctx=4096, max_ctx=6400, window=4096),
+             dict(B=16, KV=3, G=4, D=120, min_ctx=4096, max_ctx=6400, window=4096)]
+# the default mode's shapes past the four main batches: the cluster design
+# at each
+Q8_MORE = [Q8_TWO_PASS, *Q8_REASONING, Q8_OVERFLOW, *Q8_ODD_KV]
 # the default mode against the plain version: fp32 sums in another order
 # (1e-4 of the values' scale), the output's rounding to q's dtype (2^-8 of
 # it in bf16) and ``weight_slack`` (a weight near a rounding boundary of the
@@ -897,22 +910,24 @@ Q8_MORE = [(Q8_TWO_PASS, "cluster"), *((m, "cluster") for m in Q8_REASONING),
 # REL_RMS times the values' scale
 Q8_ATOL = 1e-4
 # the upcast mode's shapes over 8-bit pages under a bf16 q, its one-launch
-# cluster design at each: the four main batches and reasoning lengths
-Q8_UPCAST = [*Q8_PAGED, *Q8_REASONING]
+# cluster design at each: the four main batches, reasoning lengths and the
+# rows of an odd KV
+Q8_UPCAST = [*Q8_PAGED, *Q8_REASONING, *Q8_ODD_KV]
 # K2's rows timed under a bf16 q: (pages, upcast, shape); the default mode
 # over 8-bit pages at the four shapes and past them (``Q8_MORE``), the
 # upcast mode's cluster at ``Q8_UPCAST``, and its split design over fp32
 # pages at llama3.2-3b's batch
-Q8_TIMED = tuple((p, False, m) for m in (*Q8_PAGED, *(m for m, _ in Q8_MORE))
+Q8_TIMED = tuple((p, False, m) for m in (*Q8_PAGED, *Q8_MORE)
                  for p in (torch.float8_e4m3fn, torch.int8)) + tuple(
     (p, True, m) for m in Q8_UPCAST for p in (torch.float8_e4m3fn, torch.int8)) + (
     (torch.float32, True, MAIN_PAGED),)
 # the sequence split's passes (``paged_attention_stats`` ->
 # ``paged_attention_values`` -> ``paged_sum``) at the default mode's four
-# main batches and at reasoning lengths, each table cut into rank shares
-# (``split_shares``): its two halves, and the whole table then a share that
-# holds no key; every pair, int8 also under ``INT8_QX``
-Q8_SPLIT = [*Q8_PAGED, *Q8_REASONING]
+# main batches, at reasoning lengths and at the rows of an odd KV, each
+# table cut into rank shares (``split_shares``): its two halves, and the
+# whole table then a share that holds no key; every pair, int8 also under
+# ``INT8_QX``
+Q8_SPLIT = [*Q8_PAGED, *Q8_REASONING, *Q8_ODD_KV]
 SPLIT_CUTS = ("halves", "empty")
 # each share's (m, l) and scores against the plain version's: within this
 # share of the scores' scale (fp32 sums of exact products in another
@@ -929,6 +944,15 @@ INT8_QX = (12.0, 40.0)
 
 def _dt(dtype) -> str:
     return str(dtype).split(".")[-1]
+
+
+def q8_instance(paged_ops, qdt, pages, m, design):
+    """The name the wrappers give the instance that runs ``design`` over
+    ``pages`` under a ``qdt`` q at ``m``'s rows: " paired" after a cluster
+    that reads them through the map over token pairs."""
+    paired = design == "cluster" and paged_ops.page_map(
+        m["D"], m["KV"], torch.empty((), dtype=pages).element_size()) == "paired"
+    return f"{_dt(qdt)}/{_dt(pages)} {design}" + (" paired" if paired else "")
 
 
 def q8_inputs(pages, qdt, gen, m, qx=1.0):
@@ -986,19 +1010,20 @@ def hold_q8(label, out, ref, q, vp, slack, upcast):
 def check_q8(paged_ops):
     """Each instance over pages of another dtype at the table's K2 shapes,
     both modes, against the plain version (the default mode's one-launch
-    cluster design there and at ``Q8_MORE``'s long shapes, its two-pass
-    design at the rows TMA cannot address, each call's design read from
+    cluster there and at ``Q8_MORE``'s shapes, through the map over token
+    pairs at ``Q8_ODD_KV``'s, each call's instance read from
     ``CVT.by_instance``: one launch of it; the upcast mode's design, which
     ``upcast_design`` names, from ``UPCAST.by_instance`` likewise: the
-    cluster for 8-bit pages under a bf16 q, there and at reasoning
-    lengths, the split for the other pairs and fp32 pages under a bf16
-    q); the sequence split's passes (``split_design``'s design) on the
-    same inputs at ``Q8_SPLIT``'s shapes over each of ``SPLIT_CUTS``
+    cluster for 8-bit pages under a bf16 q, there, at reasoning lengths
+    and at ``Q8_ODD_KV``'s rows, the split for the other pairs and fp32
+    pages under a bf16 q); the sequence split's cluster passes on the same
+    inputs at ``Q8_SPLIT``'s shapes over each of ``SPLIT_CUTS``
     (``hold_split_q8``); then the split passes over the two halves of
     zamba2's and h2o-danube's split share against the one-call plain
     version; int8 pages also under q times ``INT8_QX``. Returns the max
-    abs err of each (q, pages, design or mode and design; "split" and the
-    split's design), over all rows and over the rows without slack."""
+    abs err of each instance (q/pages, the mode and design, " paired"
+    through the map over token pairs; the split's "split cluster"), over
+    all rows and over the rows without slack."""
     from repro_torch.kernels.paged_attention.ref import weight_slack
     from repro_torch.models.cache_dtype import to_cache_dtype
     gen = torch.Generator(device="cuda").manual_seed(25)
@@ -1007,8 +1032,7 @@ def check_q8(paged_ops):
         up_only = (pages, qdt) in Q8_UPCAST_ONLY
         qxs = (1.0, *INT8_QX) if pages == torch.int8 else (1.0,)
         for qx in qxs:
-            shapes = [(m, "cluster") for m in Q8_PAGED] + ([] if up_only else Q8_MORE)
-            for m, design in shapes:
+            for m in Q8_PAGED + ([] if up_only else Q8_MORE):
                 q, kp, vp, tables, lens = q8_inputs(pages, qdt, gen, m, qx)
                 w = m.get("window", 0)
                 up = paged_ops.upcast_design(qdt, pages, m["D"], m["KV"])
@@ -1019,11 +1043,9 @@ def check_q8(paged_ops):
                          (False, True) if qx == 1.0 and (
                              m in Q8_PAGED or (m in Q8_UPCAST and up == "cluster"))
                          else (False,))
-                if kp.element_size() > 1:
-                    design = "cluster"   # 16-byte rows at every D
                 for upcast in modes:
                     counter = paged_ops.UPCAST if upcast else paged_ops.CVT
-                    inst = f"{_dt(qdt)}/{_dt(pages)} {up if upcast else design}"
+                    inst = q8_instance(paged_ops, qdt, pages, m, up if upcast else "cluster")
                     before = counter.by_instance[inst]
                     out = paged_ops.paged_attention(q, kp, vp, tables, lens, window=w,
                                                     upcast=upcast)
@@ -1034,7 +1056,7 @@ def check_q8(paged_ops):
                     ref = paged_ops.paged_attention_plain(q, kp, vp, tables, lens,
                                                           window=w, upcast=upcast)
                     slack = weight_slack(q, kp, vp, tables, lens, window=w, upcast=upcast)
-                    key = f"{_dt(qdt)}/{_dt(pages)} {'upcast ' + up if upcast else design}"
+                    key = inst.replace(" ", " upcast ", 1) if upcast else inst
                     label = f"paged_attention {key} q x{qx:g} at {list(q.shape)}"
                     if pages == torch.int8 and not upcast:
                         nonzero[f"{key} q x{qx:g}"] = min(
@@ -1048,8 +1070,7 @@ def check_q8(paged_ops):
                         continue
                     # the sequence split of the same call, against the same
                     # plain output
-                    skey = (f"{_dt(qdt)}/{_dt(pages)} split "
-                            f"{paged_ops.split_design(m['D'], m['KV'], kp.element_size())}")
+                    skey = inst.replace(" ", " split ", 1)
                     for cut in SPLIT_CUTS:
                         err, exact, rel = hold_split_q8(
                             paged_ops, f"{label} split {cut}", q, kp, vp, tables, lens, w,
@@ -1072,8 +1093,7 @@ def check_q8(paged_ops):
             torch.cuda.synchronize()
             ref = paged_ops.paged_attention_plain(q, kp, vp, tables, lens, window=w)
             slack = weight_slack(q, kp, vp, tables, lens, window=w)
-            key = (f"{_dt(qdt)}/{_dt(pages)} split "
-                   f"{paged_ops.split_design(m['D'], m['KV'], kp.element_size())}")
+            key = q8_instance(paged_ops, qdt, pages, m, "cluster").replace(" ", " split ", 1)
             label = f"paged split {key} q x{qx:g} {m['model']}"
             if pages == torch.int8:
                 nonzero[f"{key} q x{qx:g}"] = min(
@@ -1085,7 +1105,7 @@ def check_q8(paged_ops):
             rels[key] = max(rels.get(key, 0.0), rel)
     emit("check", kernel="paged_attention other page dtypes", cases=len(errs),
          shapes=[[m["B"], m["KV"], m["G"], m["D"], m.get("max_ctx")]
-                 for m in Q8_PAGED + [m for m, _ in Q8_MORE]],
+                 for m in Q8_PAGED + Q8_MORE],
          upcast_shapes=[[m["B"], m["KV"], m["G"], m["D"], m.get("max_ctx")]
                         for m in Q8_UPCAST],
          split_shapes=[[m["B"], m["KV"], m["G"], m["D"], m.get("max_ctx")]
@@ -1117,10 +1137,10 @@ def time_q8(paged_ops, pages, upcast, gen, m=MAIN_PAGED):
     counter = paged_ops.UPCAST if upcast else paged_ops.CVT
     before = dict(counter.by_instance)
     out = paged_ops.paged_attention(q, kp, vp, tables, lens, **kw)
-    # a tree before a mode's cluster design (tools/ab_flash.py's parent)
-    # names none: its default mode is the two passes, its upcast the split
-    design = next(k.partition(" ")[2] or ("split" if upcast else "two_pass")
-                  for k, n in counter.by_instance.items() if n != before.get(k, 0))
+    # the design that ran, " paired" after a cluster through the map over
+    # token pairs
+    design = next(k.partition(" ")[2] for k, n in counter.by_instance.items()
+                  if n != before.get(k, 0))
     needed = 2 * tokens * KV * D * kp.element_size() + nbytes(q, out, tables, lens)
     b_ms, b_by = bound(flops, needed, torch.bfloat16)
     kernel = lambda: paged_ops.paged_attention(q, kp, vp, tables, lens, **kw)  # noqa: E731
@@ -1163,58 +1183,54 @@ def split_shares(tables, lens, cut):
                              lens - n * 16)]
 
 
-def run_split(paged_ops, q, kp, vp, shares, window, design=None):
+def run_split(paged_ops, q, kp, vp, shares, window):
     """The sequence split on one device: pass 1 on each share, the shares'
     (m, l) gathered, pass 2 on each, the sums gathered and added. Returns
     (out, [(ml, scores)] a share, the gathered ml, [sum] a share)."""
-    passes = [paged_ops.paged_attention_stats(q, kp, t, l, window=window, design=design)
-              for t, l in shares]
+    passes = [paged_ops.paged_attention_stats(q, kp, t, l, window=window) for t, l in shares]
     ml = torch.cat([m for m, _ in passes], dim=2)
-    parts = [paged_ops.paged_attention_values(q, kp, vp, t, l, ml, sc, window=window,
-                                              design=design)
+    parts = [paged_ops.paged_attention_values(q, kp, vp, t, l, ml, sc, window=window)
              for (t, l), (_, sc) in zip(shares, passes)]
     return paged_ops.paged_sum(torch.cat(parts, dim=2), q.dtype), passes, ml, parts
 
 
 def _split_counts(paged_ops):
     return {k.symbol: k.launches for k in (paged_ops.SHARE_STATS, paged_ops.SHARE_VALUES,
-                                           paged_ops.STATS, paged_ops.STATS_MERGE,
-                                           paged_ops.VALUES, paged_ops.SUM, paged_ops.CVT)}
+                                           paged_ops.SUM, paged_ops.CVT)}
 
 
 def hold_split_q8(paged_ops, label, q, kp, vp, tables, lens, window, cut, ref, slack):
     """The split passes over ``cut``'s shares (``split_shares``) against
     their plain versions and the one-call plain output ``ref``: one launch
-    of the design's pass 1 and pass 2 a share (``split_design``; the partition
-    design also its merge a share) and one of the sum; each share's (m, l)
-    (the cluster design's; the partition design's merged over its partitions) and the
-    cluster's scores where a key counts within ``SPLIT_ML_TOL`` of the
-    scores' scale (l within ``SPLIT_L_RTOL`` of itself); a share with no
-    key (NEG_INF, 0) and a sum of zeros exactly; the summed output under
-    ``hold_q8``'s bounds. Returns hold_q8's (max abs err, without slack,
-    relative rms)."""
+    of pass 1 and pass 2 a share, of the instance the pool's map names
+    (``q8_instance``: " paired" through the map over token pairs), and one
+    of the sum; each share's (m, l) and scores where a key counts within
+    ``SPLIT_ML_TOL`` of the scores' scale (l within ``SPLIT_L_RTOL`` of
+    itself), the scores at their true tokens; a share with no key (NEG_INF,
+    0) and a sum of zeros exactly; the summed output under ``hold_q8``'s
+    bounds. Returns hold_q8's (max abs err, without slack, relative
+    rms)."""
     from repro_torch.kernels.paged_attention.ref import NEG_INF
     B, KV, G, D = q.shape
     shares = split_shares(tables, lens, cut)
-    design = paged_ops.split_design(D, KV, kp.element_size())
-    before = _split_counts(paged_ops)
+    inst = q8_instance(paged_ops, q.dtype, kp.dtype, dict(D=D, KV=KV), "cluster")
+    before = _split_counts(paged_ops), paged_ops.SHARE_STATS.by_instance[inst], \
+        paged_ops.SHARE_VALUES.by_instance[inst]
     out, passes, ml, parts = run_split(paged_ops, q, kp, vp, shares, window)
     torch.cuda.synchronize()
-    n = {k: v - before[k] for k, v in _split_counts(paged_ops).items()}
+    n = {k: v - before[0][k] for k, v in _split_counts(paged_ops).items()}
+    n[inst] = (paged_ops.SHARE_STATS.by_instance[inst] - before[1],
+               paged_ops.SHARE_VALUES.by_instance[inst] - before[2])
     R = len(shares)
-    want = {"paged_cvt_share_stats": R, "paged_cvt_share_values": R} if design == "cluster" \
-        else {"paged_cvt_stats": R, "paged_cvt_stats_merge": R, "paged_cvt_values": R}
-    want = {k: want.get(k, 0) for k in n} | {"paged_cvt_sum": 1}
+    want = {"paged_cvt_share_stats": R, "paged_cvt_share_values": R, "paged_cvt_sum": 1,
+            "paged_cvt_fwd": 0, inst: (R, R)}
     if n != want:
         raise AssertionError(f"{label}: launches {n}, want {want}")
     for i, ((m, sc), (t, l)) in enumerate(zip(passes, shares)):
         m_p, sc_p = paged_ops.paged_attention_stats_plain(q, kp, t, l, window=window)
-        if design == "two_pass":
-            m = paged_ops.paged_stats_merge_plain(m)[:, :, None]
         counts = m_p[..., 1] > 0                                      # (B,KV,1,G)
-        part = parts[i].sum(dim=2, keepdim=True)   # the partition design's: a sum a partition
         if bool((m[..., 0][~counts] != NEG_INF).any()) or bool((m[..., 1][~counts] != 0).any()) \
-                or bool((part.transpose(2, 3)[~counts.transpose(2, 3)] != 0).any()):
+                or bool((parts[i].transpose(2, 3)[~counts.transpose(2, 3)] != 0).any()):
             raise AssertionError(f"{label} share {i}: a row with no key holds (m, l) or a sum")
         valid = sc_p > NEG_INF / 2
         scale = float(sc_p[valid].abs().max()) + 1.0 if bool(valid.any()) else 1.0
@@ -1223,7 +1239,7 @@ def hold_split_q8(paged_ops, label, q, kp, vp, tables, lens, window, cut, ref, s
             dl = float(((m[..., 1] - m_p[..., 1]) / m_p[..., 1])[counts].abs().max())
             if dm > SPLIT_ML_TOL * scale or dl > SPLIT_L_RTOL:
                 raise AssertionError(f"{label} share {i}: (m, l) off by {dm}, {dl}")
-        if sc is not None and bool(valid.any()):
+        if bool(valid.any()):
             ds = float((sc - sc_p)[valid].abs().max())
             if ds > SPLIT_ML_TOL * scale:
                 raise AssertionError(f"{label} share {i}: scores off by {ds}")
@@ -1232,21 +1248,20 @@ def hold_split_q8(paged_ops, label, q, kp, vp, tables, lens, window, cut, ref, s
 
 def time_split_q8(paged_ops, pages, gen, m):
     """The sequence split's launches on each share of ``m``'s table over
-    ``pages`` under a bf16 q, in both designs of the same call (the
-    cluster's pass 1, pass 2 and sum; the partition design's pass 1, merge, pass 2 and
-    sum), the gathers left out: each launch's device time (a replayed CUDA
-    graph) and each pass's eager time, beside each pass's bytes bound
-    (pass 1: the share's counted keys' k and their fp32 scores written;
-    pass 2: those scores and v read; q, the tables, lens, the (m, l) and
-    the sums once) and its plain version's time. No PyTorch call rounds
-    the weights to the cache's dtype: no library time. One row a share."""
+    ``pages`` under a bf16 q (the cluster's pass 1, pass 2 and sum), the
+    gathers left out: each launch's device time (a replayed CUDA graph),
+    the three's together, and each pass's eager time, beside each pass's
+    bytes bound (pass 1: the share's counted keys' k and their fp32 scores
+    written; pass 2: those scores and v read; q, the tables, lens, the (m,
+    l) and the sums once) and its plain version's time. No PyTorch call
+    rounds the weights to the cache's dtype: no library time. One row a
+    share."""
     q, kp, vp, tables, lens = q8_inputs(pages, torch.bfloat16, gen, m)
     w = m.get("window", 0)
     B, KV, G, D = q.shape
     shares = split_shares(tables, lens, "halves")
     _, passes, ml, parts = run_split(paged_ops, q, kp, vp, shares, w)
-    _, _, old_ml, old_parts = run_split(paged_ops, q, kp, vp, shares, w, design="two_pass")
-    cat, old_cat = torch.cat(parts, dim=2), torch.cat(old_parts, dim=2)
+    cat = torch.cat(parts, dim=2)
     ml_p = torch.cat([paged_ops.paged_attention_stats_plain(q, kp, t, l, window=w)[0]
                       for t, l in shares], dim=2)
     rows = []
@@ -1265,20 +1280,8 @@ def time_split_q8(paged_ops, pages, gen, m):
                 q, kp, vp, t, l, ml, sc, window=w),
             "sum": lambda: paged_ops.paged_sum(cat, q.dtype),
         }
-        old_fns = {
-            "pass1": lambda t=t, l=l: paged_ops.paged_attention_stats(
-                q, kp, t, l, window=w, design="two_pass"),
-            "merge": lambda: paged_ops.paged_stats_merge(old_ml),
-            "pass2": lambda t=t, l=l: paged_ops.paged_attention_values(
-                q, kp, vp, t, l, old_ml, None, window=w, design="two_pass"),
-            "sum": lambda: paged_ops.paged_sum(old_cat, q.dtype),
-        }
         dev = {k: device_ms(f, 20) for k, f in fns.items()}
         both = lambda: [f() for f in fns.values()]   # noqa: E731
-        old_dev = {k: device_ms(f, 20) for k, f in old_fns.items()}
-        # the partition design's pass 2 is its merge's launch and its own
-        old_dev["pass2"] -= old_dev["merge"]
-        old_both = lambda: [old_fns[k]() for k in ("pass1", "pass2", "sum")]   # noqa: E731
         bounds = {k: bound(f, b, torch.bfloat16) for k, f, b in (
             ("pass1", 2 * keys * G * D, b1), ("pass2", 2 * keys * G * D, b2),
             ("sum", 0, nbytes(cat) + nbytes(q)))}
@@ -1290,15 +1293,12 @@ def time_split_q8(paged_ops, pages, gen, m):
                  "sum": time_ms(lambda: paged_ops.paged_sum_plain(cat, q.dtype), 3)[0]}
         rows.append(dict(
             shape=[B, KV, G, D], pages=_dt(pages), window=w, cut="halves", share=i,
+            instance=q8_instance(paged_ops, q.dtype, pages, m, "cluster"),
             positions=[int(shares[0][0].shape[1]) * 16 * i,
                        int(shares[0][0].shape[1]) * 16 * i + int(t.shape[1]) * 16], keys=keys,
             ms={k: time_ms(f, 20)[0] for k, f in fns.items()},
             device_ms=dev, device_ms_total=sum(dev.values()),
-            two_pass_device_ms=old_dev,
-            two_pass_device_ms_total=old_dev["pass1"] + old_dev["merge"] + old_dev["pass2"]
-            + old_dev["sum"],
             three_launches_device_ms=device_ms(both, 20),
-            two_pass_four_launches_device_ms=device_ms(old_both, 20),
             bound_ms={k: b[0] for k, b in bounds.items()},
             bound_by={k: b[1] for k, b in bounds.items()},
             device_bound_share={k: bounds[k][0] / dev[k] for k in bounds},
@@ -2430,8 +2430,8 @@ def split_reasoning(unsplit):
     ``SPLIT_REASONING_LOGITS_RTOL`` of the unsplit ones' largest magnitude,
     and it must launch K2's split pass 1, pass 2 and the sum (the cluster
     design) ``REASONING_LAYERS`` x steps times each, and no other K2
-    instance (not the one-launch cluster, not the partition passes, not the
-    upcast library) and no K1. One line a rank. Returns the launches by
+    instance (not the one-launch cluster, not the upcast library) and no
+    K1. One line a rank. Returns the launches by
     rank."""
     import shutil
     import tempfile
@@ -2483,6 +2483,289 @@ def split_reasoning(unsplit):
              unsplit_k2_device_ms_per_step=unsplit["k2_device_ms_per_step"],
              setup_s=row["setup_s"], max_memory_allocated=row["max_memory_allocated"])
         launches[f"llama3-405b split_reasoning rank{row['rank']}"] = n
+    return launches
+
+
+# danube_tp8: h2o-danube-3-4b at its published widths (d 3840, 32 q / 8 kv
+# heads of 120, d_ff 10240, vocab 32000, window 4096), DANUBE_TP8_LAYERS of
+# its 24 layers for the run's time, bf16 weights from seed 0, served at tp 8
+# (a (data 1, model 8) mesh of gloo ranks on the one card: 4 q heads and
+# one kv head a rank) from an fp8 cache (``ParallelContext(kv_cache_dtype=)``)
+# through ``InferenceEngine(virtual_clock=False)`` on ``TorchRunner(max_len=)``:
+# 4 prompts of 4,200-4,400 tokens (past the window) drawn from numpy seed
+# 30, 8 new tokens each, naive admission on a pool that holds them all.
+# Each rank's K2 reads its one kv head's 8-bit rows of 120 through the map
+# over token pairs.
+DANUBE_TP8_LAYERS = 2
+DANUBE_TP8_MESH = (1, 8)
+DANUBE_TP8_REQUESTS = dict(n=4, isl=(4200, 4400), osl=(8, 8), seed=30)
+# tp 8's greedy tokens against tp 1's (the same model on one device from an
+# fp8 cache): the ranks' partial sums of the attention and MLP outputs are
+# added in another order than one device's products, which moves the bf16
+# hidden state by ulps, and the logits after 2 layers and the head by a few
+# parts in a thousand of their largest magnitude; a position may differ
+# only where tp 1's top-two margin there lies below this share of that
+# step's largest logit magnitude (a near tie), and the request's later
+# positions (its context then differs) are not compared
+DANUBE_TP8_MARGIN_RTOL = 2.0 ** -5
+
+
+def danube_tp8_work():
+    """``danube_tp8``'s config (its cut: ``DANUBE_TP8_LAYERS`` layers) and
+    requests, and the engine config that serves them."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.launch.serve import make_requests, pages_to_hold
+    r = DANUBE_TP8_REQUESTS
+    cfg = dataclasses.replace(get_config("h2o-danube-3-4b"), n_layers=DANUBE_TP8_LAYERS)
+    requests = make_requests(cfg.vocab, r["n"], r["isl"], r["osl"], r["seed"])
+    ecfg = EngineConfig(n_pages=pages_to_hold(requests), max_num_seqs=r["n"],
+                        admission_mode="naive")
+    return cfg, requests, ecfg
+
+
+def danube_serve(ctx, label, device="cuda", margins=False):
+    """``danube_tp8_work``'s requests served on ``ctx`` (its mesh, or one
+    device without one) through the engine on ``TorchRunner``; the leader
+    runs the engine, the other ranks follow it. Every kernel's count and
+    the collectives' counters are set to 0 just before the engine runs and
+    read just after. K2's first launch (layer 0 of the first decode step)
+    is held against its plain version on the same inputs (``hold_q8``'s
+    bounds and ``weight_slack``), and every launch timed by CUDA events.
+    With ``margins`` (one device) each output position's top-two logit
+    margin and the step's largest logit magnitude are kept. Returns the
+    rank's row."""
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.core.runner import TorchRunner
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.paged_attention.ref import weight_slack
+    from repro_torch.models import transformer as tm
+
+    cfg, requests, ecfg = danube_tp8_work()
+    t0 = time.perf_counter()
+    model = tm.Transformer(cfg, device=device, dtype=torch.bfloat16, seed=0, ctx=ctx)
+    cuda = torch.device(device).type == "cuda"
+    held, marks = {}, []
+    k2 = tm.paged_attention
+
+    def counted_k2(q, kp, vp, tables, lens, **kw):
+        if not held:   # layer 0 of the first decode step, before its launch
+            args = [t.clone() for t in (q, kp, vp, tables, lens)]
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2)) if cuda \
+            else (None, None)
+        if cuda:
+            start.record()
+        out = k2(q, kp, vp, tables, lens, **kw)
+        if cuda:
+            end.record()
+            marks.append((start, end))
+        if not held:
+            ref = paged_ops.paged_attention_plain(*args, **kw)
+            slack = weight_slack(*args, **kw)
+            err, exact, rel = hold_q8(f"{label} K2", out, ref, args[0], args[2], slack,
+                                      False)
+            held.update(shape=list(q.shape), max_abs_err=err, max_abs_err_without_slack=exact,
+                        rel_rms=rel, contexts=(args[4] + 1).tolist())
+        return out
+
+    class Runner(TorchRunner):
+        """``TorchRunner`` that times its decode steps (every rank runs
+        ``_decode``) and, with ``margins``, keeps each output's margin from
+        the logits of its last model call (``logits``)."""
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.steps_s, self.k2_ms, self.margin, self.logits = [], [], {}, None
+
+        def _decode(self, *work):
+            marks.clear()
+            t = time.perf_counter()
+            out = super()._decode(*work)
+            self.steps_s.append(time.perf_counter() - t)
+            self.k2_ms.append(sum(a.elapsed_time(b) for a, b in marks) if cuda else 0.0)
+            return out
+
+        def prefill(self, req, chunk):
+            tok = super().prefill(req, chunk)
+            self._keep(req.rid, 0)
+            return tok
+
+        def decode(self, reqs):
+            out = super().decode(reqs)
+            for i, r in enumerate(reqs):   # one device: row i is reqs[i]
+                self._keep(r.rid, len(r.output), i)
+            return out
+
+        def _keep(self, rid, k, row=0):
+            if margins:
+                top = self.logits[row].float().topk(2).values
+                self.margin[rid, k] = (float(top[0] - top[1]),
+                                       float(self.logits[row].float().abs().max()))
+
+    runner = Runner(model, device=device, max_len=lever_max_len(requests, ctx))
+    if margins:   # each call's logits, for _keep
+        for name in ("prefill", "decode_step"):
+            def keep(*a, _f=getattr(model, name), **kw):
+                out = _f(*a, **kw)
+                runner.logits = out[0] if isinstance(out, tuple) else out   # (B, vocab)
+                return out
+            setattr(model, name, keep)
+    setup_s = time.perf_counter() - t0
+    tm.paged_attention = counted_k2
+    for k in (flash_ops.KERNEL, flash_ops.NONCAUSAL, *paged_ops.COUNTERS):
+        k.reset()
+    if ctx.mesh is not None:
+        ctx.comm.reset()
+    t0 = time.perf_counter()
+    tokens = None
+    try:
+        if runner.leads:
+            try:
+                eng = InferenceEngine(cfg, ecfg, runner, virtual_clock=False)
+                reqs = [eng.submit(p, n) for p, n in requests]
+                eng.run(max_steps=LEVER_MAX_STEPS)
+            finally:
+                runner.close()
+            tokens = [r.output for r in reqs]
+            rids = [r.rid for r in reqs]
+        else:
+            runner.follow()
+        if cuda:
+            torch.cuda.synchronize()
+    finally:
+        tm.paged_attention = k2
+    serve_s = time.perf_counter() - t0
+    row = dict(
+        tokens=tokens, setup_s=setup_s, serve_s=serve_s, decode_steps=len(runner.steps_s),
+        decode_step_s=runner.steps_s, k2_device_ms_per_step=runner.k2_ms,
+        flash_attention=flash_ops.KERNEL.launches + flash_ops.NONCAUSAL.launches,
+        launches={k.symbol: k.launches for k in paged_ops.COUNTERS},
+        by_instance={k.symbol: dict(k.by_instance) for k in paged_ops.COUNTERS
+                     if k.by_instance},
+        pool_bytes=sum(t.numel() * t.element_size() for t in runner.pools),
+        pool_dtypes=sorted({str(t.dtype) for t in runner.pools}), k2_first_step=held,
+        comm={op: {"calls": v["calls"], "bytes": v["bytes"]}
+              for op, v in ctx.comm.stats.items()} if ctx.mesh is not None else {})
+    if margins and tokens is not None:
+        row["margins"] = [[runner.margin[rid, k] for k in range(len(t))]
+                          for rid, t in zip(rids, tokens)]
+    del model, runner
+    return row
+
+
+def danube_tp8_rank(rank, out_dir, device="cuda"):
+    """One rank of ``danube_tp8`` (``run_ranks`` spawns the mesh's ranks on
+    the card): ``danube_serve`` on the (1, 8) mesh. Writes its row to
+    ``out_dir``."""
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.parallel.sharding import ParallelContext
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data, tp = DANUBE_TP8_MESH
+    ctx = ParallelContext(mesh=make_mesh_for(data * tp, tp, device_type=device),
+                          kv_cache_dtype=torch.float8_e4m3fn)
+    row = dict(rank=rank, **danube_serve(ctx, f"danube_tp8 rank {rank}", device),
+               max_memory_allocated=torch.cuda.max_memory_allocated() if device == "cuda"
+               else 0)
+    with open(Path(out_dir) / f"danube_tp8.rank{rank}.json", "w") as f:
+        json.dump(row, f)
+
+
+def danube_tokens_agree(got, want, margins):
+    """``got`` (tp 8's tokens by request) against ``want`` (tp 1's) under
+    ``DANUBE_TP8_MARGIN_RTOL``: per request, None where they are equal,
+    else its first differing position with tp 1's margin and logit scale
+    there. Raises where a difference is no near tie."""
+    out = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        k = next((k for k, (a, b) in enumerate(zip(g, w)) if a != b),
+                 None if len(g) == len(w) else min(len(g), len(w)))
+        if k is None:
+            out.append(None)
+            continue
+        margin, scale = margins[i][k] if k < len(margins[i]) else (float("inf"), 1.0)
+        if not margin < DANUBE_TP8_MARGIN_RTOL * scale:
+            raise AssertionError(f"danube_tp8: request {i} differs from tp 1 at position {k} "
+                                 f"({g} against {w}), where tp 1's top-two margin {margin} is "
+                                 f"no near tie (scale {scale})")
+        out.append(dict(position=k, margin=margin, scale=scale))
+    return out
+
+
+def danube_tp8():
+    """``danube_tp8``: ``danube_tp8_rank`` on the (1, 8) mesh's gloo ranks,
+    then the same model served at tp 1 on the card from an fp8 cache. On
+    every rank K2 must launch only the default mode's cluster instance
+    through the map over token pairs, ``DANUBE_TP8_LAYERS`` x decode steps
+    times, no other K2 instance and K1 for the prefills; K2's first launch
+    within ``hold_q8``'s bounds of its plain version; every rank's greedy
+    tokens equal tp 1's but at near ties (``danube_tokens_agree``). One
+    line a rank: tokens, K2's launches by instance, collectives by op, the
+    phase's seconds, the median decode step and K2's device time a step.
+    Returns the launches by rank."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.parallel.sharding import ParallelContext
+
+    t_start = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="danube_tp8_")
+    world = DANUBE_TP8_MESH[0] * DANUBE_TP8_MESH[1]
+    try:
+        run_ranks(danube_tp8_rank, world, (out,), backend="gloo", device_type="cuda")
+        ranks = [json.loads((Path(out) / f"danube_tp8.rank{i}.json").read_text())
+                 for i in range(world)]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    ranks_s = time.perf_counter() - t_start
+    free_card()
+    one = danube_serve(ParallelContext(kv_cache_dtype=torch.float8_e4m3fn), "danube_tp8 tp 1",
+                       margins=True)
+    free_card()
+    cfg, requests, _ = danube_tp8_work()
+    tokens = ranks[0]["tokens"]
+    near = danube_tokens_agree(tokens, one["tokens"], one["margins"])
+    instance = "bfloat16/float8_e4m3fn cluster paired"
+    launches = {}
+    for row in ranks:
+        n, steps = row["launches"], row["decode_steps"]
+        want = {k: 0 for k in n} | {"paged_cvt_fwd": cfg.n_layers * steps}
+        if n != want or row["by_instance"] != {"paged_cvt_fwd": {instance: cfg.n_layers * steps}} \
+                or not row["flash_attention"] or not steps \
+                or row["pool_dtypes"] != ["torch.float8_e4m3fn"] \
+                or row["k2_first_step"].get("shape", [None, None])[1] != 1:
+            raise AssertionError(f"danube_tp8 rank {row['rank']}: launches {n} by instance "
+                                 f"{row['by_instance']} in {steps} decode steps (want only "
+                                 f"{cfg.n_layers * steps} of {instance}), K1 "
+                                 f"{row['flash_attention']}, pools {row['pool_dtypes']}, "
+                                 f"K2's first call {row['k2_first_step']}")
+        steps_s = sorted(row["decode_step_s"][1:])
+        k2 = sorted(row["k2_device_ms_per_step"][1:])
+        emit("danube_tp8", model=cfg.name, rank=row["rank"],
+             mesh={"data": DANUBE_TP8_MESH[0], "model": DANUBE_TP8_MESH[1]},
+             layers=cfg.n_layers, reduced={"n_layers": [24, cfg.n_layers]}, dtype="bfloat16",
+             cache_dtype="float8_e4m3fn", kv_heads_per_rank=row["k2_first_step"]["shape"][1],
+             prompts=[len(p) for p, _ in requests], window=cfg.swa_window,
+             tokens=tokens, tp1_tokens=one["tokens"], near_ties=near,
+             margin_rtol=DANUBE_TP8_MARGIN_RTOL, k2_launches_by_instance=row["by_instance"],
+             k1_launches=row["flash_attention"], collectives=row["comm"],
+             decode_steps=row["decode_steps"], decode_step_s=row["decode_step_s"],
+             decode_step_s_median=steps_s[len(steps_s) // 2],
+             k2_device_ms_per_step=row["k2_device_ms_per_step"],
+             k2_device_ms_per_step_median=k2[len(k2) // 2],
+             tp1_decode_step_s_median=sorted(one["decode_step_s"][1:])[
+                 len(one["decode_step_s"][1:]) // 2],
+             tp1_k2_device_ms_per_step_median=sorted(one["k2_device_ms_per_step"][1:])[
+                 len(one["k2_device_ms_per_step"][1:]) // 2],
+             k2_first_step=row["k2_first_step"], pool_bytes=row["pool_bytes"],
+             setup_s=row["setup_s"], serve_s=row["serve_s"], ranks_s=ranks_s,
+             seconds=time.perf_counter() - t_start,
+             max_memory_allocated=row["max_memory_allocated"])
+        launches[f"{cfg.name} danube_tp8 rank{row['rank']}"] = dict(
+            flash_attention=row["flash_attention"], paged_attention=n["paged_attention_fwd"],
+            cvt=row["by_instance"].get("paged_cvt_fwd", {}),
+            upcast=row["by_instance"].get("paged_upcast_fwd", {}))
     return launches
 
 
@@ -4201,12 +4484,32 @@ def main():
     for row in q8_rows:
         emit("timing", kernel="paged_attention", **row)
     # the sequence split's launches on each half of reasoning lengths at G
-    # 16 over fp8 pages, both designs in turn
+    # 16 and of h2o-danube's one kv head a rank (the map over token pairs)
+    # over fp8 pages
     split_rows = time_split_q8(paged_ops, torch.float8_e4m3fn, gen, Q8_REASONING[0])
-    for row in split_rows:
+    paired_split_rows = time_split_q8(paged_ops, torch.float8_e4m3fn, gen, Q8_ODD_KV[0])
+    for row in split_rows + paired_split_rows:
         emit("timing", kernel="paged_attention split", **row)
 
-    emit("greedy_equality", **greedy_equality())
+    # the fp32 instances' launches (K1's flash_fwd_simt, K2's
+    # paged_split_simt and the merge at fp32) on each path that runs them:
+    # the in-process equality runs here (their ``by_instance`` "float32"
+    # counts around each), the levers below (fp32 models, every launch)
+    fp32_paths = {}
+
+    def fp32_counts():
+        return {"flash_attention": flash_ops.KERNEL.by_instance["float32"]
+                + flash_ops.NONCAUSAL.by_instance["float32"],
+                "paged_attention": paged_ops.KERNEL.by_instance["float32"],
+                "paged_merge": paged_ops.MERGE.by_instance["float32"]}
+
+    def fp32_path(name, phase):
+        before = fp32_counts()
+        out = phase()
+        fp32_paths[name] = {k: v - before[k] for k, v in fp32_counts().items()}
+        return out
+
+    emit("greedy_equality", **fp32_path("greedy_equality", greedy_equality))
     free_card()
     by_model = {}
     launches, model = main_path(flash_ops, paged_ops)
@@ -4215,7 +4518,7 @@ def main():
     del model
     free_card()
 
-    emit("greedy_equality_moe", **greedy_equality_moe())
+    emit("greedy_equality_moe", **fp32_path("greedy_equality_moe", greedy_equality_moe))
     free_card()
     for cfg, reduced, traffic in moe_configs():
         traffic, reduced = fewer_steps(traffic, reduced)
@@ -4226,7 +4529,7 @@ def main():
         del model
         free_card()
 
-    emit("greedy_equality_swa", **greedy_equality_swa())
+    emit("greedy_equality_swa", **fp32_path("greedy_equality_swa", greedy_equality_swa))
     free_card()
     for cfg, reduced, traffic in gqa_configs():
         traffic, reduced = fewer_steps(traffic, reduced)
@@ -4235,9 +4538,10 @@ def main():
         del model
         free_card()
 
-    emit("greedy_equality_hybrid", **greedy_equality_hybrid())
+    emit("greedy_equality_hybrid",
+         **fp32_path("greedy_equality_hybrid", greedy_equality_hybrid))
     free_card()
-    emit("greedy_equality_xlstm", **greedy_equality_xlstm())
+    emit("greedy_equality_xlstm", **fp32_path("greedy_equality_xlstm", greedy_equality_xlstm))
     free_card()
     from repro_torch.configs.registry import get_config
     for name, depth, traffic in (("zamba2-2.7b", ZAMBA_MAIN_LAYERS, SERVE_REQUESTS),
@@ -4251,7 +4555,7 @@ def main():
         del model
         free_card()
 
-    emit("prefix_equality", **prefix_equality())
+    emit("prefix_equality", **fp32_path("prefix_equality", prefix_equality))
     free_card()
     for cfg, reduced, traffic in vlm_audio_configs():
         traffic, reduced = fewer_steps(traffic, reduced)
@@ -4274,6 +4578,11 @@ def main():
     for key, n in split_by_rank.items():
         by_model[key] = {"flash_attention": n["flash_attention"],
                          "paged_attention": n["paged_attention_fwd"]}
+    free_card()
+    danube_by_rank = danube_tp8()
+    q8_by_model.update(danube_by_rank)
+    for key, n in danube_by_rank.items():
+        by_model[key] = {k: n[k] for k in ("flash_attention", "paged_attention")}
     free_card()
     cluster_phase()
     by_model.update(examples_phase(flash_ops, paged_ops))
@@ -4298,8 +4607,11 @@ def main():
     split_timings, split_launches = long_decode(flash_ops, paged_ops)
     by_model.update(split_launches)
     free_card()
-    by_model.update(levers(counts))
+    lever_launches = levers(counts)
+    by_model.update(lever_launches)
+    fp32_paths.update(lever_launches)   # the levers serve and train fp32 models
     free_card()
+    emit("fp32_instances", by_path=fp32_paths)
 
     replaces = {
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:99",
@@ -4328,7 +4640,9 @@ def main():
             "library_ms": row["library_ms"], "device_ms": row["device_ms"],
             "library_device_ms": row.get("library_device_ms"),
             "host_ms": row["host_ms"], "shape": row["shape"],
-            "dtype": row.get("dtype", "bfloat16")})
+            "dtype": row.get("dtype", "bfloat16"),
+            "fp32_launches_by_path": {m: n[name] for m, n in fp32_paths.items()
+                                      if n.get(name)}})
     if flash_ops.NONCAUSAL.launches:
         raise AssertionError(f"the main paths launched K1's non-causal instance "
                              f"{flash_ops.NONCAUSAL.launches} times")
@@ -4340,23 +4654,26 @@ def main():
         **{k: row[k] for k in ("shape", "ms", "device_ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms", "library_device_ms")}}
         for row in noncausal_rows]
-    # K2 over pages of another dtype, the default mode in its two designs:
-    # the cluster (the main paths' fp8 and int8 caches under bf16 weights,
-    # at every length), with its rows at the four shapes and the long ones,
-    # and the two passes, which only 8-bit rows TMA cannot address take (no
-    # main path's); the upcast mode (``decode_unroll``) in its two designs:
-    # the cluster (the fp8 serve under ``decode_unroll``), with its rows at
-    # ``Q8_UPCAST``, and the split (an fp32 q, fp32 pages under a bf16 q:
-    # the equality run's fp32 model), timed over fp32 pages
+    # K2 over pages of another dtype, the default mode's cluster (the main
+    # paths' fp8 and int8 caches under bf16 weights, at every length), with
+    # its rows at the four shapes and the long ones, and its instances of
+    # the map over token pairs (" paired": danube_tp8's fp8 cache, one kv
+    # head of 120 a rank), with their rows at ``Q8_ODD_KV``; the upcast mode
+    # (``decode_unroll``) in its two designs: the cluster (the fp8 serve
+    # under ``decode_unroll``), with its rows at ``Q8_UPCAST`` (its paired
+    # instances at ``Q8_ODD_KV``'s, which no main path runs), and the split
+    # (an fp32 q, fp32 pages under a bf16 q: the equality run's fp32
+    # model), timed over fp32 pages
     sources = {"cluster": "src/repro_torch/csrc/paged_cluster.cuh",
-               "two_pass": "src/repro_torch/csrc/paged_cvt.cuh",
+               "cluster paired": "src/repro_torch/csrc/paged_cluster.cuh",
                "upcast cluster": "src/repro_torch/csrc/paged_cluster_upcast.cuh",
+               "upcast cluster paired": "src/repro_torch/csrc/paged_cluster_upcast.cuh",
                "upcast split": "src/repro_torch/csrc/paged_cvt.cuh"}
     keys = ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_device_ms", "shape")
 
     def q8_entry(name, pages, mode, design, rows, launched):
-        row = rows[0]   # llama3.2-3b's batch; the two passes' rows
+        row = rows[0]   # llama3.2-3b's batch; h2o-danube's one kv head for " paired"
         key = f"{mode} {design}" if mode == "upcast" else design
         counter = "upcast" if mode == "upcast" else "cvt"
 
@@ -4380,18 +4697,17 @@ def main():
             **{k: row[k] for k in keys}, "kernel_ms": row["ms"], "dtype": "bfloat16",
             "shapes": [{k: r[k] for k in (*keys, "window")} for r in rows]}
 
+    paired_name = ", map over token pairs (D 120 under an odd KV)"
     for pages in (torch.float8_e4m3fn, torch.int8):
         rows = [r for r in q8_rows if r["pages"] == _dt(pages)]
-        for design in ("cluster", "two_pass"):
+        for mode, design in (("default", "cluster"), ("default", "cluster paired"),
+                             ("upcast", "cluster"), ("upcast", "cluster paired")):
             kernels.append(q8_entry(
                 f"paged_attention {_dt(pages)} pages"
-                + (", two passes" if design == "two_pass" else ""), pages, "default", design,
-                [r for r in rows if r["mode"] == "default" and r["design"] == design],
+                + (", upcast (decode_unroll)" if mode == "upcast" else "")
+                + (paired_name if design.endswith("paired") else ""), pages, mode, design,
+                [r for r in rows if r["mode"] == mode and r["design"] == design],
                 [f"bfloat16/{_dt(pages)} {design}"]))
-        kernels.append(q8_entry(
-            f"paged_attention {_dt(pages)} pages, upcast (decode_unroll)", pages, "upcast",
-            "cluster", [r for r in rows if r["mode"] == "upcast"],
-            [f"bfloat16/{_dt(pages)} cluster"]))
     kernels.append(q8_entry(
         "paged_attention upcast (decode_unroll), split: fp32 pages under a bf16 q, "
         "an fp32 q", torch.float32, "upcast", "split",
@@ -4400,30 +4716,37 @@ def main():
                                         ("float32", "int8"), ("float32", "bfloat16"))]))
     # K2's sequence split over 8-bit pages (the cluster design), each
     # launch on split_reasoning's path with its row at reasoning lengths'
-    # first half (G 16, fp8); the sum is the cvt library's part_sum
-    split_err = q8_err["bfloat16/float8_e4m3fn split cluster"]
-    first = split_rows[0]
-    for name, key, symbol, source, library in (
-            ("paged_attention split pass 1 (scores and the share's (m, l))", "pass1",
-             "paged_cvt_share_stats", "src/repro_torch/csrc/paged_split_cluster.cuh",
-             "paged_attention_split.cu"),
-            ("paged_attention split pass 2 (the share's rounded weights times v)", "pass2",
-             "paged_cvt_share_values", "src/repro_torch/csrc/paged_split_cluster.cuh",
-             "paged_attention_split.cu"),
-            ("paged_attention split sum (the ranks' sums)", "sum", "paged_cvt_sum",
-             "src/repro_torch/csrc/paged_cvt.cuh", "paged_attention_cvt.cu")):
-        b_ms, b_by = first["bound_ms"][key], first["bound_by"][key]
-        ms, plain_ms = first["ms"][key], first["plain_ms"][key]
-        kernels.append({
-            "name": name, "route": "cuda", "mode": "default", "design": "split cluster",
-            "source": source, "library": f"src/repro_torch/csrc/{library}",
-            "replaces": replaces["paged_attention"],
-            "launches": sum(n[symbol] for n in split_by_rank.values()),
-            "launches_by_model": {m: n[symbol] for m, n in split_by_rank.items()},
-            "max_abs_err": split_err, "ms": ms, "kernel_ms": ms,
-            "device_ms": first["device_ms"][key], "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None, "library_device_ms": None,
-            "shape": first["shape"], "dtype": "bfloat16", "pages": first["pages"]})
+    # first half (G 16, fp8); the sum is the cvt library's part_sum; the
+    # passes' instances of the map over token pairs (no main path's) with
+    # their rows at h2o-danube's one kv head a rank
+    for suffix, first in (("", split_rows[0]), (" paired", paired_split_rows[0])):
+        split_err = q8_err[f"bfloat16/float8_e4m3fn split cluster{suffix}"]
+        for name, key, symbol, source, library in (
+                ("paged_attention split pass 1 (scores and the share's (m, l))", "pass1",
+                 "paged_cvt_share_stats", "src/repro_torch/csrc/paged_split_cluster.cuh",
+                 "paged_attention_split.cu"),
+                ("paged_attention split pass 2 (the share's rounded weights times v)", "pass2",
+                 "paged_cvt_share_values", "src/repro_torch/csrc/paged_split_cluster.cuh",
+                 "paged_attention_split.cu"),
+                ("paged_attention split sum (the ranks' sums)", "sum", "paged_cvt_sum",
+                 "src/repro_torch/csrc/paged_cvt.cuh", "paged_attention_cvt.cu")):
+            if suffix and key == "sum":
+                continue   # one kernel whatever the map
+            inst = f"bfloat16/float8_e4m3fn cluster{suffix}"
+            by_rank = {m: n["by_instance"].get(symbol, {}).get(inst, 0) if suffix
+                       else n[symbol] for m, n in split_by_rank.items()}
+            b_ms, b_by = first["bound_ms"][key], first["bound_by"][key]
+            ms, plain_ms = first["ms"][key], first["plain_ms"][key]
+            kernels.append({
+                "name": name + (paired_name if suffix else ""), "route": "cuda",
+                "mode": "default", "design": f"split cluster{suffix}",
+                "source": source, "library": f"src/repro_torch/csrc/{library}",
+                "replaces": replaces["paged_attention"],
+                "launches": sum(by_rank.values()), "launches_by_model": by_rank,
+                "max_abs_err": split_err, "ms": ms, "kernel_ms": ms,
+                "device_ms": first["device_ms"][key], "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None, "library_device_ms": None,
+                "shape": first["shape"], "dtype": "bfloat16", "pages": first["pages"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

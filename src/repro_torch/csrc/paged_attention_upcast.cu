@@ -7,14 +7,16 @@
 // runs one of two designs, which the caller chooses
 // (kernels/paged_attention/ops.py upcast_design):
 // - the cluster design (paged_cluster_upcast.cuh), for fp8 e4m3 or int8
-//   pages under a bf16 q: one launch, a thread block cluster a (batch row,
-//   kv head) that reads each page's k and v once by TMA, an online softmax
-//   a block, merged through distributed shared memory;
+//   pages under a bf16 q at every head dim and kv head count (8-bit rows of
+//   D 120 under an odd KV through paged_cluster's paired map): one launch,
+//   a thread block cluster a (batch row, kv head) that reads each page's k
+//   and v once by TMA, an online softmax a block, merged through
+//   distributed shared memory;
 // - the split design: the one-pass split kernel of paged_attention.cu with
-//   its pages converted on load (paged_cvt.cuh's ONEPASS mode; a bf16 q's
-//   q*scale and weights as bf16, an fp32 q's as three bf16 terms each),
-//   then cvt_merge; for an fp32 q, fp32 pages under a bf16 q and 8-bit
-//   rows TMA cannot address. Its split half alone is paged_upcast_partials.
+//   its pages converted on load (paged_cvt.cuh's paged_split_cvt; a bf16
+//   q's q*scale and weights as bf16, an fp32 q's as three bf16 terms
+//   each), then cvt_merge; for an fp32 q and fp32 pages under a bf16 q.
+//   Its split half alone is paged_upcast_partials.
 // Replaces the Pallas TPU kernel paged_attention_kernel
 // (src/repro/kernels/paged_attention/kernel.py:79) for such pages; bounds
 // and designs in the two headers.
@@ -36,22 +38,20 @@ cudaError_t split(const void* q, int q_dtype, const void* k_pages, const void* v
     constexpr int DP = decltype(dp)::value, NT = decltype(nt)::value;
     if constexpr (std::is_same_v<TK, float>) {  // under a bf16 q only: fp32 is q's own else
       if (q_dtype != 1) return cudaErrorInvalidValue;
-      return launch_split<TK, DP, NT, ONEPASS, 1>(q, 1, k_pages, v_pages, tables, lens, nullptr,
-                                                  part_acc, part_ml, B, KV, G, D, max_blocks,
-                                                  window, scale, s);
+      return launch_split<TK, DP, NT, 1>(q, 1, k_pages, v_pages, tables, lens, part_acc,
+                                         part_ml, B, KV, G, D, max_blocks, window, scale, s);
     } else {
       if (q_dtype == 1) {
         if constexpr (std::is_same_v<TK, __nv_bfloat16>) {
           return cudaErrorInvalidValue;
         } else {
-          return launch_split<TK, DP, NT, ONEPASS, 1>(q, 1, k_pages, v_pages, tables, lens,
-                                                      nullptr, part_acc, part_ml, B, KV, G, D,
-                                                      max_blocks, window, scale, s);
+          return launch_split<TK, DP, NT, 1>(q, 1, k_pages, v_pages, tables, lens, part_acc,
+                                             part_ml, B, KV, G, D, max_blocks, window, scale,
+                                             s);
         }
       }
-      return launch_split<TK, DP, NT, ONEPASS, 3>(q, 0, k_pages, v_pages, tables, lens, nullptr,
-                                                  part_acc, part_ml, B, KV, G, D, max_blocks,
-                                                  window, scale, s);
+      return launch_split<TK, DP, NT, 3>(q, 0, k_pages, v_pages, tables, lens, part_acc,
+                                         part_ml, B, KV, G, D, max_blocks, window, scale, s);
     }
   });
 }

@@ -3,21 +3,24 @@
 // rounded to the pages' dtype, the normalised weights exp(s - M) / L
 // rounded to it, fp32 sums, out in q's dtype) as one launch that reads each
 // counted key's v once and its k once where the block's scores fit its
-// shared memory. Included by paged_attention_cvt.cu, beside the two-pass
-// kernels of paged_cvt.cuh, which keep the 8-bit rows TMA cannot address;
-// the sequence-split decode (its (M, L) crosses ranks) takes the two
-// cluster launches of paged_split_cluster.cuh, built on its helpers.
+// shared memory. Included by paged_attention_cvt.cu; the sequence-split
+// decode (its (M, L) crosses ranks) takes the two cluster launches of
+// paged_split_cluster.cuh, built on its helpers, and the upcast mode the
+// cluster of paged_cluster_upcast.cuh.
 //
 // Replaces: the Pallas TPU kernel paged_attention_kernel (body
 // _paged_kernel, src/repro/kernels/paged_attention/kernel.py:79) for pages
 // of fp8 e4m3 or int8 under a bf16 or fp32 q, and bf16 pages under an fp32
 // q (paged_cvt.cuh's header says why the port computes decode_attention's
-// function and not the Pallas kernel's).
+// function and not the Pallas kernel's), at every head dim and kv head
+// count the configs use: 8-bit rows of D 120 under an odd KV too
+// (h2o-danube's one kv head a rank at tp 8), through the paired map below.
 //
 // Bound on this card: HBM bytes, each counted key's k and v row read once
-// at the pages' width. The weights need each row's global (M, L) before
-// p.v, which the two-pass design gets by reading k twice over four
-// launches. Design:
+// at the pages' width (h2o-danube's rank at tp 8, B 16, contexts
+// 4,096-6,400 in a window of 4,096, 8-bit: 0.0047119 ms at 3.35 TB/s). The
+// weights need each row's global (M, L) before p.v, which a split design
+// gets by reading k twice over several launches. Design:
 // - One thread block cluster of C <= 16 blocks (above 8 the non-portable
 //   size) per (batch row, kv head); each block takes a contiguous C-th of
 //   the row's pages in its window, and its warps (4 for G <= 8, 8 for two
@@ -34,25 +37,32 @@
 //   a box of one page's 16 token rows of one kv head, 128 bytes a row
 //   (8-bit: D <= 128 elements, columns past D zero-filled; bf16: two boxes
 //   of 64), 128-byte swizzled. 8-bit rows of D 120 are not 16-byte strided:
-//   they take a map over (KV*D, 16, P) whose box starts at the 16-byte
-//   boundary at or before the head's row (TMA takes no other start there),
-//   so an odd head's row lies 8 bytes into the box and is read as two
-//   8-byte halves of neighbouring chunks; the bytes of other heads are
-//   masked. Each warp keeps a ring of RING pages on mbarriers, k's
+//   under an even KV they take a map over (KV*D, 16, P) whose box starts at
+//   the 16-byte boundary at or before the head's row (TMA takes no other
+//   start there), so an odd head's row lies 8 bytes into the box and is
+//   read as two 8-byte halves of neighbouring chunks; the bytes of other
+//   heads are masked. Under an odd KV a token's stride (KV*D bytes) is no
+//   multiple of 16 either, but a pair of tokens' is: the paired map (PAIR
+//   instances; Paired below) brings a page as two boxes of 8 token pairs,
+//   the even tokens' rows into slot rows 0-7 and the odd tokens' into rows
+//   8-15, each half with its own shift of 0 or 8 bytes; 128 bytes read a
+//   row of 120 (1.07x its bytes, as the all-heads map). The masks take
+//   each slot row's true token; k and v share the slot order, so p.v needs
+//   nothing else. Each warp keeps a ring of RING pages on mbarriers, k's
 //   pages first and then v's, so v's first pages are in flight before the
 //   cluster barrier.
 // - Each block computes its scores from k with mma.sync (m16n8k16, fp32
 //   sums) and keeps them in shared memory as fp32 (G query rows x 16
-//   tokens x 4 B a page; the padded rows of the mma's n tile are not kept),
-//   with each warp's running (m, l). The launch reserves the scores of the
-//   table's longest share (the runner pads every table to the batch's
-//   longest), up to what a block's shared memory holds beside the ring:
-//   past that, a block's last pages are its overflow, whose scores count
-//   in (m, l) and are not kept; their k comes again by TMA after the
-//   cluster's (M, L) and their scores are recomputed (the same
-//   instructions on the same bytes: the same values) before p.v. So no
-//   length of a table falls back to another design; the bytes read are
-//   k + v + the overflow's k.
+//   tokens x 4 B a page, in slot order; the padded rows of the mma's n
+//   tile are not kept), with each warp's running (m, l). The launch
+//   reserves the scores of the table's longest share (the runner pads
+//   every table to the batch's longest), up to what a block's shared
+//   memory holds beside the ring: past that, a block's last pages are its
+//   overflow, whose scores count in (m, l) and are not kept; their k comes
+//   again by TMA after the cluster's (M, L) and their scores are recomputed
+//   (the same instructions on the same bytes: the same values) before p.v.
+//   So no length of a table falls back to another design; the bytes read
+//   are k + v + the overflow's k.
 // - The blocks exchange their (m, l) through distributed shared memory
 //   (mapa, ld.shared::cluster, the cluster barrier): every block merges
 //   them in the same order into the row's (M, L).
@@ -74,9 +84,8 @@
 //   tokens' rows, interleaved by byte permutes into the A operand of
 //   V^T P^T.
 // - Where the card cannot hold one cluster of any size with the shared
-//   memory a launch needs, the launch fails (ops.py raises); nothing takes
-//   the two passes in its place (kernels/paged_attention/ops.py
-//   cvt_design sends there only the rows TMA cannot address).
+//   memory a launch needs, or a map fails to build, the launch fails
+//   (ops.py raises); no other design takes its place.
 #pragma once
 
 #include <cuda_fp16.h>
@@ -223,16 +232,85 @@ __device__ __forceinline__ void mma_op(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
+// The kv head's rows of a page under the paired map (make_page_maps: 8-bit
+// rows of D 120 under an odd KV, the (2*KV*D, 1, 8, P) map over token
+// pairs): two copies into one ring slot, on its one mbarrier (2 x 1,024 of
+// its expected bytes), the even tokens' rows into slot rows 0-7 and the
+// odd tokens' into rows 8-15, so slot row i + 8r holds token 2i + r. Each
+// half's box starts at the 16-byte boundary at or before its row (byte
+// (r*KV + kvh)*D of the pair), which lies shift[r] bytes into the box: 0
+// or 8, and under an odd KV exactly one of the two is 8. The box's bytes
+// past the pair read as zeros, and those of the next head or token are
+// masked as the all-heads map's.
+struct Paired {
+  int x0[2];      // each half's box start, bytes (the map's elements) into the pair
+  int shift[2];   // each half's row's bytes into its box rows
+  __device__ Paired(int kvh, int KV, int D) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int at = (r * KV + kvh) * D;
+      shift[r] = at & 15;
+      x0[r] = at - shift[r];
+    }
+  }
+  __device__ __forceinline__ void load(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                       int page) const {
+    hw::tma_load_4d(dst, map, bar, x0[0], 0, 0, page);
+    hw::tma_load_4d(dst + BOX_BYTES / 2, map, bar, x0[1], 0, 0, page);
+  }
+};
+
+// The token of its page that slot row s holds under the paired map.
+__device__ __forceinline__ int paired_token(int s) { return 2 * (s & 7) + (s >> 3); }
+
+// The thread's 16-byte chunks of one 8-bit k row at `row` (128 bytes,
+// 128-byte swizzled: slot row s's chunks XOR s & 7 = rl) whose bytes lie
+// `shift` (0 or 8) into it: chunk c is the row's chunk tig + 4c; at shift
+// 8 each chunk's halves come from two box chunks. The next head's or
+// token's bytes past D read as zeros (4-byte words; D is a multiple of 8).
+template <typename TK>
+__device__ __forceinline__ void k_row(uint4 (&kr)[Pages<TK>::CHUNKS], const uint8_t* row, int rl,
+                                      int tig, int shift, int D) {
+  static_assert(Pages<TK>::EB == 1, "8-bit rows");
+#pragma unroll
+  for (int c = 0; c < Pages<TK>::CHUNKS; ++c) {
+    const int L = tig + 4 * c;
+    if (shift == 0) {
+      kr[c] = *reinterpret_cast<const uint4*>(row + ((L ^ rl) << 4));
+    } else {
+      const uint2 lo = *reinterpret_cast<const uint2*>(row + ((L ^ rl) << 4) + 8);
+      const uint2 hi = L < 7 ? *reinterpret_cast<const uint2*>(row + (((L + 1) ^ rl) << 4))
+                             : make_uint2(0, 0);
+      kr[c] = make_uint4(lo.x, lo.y, hi.x, hi.y);
+    }
+    const int d0 = L * 16;
+    if (d0 + 4 > D) kr[c].x = 0;
+    if (d0 + 8 > D) kr[c].y = 0;
+    if (d0 + 12 > D) kr[c].z = 0;
+    if (d0 + 16 > D) kr[c].w = 0;
+  }
+}
+
+// One word (4 bytes) of the 8-bit v row in slot row `tok` of the slot at
+// pg, at `byte` of its 128-byte box row (swizzled by tok & 7).
+__device__ __forceinline__ uint32_t v_word(const uint8_t* pg, int tok, int byte) {
+  return *reinterpret_cast<const uint32_t*>(pg + tok * ROW + (((byte >> 4) ^ (tok & 7)) << 4) +
+                                            (byte & 15));
+}
+
 // One cluster per (batch row, kv head) (the grid (C, KV, B), cluster dims
 // (C, 1, 1)). q and out (B, KV, G, D) of TQ; the pages through tk and tv
 // (flat: the (KV*D, 1, 16, P) map, its box at the 16-byte boundary at or
-// before head kvh's row, kvh*D bytes); keep the pages whose scores a block
-// keeps (dyn_bytes' layout), the rest of its pages its overflow. NT n tiles
-// of 8 queries. OVER: the instance with the overflow's path, for launches
-// whose blocks may have more pages than they keep; without it (keep at
-// least every block's pages) p.v's sums never share the registers with a
-// page of k, and the instance takes fewer registers.
-template <typename TK, typename TQ, int NT, bool OVER>
+// before head kvh's row, kvh*D bytes; PAIR: the paired map, Paired); keep
+// the pages whose scores a block keeps (dyn_bytes' layout), the rest of its
+// pages its overflow. NT n tiles of 8 queries. OVER: the instance with the
+// overflow's path, for launches whose blocks may have more pages than they
+// keep; without it (keep at least every block's pages) p.v's sums never
+// share the registers with a page of k, and the instance takes fewer
+// registers. PAIR: the instance of the paired map (8-bit pages; flat 1),
+// whose slot row s holds token paired_token(s); the others' code is as it
+// was without it.
+template <typename TK, typename TQ, int NT, bool OVER, bool PAIR = false>
 __global__ void __launch_bounds__(warps<NT>() * 32)
 paged_cluster_cvt(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                   const TQ* __restrict__ q, const int* __restrict__ tables,
@@ -279,6 +357,7 @@ paged_cluster_cvt(const __grid_constant__ CUtensorMap tk, const __grid_constant_
   float* scores = reinterpret_cast<float*>(base + ring_bytes<NT, TK>()) + CW * G * PAGE;
   const int nbox = (D * PG::EB + ROW - 1) / ROW;                  // boxes a row fills
   const int shift = flat ? (kvh * D) & 15 : 0;   // the row's bytes into its box: 0 or 8
+  const Paired pr(kvh, KV, D);                   // PAIR: each half's box and shift
 
   int pid[2];   // the page ids of the warp's pages lane and lane + 32 (later ones: read at issue)
 #pragma unroll
@@ -323,10 +402,13 @@ paged_cluster_cvt(const __grid_constant__ CUtensorMap tk, const __grid_constant_
       uint64_t* bar = &full[warp][it % RING];
       hw::fence_proxy_async();   // the slot's earlier reads before the copy's writes
       hw::mbar_arrive_expect_tx(bar, nbox * BOX_BYTES);
-      for (int x2 = 0; x2 < nbox; ++x2)
-        hw::tma_load_4d(dst + x2 * BOX_BYTES, maps[is_v], bar,
-                        (flat ? kvh * D - shift : 0) + x2 * (ROW / PG::EB), flat ? 0 : kvh, 0,
-                        page);
+      if constexpr (PAIR)
+        pr.load(dst, maps[is_v], bar, page);
+      else
+        for (int x2 = 0; x2 < nbox; ++x2)
+          hw::tma_load_4d(dst + x2 * BOX_BYTES, maps[is_v], bar,
+                          (flat ? kvh * D - shift : 0) + x2 * (ROW / PG::EB), flat ? 0 : kvh, 0,
+                          page);
     }
   };
   for (int it = 0; it < RING && it < items; ++it) issue(it);
@@ -380,6 +462,11 @@ paged_cluster_cvt(const __grid_constant__ CUtensorMap tk, const __grid_constant_
     const int n_skip = max(0, lo - j * PAGE);            // tokens left of the window
     const uint8_t* pg = ring + slot * PG::BYTES;
     uint4 kr[2][PG::CHUNKS];
+    if constexpr (PAIR) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        k_row<TK>(kr[r], pg + (rl + 8 * r) * ROW, rl, tig, pr.shift[r], D);
+    } else {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
 #pragma unroll
@@ -403,6 +490,7 @@ paged_cluster_cvt(const __grid_constant__ CUtensorMap tk, const __grid_constant_
           if (d0 + 16 / PG::EB > D) kr[r][c].w = 0;
         }
       }
+    }
     float sc[NT][4];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
@@ -425,13 +513,15 @@ paged_cluster_cvt(const __grid_constant__ CUtensorMap tk, const __grid_constant_
     __syncwarp();
     if (it + RING < items) issue(it + RING);   // the slot is free: its k is in registers
 
-    const bool v0 = rl >= n_skip && rl < n_valid;
-    const bool v1 = rl + 8 >= n_skip && rl + 8 < n_valid;
+    // the tokens of slot rows rl and rl + 8 (PAIR: 2rl and 2rl + 1)
+    const int t0 = PAIR ? 2 * rl : rl, t1 = PAIR ? 2 * rl + 1 : rl + 8;
+    const bool v0 = t0 >= n_skip && t0 < n_valid;
+    const bool v1 = t1 >= n_skip && t1 < n_valid;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        // sc[nt][r]: token rl + 8*(r >> 1), query 8*nt + 2*tig + (r & 1)
+        // sc[nt][r]: slot row rl + 8*(r >> 1), query 8*nt + 2*tig + (r & 1)
         const int g = NTILE * nt + 2 * tig + e;
         const float s0 = v0 ? sc[nt][e] : NEG_INF, s1 = v1 ? sc[nt][2 + e] : NEG_INF;
         if (sp != nullptr && g < G) {   // the padded query rows' scores are not kept
@@ -538,22 +628,31 @@ paged_cluster_cvt(const __grid_constant__ CUtensorMap tk, const __grid_constant_
     bool keep_row[4];
 #pragma unroll
     for (int x2 = 0; x2 < 4; ++x2) {
-      tok[x2] = 2 * tig + (x2 & 1) + 8 * (x2 >> 1);
-      keep_row[x2] = tok[x2] >= n_skip && tok[x2] < n_valid;
+      tok[x2] = 2 * tig + (x2 & 1) + 8 * (x2 >> 1);   // slot rows
+      const int t = PAIR ? paired_token(tok[x2]) : tok[x2];
+      keep_row[x2] = t >= n_skip && t < n_valid;
     }
     const uint8_t* pg = ring + slot * PG::BYTES;
 #pragma unroll
     for (int c = 0; c < KS / PG::TILES; ++c) {
       // group c: head dims c*SPAN + (SPAN/8)*gid ..., one word a token
+      uint32_t w[4];
+      if constexpr (PAIR) {   // each half's own shift; one box
+#pragma unroll
+        for (int x2 = 0; x2 < 4; ++x2) {
+          const int byte = c * 32 + 4 * gid + pr.shift[x2 >> 1];
+          w[x2] = keep_row[x2] && byte < ROW ? v_word(pg, tok[x2], byte) : 0u;
+        }
+      } else {
       const int byte = c * 32 + 4 * gid + shift;   // in the box's row
       const bool in_box = byte < PG::NBOX * ROW;    // else head dims past D
-      uint32_t w[4];
 #pragma unroll
       for (int x2 = 0; x2 < 4; ++x2)
         w[x2] = keep_row[x2] && in_box ? *reinterpret_cast<const uint32_t*>(
                                pg + (byte >> 7) * BOX_BYTES + tok[x2] * ROW +
                                ((((byte & 127) >> 4) ^ (tok[x2] & 7)) << 4) + (byte & 15))
                          : 0u;
+      }
 #pragma unroll
       for (int h = 0; h < PG::TILES; ++h) {
         uint32_t a[4];
@@ -639,30 +738,49 @@ __host__ __device__ constexpr int span_pages(int max_blocks, int window) {
 // Host helpers of the cluster launches: this design's, the upcast mode's
 // (paged_cluster_upcast.cuh) and the split passes' (paged_split_cluster.cuh).
 
+// The tensor maps a pool of (PAGE, KV, D) TK values takes: per kv head
+// (rows of a multiple of 16 bytes); over all heads' rows of a token (8-bit
+// rows of D 120 under an even KV: a token's KV*D bytes are a 16-byte
+// stride); over token pairs (under an odd KV: Paired).
+enum PageMap { PER_HEAD = 0, FLAT = 1, PAIRED = 2 };
+
 // The 4-d tensor maps over the k and v pools, n_pages pages of (PAGE, KV,
-// D) TK values, each box ROW bytes of a row by a page's tokens, 128-byte
-// swizzle; rows that are no multiple of 16 bytes (8-bit D 120) take the
-// flat map over all heads (*flat), whose box starts at the 16-byte boundary
-// before the row, since TMA faults on another start. cudaErrorInvalidValue
-// for an empty pool or rows TMA cannot address (8-bit D 120 under an odd
-// KV).
+// D) TK values, each box ROW bytes of a row, 128-byte swizzle: per head,
+// a box of a page's 16 token rows; FLAT, (KV*D, 1, 16, P) with the box at
+// the 16-byte boundary at or before the head's row, since TMA faults on
+// another start; PAIRED, (2*KV*D, 1, 8, P) over token pairs with strides
+// (2*KV*D, 2*KV*D, 16*KV*D) bytes, a box of 8 pairs' 128 bytes (two boxes
+// a page: Paired). *map says which. cudaErrorInvalidValue for an empty
+// pool or a row that is no multiple of 8 bytes.
 template <typename TK>
 cudaError_t make_page_maps(CUtensorMap* tk, CUtensorMap* tv, const void* kp, const void* vp,
-                           int KV, int D, int n_pages, bool* flat) {
+                           int KV, int D, int n_pages, int* map) {
   using PG = Pages<TK>;
-  if (n_pages < 1) return cudaErrorInvalidValue;
   const uint64_t row = (uint64_t)D * PG::EB, tok = row * KV;
-  *flat = row % 16 != 0;
-  if (tok % 16 != 0) return cudaErrorInvalidValue;
-  const uint64_t dims[4] = {*flat ? (uint64_t)KV * D : (uint64_t)D, *flat ? 1u : (uint64_t)KV,
-                            (uint64_t)PAGE, (uint64_t)n_pages};
-  const uint64_t strides[3] = {*flat ? tok : row, tok, tok * PAGE};
-  const uint32_t box[4] = {ROW / PG::EB, 1, PAGE, 1};
+  if (n_pages < 1 || row % 8 != 0) return cudaErrorInvalidValue;
+  *map = row % 16 == 0 ? PER_HEAD : tok % 16 == 0 ? FLAT : PAIRED;
+  const uint64_t dims[4] = {*map == PER_HEAD ? (uint64_t)D : (*map == FLAT ? 1 : 2) * KV * D,
+                            *map == PER_HEAD ? (uint64_t)KV : 1u,
+                            (uint64_t)(*map == PAIRED ? PAGE / 2 : PAGE), (uint64_t)n_pages};
+  const uint64_t pitch = *map == PAIRED ? 2 * tok : tok;   // a box row's stride
+  const uint64_t strides[3] = {*map == PER_HEAD ? row : pitch, pitch, tok * PAGE};
+  const uint32_t box[4] = {ROW / PG::EB, 1, (uint32_t)(*map == PAIRED ? PAGE / 2 : PAGE), 1};
   const CUtensorMapDataType type =
       PG::EB == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   cudaError_t e = hw::make_tmap_4d(tk, type, kp, dims, strides, box, 128);
   if (e == cudaSuccess) e = hw::make_tmap_4d(tv, type, vp, dims, strides, box, 128);
   return e;
+}
+
+// Calls f with std::bool_constant<PAIR>: true for the paired map, which
+// only 8-bit pages take (a bf16 row of D, a multiple of 8, is 16-byte
+// strided), so no other page type instantiates it.
+template <typename TK, typename F>
+cudaError_t with_map(int map, F&& f) {
+  if constexpr (Pages<TK>::EB == 1)
+    if (map == PAIRED) return f(std::true_type{});
+  if (map == PAIRED) return cudaErrorInvalidValue;
+  return f(std::false_type{});
 }
 
 // The opt-ins of n kernel instances: smem bytes of dynamic shared memory
@@ -755,26 +873,20 @@ int cluster_size(int B, int KV, int span, Active active, Chain chain) {
 // cluster_size, a warp's chain being its k's and v's pages and the
 // overflow's k again; the counts of clusters are kept per instance, size
 // and shared memory, for the process's card. A launch whose blocks keep
-// every page runs the instance without the overflow's path.
-// cudaErrorInvalidValue for 8-bit pages whose kv heads' rows TMA cannot
-// address (D 120 under an odd KV): ops.py cvt_design sends those to the
-// two-pass kernels; cudaErrorLaunchOutOfResources where the card holds no
-// cluster of any size.
-template <typename TK, typename TQ, int NT>
-cudaError_t launch_cluster(const void* q, const void* kp, const void* vp, const void* tables,
-                           const void* lens, void* out, int B, int KV, int G, int D,
-                           int max_blocks, int window, float scale, int n_pages,
-                           cudaStream_t stream) {
+// every page runs the instance without the overflow's path; the paired
+// map its PAIR instances. cudaErrorLaunchOutOfResources where the card
+// holds no cluster of any size.
+template <typename TK, typename TQ, int NT, bool PAIR>
+cudaError_t launch_map(const CUtensorMap& tk, const CUtensorMap& tv, int map, const void* q,
+                       const void* tables, const void* lens, void* out, int B, int KV, int G,
+                       int D, int max_blocks, int window, float scale, cudaStream_t stream) {
   constexpr int STEP = 8 * 1024;                   // the requests' granularity
   constexpr int NSTEP = 232448 / STEP + 1;
-  CUtensorMap tk, tv;
-  bool flat = false;
-  cudaError_t e = make_page_maps<TK>(&tk, &tv, kp, vp, KV, D, n_pages, &flat);
-  if (e != cudaSuccess) return e;
+  cudaError_t e = cudaSuccess;
   const int span = span_pages(max_blocks, window);
   // the instances without and with the overflow's path
-  auto plain = paged_cluster_cvt<TK, TQ, NT, false>;
-  auto over = paged_cluster_cvt<TK, TQ, NT, true>;
+  auto plain = paged_cluster_cvt<TK, TQ, NT, false, PAIR>;
+  auto over = paged_cluster_cvt<TK, TQ, NT, true, PAIR>;
   const void* kernels[2] = {(const void*)plain, (const void*)over};
   // the most dynamic shared memory a block may ask for (the card's opt-in
   // limit less the kernels' static shared memory), and the opt-ins, once
@@ -827,10 +939,28 @@ cudaError_t launch_cluster(const void* q, const void* kp, const void* vp, const 
   L.shape(C, smem_of(C));
   e = cudaLaunchKernelEx(&L.cfg, over_of(C) ? over : plain, tk, tv, static_cast<const TQ*>(q),
                          static_cast<const int*>(tables), static_cast<const int*>(lens),
-                         static_cast<TQ*>(out), KV, G, D, max_blocks, window, scale, (int)flat,
-                         keep_of(C));
+                         static_cast<TQ*>(out), KV, G, D, max_blocks, window, scale,
+                         (int)(map != PER_HEAD), keep_of(C));
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// The design's launch: the pool's maps (n_pages its pages), then the
+// instances of the map they took (launch_map).
+template <typename TK, typename TQ, int NT>
+cudaError_t launch_cluster(const void* q, const void* kp, const void* vp, const void* tables,
+                           const void* lens, void* out, int B, int KV, int G, int D,
+                           int max_blocks, int window, float scale, int n_pages,
+                           cudaStream_t stream) {
+  CUtensorMap tk, tv;
+  int map = PER_HEAD;
+  const cudaError_t e = make_page_maps<TK>(&tk, &tv, kp, vp, KV, D, n_pages, &map);
+  if (e != cudaSuccess) return e;
+  return with_map<TK>(map, [&](auto pair) {
+    return launch_map<TK, TQ, NT, decltype(pair)::value>(tk, tv, map, q, tables, lens, out, B,
+                                                         KV, G, D, max_blocks, window, scale,
+                                                         stream);
+  });
 }
 
 }  // namespace paged_cluster

@@ -4,8 +4,8 @@
 // pages under a bf16 q, as one launch of a thread block cluster per (batch
 // row, kv head). Included by paged_attention_upcast.cu, beside the split
 // kernel of paged_cvt.cuh (ONEPASS), which keeps an fp32 q, fp32 pages
-// under a bf16 q, 8-bit rows TMA cannot address, and the split half under
-// seq_shard_decode (its partitions are merged across ranks).
+// under a bf16 q, and the split half under seq_shard_decode (its
+// partitions are merged across ranks).
 //
 // Replaces: the Pallas TPU kernel paged_attention_kernel (body
 // _paged_kernel, src/repro/kernels/paged_attention/kernel.py:79) for such
@@ -25,8 +25,10 @@
 //   takes a contiguous C-th of the row's pages in its window, its warps (4
 //   at G <= 8, 8 at G 9-16) the block's pages in turn. C by paged_cluster's
 //   wave cost (cluster_size), from cudaOccupancyMaxActiveClusters.
-// - Whole pages by TMA through the 4-d tensor map over the pool (the flat
-//   map for 8-bit D 120 under an even KV), a page's k box and v box into
+// - Whole pages by TMA through the 4-d tensor map over the pool (for 8-bit
+//   D 120 the flat map under an even KV, the paired map under an odd one:
+//   paged_cluster's Paired, slot row s holding token paired_token(s), the
+//   masks at the true tokens), a page's k box and v box into
 //   one slot of a per-warp ring of URING slots on mbarriers. A warp loads
 //   its page's k chunks and v words into registers and reissues the slot
 //   before it computes, so the next pages' copies overlap its products.
@@ -91,8 +93,9 @@ __host__ __device__ constexpr int upcast_dyn_bytes() {
 // One cluster per (batch row, kv head) (grid (C, KV, B), cluster dims (C, 1,
 // 1)). q and out (B, KV, G, D) bf16; the pages (8-bit TK) through tk and
 // tv (flat: the (KV*D, 1, 16, P) map, its box at the 16-byte boundary at
-// or before head kvh's row). NT n tiles of 8 queries.
-template <typename TK, int NT>
+// or before head kvh's row; PAIR: the paired map). NT n tiles of 8
+// queries.
+template <typename TK, int NT, bool PAIR = false>
 __global__ void __launch_bounds__(warps<NT>() * 32)
 paged_cluster_upcast(const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const __nv_bfloat16* __restrict__ q,
@@ -137,6 +140,7 @@ paged_cluster_upcast(const __grid_constant__ CUtensorMap tk,
   const int n_w = n_b > warp ? (n_b - warp + CW - 1) / CW : 0;   // this warp's pages
   uint8_t* ring = base + warp * URING * 2 * PG::BYTES;
   const int shift = flat ? (kvh * D) & 15 : 0;   // the row's bytes into its box: 0 or 8
+  const paged_cluster::Paired pr(kvh, KV, D);    // PAIR: each half's box and shift
 
   int pid[2];   // the page ids of the warp's pages lane and lane + 32 (later ones: read at issue)
 #pragma unroll
@@ -160,9 +164,14 @@ paged_cluster_upcast(const __grid_constant__ CUtensorMap tk,
       uint64_t* bar = &full[warp][x % URING];
       hw::fence_proxy_async();   // the slot's earlier reads before the copy's writes
       hw::mbar_arrive_expect_tx(bar, 2 * BOX_BYTES);
+      if constexpr (PAIR) {
+        pr.load(dst, &tk, bar, page);
+        pr.load(dst + PG::BYTES, &tv, bar, page);
+      } else {
       const int c0 = flat ? kvh * D - shift : 0, c1 = flat ? 0 : kvh;
       hw::tma_load_4d(dst, &tk, bar, c0, c1, 0, page);
       hw::tma_load_4d(dst + PG::BYTES, &tv, bar, c0, c1, 0, page);
+      }
     }
   };
   for (int x = 0; x < URING && x < n_w; ++x) issue(x);
@@ -208,11 +217,16 @@ paged_cluster_upcast(const __grid_constant__ CUtensorMap tk,
 #pragma unroll
       for (int r = 0; r < 4; ++r) o[mt][nt][r] = 0.f;
 
-  // v's tokens of the thread: 2tig, 2tig+1 (the B operand's b0) and 2tig+8,
-  // 2tig+9 (b1)
-  int tok[4];
+  // v's slot rows of the thread: 2tig, 2tig+1 (the B operand's b0) and
+  // 2tig+8, 2tig+9 (b1); their tokens (PAIR: paired_token), and those of k's
+  // slot rows rl and rl + 8
+  int tok[4], tt[4];
 #pragma unroll
-  for (int x2 = 0; x2 < 4; ++x2) tok[x2] = 2 * tig + (x2 & 1) + 8 * (x2 >> 1);
+  for (int x2 = 0; x2 < 4; ++x2) {
+    tok[x2] = 2 * tig + (x2 & 1) + 8 * (x2 >> 1);
+    tt[x2] = PAIR ? paged_cluster::paired_token(tok[x2]) : tok[x2];
+  }
+  const int t0 = PAIR ? 2 * rl : rl, t1 = PAIR ? 2 * rl + 1 : rl + 8;
 
   for (int x = 0; x < n_w; ++x) {
     const int slot = x % URING;
@@ -223,6 +237,11 @@ paged_cluster_upcast(const __grid_constant__ CUtensorMap tk,
     const uint8_t* pg = ring + slot * 2 * PG::BYTES;
     // k rows rl and rl + 8 as the thread's 16-byte chunks
     uint4 kr[2][PG::CHUNKS];
+    if constexpr (PAIR) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        paged_cluster::k_row<TK>(kr[r], pg + (rl + 8 * r) * ROW, rl, tig, pr.shift[r], D);
+    } else {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
 #pragma unroll
@@ -246,12 +265,23 @@ paged_cluster_upcast(const __grid_constant__ CUtensorMap tk,
           if (d0 + 16 > D) kr[r][c].w = 0;
         }
       }
+    }
     // v words of the thread's tokens, head dims c*32 + 4*gid ...; rows of
     // tokens that do not count read as zeros (their bytes may not be
     // finite, and 0 * NaN is NaN)
     uint32_t w[VG][4];
 #pragma unroll
     for (int c = 0; c < VG; ++c) {
+      if constexpr (PAIR) {   // each half's own shift
+#pragma unroll
+        for (int x2 = 0; x2 < 4; ++x2) {
+          const int byte = c * 32 + 4 * gid + pr.shift[x2 >> 1];
+          w[c][x2] = byte < ROW && tt[x2] >= n_skip && tt[x2] < n_valid
+                         ? paged_cluster::v_word(pg + PG::BYTES, tok[x2], byte)
+                         : 0u;
+        }
+        continue;
+      }
       const int byte = c * 32 + 4 * gid + shift;   // in the box's row
       const bool in_box = byte < ROW;               // else head dims past D
 #pragma unroll
@@ -283,8 +313,8 @@ paged_cluster_upcast(const __grid_constant__ CUtensorMap tk,
     }
 
     // the online softmax over the page; the weights rounded to bf16 into pw
-    const bool v0 = rl >= n_skip && rl < n_valid;
-    const bool v1 = rl + 8 >= n_skip && rl + 8 < n_valid;
+    const bool v0 = t0 >= n_skip && t0 < n_valid;
+    const bool v1 = t1 >= n_skip && t1 < n_valid;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -414,24 +444,19 @@ paged_cluster_upcast(const __grid_constant__ CUtensorMap tk,
   hw::cluster_sync();   // no block leaves while another reads its shared memory
 }
 
-// The launch over every (batch row, kv head); n_pages the pool's pages.
-// C by paged_cluster::cluster_size, a warp's chain being a k and a v step
-// for each of a block's pages. cudaErrorInvalidValue for rows TMA cannot
-// address (8-bit D 120 under an odd KV: ops.py upcast_design sends those
-// to the split kernel); cudaErrorLaunchOutOfResources where the card holds
-// no cluster of any size.
-template <typename TK, int NT>
-cudaError_t launch_upcast(const void* q, const void* kp, const void* vp, const void* tables,
-                          const void* lens, void* out, int B, int KV, int G, int D,
-                          int max_blocks, int window, float scale, int n_pages,
-                          cudaStream_t stream) {
+// The launch of one instance over every (batch row, kv head), through
+// the pool's maps tk and tv (map: which of paged_cluster's PageMap). C by
+// paged_cluster::cluster_size, a warp's chain being a k and a v step for
+// each of a block's pages. cudaErrorLaunchOutOfResources where the card
+// holds no cluster of any size.
+template <typename TK, int NT, bool PAIR>
+cudaError_t launch_map(const CUtensorMap& tk, const CUtensorMap& tv, int map, const void* q,
+                       const void* tables, const void* lens, void* out, int B, int KV, int G,
+                       int D, int max_blocks, int window, float scale, cudaStream_t stream) {
   constexpr int SMEM = upcast_dyn_bytes<NT, TK>();
-  CUtensorMap tk, tv;
-  bool flat = false;
-  cudaError_t e = paged_cluster::make_page_maps<TK>(&tk, &tv, kp, vp, KV, D, n_pages, &flat);
-  if (e != cudaSuccess) return e;
+  cudaError_t e = cudaSuccess;
   const int span = span_pages(max_blocks, window);
-  auto kernel = paged_cluster_upcast<TK, NT>;
+  auto kernel = paged_cluster_upcast<TK, NT, PAIR>;
   const void* k = (const void*)kernel;
   static bool opted = false;   // the opt-ins, once per instance
   if (!opted) {
@@ -452,9 +477,28 @@ cudaError_t launch_upcast(const void* q, const void* kp, const void* vp, const v
   e = cudaLaunchKernelEx(&L.cfg, kernel, tk, tv, static_cast<const __nv_bfloat16*>(q),
                          static_cast<const int*>(tables), static_cast<const int*>(lens),
                          static_cast<__nv_bfloat16*>(out), KV, G, D, max_blocks, window, scale,
-                         (int)flat);
+                         (int)(map != paged_cluster::PER_HEAD));
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// The launch over every (batch row, kv head); n_pages the pool's pages:
+// its maps (paged_cluster's make_page_maps), then the instance of the map
+// they took.
+template <typename TK, int NT>
+cudaError_t launch_upcast(const void* q, const void* kp, const void* vp, const void* tables,
+                          const void* lens, void* out, int B, int KV, int G, int D,
+                          int max_blocks, int window, float scale, int n_pages,
+                          cudaStream_t stream) {
+  CUtensorMap tk, tv;
+  int map = paged_cluster::PER_HEAD;
+  const cudaError_t e =
+      paged_cluster::make_page_maps<TK>(&tk, &tv, kp, vp, KV, D, n_pages, &map);
+  if (e != cudaSuccess) return e;
+  return paged_cluster::with_map<TK>(map, [&](auto pair) {
+    return launch_map<TK, NT, decltype(pair)::value>(tk, tv, map, q, tables, lens, out, B, KV,
+                                                     G, D, max_blocks, window, scale, stream);
+  });
 }
 
 }  // namespace paged_cluster_upcast

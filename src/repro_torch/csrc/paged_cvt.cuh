@@ -1,53 +1,45 @@
 // Paged-attention decode over pages of another dtype than q (a cache of the
-// reference's kv_cache_dtype): the split kernel of paged_attention.cu with
-// its pages converted to bf16 in shared memory, in three modes, and the
-// small kernels that finish each mode. Included by paged_attention_cvt.cu
-// (decode_attention's function, two passes, for the sequences the one-launch
-// design of paged_cluster.cuh cannot hold) and paged_attention_upcast.cu
+// reference's kv_cache_dtype) read upcast to q's dtype: the split kernel of
+// paged_attention.cu with its pages converted to bf16 in shared memory
+// (ONEPASS), its merge (cvt_merge), and the sum of the split decode's
+// partials (part_sum). Included by paged_cluster.cuh (its rounding helpers
+// and part_sum, through paged_attention_cvt.cu) and paged_attention_upcast.cu
 // (the cache upcast to q's dtype, one pass; fp32 pages under a bf16 q too,
 // each page rounded to bf16 on load as the reference's upcast rounds it).
 //
 // Replaces: the Pallas TPU kernel paged_attention_kernel (body
-// _paged_kernel, src/repro/kernels/paged_attention/kernel.py:79) for pages
-// of fp8 e4m3 or int8 under a bf16 or fp32 q, and bf16 pages under an fp32
-// q. The reference's main path calls the model's decode_attention
-// (src/repro/models/attention.py:102-124), not the Pallas kernel, and the
-// two differ once pages are quantised: both round q*scale to the pages'
-// dtype, but decode_attention rounds the NORMALISED weights exp(s - M)/L to
-// it (M, L the row's global max and sum), the Pallas kernel the running
-// exp(s - m). For e4m3 the normalised weights of a long context fall into
-// its subnormals; for int8 they truncate to 0. The port computes
-// decode_attention's function.
+// _paged_kernel, src/repro/kernels/paged_attention/kernel.py:79) for an
+// fp32 q over fp8 e4m3, int8 or bf16 pages, and fp32 pages under a bf16 q,
+// under the reference's decode_unroll (which upcasts the cache to q's dtype
+// before decode_attention), and for the split half of that mode under
+// seq_shard_decode. The reference's main path calls the model's
+// decode_attention (src/repro/models/attention.py:102-124), not the Pallas
+// kernel, and the two differ once pages are quantised: both round q*scale
+// to the pages' dtype, but decode_attention rounds the NORMALISED weights
+// exp(s - M)/L to it (M, L the row's global max and sum), the Pallas kernel
+// the running exp(s - m). For e4m3 the normalised weights of a long context
+// fall into its subnormals; for int8 they truncate to 0. The port computes
+// decode_attention's function (the default mode: paged_cluster.cuh) and,
+// under decode_unroll, the upcast cache's.
 //
-// Modes of paged_split_cvt:
-// - STATS (pass 1): each partition's (m, l) of the scores of q*scale
-//   rounded to the pages' dtype, no p.v;
-// - VALUES (pass 2): given the sequence's (M, L) (stats_merge of pass 1's
-//   partitions), each partition's sum of round(exp(s - M) / L) * v;
-//   part_sum adds the partitions into out;
-// - ONEPASS (the upcast mode, the reference's decode_unroll, which upcasts
-//   the cache to q's dtype before decode_attention): the same-dtype
-//   kernels' online softmax, (m, l, acc) a partition, cvt_merge into out;
-//   q*scale and the running weights are rounded to q's dtype: bf16 when q
-//   is, else kept as NS = 3 bf16 terms whose sum is the fp32 value.
+// ONEPASS: the same-dtype kernels' online softmax, (m, l, acc) a
+// partition, cvt_merge into out; q*scale and the running weights are
+// rounded to q's dtype: bf16 when q is, else kept as NS = 3 bf16 terms
+// whose sum is the fp32 value. Every operand of a product is exact in
+// bf16: e4m3 and int8 values (and bf16's), each bf16 term of an fp32
+// value. So the products run on the bf16 tensor cores (mma.sync m16n8k16,
+// the layout of paged_split_mma) with fp32 sums, and only the sums' order
+// differs from the reference's fp32 products.
 //
-// Every operand of a product is exact in bf16: e4m3 and int8 values (and
-// bf16's), q*scale rounded to them, the weights rounded to them, and each
-// bf16 term of an fp32 value. So the products run on the bf16 tensor cores
-// (mma.sync m16n8k16, the layout of paged_split_mma) with fp32 sums, and
-// only the sums' order differs from the reference's fp32 products.
-// Native e4m3 mma/wgmma is later work.
-//
-// Bound on this card: as paged_attention.cu, HBM bytes, here one byte an
-// element (pass 1 reads k, pass 2 k and v: 3 bytes a cached element of
-// the two where the one-pass kernels read 2). Design: each warp's pages
-// come through its own 2-slot cp.async ring of raw pool bytes (8 elements
-// a copy: 8 bytes, or 16 for bf16 pages); the warp converts a page into a
-// bf16 tile (token rows of DP elements, 16-byte chunks XOR-swizzled by
-// token, as paged_split_mma's ring), zeroing the rows of tokens that do
-// not count, and reissues the freed slot before it computes. Head dims
-// take the geometry DP of 32, 64 or 128 with D a run-time argument (pads
-// zeroed once), which keeps the instances few.
+// Bound on this card: as paged_attention.cu, HBM bytes, here the pages'
+// bytes an element. Design: each warp's pages come through its own 2-slot
+// cp.async ring of raw pool bytes (8 elements a copy: 8 bytes, or 16 for
+// bf16 pages, 32 for fp32); the warp converts a page into a bf16 tile
+// (token rows of DP elements, 16-byte chunks XOR-swizzled by token, as
+// paged_split_mma's ring), zeroing the rows of tokens that do not count,
+// and reissues the freed slot before it computes. Head dims take the
+// geometry DP of 32, 64 or 128 with D a run-time argument (pads zeroed
+// once), which keeps the instances few.
 #pragma once
 
 #include <cuda_fp8.h>
@@ -65,8 +57,6 @@ using namespace repro_torch::paged;
 namespace hw = repro_torch::hopper;
 
 constexpr float E4M3_NAN_FROM = 464.f;  // |x| above this rounds past 448: NaN
-
-enum Mode { ONEPASS = 0, STATS = 1, VALUES = 2 };
 
 struct E4M3 {  // an fp8 e4m3 pool element
   uint8_t bits;
@@ -159,20 +149,19 @@ struct Geom {
 
 // One block per (partition, kv head, batch), four warps taking the
 // partition's pages in turn. q is bf16 (q_bf16) or fp32, (B, KV, G, D);
-// pages (P, 16, KV, D) of TK; stats (B, KV, G, 2) the sequence's (M, L)
-// (VALUES); part_acc (B, KV, n_part, G, D) and part_ml (.., G, 2) fp32,
-// written as the mode says (the file's header). NT n tiles of 8 queries.
-template <typename TK, int DP, int NT, int MODE, int NS>
+// pages (P, 16, KV, D) of TK; part_acc (B, KV, n_part, G, D) and part_ml
+// (.., G, 2) fp32, each partition's (acc, (m, l)). NT n tiles of 8
+// queries, NS bf16 terms of q*scale and of the weights.
+template <typename TK, int DP, int NT, int NS>
 __global__ void __launch_bounds__(WARPS * 32)
 paged_split_cvt(const void* __restrict__ q, int q_bf16, const TK* __restrict__ k_pages,
                 const TK* __restrict__ v_pages, const int* __restrict__ tables,
-                const int* __restrict__ lens, const float* __restrict__ stats,
-                float* __restrict__ part_acc, float* __restrict__ part_ml, int KV, int G,
-                int D, int max_blocks, int n_part, int window, float scale) {
+                const int* __restrict__ lens, float* __restrict__ part_acc,
+                float* __restrict__ part_ml, int KV, int G, int D, int max_blocks, int n_part,
+                int window, float scale) {
   using P = Geom<TK, DP>;
   constexpr int KS = DP / 16;  // k-steps of q.k, m-tiles of p.v
   constexpr int GM = NTILE * NT;
-  constexpr bool PV = MODE != STATS;
   __shared__ __align__(16) __nv_bfloat16 qs[NS][GM][DP];
   __shared__ __align__(16) __nv_bfloat16 pw[WARPS][NS][GM][PAGE];
   __shared__ float ms[WARPS][GM];
@@ -205,8 +194,8 @@ paged_split_cvt(const void* __restrict__ q, int q_bf16, const TK* __restrict__ k
       const int tok = c / units, u = c % units;
       const size_t src = base + tok * tok_stride + u * 8;
       cp_async_unit<P::UNIT>(raw + tok * P::RAW_ROW + u * P::UNIT, k_pages + src);
-      if (PV) cp_async_unit<P::UNIT>(raw + P::RAW_PAGE + tok * P::RAW_ROW + u * P::UNIT,
-                                     v_pages + src);
+      cp_async_unit<P::UNIT>(raw + P::RAW_PAGE + tok * P::RAW_ROW + u * P::UNIT,
+                             v_pages + src);
     }
     hw::cp_async_commit();
   };
@@ -221,8 +210,8 @@ paged_split_cvt(const void* __restrict__ q, int q_bf16, const TK* __restrict__ k
   if (n_mine > 0) issue(0);
   if (n_mine > 1) issue(1);
 
-  // q*scale, rounded to the pages' dtype (STATS, VALUES) or kept in q's,
-  // as NS bf16 terms; query rows G..GM-1 and head dims D..DP-1 are zeros
+  // q*scale kept in q's dtype, as NS bf16 terms; query rows G..GM-1 and
+  // head dims D..DP-1 are zeros
   for (int i = tid; i < GM * DP; i += WARPS * 32) {
     const int g = i / DP, d = i % DP;
     float x = 0.f;
@@ -230,7 +219,6 @@ paged_split_cvt(const void* __restrict__ q, int q_bf16, const TK* __restrict__ k
       const size_t at = q_off + g * D + d;
       x = (q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[at])
                   : static_cast<const float*>(q)[at]) * scale;
-      if constexpr (MODE != ONEPASS) x = round_to<TK>(x);
     }
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
@@ -255,7 +243,7 @@ paged_split_cvt(const void* __restrict__ q, int q_bf16, const TK* __restrict__ k
 
   // o[nt][mt][r]: head dim 16*mt + gid + 8*(r >> 1), query 8*nt + 2*tig + (r & 1)
   float o[NT][KS][4];
-  float m[NT][2], l[NT][2];  // running (m, l); VALUES: the sequence's (M, L)
+  float m[NT][2], l[NT][2];  // running (m, l)
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
@@ -264,10 +252,8 @@ paged_split_cvt(const void* __restrict__ q, int q_bf16, const TK* __restrict__ k
       for (int r = 0; r < 4; ++r) o[nt][mt][r] = 0.f;
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int g = NTILE * nt + 2 * tig + e;
-      const size_t at = (((size_t)b * KV + kvh) * G + g) * 2;
-      m[nt][e] = MODE == VALUES ? (g < G ? stats[at] : 0.f) : NEG_INF;
-      l[nt][e] = MODE == VALUES ? (g < G ? stats[at + 1] : 1.f) : 0.f;
+      m[nt][e] = NEG_INF;
+      l[nt][e] = 0.f;
     }
   }
   const int mi = lane >> 3;
@@ -290,9 +276,8 @@ paged_split_cvt(const void* __restrict__ q, int q_bf16, const TK* __restrict__ k
       const uint8_t* src = raw + tok * P::RAW_ROW + u * P::UNIT;
       *reinterpret_cast<uint4*>(tile + tok * P::ROW + sw) =
           keep ? unit_bf16<TK>(src) : make_uint4(0, 0, 0, 0);
-      if (PV)
-        *reinterpret_cast<uint4*>(tile + P::TILE_PAGE + tok * P::ROW + sw) =
-            keep ? unit_bf16<TK>(src + P::RAW_PAGE) : make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(tile + P::TILE_PAGE + tok * P::ROW + sw) =
+          keep ? unit_bf16<TK>(src + P::RAW_PAGE) : make_uint4(0, 0, 0, 0);
     }
     __syncwarp();
     if (i + 2 < n_mine) issue(i + 2);  // the slot is free: its page is in the tile
@@ -322,67 +307,57 @@ paged_split_cvt(const void* __restrict__ q, int q_bf16, const TK* __restrict__ k
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        float p0, p1;
-        if constexpr (MODE == VALUES) {
-          p0 = valid0 ? round_to<TK>(expf(sc[nt][e] - m[nt][e]) / l[nt][e]) : 0.f;
-          p1 = valid1 ? round_to<TK>(expf(sc[nt][2 + e] - m[nt][e]) / l[nt][e]) : 0.f;
-        } else {
-          // a query's 16 scores lie in the 8 lanes of one tig, two each
-          float mx = fmaxf(valid0 ? sc[nt][e] : NEG_INF, valid1 ? sc[nt][2 + e] : NEG_INF);
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
-          const float m_new = fmaxf(m[nt][e], mx);
-          const float alpha = expf(m[nt][e] - m_new);
-          p0 = valid0 ? expf(sc[nt][e] - m_new) : 0.f;
-          p1 = valid1 ? expf(sc[nt][2 + e] - m_new) : 0.f;
-          float rs = p0 + p1;
-          rs += __shfl_xor_sync(0xffffffffu, rs, 4);
-          rs += __shfl_xor_sync(0xffffffffu, rs, 8);
-          rs += __shfl_xor_sync(0xffffffffu, rs, 16);
-          l[nt][e] = l[nt][e] * alpha + rs;
-          m[nt][e] = m_new;
+        // a query's 16 scores lie in the 8 lanes of one tig, two each
+        float mx = fmaxf(valid0 ? sc[nt][e] : NEG_INF, valid1 ? sc[nt][2 + e] : NEG_INF);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        const float m_new = fmaxf(m[nt][e], mx);
+        const float alpha = expf(m[nt][e] - m_new);
+        float p0 = valid0 ? expf(sc[nt][e] - m_new) : 0.f;
+        float p1 = valid1 ? expf(sc[nt][2 + e] - m_new) : 0.f;
+        float rs = p0 + p1;
+        rs += __shfl_xor_sync(0xffffffffu, rs, 4);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 8);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 16);
+        l[nt][e] = l[nt][e] * alpha + rs;
+        m[nt][e] = m_new;
 #pragma unroll
-          for (int mt = 0; mt < KS; ++mt) {
-            o[nt][mt][e] *= alpha;
-            o[nt][mt][2 + e] *= alpha;
-          }
+        for (int mt = 0; mt < KS; ++mt) {
+          o[nt][mt][e] *= alpha;
+          o[nt][mt][2 + e] *= alpha;
         }
-        if (PV) {
 #pragma unroll
-          for (int s = 0; s < NS; ++s) {  // NS bf16 terms of each weight
-            const __nv_bfloat16 h0 = __float2bfloat16(p0), h1 = __float2bfloat16(p1);
-            pw[warp][s][NTILE * nt + 2 * tig + e][gid] = h0;
-            pw[warp][s][NTILE * nt + 2 * tig + e][gid + 8] = h1;
-            p0 -= __bfloat162float(h0);
-            p1 -= __bfloat162float(h1);
-          }
+        for (int s = 0; s < NS; ++s) {  // NS bf16 terms of each weight
+          const __nv_bfloat16 h0 = __float2bfloat16(p0), h1 = __float2bfloat16(p1);
+          pw[warp][s][NTILE * nt + 2 * tig + e][gid] = h0;
+          pw[warp][s][NTILE * nt + 2 * tig + e][gid + 8] = h1;
+          p0 -= __bfloat162float(h0);
+          p1 -= __bfloat162float(h1);
         }
       }
-    if (PV) {
-      __syncwarp();
-      // P^T as the B operand: column gid of n tile nt is query 8*nt + gid
-      uint32_t pb[NS][NT][2];
+    __syncwarp();
+    // P^T as the B operand: column gid of n tile nt is query 8*nt + gid
+    uint32_t pb[NS][NT][2];
 #pragma unroll
-      for (int s = 0; s < NS; ++s)
+    for (int s = 0; s < NS; ++s)
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          pb[s][nt][0] = *reinterpret_cast<const uint32_t*>(&pw[warp][s][NTILE * nt + gid][2 * tig]);
-          pb[s][nt][1] =
-              *reinterpret_cast<const uint32_t*>(&pw[warp][s][NTILE * nt + gid][8 + 2 * tig]);
-        }
-      // O^T (DP x 8 queries of each n tile) += V^T P^T, 16 head dims at a time
-      const uint32_t v_row = hw::smem_addr(tile + P::TILE_PAGE) + v_tok * P::ROW;
-#pragma unroll
-      for (int mt = 0; mt < KS; ++mt) {
-        const int ch = 2 * mt + (mi & 1);
-        uint32_t a[4];
-        hw::ldmatrix_x4_trans(a, v_row + ((ch ^ (v_tok & P::SWZ)) << 4));
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int s = 0; s < NS; ++s) hw::mma_16816(o[nt][mt], a, pb[s][nt]);
+      for (int nt = 0; nt < NT; ++nt) {
+        pb[s][nt][0] = *reinterpret_cast<const uint32_t*>(&pw[warp][s][NTILE * nt + gid][2 * tig]);
+        pb[s][nt][1] =
+            *reinterpret_cast<const uint32_t*>(&pw[warp][s][NTILE * nt + gid][8 + 2 * tig]);
       }
+    // O^T (DP x 8 queries of each n tile) += V^T P^T, 16 head dims at a time
+    const uint32_t v_row = hw::smem_addr(tile + P::TILE_PAGE) + v_tok * P::ROW;
+#pragma unroll
+    for (int mt = 0; mt < KS; ++mt) {
+      const int ch = 2 * mt + (mi & 1);
+      uint32_t a[4];
+      hw::ldmatrix_x4_trans(a, v_row + ((ch ^ (v_tok & P::SWZ)) << 4));
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int s = 0; s < NS; ++s) hw::mma_16816(o[nt][mt], a, pb[s][nt]);
     }
     __syncwarp();  // pw and the tile are rewritten next
   }
@@ -398,42 +373,30 @@ paged_split_cvt(const void* __restrict__ q, int q_bf16, const TK* __restrict__ k
         ms[warp][g] = m[nt][e];
         ls[warp][g] = l[nt][e];
       }
-      if (PV) {
 #pragma unroll
-        for (int mt = 0; mt < KS; ++mt) {
-          accs[(warp * GM + g) * DP + 16 * mt + gid] = o[nt][mt][e];
-          accs[(warp * GM + g) * DP + 16 * mt + gid + 8] = o[nt][mt][2 + e];
-        }
+      for (int mt = 0; mt < KS; ++mt) {
+        accs[(warp * GM + g) * DP + 16 * mt + gid] = o[nt][mt][e];
+        accs[(warp * GM + g) * DP + 16 * mt + gid + 8] = o[nt][mt][2 + e];
       }
     }
   __syncthreads();
   const size_t pidx = ((size_t)b * KV + kvh) * n_part + blockIdx.x;
-  if constexpr (MODE == VALUES) {  // the weights are final: the warps' sums add
-    for (int i = tid; i < G * D; i += WARPS * 32) {
-      const int g = i / D, d = i % D;
-      float A = 0.f;
+  for (int i = tid; i < G * D; i += WARPS * 32) {
+    const int g = i / D, d = i % D;
+    float M = NEG_INF;
 #pragma unroll
-      for (int w = 0; w < WARPS; ++w) A += accs[(w * GM + g) * DP + d];
-      part_acc[pidx * G * D + i] = A;
+    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, ms[w][g]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float f = expf(ms[w][g] - M);
+      L += ls[w][g] * f;
+      A += accs[(w * GM + g) * DP + d] * f;
     }
-  } else {
-    for (int i = tid; i < G * (PV ? D : 1); i += WARPS * 32) {
-      const int g = PV ? i / D : i, d = PV ? i % D : 0;
-      float M = NEG_INF;
-#pragma unroll
-      for (int w = 0; w < WARPS; ++w) M = fmaxf(M, ms[w][g]);
-      float L = 0.f, A = 0.f;
-#pragma unroll
-      for (int w = 0; w < WARPS; ++w) {
-        const float f = expf(ms[w][g] - M);
-        L += ls[w][g] * f;
-        if (PV) A += accs[(w * GM + g) * DP + d] * f;
-      }
-      if (PV) part_acc[pidx * G * D + i] = A;
-      if (d == 0) {
-        part_ml[(pidx * G + g) * 2] = M;
-        part_ml[(pidx * G + g) * 2 + 1] = L;
-      }
+    part_acc[pidx * G * D + i] = A;
+    if (d == 0) {
+      part_ml[(pidx * G + g) * 2] = M;
+      part_ml[(pidx * G + g) * 2 + 1] = L;
     }
   }
 }
@@ -472,61 +435,40 @@ cvt_merge(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
   }
 }
 
-// STATS's partitions merged into the sequence's stats (B, KV, G, 2) = (M,
-// L): M the largest m_p, L = sum_p l_p e^(m_p - M).
-__global__ void __launch_bounds__(32)
-stats_merge(const float* __restrict__ part_ml, const int* __restrict__ lens,
-            float* __restrict__ stats, int KV, int G, int max_blocks, int n_part, int window) {
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  int p_first, np;
-  written(lens, b, max_blocks, n_part, window, p_first, np);
-  const size_t p0 = ((size_t)b * KV + kvh) * n_part;
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    float M = NEG_INF;
-    for (int p = p_first; p < np; ++p) M = fmaxf(M, part_ml[((p0 + p) * G + g) * 2]);
-    float L = 0.f;
-    for (int p = p_first; p < np; ++p)
-      L += part_ml[((p0 + p) * G + g) * 2 + 1] * expf(part_ml[((p0 + p) * G + g) * 2] - M);
-    stats[(((size_t)b * KV + kvh) * G + g) * 2] = M;
-    stats[(((size_t)b * KV + kvh) * G + g) * 2 + 1] = L;
-  }
-}
-
-// VALUES's partitions added into out (B, KV, G, D) of TQ.
+// Partials (B, KV, n_part, G, D) fp32 added into out (B, KV, G, D) of TQ:
+// the sequence split's sums of the ranks' shares (paged_cvt_sum).
 template <typename TQ>
 __global__ void __launch_bounds__(128)
-part_sum(const float* __restrict__ part_acc, const int* __restrict__ lens, TQ* __restrict__ out,
-         int KV, int G, int D, int max_blocks, int n_part, int window) {
+part_sum(const float* __restrict__ part_acc, TQ* __restrict__ out, int KV, int G, int D,
+         int n_part) {
   const int kvh = blockIdx.x, b = blockIdx.y;
-  int p_first, np;
-  written(lens, b, max_blocks, n_part, window, p_first, np);
   const size_t p0 = ((size_t)b * KV + kvh) * n_part;
   for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
     float A = 0.f;
-    for (int p = p_first; p < np; ++p) A += part_acc[(p0 + p) * G * D + i];
+    for (int p = 0; p < n_part; ++p) A += part_acc[(p0 + p) * G * D + i];
     out[((size_t)b * KV + kvh) * G * D + i] = from_f<TQ>(A);
   }
 }
 
-// The split kernel of one mode over every partition of the table.
-template <typename TK, int DP, int NT, int MODE, int NS>
+// The split kernel over every partition of the table.
+template <typename TK, int DP, int NT, int NS>
 cudaError_t launch_split(const void* q, int q_bf16, const void* kp, const void* vp,
-                         const void* tables, const void* lens, const float* stats,
-                         float* part_acc, float* part_ml, int B, int KV, int G, int D,
-                         int max_blocks, int window, float scale, cudaStream_t stream) {
+                         const void* tables, const void* lens, float* part_acc, float* part_ml,
+                         int B, int KV, int G, int D, int max_blocks, int window, float scale,
+                         cudaStream_t stream) {
   constexpr int SMEM = Geom<TK, DP>::SMEM;
   static bool attr_set = false;  // the opt-in above 48 KB, once per instance
   if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute((const void*)paged_split_cvt<TK, DP, NT, MODE, NS>,
+    const cudaError_t e = cudaFuncSetAttribute((const void*)paged_split_cvt<TK, DP, NT, NS>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
   const int n_part = (max_blocks + PART - 1) / PART;
-  paged_split_cvt<TK, DP, NT, MODE, NS><<<dim3(n_part, KV, B), WARPS * 32, SMEM, stream>>>(
+  paged_split_cvt<TK, DP, NT, NS><<<dim3(n_part, KV, B), WARPS * 32, SMEM, stream>>>(
       q, q_bf16, static_cast<const TK*>(kp), static_cast<const TK*>(vp),
-      static_cast<const int*>(tables), static_cast<const int*>(lens), stats, part_acc, part_ml,
-      KV, G, D, max_blocks, n_part, window, scale);
+      static_cast<const int*>(tables), static_cast<const int*>(lens), part_acc, part_ml, KV, G,
+      D, max_blocks, n_part, window, scale);
   return cudaGetLastError();
 }
 

@@ -5,8 +5,8 @@
 // rank holds a share of every sequence's positions), as two launches of a
 // thread block cluster a rank. Included by paged_attention_split.cu; built
 // on the helpers of the one-launch design (paged_cluster.cuh: a whole
-// sequence on one device), beside which the two passes of paged_cvt.cuh
-// keep the 8-bit rows TMA cannot address (D 120 under an odd KV).
+// sequence on one device), its three tensor maps included: 8-bit rows of D
+// 120 under an odd KV come through the paired map (Paired).
 //
 // Replaces: the Pallas TPU kernel paged_attention_kernel (body
 // _paged_kernel, src/repro/kernels/paged_attention/kernel.py:79) in the
@@ -16,27 +16,28 @@
 //
 // Bound on this card: HBM bytes. For each counted key and kv head at 8-bit
 // pages, pass 1 reads k (D B) and writes its fp32 scores (4G B), pass 2
-// reads the scores (4G B) and v (D B): 2D + 8G B in all, paged_cvt.cuh's passes 3D
-// (k, then k and v again) plus a partial of G x D a 16-page partition. The
-// design does not cut bytes (at G 16, D 128 the two counts are equal); it
-// fetches them as the one-launch cluster does, whole pages by TMA into a
-// per-warp ring on mbarriers, with one launch a pass and one partial a
-// rank:
+// reads the scores (4G B) and v (D B): 2D + 8G B in all, where a partition
+// design reads 3D (k, then k and v again) plus a partial of G x D a
+// 16-page partition. The design does not cut bytes (at G 16, D 128 the two
+// counts are equal); it fetches them as the one-launch cluster does, whole
+// pages by TMA into a per-warp ring on mbarriers, with one launch a pass
+// and one partial a rank:
 // - Pass 1 (paged_split_stats): one cluster of C <= 16 blocks per (batch
 //   row, kv head) over the rank's share of the table, each block a
 //   contiguous C-th of the share's pages in its window, its warps (4 at G
 //   <= 8, 8 at G 9-16) the block's pages in turn, C by paged_cluster's
 //   wave cost (cluster_size). k pages come through paged_cluster's 4-d
-//   tensor map (the all-heads map for 8-bit D 120 under an even KV); q*scale
-//   is rounded to the pages' dtype and the scores computed with mma.sync
-//   on the converted operands (k_chunks below, paged_cluster's k_pair and
-//   op_pair).
+//   tensor map (for 8-bit D 120 the all-heads map under an even KV, the
+//   paired map under an odd one, whose slot row s holds token
+//   paired_token(s)); q*scale is rounded to the pages' dtype and the
+//   scores computed with mma.sync on the converted operands (k_chunks
+//   below, paged_cluster's k_row, k_pair and op_pair).
 //   Each warp stores its pages' fp32 scores, G x 16 a page in (B, KV,
-//   max_blocks, G, 16), and keeps a running (m, l); the warps' and then the
-//   blocks' (m, l) merge in shared and distributed shared memory, and block
-//   0 writes ONE (m, l) per query row for the share. A share with no key
-//   that counts (wholly before the window, or past the newest token)
-//   writes (NEG_INF, 0).
+//   max_blocks, G, 16) at their true tokens, and keeps a running (m, l);
+//   the warps' and then the blocks' (m, l) merge in shared and distributed
+//   shared memory, and block 0 writes ONE (m, l) per query row for the
+//   share. A share with no key that counts (wholly before the window, or
+//   past the newest token) writes (NEG_INF, 0).
 // - Pass 2 (paged_split_values): one cluster per (batch row, kv head).
 //   Every block first merges the R ranks' gathered (m, l) (B, KV, R, G, 2)
 //   in rank order into the sequence's (M, L): the same instructions on the
@@ -44,15 +45,16 @@
 //   page's v box (TMA, the 4-d map) and its scores (one bulk copy of G x 64
 //   bytes) into one ring slot, form round(exp(s - M) / L) in the pages'
 //   dtype with the one-launch cluster's instructions (weights_b, on
-//   paged_cluster's weights_op and fast_exp) and run p.v on the tensor
-//   cores over the pages as stored (pv_page); k is not read. The
-//   warps' and blocks' fp32 sums add in shared and distributed shared
-//   memory, and each block with pages writes its share of the rank's one
-//   partial (B, KV, G, D). part_sum (paged_cvt.cuh) adds the R partials.
+//   paged_cluster's weights_op and fast_exp; each slot row's weight from
+//   its token's score) and run p.v on the tensor cores over the pages as
+//   stored (pv_page); k is not read. The warps' and blocks' fp32 sums add
+//   in shared and distributed shared memory, and each block with pages
+//   writes its share of the rank's one partial (B, KV, G, D). part_sum
+//   (paged_cvt.cuh) adds the R partials.
 // So the split decode takes 3 launches a layer (pass 1, pass 2, the sum)
-// where paged_cvt.cuh's took 4 (its (m, l) merge too), and R partials instead of R
-// x ceil(pages / 16). Where the card holds no cluster of any size, a pass
-// fails (ops.py raises); nothing falls back to paged_cvt.cuh's passes.
+// and R partials, where a partition design took four (k read twice).
+// Where the card holds no cluster of any size, or a map fails to
+// build, a pass fails (ops.py raises); no other design takes its place.
 #pragma once
 
 #include "paged_cluster.cuh"
@@ -116,11 +118,12 @@ __device__ __forceinline__ void k_chunks(uint4 (&kr)[2][Pages<TK>::CHUNKS], cons
 }
 
 // P^T as the B operand of V^T P^T from a page's fp32 scores at sp (G x
-// 16): tokens 2tig, 2tig+1 (b0) and 2tig+8, 2tig+9 (b1) of query 8*nt +
-// gid, each weight exp(s - M) * (1/L) rounded to the pages' dtype; a key
+// 16, in token order): slot rows 2tig, 2tig+1 (b0) and 2tig+8, 2tig+9 (b1)
+// of query 8*nt + gid (PAIR: their tokens 4tig + h and 4tig + 2 + h, h the
+// half), each weight exp(s - M) * (1/L) rounded to the pages' dtype; a key
 // that does not count has score NEG_INF and weight 0, a padded query row
 // weight 0.
-template <typename TK, int NT>
+template <typename TK, int NT, bool PAIR = false>
 __device__ __forceinline__ void weights_b(uint32_t (&pb)[NT][2], const float* sp, int G, int gid,
                                           int tig, const float (&Mq)[NT],
                                           const float (&Linv)[NT]) {
@@ -129,36 +132,52 @@ __device__ __forceinline__ void weights_b(uint32_t (&pb)[NT][2], const float* sp
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int g = NTILE * nt + gid;
-      const float2 s = g < G ? *reinterpret_cast<const float2*>(sp + g * PAGE + 2 * tig + 8 * h)
-                             : make_float2(NEG_INF, NEG_INF);
+      float2 s = make_float2(NEG_INF, NEG_INF);
+      if constexpr (PAIR) {
+        if (g < G) s = make_float2(sp[g * PAGE + 4 * tig + h], sp[g * PAGE + 4 * tig + 2 + h]);
+      } else {
+        s = g < G ? *reinterpret_cast<const float2*>(sp + g * PAGE + 2 * tig + 8 * h)
+                  : make_float2(NEG_INF, NEG_INF);
+      }
       pb[nt][h] = weights_op<TK>(fast_exp(s.x - Mq[nt]) * Linv[nt],
                                  fast_exp(s.y - Mq[nt]) * Linv[nt]);
     }
 }
 
 // O^T (DPC x 8 queries of each n tile) += V^T P^T over a page of v whose
-// boxes lie at pg: the thread's tokens tok (2tig, 2tig+1, 2tig+8, 2tig+9)
-// as 4-byte words of each v group, interleaved by byte permutes into the A
-// operand; the rows of tokens that do not count (keep_row false) read as
-// zeros (their bytes may not be finite, and 0 * NaN is NaN).
-template <typename TK, int NT>
+// boxes lie at pg: the thread's slot rows tok (2tig, 2tig+1, 2tig+8,
+// 2tig+9) as 4-byte words of each v group, interleaved by byte permutes
+// into the A operand; the rows of tokens that do not count (keep_row
+// false) read as zeros (their bytes may not be finite, and 0 * NaN is
+// NaN). shift: the rows' bytes into their box rows (PAIR: slot rows 0-7
+// shift, 8-15 shift1).
+template <typename TK, int NT, bool PAIR = false>
 __device__ __forceinline__ void pv_page(float (&o)[DPC / 16][NT][4], const uint8_t* pg,
                                         const uint32_t (&pb)[NT][2], const int (&tok)[4],
-                                        const bool (&keep_row)[4], int gid, int shift) {
+                                        const bool (&keep_row)[4], int gid, int shift,
+                                        int shift1 = 0) {
   using PG = Pages<TK>;
   constexpr int KS = DPC / 16;
 #pragma unroll
   for (int c = 0; c < KS / PG::TILES; ++c) {
     // group c: head dims c*SPAN + (SPAN/8)*gid ..., one word a token
+    uint32_t w[4];
+    if constexpr (PAIR) {
+#pragma unroll
+      for (int x2 = 0; x2 < 4; ++x2) {
+        const int byte = c * 32 + 4 * gid + (x2 >> 1 ? shift1 : shift);
+        w[x2] = keep_row[x2] && byte < ROW ? paged_cluster::v_word(pg, tok[x2], byte) : 0u;
+      }
+    } else {
     const int byte = c * 32 + 4 * gid + shift;   // in the box's row
     const bool in_box = byte < PG::NBOX * ROW;    // else head dims past D
-    uint32_t w[4];
 #pragma unroll
     for (int x2 = 0; x2 < 4; ++x2)
       w[x2] = keep_row[x2] && in_box ? *reinterpret_cast<const uint32_t*>(
                              pg + (byte >> 7) * BOX_BYTES + tok[x2] * ROW +
                              ((((byte & 127) >> 4) ^ (tok[x2] & 7)) << 4) + (byte & 15))
                        : 0u;
+    }
 #pragma unroll
     for (int h = 0; h < PG::TILES; ++h) {
       uint32_t a[4];
@@ -222,11 +241,12 @@ struct Share {
 // Pass 1: one cluster per (batch row, kv head) (grid (C, KV, B), cluster
 // dims (C, 1, 1)). q (B, KV, G, D) of TQ; the k pages through tk (flat: the
 // (KV*D, 1, 16, P) map, its box at the 16-byte boundary at or before head
-// kvh's row); lens counted from the share's first position; scores (B, KV,
-// max_blocks, G, 16) fp32, written for the pages of the share in its
-// window (a key that does not count: NEG_INF); ml (B, KV, G, 2) fp32, the
-// share's (m, l). NT n tiles of 8 queries.
-template <typename TK, typename TQ, int NT>
+// kvh's row; PAIR: the paired map); lens counted from the share's first
+// position; scores (B, KV, max_blocks, G, 16) fp32, written for the pages
+// of the share in its window at their tokens (a key that does not count:
+// NEG_INF); ml (B, KV, G, 2) fp32, the share's (m, l). NT n tiles of 8
+// queries.
+template <typename TK, typename TQ, int NT, bool PAIR = false>
 __global__ void __launch_bounds__(warps<NT>() * 32)
 paged_split_stats(const __grid_constant__ CUtensorMap tk, const TQ* __restrict__ q,
                   const int* __restrict__ tables, const int* __restrict__ lens,
@@ -255,6 +275,7 @@ paged_split_stats(const __grid_constant__ CUtensorMap tk, const TQ* __restrict__
   uint8_t* ring = base + warp * RING * PG::BYTES;
   const int nbox = (D * PG::EB + ROW - 1) / ROW;   // boxes a row fills
   const int shift = flat ? (kvh * D) & 15 : 0;     // the row's bytes into its box: 0 or 8
+  const paged_cluster::Paired pr(kvh, KV, D);      // PAIR: each half's box and shift
   const int* mine = tables + (size_t)b * max_blocks + sh.begin + warp;   // page x: mine[CW * x]
   float* row_scores = scores + ((size_t)b * KV + kvh) * max_blocks * G * PAGE;
 
@@ -284,10 +305,13 @@ paged_split_stats(const __grid_constant__ CUtensorMap tk, const TQ* __restrict__
       uint64_t* bar = &full[warp][x % RING];
       hw::fence_proxy_async();   // the slot's earlier reads before the copy's writes
       hw::mbar_arrive_expect_tx(bar, nbox * BOX_BYTES);
-      for (int x2 = 0; x2 < nbox; ++x2)
-        hw::tma_load_4d(dst + x2 * BOX_BYTES, &tk, bar,
-                        (flat ? kvh * D - shift : 0) + x2 * (ROW / PG::EB), flat ? 0 : kvh, 0,
-                        page);
+      if constexpr (PAIR)
+        pr.load(dst, &tk, bar, page);
+      else
+        for (int x2 = 0; x2 < nbox; ++x2)
+          hw::tma_load_4d(dst + x2 * BOX_BYTES, &tk, bar,
+                          (flat ? kvh * D - shift : 0) + x2 * (ROW / PG::EB), flat ? 0 : kvh, 0,
+                          page);
     }
   };
   for (int x = 0; x < RING && x < n_w; ++x) issue(x);
@@ -331,7 +355,14 @@ paged_split_stats(const __grid_constant__ CUtensorMap tk, const TQ* __restrict__
     const int n_valid = min(PAGE, sh.len + 1 - j * PAGE);   // tokens in the sequence
     const int n_skip = max(0, sh.lo - j * PAGE);            // tokens left of the window
     uint4 kr[2][PG::CHUNKS];
-    k_chunks<TK>(kr, ring + slot * PG::BYTES, rl, tig, shift, flat, D);
+    if constexpr (PAIR) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        paged_cluster::k_row<TK>(kr[r], ring + slot * PG::BYTES + (rl + 8 * r) * ROW, rl, tig,
+                                 pr.shift[r], D);
+    } else {
+      k_chunks<TK>(kr, ring + slot * PG::BYTES, rl, tig, shift, flat, D);
+    }
     // S^T (16 tokens x 8 queries of each n tile) = K Q^T; sc[nt][r]: token
     // rl + 8*(r >> 1), query 8*nt + 2*tig + (r & 1)
     float sc[NT][4];
@@ -349,8 +380,10 @@ paged_split_stats(const __grid_constant__ CUtensorMap tk, const TQ* __restrict__
     __syncwarp();
     if (x + RING < n_w) issue(x + RING);   // the slot is free: its k is in registers
 
-    const bool v0 = rl >= n_skip && rl < n_valid;
-    const bool v1 = rl + 8 >= n_skip && rl + 8 < n_valid;
+    // the tokens of slot rows rl and rl + 8 (PAIR: 2rl and 2rl + 1)
+    const int t0 = PAIR ? 2 * rl : rl, t1 = PAIR ? 2 * rl + 1 : rl + 8;
+    const bool v0 = t0 >= n_skip && t0 < n_valid;
+    const bool v1 = t1 >= n_skip && t1 < n_valid;
     float* sp = row_scores + (size_t)j * G * PAGE;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
@@ -359,8 +392,8 @@ paged_split_stats(const __grid_constant__ CUtensorMap tk, const TQ* __restrict__
         const int g = NTILE * nt + 2 * tig + e;
         const float s0 = v0 ? sc[nt][e] : NEG_INF, s1 = v1 ? sc[nt][2 + e] : NEG_INF;
         if (g < G) {   // the padded query rows' scores are not kept
-          sp[g * PAGE + rl] = s0;
-          sp[g * PAGE + rl + 8] = s1;
+          sp[g * PAGE + t0] = s0;
+          sp[g * PAGE + t1] = s1;
         }
         // a query's 16 scores lie in the 8 lanes of one tig, two each
         float mx = fmaxf(s0, s1);
@@ -413,11 +446,11 @@ paged_split_stats(const __grid_constant__ CUtensorMap tk, const TQ* __restrict__
 }
 
 // Pass 2: one cluster per (batch row, kv head) (grid (C, KV, B)). The v
-// pages through tv (as pass 1's tk); scores pass 1's; mlg (B, KV, R, G, 2)
+// pages through tv (as pass 1's tk, PAIR alike); scores pass 1's; mlg (B, KV, R, G, 2)
 // fp32, the R shares' (m, l) in position order; lens as pass 1's; part (B,
 // KV, G, D) fp32, the share's sum of the rounded weights times v (zeros
 // where no key of the share counts). NT n tiles of 8 queries.
-template <typename TK, int NT>
+template <typename TK, int NT, bool PAIR = false>
 __global__ void __launch_bounds__(warps<NT>() * 32)
 paged_split_values(const __grid_constant__ CUtensorMap tv, const float* __restrict__ scores,
                    const float* __restrict__ mlg, int R, const int* __restrict__ tables,
@@ -444,6 +477,7 @@ paged_split_values(const __grid_constant__ CUtensorMap tv, const float* __restri
   uint8_t* ring = base + warp * RING * SLOT;
   const int nbox = (D * PG::EB + ROW - 1) / ROW;
   const int shift = flat ? (kvh * D) & 15 : 0;
+  const paged_cluster::Paired pr(kvh, KV, D);
   const int score_bytes = G * PAGE * 4;
   const int* mine = tables + (size_t)b * max_blocks + sh.begin + warp;
   const float* row_scores = scores + ((size_t)b * KV + kvh) * max_blocks * G * PAGE;
@@ -473,10 +507,13 @@ paged_split_values(const __grid_constant__ CUtensorMap tv, const float* __restri
       uint64_t* bar = &full[warp][x % RING];
       hw::fence_proxy_async();
       hw::mbar_arrive_expect_tx(bar, nbox * BOX_BYTES + score_bytes);
-      for (int x2 = 0; x2 < nbox; ++x2)
-        hw::tma_load_4d(dst + x2 * BOX_BYTES, &tv, bar,
-                        (flat ? kvh * D - shift : 0) + x2 * (ROW / PG::EB), flat ? 0 : kvh, 0,
-                        page);
+      if constexpr (PAIR)
+        pr.load(dst, &tv, bar, page);
+      else
+        for (int x2 = 0; x2 < nbox; ++x2)
+          hw::tma_load_4d(dst + x2 * BOX_BYTES, &tv, bar,
+                          (flat ? kvh * D - shift : 0) + x2 * (ROW / PG::EB), flat ? 0 : kvh, 0,
+                          page);
       hw::bulk_load(dst + PG::BYTES,
                     row_scores + (size_t)(sh.begin + warp + CW * x) * G * PAGE, score_bytes,
                     bar);
@@ -524,16 +561,20 @@ paged_split_values(const __grid_constant__ CUtensorMap tv, const float* __restri
     const int n_skip = max(0, sh.lo - j * PAGE);
     const uint8_t* pg = ring + slot * SLOT;
     uint32_t pb[NT][2];   // the page's rounded weights
-    weights_b<TK, NT>(pb, reinterpret_cast<const float*>(pg + PG::BYTES), G, gid,
-                                     tig, Mq, Linv);
+    weights_b<TK, NT, PAIR>(pb, reinterpret_cast<const float*>(pg + PG::BYTES), G, gid, tig,
+                            Mq, Linv);
     int tok[4];
     bool keep_row[4];
 #pragma unroll
     for (int x2 = 0; x2 < 4; ++x2) {
-      tok[x2] = 2 * tig + (x2 & 1) + 8 * (x2 >> 1);
-      keep_row[x2] = tok[x2] >= n_skip && tok[x2] < n_valid;
+      tok[x2] = 2 * tig + (x2 & 1) + 8 * (x2 >> 1);   // slot rows
+      const int t = PAIR ? paged_cluster::paired_token(tok[x2]) : tok[x2];
+      keep_row[x2] = t >= n_skip && t < n_valid;
     }
-    pv_page<TK, NT>(o, pg, pb, tok, keep_row, gid, shift);
+    if constexpr (PAIR)
+      pv_page<TK, NT, true>(o, pg, pb, tok, keep_row, gid, pr.shift[0], pr.shift[1]);
+    else
+      pv_page<TK, NT>(o, pg, pb, tok, keep_row, gid, shift);
     __syncwarp();   // the slot's reads before it is written again
     if (x + RING < n_w) issue(x + RING);
   }
@@ -601,31 +642,33 @@ int pass_clusters(const void* kernel, paged_cluster::ClusterLaunch& L, int B, in
   return C;
 }
 
-// Pass 1 over a share of every sequence; n_pages the pool's pages.
-// cudaErrorInvalidValue for rows TMA cannot address (8-bit D 120 under an
-// odd KV: ops.py split_design sends those to paged_cvt.cuh's passes),
-// cudaErrorLaunchOutOfResources where the card holds no cluster.
+// Pass 1 over a share of every sequence (n_pages the pool's pages) through
+// the instances of the map the pool takes; cudaErrorLaunchOutOfResources
+// where the card holds no cluster.
 template <typename TK, typename TQ, int NT>
 cudaError_t launch_stats(const void* q, const void* kp, const void* tables, const void* lens,
                          float* scores, float* ml, int B, int KV, int G, int D, int max_blocks,
                          int window, float scale, int n_pages, cudaStream_t stream) {
   constexpr int SMEM = stats_bytes<NT, TK>();
   CUtensorMap tk, unused;
-  bool flat = false;
-  cudaError_t e = paged_cluster::make_page_maps<TK>(&tk, &unused, kp, kp, KV, D, n_pages, &flat);
+  int map = paged_cluster::PER_HEAD;
+  cudaError_t e = paged_cluster::make_page_maps<TK>(&tk, &unused, kp, kp, KV, D, n_pages, &map);
   if (e != cudaSuccess) return e;
-  auto kernel = paged_split_stats<TK, TQ, NT>;
-  static bool opted = false;
-  static int seen[CLUSTER + 1];   // by C
-  paged_cluster::ClusterLaunch L(warps<NT>() * 32, KV, B, stream);
-  if (pass_clusters<NT, SMEM>((const void*)kernel, L, B, KV, span_pages(max_blocks, window),
-                              opted, seen, e) == 0)
-    return e;
-  e = cudaLaunchKernelEx(&L.cfg, kernel, tk, static_cast<const TQ*>(q),
-                         static_cast<const int*>(tables), static_cast<const int*>(lens), scores,
-                         ml, KV, G, D, max_blocks, window, scale, (int)flat);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  return paged_cluster::with_map<TK>(map, [&](auto pair) -> cudaError_t {
+    auto kernel = paged_split_stats<TK, TQ, NT, decltype(pair)::value>;
+    static bool opted = false;
+    static int seen[CLUSTER + 1];   // by C
+    paged_cluster::ClusterLaunch L(warps<NT>() * 32, KV, B, stream);
+    if (pass_clusters<NT, SMEM>((const void*)kernel, L, B, KV, span_pages(max_blocks, window),
+                                opted, seen, e) == 0)
+      return e;
+    e = cudaLaunchKernelEx(&L.cfg, kernel, tk, static_cast<const TQ*>(q),
+                           static_cast<const int*>(tables), static_cast<const int*>(lens),
+                           scores, ml, KV, G, D, max_blocks, window, scale,
+                           (int)(map != paged_cluster::PER_HEAD));
+    if (e != cudaSuccess) return e;
+    return cudaGetLastError();
+  });
 }
 
 // Pass 2 over the same share, with the R shares' gathered (m, l).
@@ -635,21 +678,23 @@ cudaError_t launch_values(const void* vp, const float* scores, const float* mlg,
                           int D, int max_blocks, int window, int n_pages, cudaStream_t stream) {
   constexpr int SMEM = values_bytes<NT, TK>();
   CUtensorMap tv, unused;
-  bool flat = false;
-  cudaError_t e = paged_cluster::make_page_maps<TK>(&tv, &unused, vp, vp, KV, D, n_pages, &flat);
+  int map = paged_cluster::PER_HEAD;
+  cudaError_t e = paged_cluster::make_page_maps<TK>(&tv, &unused, vp, vp, KV, D, n_pages, &map);
   if (e != cudaSuccess) return e;
-  auto kernel = paged_split_values<TK, NT>;
-  static bool opted = false;
-  static int seen[CLUSTER + 1];
-  paged_cluster::ClusterLaunch L(warps<NT>() * 32, KV, B, stream);
-  if (pass_clusters<NT, SMEM>((const void*)kernel, L, B, KV, span_pages(max_blocks, window),
-                              opted, seen, e) == 0)
-    return e;
-  e = cudaLaunchKernelEx(&L.cfg, kernel, tv, scores, mlg, R, static_cast<const int*>(tables),
-                         static_cast<const int*>(lens), part, KV, G, D, max_blocks, window,
-                         (int)flat);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  return paged_cluster::with_map<TK>(map, [&](auto pair) -> cudaError_t {
+    auto kernel = paged_split_values<TK, NT, decltype(pair)::value>;
+    static bool opted = false;
+    static int seen[CLUSTER + 1];
+    paged_cluster::ClusterLaunch L(warps<NT>() * 32, KV, B, stream);
+    if (pass_clusters<NT, SMEM>((const void*)kernel, L, B, KV, span_pages(max_blocks, window),
+                                opted, seen, e) == 0)
+      return e;
+    e = cudaLaunchKernelEx(&L.cfg, kernel, tv, scores, mlg, R, static_cast<const int*>(tables),
+                           static_cast<const int*>(lens), part, KV, G, D, max_blocks, window,
+                           (int)(map != paged_cluster::PER_HEAD));
+    if (e != cudaSuccess) return e;
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace paged_split_cluster

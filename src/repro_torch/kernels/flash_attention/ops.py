@@ -9,7 +9,8 @@ bf16 instance on the 128 geometry, their pad columns zero-filled by TMA.
 non-causal ones (``csrc/flash_attention_noncausal.cu``, the same source
 compiled with the other mask into a library of its own), ``scale`` the
 scores' scale. ``KERNEL.launches`` counts the causal launches,
-``NONCAUSAL.launches`` the non-causal ones.
+``NONCAUSAL.launches`` the non-causal ones, each ``by_instance`` by q's
+dtype (the bf16 or the fp32 instance).
 
 On a meta tensor (``repro_torch.analysis``'s dry-run) the wrapper books
 the kernel's products over the pairs it reads (causal or not, windowed)
@@ -65,7 +66,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (KERNEL if causal else NONCAUSAL).launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
         B, Sq, Skv, H, KV, D, int(window), D ** -0.5 if scale is None else float(scale),
-        DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        instance=str(q.dtype)[6:])
     return out
 
 

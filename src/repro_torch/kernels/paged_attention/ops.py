@@ -14,40 +14,41 @@ pad zeroed; a group of 9 to 16 q heads takes a second tile of queries.
 Pages of another dtype than q (a cache of the reference's
 ``kv_cache_dtype``: fp8 e4m3 or int8 under a bf16 or fp32 q, bf16 under an
 fp32 q) take ``decode_attention``'s function, which rounds q*scale and the
-normalised weights to the pages' dtype: ``CVT``, in one of two designs that
-``cvt_design`` chooses: one launch of a thread block cluster per (batch
-row, kv head) that reads v once and k once where the scores fit a block's
-shared memory (k again for the overflow past it) at every length
-(``csrc/paged_cluster.cuh``), or, for 8-bit rows whose kv heads TMA cannot
-address, two passes over the split layout (four launches, one count). Under ``upcast=True`` (the
+normalised weights to the pages' dtype: ``CVT``, one launch of a thread
+block cluster per (batch row, kv head) that reads v once and k once where
+the scores fit a block's shared memory (k again for the overflow past it)
+at every length (``csrc/paged_cluster.cuh``). Under ``upcast=True`` (the
 reference's ``decode_unroll``, which upcasts the cache to q's dtype) they
 take ``UPCAST`` in one of two designs that ``upcast_design`` chooses: one
 launch of a thread block cluster per (batch row, kv head), an online
 softmax a block over pages read once by TMA, for 8-bit pages under a bf16
 q (``csrc/paged_cluster_upcast.cuh``), or the one-pass split kernel with
-the pages converted on load and its merge (two launches, one count); so
-do fp32 pages under a bf16 q, rounded to bf16 on load as the reference's
-upcast rounds them. Without it fp32 pages under a bf16 q round nothing, so
-the fp32 kernel runs them on q in fp32. Each counter's ``by_instance``
-names q's and the pages' dtype, and ``CVT``'s and ``UPCAST``'s the design.
+the pages converted on load and its merge (two launches, one count) for an
+fp32 q and for fp32 pages under a bf16 q, rounded to bf16 on load as the
+reference's upcast rounds them. Without it fp32 pages under a bf16 q round
+nothing, so the fp32 kernel runs them on q in fp32. The cluster designs
+read a kv head's rows through one of three tensor maps (``page_map``): per
+head, over all heads (8-bit rows of D 120 under an even KV) or over token
+pairs (under an odd KV: h2o-danube's one kv head a rank at tp 8). Each
+counter's ``by_instance`` names q's and the pages' dtype, and ``CVT``'s
+and ``UPCAST``'s the design, with " paired" after a cluster that took the
+map over token pairs.
 
 Two more entries expose the halves, for a decode whose cache sequence is
 cut over ranks: ``paged_attention_partials`` runs the split kernel alone
 over a rank's share of the table and returns its partitions' fp32
 partials, and ``paged_merge`` merges any number of partitions, those the
 ranks gathered. ``PARTIALS.launches`` and ``MERGE.launches`` count them
-(``UPCAST_PARTIALS`` the upcast pages'). ``decode_attention``'s function
-splits in two passes and a sum, in one of two designs that
-``split_design`` chooses: ``paged_attention_stats`` (pass 1: the share's
-(m, l) and its scores), ``paged_attention_values`` (pass 2: the ranks'
-gathered (m, l) merged into the sequence's (M, L), then the share's sum of
-the rounded weights times v) and ``paged_sum`` (the gathered sums added).
-The "cluster" design runs each pass as one thread block cluster launch
-(``csrc/paged_attention_split.cu``; ``SHARE_STATS``, ``SHARE_VALUES``): pass
-1 stores the scores, pass 2 reads them and v, never k. The "two_pass"
-design, for 8-bit rows TMA cannot address, runs the partition passes
-(``STATS``, then ``STATS_MERGE`` and ``VALUES`` inside pass 2's wrapper),
-one (m, l) and one sum a 16-page partition.
+(``UPCAST_PARTIALS`` the upcast pages'); the same-dtype counters'
+``by_instance`` name q's dtype (the output's for ``MERGE``), which picks the
+bf16 tensor-core or the fp32 SIMT instance. ``decode_attention``'s function
+splits in two passes and a sum, each pass one thread block cluster launch
+(``csrc/paged_attention_split.cu``; ``SHARE_STATS``, ``SHARE_VALUES``):
+``paged_attention_stats`` (pass 1: the share's (m, l) and its scores),
+``paged_attention_values`` (pass 2: the ranks' gathered (m, l) merged into
+the sequence's (M, L), then the share's sum of the rounded weights times v
+from the stored scores and v, never k) and ``paged_sum`` (the gathered
+sums added; ``SUM``).
 
 On a meta tensor (``repro_torch.analysis``'s dry-run) each wrapper books
 its kernel's operations and device-memory bytes with the active op counter
@@ -67,15 +68,14 @@ from repro_torch.kernels.build import DTYPE_CODES, PAGE_CODES, CudaKernel
 from repro_torch.kernels.paged_attention.ref import (
     NEG_INF, paged_attention_partials_plain, paged_attention_plain,
     paged_attention_stats_plain, paged_attention_values_plain,
-    paged_merge_plain, paged_stats_merge_plain, paged_sum_plain,
-    rounds_weights)
+    paged_merge_plain, paged_sum_plain, rounds_weights)
 
-__all__ = ["CVT", "KERNEL", "MERGE", "PARTIALS", "SHARE_STATS", "SHARE_VALUES", "STATS",
-           "STATS_MERGE", "SUM", "UPCAST", "UPCAST_PARTIALS", "VALUES", "cvt_design",
-           "paged_attention", "paged_attention_partials", "paged_attention_plain",
+__all__ = ["CVT", "KERNEL", "MERGE", "PARTIALS", "SHARE_STATS", "SHARE_VALUES", "SUM",
+           "UPCAST", "UPCAST_PARTIALS", "cvt_design", "page_map", "paged_attention",
+           "paged_attention_partials", "paged_attention_plain",
            "paged_attention_partials_plain", "paged_attention_stats",
-           "paged_attention_values", "paged_merge", "paged_merge_plain",
-           "paged_stats_merge", "paged_sum", "split_design", "upcast_design"]
+           "paged_attention_values", "paged_merge", "paged_merge_plain", "paged_sum",
+           "split_design", "upcast_design"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("paged_attention", "paged_attention_fwd",
@@ -89,21 +89,13 @@ MERGE = CudaKernel("paged_attention", "paged_merge_fwd",
 _SPLIT_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                _I, _I, _P]
 CVT = CudaKernel("paged_attention_cvt", "paged_cvt_fwd",
-                 [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-                  _I, _I, _I, _I, _P])
+                 [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+                  _I, _I, _I, _P])
 UPCAST = CudaKernel("paged_attention_upcast", "paged_upcast_fwd",
                     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                      _I, _I, _I, _I, _P])
 UPCAST_PARTIALS = CudaKernel("paged_attention_upcast", "paged_upcast_partials",
                              _SPLIT_ARGS)
-STATS = CudaKernel("paged_attention_cvt", "paged_cvt_stats",
-                   [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-                    _I, _I, _P])
-STATS_MERGE = CudaKernel("paged_attention_cvt", "paged_cvt_stats_merge",
-                         [_P, _P, _I, _I, _I, _I, _P])
-VALUES = CudaKernel("paged_attention_cvt", "paged_cvt_values",
-                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     ctypes.c_float, _I, _I, _P])
 SUM = CudaKernel("paged_attention_cvt", "paged_cvt_sum",
                  [_P, _P, _I, _I, _I, _I, _I, _I, _P])
 SHARE_STATS = CudaKernel("paged_attention_split", "paged_cvt_share_stats",
@@ -112,21 +104,32 @@ SHARE_STATS = CudaKernel("paged_attention_split", "paged_cvt_share_stats",
 SHARE_VALUES = CudaKernel("paged_attention_split", "paged_cvt_share_values",
                           [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P])
 # every counter of the module, for a caller that sets them to 0
-COUNTERS = (KERNEL, PARTIALS, MERGE, CVT, UPCAST, UPCAST_PARTIALS, STATS,
-            STATS_MERGE, VALUES, SUM, SHARE_STATS, SHARE_VALUES)
+COUNTERS = (KERNEL, PARTIALS, MERGE, CVT, UPCAST, UPCAST_PARTIALS, SUM, SHARE_STATS,
+            SHARE_VALUES)
 HEAD_DIMS = (32, 64, 80, 112, 120, 128)
 PAGE = 16       # tokens per page, fixed in the kernel
 MAX_GROUP = 16  # most q heads per kv head the kernel takes
 PART = 16       # pages per partition of the split kernel, fixed in the kernel
-DESIGNS = {"two_pass": 0, "cluster": 1}   # the ``design`` argument of ``paged_cvt_fwd``
-UPCAST_DESIGNS = {"split": 0, "cluster": 1}   # ... and of ``paged_upcast_fwd``
-SPLIT_DESIGNS = ("cluster", "two_pass")         # the sequence split's (``split_design``)
+UPCAST_DESIGNS = {"split": 0, "cluster": 1}   # the ``design`` argument of ``paged_upcast_fwd``
+ROW = 128       # bytes of a token row in a cluster's TMA box (``csrc/paged_cluster.cuh``)
 
 
-def _tma_rows(D: int, KV: int, page_bytes: int) -> bool:
-    """Whether TMA can address a kv head's rows: 16-byte strides, D times
-    the element size or KV times that (``csrc/paged_cluster.cuh``)."""
-    return (D * page_bytes) % 16 == 0 or (KV * D * page_bytes) % 16 == 0
+def page_map(D: int, KV: int, page_bytes: int) -> str:
+    """The tensor map through which the cluster designs read a kv head's
+    rows, as ``csrc/paged_cluster.cuh``'s ``make_page_maps`` picks it:
+    "per_head" where a row of D elements is a 16-byte stride, else "flat"
+    (one box over all heads' rows of a token) where a token's KV rows are,
+    else "paired" (8-bit rows of D 120 under an odd KV: boxes over token
+    pairs, whose 2 x KV x D bytes always are)."""
+    row = D * page_bytes
+    return "per_head" if row % 16 == 0 else "flat" if (KV * row) % 16 == 0 else "paired"
+
+
+def _row_bytes(D: int, page_bytes: int) -> int:
+    """The bytes a cluster's TMA box reads of one kv head's token row: the
+    row's own under the per-head map, else the box's ``ROW`` (the 16-byte
+    boundary at or before the row to 128 bytes on: 128 of D 120's)."""
+    return D * page_bytes if (D * page_bytes) % 16 == 0 else ROW
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -138,13 +141,13 @@ def upcast_design(q_dtype: torch.dtype, page_dtype: torch.dtype, D: int, KV: int
     """The design that runs ``paged_attention(upcast=True)`` over pages of
     ``page_dtype``, another dtype than q's ``q_dtype`` (pages of q's dtype
     take the same-dtype kernel, with nothing to upcast): "cluster" for fp8
-    e4m3 or int8 pages under a bf16 q whose rows TMA can address (one
-    launch, ``csrc/paged_cluster_upcast.cuh``); else "split" (an fp32 q,
-    fp32 pages under a bf16 q, 8-bit D 120 under an odd KV). The split
-    half under ``seq_shard_decode`` (``paged_attention_partials``) runs the
-    split kernel whatever this says."""
-    if q_dtype == torch.bfloat16 and page_dtype in (torch.float8_e4m3fn, torch.int8) \
-            and _tma_rows(D, KV, 1):
+    e4m3 or int8 pages under a bf16 q (one launch,
+    ``csrc/paged_cluster_upcast.cuh``, through the map ``page_map(D, KV,
+    1)`` names: every head dim and kv head count of the configs); else
+    "split" (an fp32 q, fp32 pages under a bf16 q). The split half under
+    ``seq_shard_decode`` (``paged_attention_partials``) runs the split
+    kernel whatever this says."""
+    if q_dtype == torch.bfloat16 and page_dtype in (torch.float8_e4m3fn, torch.int8):
         return "cluster"
     return "split"
 
@@ -152,25 +155,21 @@ def upcast_design(q_dtype: torch.dtype, page_dtype: torch.dtype, D: int, KV: int
 def cvt_design(max_blocks: int, G: int, window: int, D: int, KV: int,
                page_bytes: int) -> str:
     """The design that runs ``decode_attention``'s function over pages of
-    ``page_bytes`` an element, as ``csrc/paged_cluster.cuh``'s launch
-    decides what it takes: "cluster" wherever TMA can address a kv head's
-    rows (16-byte strides: D times the element size, or KV times that),
-    at every table width, group and window (a block's scores past its
-    shared memory are recomputed from k, not sent elsewhere); else
-    "two_pass" (8-bit pages of head dim 120 under an odd KV). The split
-    decode under ``seq_shard_decode`` runs the two passes' entries
-    (``paged_attention_stats`` ... ``paged_sum``) whatever this says."""
-    return "cluster" if _tma_rows(D, KV, page_bytes) else "two_pass"
+    ``page_bytes`` an element: the one-launch "cluster"
+    (``csrc/paged_cluster.cuh``) at every table width, group, window, head
+    dim and kv head count (a block's scores past its shared memory are
+    recomputed from k in the same launch; the rows come through
+    ``page_map``'s map), so the row's arguments never change it."""
+    return "cluster"
 
 
 def split_design(D: int, KV: int, page_bytes: int) -> str:
     """The design that runs ``decode_attention``'s function split over the
     sequence (``paged_attention_stats`` ... ``paged_sum``) over pages of
-    ``page_bytes`` an element: "cluster" wherever TMA can address a kv
-    head's rows (two cluster launches, ``csrc/paged_split_cluster.cuh``),
-    else "two_pass" (the partition passes: 8-bit pages of head dim 120 under an
-    odd KV)."""
-    return "cluster" if _tma_rows(D, KV, page_bytes) else "two_pass"
+    ``page_bytes`` an element: "cluster", two cluster launches
+    (``csrc/paged_split_cluster.cuh``) through ``page_map``'s map at every
+    head dim and kv head count."""
+    return "cluster"
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -189,7 +188,11 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                      window=window, upcast=upcast)
     if q.device.type == "meta":
         out = torch.empty_like(q)
-        _book_split("paged_attention", q, k_pages, block_tables, lens, window, (out,))
+        boxes = rounds_weights(q, k_pages, upcast) or (
+            upcast and upcast_design(q.dtype, k_pages.dtype, q.shape[3], q.shape[1])
+            == "cluster")
+        _book_split("paged_attention", q, k_pages, block_tables, lens, window, (out,),
+                    boxes=boxes)
         return out
     _check(q, k_pages, v_pages, block_tables, lens)
     if k_pages.dtype == torch.float32 and q.dtype != torch.float32 and not upcast:
@@ -206,9 +209,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         KERNEL.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                       block_tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
                       scratch.data_ptr(), B, KV, G, D, max_blocks, int(window),
-                      D ** -0.5,
-                      DTYPE_CODES[q.dtype],
-                      torch.cuda.current_stream(q.device).cuda_stream)
+                      D ** -0.5, DTYPE_CODES[q.dtype],
+                      torch.cuda.current_stream(q.device).cuda_stream,
+                      instance=str(q.dtype)[6:])
         return out
     args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), lens.data_ptr(), out.data_ptr())
@@ -221,15 +224,11 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         scratch = torch.empty(B * KV * n_part * G * (D + 2), dtype=torch.float32,
                               device=q.device) if design == "split" else None
         UPCAST.launch(*args, _ptr(scratch), *codes, UPCAST_DESIGNS[design],
-                      k_pages.shape[0], stream, instance=f"{_instance(q, k_pages)} {design}")
+                      k_pages.shape[0], stream,
+                      instance=_instance(q, k_pages, design))
         return out
-    design = cvt_design(max_blocks, G, window, D, KV, k_pages.element_size())
-    # the two passes' partitions and each row's (M, L); the cluster keeps
-    # its own in shared memory
-    scratch = torch.empty(B * KV * (n_part * G * (D + 2) + 2 * G), dtype=torch.float32,
-                          device=q.device) if design == "two_pass" else None
-    CVT.launch(*args, _ptr(scratch), *codes, DESIGNS[design], k_pages.shape[0], stream,
-               instance=f"{_instance(q, k_pages)} {design}")
+    CVT.launch(*args, *codes, k_pages.shape[0], stream,
+               instance=_instance(q, k_pages, "cluster"))
     return out
 
 
@@ -276,7 +275,7 @@ def paged_attention_partials(q: torch.Tensor, k_pages: torch.Tensor,
             int(window), D ** -0.5, DTYPE_CODES[q.dtype])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if k_pages.dtype == q.dtype:
-        PARTIALS.launch(*args, stream)
+        PARTIALS.launch(*args, stream, instance=str(q.dtype)[6:])
     else:
         UPCAST_PARTIALS.launch(*args, PAGE_CODES[k_pages.dtype], stream,
                                instance=_instance(q, k_pages))
@@ -285,98 +284,55 @@ def paged_attention_partials(q: torch.Tensor, k_pages: torch.Tensor,
 
 def paged_attention_stats(q: torch.Tensor, k_pages: torch.Tensor,
                           block_tables: torch.Tensor, lens: torch.Tensor, *,
-                          window: int = 0, design: Optional[str] = None):
+                          window: int = 0):
     """Pass 1 of ``decode_attention``'s function over a share of each
-    sequence (``lens`` as ``paged_attention_partials``'), in the design
-    ``split_design`` names (``design`` another, to time one against the
-    other; the CPU has one): (ml, scores) fp32. "cluster": ml (B,KV,1,G,2)
-    the share's (m, l) of the scores of q*scale rounded to the pages'
-    dtype, (NEG_INF, 0) where no key counts, and scores
-    (B,KV,max_blocks,G,16) each page's scores where the share's keys lie in
-    the window (pass 2 reads those alone). "two_pass": ml (B,KV,P,G,2) each
-    16-page partition's, and no scores. Gather ml over the ranks along dim
-    2 for ``paged_attention_values``."""
+    sequence (``lens`` as ``paged_attention_partials``'): (ml, scores)
+    fp32, ml (B,KV,1,G,2) the share's (m, l) of the scores of q*scale
+    rounded to the pages' dtype, (NEG_INF, 0) where no key counts, and
+    scores (B,KV,max_blocks,G,16) each page's scores where the share's keys
+    lie in the window (pass 2 reads those alone). Gather ml over the ranks
+    along dim 2 for ``paged_attention_values``."""
     if q.device.type == "cpu":
         return paged_attention_stats_plain(q, k_pages, block_tables, lens, window=window)
     B, KV, G, D = q.shape
     max_blocks = block_tables.shape[1]
-    design = _split_design(design, D, KV, k_pages)
-    if design == "two_pass":
-        n_part = -(-max_blocks // PART)
-        ml = torch.zeros((B, KV, n_part, G, 2), dtype=torch.float32, device=q.device)
-        scores = None
-    else:
-        ml = torch.empty((B, KV, 1, G, 2), dtype=torch.float32, device=q.device)
-        scores = torch.empty((B, KV, max_blocks, G, PAGE), dtype=torch.float32,
-                             device=q.device)
+    ml = torch.empty((B, KV, 1, G, 2), dtype=torch.float32, device=q.device)
+    scores = torch.empty((B, KV, max_blocks, G, PAGE), dtype=torch.float32, device=q.device)
     if q.device.type == "meta":
         _book_split("paged_attention_stats", q, k_pages, block_tables, lens, window,
-                    (ml,), rows=1, scores=scores is not None)
+                    (ml,), rows=1, scores=True, boxes=True)
         return ml, scores
     _check(q, k_pages, k_pages, block_tables, lens)
     _check_rounding(q, k_pages)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    if design == "two_pass":
-        ml[..., 0] = NEG_INF        # the partitions that no block writes
-        STATS.launch(q.data_ptr(), k_pages.data_ptr(), block_tables.data_ptr(),
-                     lens.data_ptr(), ml.data_ptr(), B, KV, G, D, max_blocks, int(window),
-                     D ** -0.5, DTYPE_CODES[q.dtype], PAGE_CODES[k_pages.dtype], stream,
-                     instance=f"{_instance(q, k_pages)} two_pass")
-        return ml, None
     SHARE_STATS.launch(q.data_ptr(), k_pages.data_ptr(), block_tables.data_ptr(),
                        lens.data_ptr(), scores.data_ptr(), ml.data_ptr(), B, KV, G, D,
                        max_blocks, int(window), D ** -0.5, DTYPE_CODES[q.dtype],
-                       PAGE_CODES[k_pages.dtype], k_pages.shape[0], stream,
-                       instance=f"{_instance(q, k_pages)} cluster")
+                       PAGE_CODES[k_pages.dtype], k_pages.shape[0],
+                       torch.cuda.current_stream(q.device).cuda_stream,
+                       instance=_instance(q, k_pages, "cluster"))
     return ml, scores
-
-
-def paged_stats_merge(ml: torch.Tensor) -> torch.Tensor:
-    """Every partition's (m, l) of ml (B,KV,P,G,2) fp32 (of one rank, or
-    several gathered along dim 2) merged into the sequence's (M, L)
-    (B,KV,G,2): M the largest m, L = sum l e^(m - M). Pass 2's wrapper
-    launches it in the "two_pass" design."""
-    if ml.device.type == "cpu":
-        return paged_stats_merge_plain(ml)
-    B, KV, P, G, _ = ml.shape
-    stats = torch.empty((B, KV, G, 2), dtype=torch.float32, device=ml.device)
-    if ml.device.type == "meta":
-        scopes.book(hbm=sum(scopes.strict_bytes(t) for t in (ml, stats)),
-                    eager=sum(t.numel() * t.element_size() for t in (ml, stats)))
-        return stats
-    _check_f32("paged_stats_merge", ml)
-    STATS_MERGE.launch(ml.data_ptr(), stats.data_ptr(), B, KV, G, P,
-                       torch.cuda.current_stream(ml.device).cuda_stream)
-    return stats
 
 
 def paged_attention_values(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
                            lens: torch.Tensor, ml: torch.Tensor,
                            scores: Optional[torch.Tensor], *,
-                           window: int = 0, design: Optional[str] = None) -> torch.Tensor:
+                           window: int = 0) -> torch.Tensor:
     """Pass 2 over the same share as ``paged_attention_stats``: ``ml`` its
     (m, l) gathered over the ranks along dim 2 (B,KV,R,G,2), merged here
     into the sequence's (M, L); ``scores`` its scores. Returns the fp32
-    sum of the weights exp(s - M) / L rounded to the pages' dtype times v:
-    (B,KV,1,G,D) in the "cluster" design (from the scores and v; k is not
-    read), (B,KV,P,G,D) a partition in the "two_pass" design (the merge's
-    launch, then k and v again); zeros where no key counts. Gather it over
-    the ranks along dim 2 for ``paged_sum``. ``design`` as pass 1's."""
+    sum (B,KV,1,G,D) of the weights exp(s - M) / L rounded to the pages'
+    dtype times v (from the scores and v; k is not read); zeros where no
+    key counts. Gather it over the ranks along dim 2 for ``paged_sum``."""
     if q.device.type == "cpu":
         return paged_attention_values_plain(q, k_pages, v_pages, block_tables, lens, ml,
                                             scores, window=window)
     B, KV, G, D = q.shape
     max_blocks = block_tables.shape[1]
-    two_pass = _split_design(design, D, KV, k_pages) == "two_pass"
-    acc = torch.zeros((B, KV, -(-max_blocks // PART), G, D), dtype=torch.float32,
-                      device=q.device) if two_pass else \
-        torch.empty((B, KV, 1, G, D), dtype=torch.float32, device=q.device)
+    acc = torch.empty((B, KV, 1, G, D), dtype=torch.float32, device=q.device)
     if q.device.type == "meta":
-        if two_pass:
-            paged_stats_merge(ml)
         _book_split("paged_attention_values", q, k_pages, block_tables, lens, window,
-                    (ml, acc), rows=2 if two_pass else 1, scores=not two_pass)
+                    (ml, acc), rows=1, scores=True, boxes=True)
         return acc
     _check(q, k_pages, v_pages, block_tables, lens)
     _check_rounding(q, k_pages)
@@ -384,15 +340,6 @@ def paged_attention_values(q: torch.Tensor, k_pages: torch.Tensor,
     if ml.ndim != 5 or tuple(ml.shape[:2]) != (B, KV) or tuple(ml.shape[3:]) != (G, 2):
         raise ValueError(f"paged_attention_values: ml {tuple(ml.shape)}, need "
                          f"(B={B}, KV={KV}, R, G={G}, 2)")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    if two_pass:
-        stats = paged_stats_merge(ml)
-        VALUES.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                      block_tables.data_ptr(), lens.data_ptr(), stats.data_ptr(),
-                      acc.data_ptr(), B, KV, G, D, max_blocks, int(window), D ** -0.5,
-                      DTYPE_CODES[q.dtype], PAGE_CODES[k_pages.dtype], stream,
-                      instance=f"{_instance(q, k_pages)} two_pass")
-        return acc
     if scores is None or tuple(scores.shape) != (B, KV, max_blocks, G, PAGE):
         raise ValueError(f"paged_attention_values: scores "
                          f"{None if scores is None else tuple(scores.shape)}, need "
@@ -401,14 +348,14 @@ def paged_attention_values(q: torch.Tensor, k_pages: torch.Tensor,
     SHARE_VALUES.launch(v_pages.data_ptr(), scores.data_ptr(), ml.data_ptr(), ml.shape[2],
                         block_tables.data_ptr(), lens.data_ptr(), acc.data_ptr(), B, KV, G, D,
                         max_blocks, int(window), PAGE_CODES[v_pages.dtype], v_pages.shape[0],
-                        stream, instance=f"{_instance(q, v_pages)} cluster")
+                        torch.cuda.current_stream(q.device).cuda_stream,
+                        instance=_instance(q, v_pages, "cluster"))
     return acc
 
 
 def paged_sum(acc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Pass 2's sums (B,KV,P,G,D) fp32 (the shares' or the partitions' of
-    one rank, or several gathered along dim 2) added up -> (B,KV,G,D) in
-    ``dtype``."""
+    """Pass 2's sums (B,KV,R,G,D) fp32 (one rank's, or the R ranks'
+    gathered along dim 2) added up -> (B,KV,G,D) in ``dtype``."""
     if acc.device.type == "cpu":
         return paged_sum_plain(acc, dtype)
     B, KV, P, G, D = acc.shape
@@ -447,7 +394,8 @@ def paged_merge(acc: torch.Tensor, ml: torch.Tensor,
     if D not in HEAD_DIMS or dtype not in DTYPE_CODES:
         raise ValueError(f"paged_merge: head dim {D} or dtype {dtype}")
     MERGE.launch(acc.data_ptr(), ml.data_ptr(), out.data_ptr(), B, KV, G, D, P,
-                 DTYPE_CODES[dtype], torch.cuda.current_stream(acc.device).cuda_stream)
+                 DTYPE_CODES[dtype], torch.cuda.current_stream(acc.device).cuda_stream,
+                 instance=str(dtype)[6:])
     return out
 
 
@@ -459,14 +407,16 @@ def counted_tokens(block_tables: torch.Tensor, window: int) -> int:
 
 
 def _book_split(name, q, k_pages, block_tables, lens, window, outs, rows=2,
-                scores=False):
-    """On meta: the split kernel's products (q.k and p.v over the counted
-    keys) and bytes (those keys' k and v rows in the pages' dtype, an int8
+                scores=False, boxes=False):
+    """On meta: the kernel's products (q.k and p.v over the counted keys)
+    and bytes (those keys' k and v rows in the pages' dtype, an int8
     pool's at one byte, q, the table and lens read once, ``outs`` written
     once); with ``rows`` 1 one product and one of k or v (a pass of
     ``decode_attention``'s split), and with ``scores`` each counted key's
     fp32 score a query row, written by pass 1 and read by pass 2 (strict:
-    at ``FLOAT_BYTES``, as every float)."""
+    at ``FLOAT_BYTES``, as every float). With ``boxes`` (a cluster design)
+    the eager bytes count each row as its TMA box reads it
+    (``_row_bytes``: 128 of an 8-bit row of D 120)."""
     B, KV, G, D = q.shape
     keys = B * KV * counted_tokens(block_tables, window)
     kv_elem = rows * keys * D
@@ -474,10 +424,11 @@ def _book_split(name, q, k_pages, block_tables, lens, window, outs, rows=2,
     n_scores = keys * G if scores else 0
     page_bytes = scopes.FLOAT_BYTES if k_pages.is_floating_point() else \
         k_pages.element_size()
+    row = _row_bytes(D, k_pages.element_size()) if boxes else D * k_pages.element_size()
     scopes.book(flops=2.0 * rows * keys * G * D, name=name,
                 hbm=kv_elem * page_bytes + n_scores * scopes.FLOAT_BYTES
                 + sum(scopes.strict_bytes(t) for t in ts),
-                eager=kv_elem * k_pages.element_size() + n_scores * 4
+                eager=rows * keys * row + n_scores * 4
                 + sum(t.numel() * t.element_size() for t in ts))
 
 
@@ -517,18 +468,17 @@ def _check(q, k_pages, v_pages, block_tables, lens):
             raise ValueError(f"paged_attention: {name} is not 16-byte aligned")
 
 
-def _split_design(design, D, KV, k_pages) -> str:
-    """``design``, one of ``SPLIT_DESIGNS``, or ``split_design``'s."""
-    design = design or split_design(D, KV, k_pages.element_size())
-    if design not in SPLIT_DESIGNS:
-        raise ValueError(f"paged_attention split: design {design!r}, need one of "
-                         f"{SPLIT_DESIGNS}")
-    return design
-
-
-def _instance(q, k_pages) -> str:
-    """The name of the instance a call ran: q's dtype / the pages'."""
-    return f"{str(q.dtype)[6:]}/{str(k_pages.dtype)[6:]}"
+def _instance(q, k_pages, design=None) -> str:
+    """The name of the instance a call ran: q's dtype / the pages', then
+    the design, and " paired" where a cluster reads the rows through the
+    map over token pairs (``page_map``)."""
+    name = f"{str(q.dtype)[6:]}/{str(k_pages.dtype)[6:]}"
+    if design is not None:
+        name += f" {design}"
+    if design == "cluster" and \
+            page_map(q.shape[3], q.shape[1], k_pages.element_size()) == "paired":
+        name += " paired"
+    return name
 
 
 def _check_rounding(q, k_pages):

@@ -1043,9 +1043,8 @@ class Transformer(nn.Module):
         normalised by the whole sequence's (M, L): pass 1's (m, l) of each
         rank's share gathered, pass 2 (which merges them) on each rank's
         share with its pass 1 scores, the ranks' sums gathered and added:
-        three launches a layer (``ops.split_design``'s cluster design; PR
-        25's passes add the merge's launch where TMA cannot address the
-        rows)."""
+        three launches a layer (``ops.split_design``'s cluster design, at
+        every head dim and kv head count)."""
         local_lens = local_lens.to(torch.int32)
         if rounds_weights(q, pool_k, self.upcast):
             ml, scores = paged_attention_stats(q, pool_k, block_tables, local_lens,

@@ -407,9 +407,9 @@ def _hold_q8(out, ref, q, slack, vp, upcast, ulp=False):
                          ids=[f"{'/'.join(p)}{f'-qx{x:g}' if x != 1 else ''}-{m}"
                               for p, x, m in Q8_MODES])
 def test_paged_other_page_dtype_vs_plain(cuda, pair, qx, mode, case):
-    """The two-pass kernel (default) or the one-pass kernel on pages
-    converted on load (upcast) against the plain version; one launch of
-    its counter a call, none of the same-dtype kernel's."""
+    """The default mode's cluster or the upcast mode's design against the
+    plain version; one launch of its counter a call, none of the same-dtype
+    kernel's."""
     from repro_torch.kernels.paged_attention.ref import weight_slack
     pages, qdt = (getattr(torch, n) for n in pair)
     upcast = mode == "upcast"
@@ -437,22 +437,19 @@ def test_paged_other_page_dtype_vs_plain(cuda, pair, qx, mode, case):
 # scores' scale; l (ex2.approx within 2^-21 a term) within this share of
 # itself
 SPLIT_ML_TOL, SPLIT_L_RTOL = 1e-4, 1e-3
-SPLIT_COUNTERS = ("SHARE_STATS", "SHARE_VALUES", "STATS", "STATS_MERGE", "VALUES", "SUM",
-                  "CVT")
+SPLIT_COUNTERS = ("SHARE_STATS", "SHARE_VALUES", "SUM", "CVT")
 
 
 def _split_counts():
     return {k: getattr(paged_ops, k).launches for k in SPLIT_COUNTERS}
 
 
-def _run_split(q, kp, vp, shares, window, design=None):
+def _run_split(q, kp, vp, shares, window):
     """Pass 1 on each share, the (m, l) gathered, pass 2 on each, the sums
     added: (out, [(ml, scores)], the gathered ml, [sum])."""
-    passes = [paged_ops.paged_attention_stats(q, kp, t, l, window=window, design=design)
-              for t, l in shares]
+    passes = [paged_ops.paged_attention_stats(q, kp, t, l, window=window) for t, l in shares]
     ml = torch.cat([m for m, _ in passes], dim=2)
-    parts = [paged_ops.paged_attention_values(q, kp, vp, t, l, ml, sc, window=window,
-                                              design=design)
+    parts = [paged_ops.paged_attention_values(q, kp, vp, t, l, ml, sc, window=window)
              for (t, l), (_, sc) in zip(shares, passes)]
     return paged_ops.paged_sum(torch.cat(parts, dim=2), q.dtype), passes, ml, parts
 
@@ -490,7 +487,7 @@ def test_paged_other_page_dtype_split_over_two_halves(cuda, pair, qx, case):
     """Each half of the table as a rank's share: pass 1 of both halves (the
     split cluster design: its scores and one (m, l) a share), the (m, l)
     gathered, pass 2 of both (which merges them), the sums added: two
-    launches of each pass and one of the sum, none of the partition passes;
+    launches of each pass and one of the sum, no other K2 launch;
     against the one-call kernel and the plain version, and each pass
     against its plain version. The upcast mode's partials merged by the
     same-dtype merge kernel likewise."""
@@ -516,7 +513,7 @@ def test_paged_other_page_dtype_split_over_two_halves(cuda, pair, qx, case):
     torch.cuda.synchronize()
     after = _split_counts()
     assert {k: after[k] - before[k] for k in after} == dict(
-        SHARE_STATS=2, SHARE_VALUES=2, STATS=0, STATS_MERGE=0, VALUES=0, SUM=1, CVT=0)
+        SHARE_STATS=2, SHARE_VALUES=2, SUM=1, CVT=0)
     assert ml.shape == (B, KV, 2, G, 2) and parts[0].shape == (B, KV, 1, G, D)
     ref = paged_ops.paged_attention_plain(q, kp, vp, tables, lens, window=window)
     slack = weight_slack(q, kp, vp, tables, lens, window=window)
@@ -539,7 +536,7 @@ def test_paged_other_page_dtype_split_over_two_halves(cuda, pair, qx, case):
 # halves, three shares, and the whole table then a share past every row's
 # newest token, which holds no key)
 SPLIT_FULL = ("llama3.2-3b", "h2o-danube", "llama3-405b", "zamba2", "reasoning-G16",
-              "reasoning-G8", "rows-tma-cannot-address")
+              "reasoning-G8", "rows-of-one-kv-head", "rows-of-three-kv-heads")
 SPLIT_CUTS = ("halves", "thirds", "empty")
 
 
@@ -559,41 +556,42 @@ def _cut(tables, lens, cut):
 @pytest.mark.parametrize("shape", SPLIT_FULL)
 @pytest.mark.parametrize("pair", Q8_PAIRS, ids=["/".join(p) for p in Q8_PAIRS])
 def test_paged_split_at_the_card_shapes(cuda, pair, shape, cut):
-    """The sequence split at the card's shapes in the design
-    ``split_design`` names (the partition passes only for 8-bit rows TMA cannot
-    address), every pair: one launch of each pass a share and one sum,
-    no other K2 launch; against the one-call kernel and the plain version,
-    each pass against its plain version (the cluster design's); a share
-    with no key (NEG_INF, 0) and zeros."""
+    """The sequence split at the card's shapes, every pair, through the
+    cluster passes (``split_design``; 8-bit rows of D 120 under an odd KV
+    through the map over token pairs, their instances named " paired"):
+    one launch of each pass a share and one sum, no other K2 launch;
+    against the one-call kernel and the plain version, each pass against
+    its plain version (the scores at their true tokens); a share with no
+    key (NEG_INF, 0) and zeros."""
     from repro_torch.kernels.paged_attention.ref import weight_slack
     m = Q8_FULL[shape]
     pages, qdt = (getattr(torch, n) for n in pair)
     q, kp, vp, tables, lens, window = _full_inputs(
         m, pages, qdt, 1200 + SPLIT_FULL.index(shape), cuda, 1.0)
     shares = _cut(tables, lens, cut)
-    design = paged_ops.split_design(m["D"], m["KV"], kp.element_size())
-    assert design == ("two_pass" if shape in TWO_PASS_SHAPES and kp.element_size() == 1
-                      else "cluster")
-    before = _split_counts()
+    assert paged_ops.split_design(m["D"], m["KV"], kp.element_size()) == "cluster"
+    paired = shape in PAIRED_SHAPES and kp.element_size() == 1
+    assert (paged_ops.page_map(m["D"], m["KV"], kp.element_size()) == "paired") == paired
+    inst = f"{pair[1]}/{pair[0]} cluster" + (" paired" if paired else "")
+    before = _split_counts(), paged_ops.SHARE_STATS.by_instance[inst], \
+        paged_ops.SHARE_VALUES.by_instance[inst]
     out, passes, ml, parts = _run_split(q, kp, vp, shares, window)
     torch.cuda.synchronize()
     after = _split_counts()
     R = len(shares)
-    want = dict(SHARE_STATS=R, SHARE_VALUES=R, STATS=0, STATS_MERGE=0, VALUES=0) \
-        if design == "cluster" else dict(SHARE_STATS=0, SHARE_VALUES=0, STATS=R,
-                                         STATS_MERGE=R, VALUES=R)
-    assert {k: after[k] - before[k] for k in after} == dict(want, SUM=1, CVT=0)
+    assert {k: after[k] - before[0][k] for k in after} == dict(
+        SHARE_STATS=R, SHARE_VALUES=R, SUM=1, CVT=0)
+    assert (paged_ops.SHARE_STATS.by_instance[inst] - before[1],
+            paged_ops.SHARE_VALUES.by_instance[inst] - before[2]) == (R, R)
     ref = paged_ops.paged_attention_plain(q, kp, vp, tables, lens, window=window)
     slack = weight_slack(q, kp, vp, tables, lens, window=window)
     _hold_q8(out, ref, q, slack, vp, False, ulp=True)
     _hold_q8(out, paged_ops.paged_attention(q, kp, vp, tables, lens, window=window), q,
              slack, vp, False, ulp=True)
-    if design == "cluster":
-        _hold_split_passes(q, kp, vp, shares, window, passes, ml, parts, slack)
+    _hold_split_passes(q, kp, vp, shares, window, passes, ml, parts, slack)
     if cut == "empty":
         from repro_torch.kernels.paged_attention.ref import NEG_INF
-        last = passes[-1][0] if design == "cluster" else \
-            paged_ops.paged_stats_merge_plain(passes[-1][0])[:, :, None]
+        last = passes[-1][0]
         assert bool((last[..., 0] == NEG_INF).all()) and bool((last[..., 1] == 0).all())
         assert bool((parts[-1] == 0).all())
 
@@ -601,25 +599,25 @@ def test_paged_split_at_the_card_shapes(cuda, pair, shape, cut):
 @pytest.mark.gpu
 @pytest.mark.parametrize("pages", ["float8_e4m3fn", "int8"])
 def test_paged_split_passes_refuse_and_choose(cuda, pages):
-    """The two designs of the split are the wrappers' to choose, and each
-    names itself: the cluster's instances in ``by_instance``, the partition passes under
-    ``design="two_pass"`` (equal outputs within the bound); pass 2 of the
-    cluster design without pass 1's scores raises before any launch."""
+    """The split's passes choose their instance by the pool's map and name
+    it in ``by_instance``: the per-head map's at llama3-405b's rows, the
+    map over token pairs' (" paired") at h2o-danube's one kv head a rank,
+    each equal to the one-call kernel within the bound; pass 2 without
+    pass 1's scores raises before any launch."""
     from repro_torch.kernels.paged_attention.ref import weight_slack
-    m = Q8_FULL["llama3-405b"]
     pt = getattr(torch, pages)
-    q, kp, vp, tables, lens, _ = _full_inputs(m, pt, torch.bfloat16, 1300, cuda, 1.0)
-    shares = _cut(tables, lens, "halves")
-    inst = f"bfloat16/{pages}"
-    before = (paged_ops.SHARE_STATS.by_instance[f"{inst} cluster"],
-              paged_ops.STATS.by_instance[f"{inst} two_pass"])
-    new = _run_split(q, kp, vp, shares, 0)[0]
-    old = _run_split(q, kp, vp, shares, 0, design="two_pass")[0]
-    torch.cuda.synchronize()
-    assert (paged_ops.SHARE_STATS.by_instance[f"{inst} cluster"],
-            paged_ops.STATS.by_instance[f"{inst} two_pass"]) == (before[0] + 2, before[1] + 2)
-    slack = weight_slack(q, kp, vp, tables, lens)
-    _hold_q8(new, old, q, 2 * slack, vp, False)
+    for shape, suffix in (("llama3-405b", ""), ("rows-of-one-kv-head", " paired")):
+        q, kp, vp, tables, lens, window = _full_inputs(Q8_FULL[shape], pt, torch.bfloat16,
+                                                       1300, cuda, 1.0)
+        shares = _cut(tables, lens, "halves")
+        inst = f"bfloat16/{pages} cluster{suffix}"
+        before = paged_ops.SHARE_STATS.by_instance[inst]
+        split = _run_split(q, kp, vp, shares, window)[0]
+        one = paged_ops.paged_attention(q, kp, vp, tables, lens, window=window)
+        torch.cuda.synchronize()
+        assert paged_ops.SHARE_STATS.by_instance[inst] == before + 2
+        slack = weight_slack(q, kp, vp, tables, lens, window=window)
+        _hold_q8(split, one, q, 2 * slack, vp, False)
     ml, _ = paged_ops.paged_attention_stats(q, kp, *shares[0])
     n = paged_ops.SHARE_VALUES.launches
     with pytest.raises(ValueError, match="scores"):
@@ -682,8 +680,9 @@ def test_paged_fp32_pages_upcast_to_bf16_vs_plain(cuda, case):
 # sequence at G 16, which the two passes ran before), reasoning lengths
 # (12,288-33,792 tokens) at G 16 and G 8, sequences past what a block's
 # shared memory keeps at any cluster size (their last pages recomputed
-# from k), all the cluster; and 8-bit D 120 rows under one kv head, which
-# TMA cannot address: the two passes
+# from k), all the cluster; and 8-bit D 120 rows under one kv head
+# (h2o-danube at tp 8) and three, which the cluster reads through the map
+# over token pairs
 Q8_FULL = {
     "llama3.2-3b": dict(B=16, KV=8, G=3, D=128, min_ctx=128, max_ctx=2048),
     "h2o-danube": dict(B=16, KV=8, G=4, D=120, min_ctx=4096, max_ctx=6400, window=4096),
@@ -693,10 +692,12 @@ Q8_FULL = {
     "reasoning-G16": dict(B=16, KV=8, G=16, D=128, min_ctx=12_288, max_ctx=33_792),
     "reasoning-G8": dict(B=16, KV=8, G=8, D=128, min_ctx=12_288, max_ctx=33_792),
     "overflow": dict(B=2, KV=8, G=16, D=128, min_ctx=60_000, max_ctx=65_536),
-    "rows-tma-cannot-address": dict(B=16, KV=1, G=4, D=120, min_ctx=4096, max_ctx=6400,
-                                    window=4096),
+    "rows-of-one-kv-head": dict(B=16, KV=1, G=4, D=120, min_ctx=4096, max_ctx=6400,
+                                window=4096),
+    "rows-of-three-kv-heads": dict(B=16, KV=3, G=4, D=120, min_ctx=4096, max_ctx=6400,
+                                   window=4096),
 }
-TWO_PASS_SHAPES = ("rows-tma-cannot-address",)
+PAIRED_SHAPES = ("rows-of-one-kv-head", "rows-of-three-kv-heads")
 
 
 def _full_inputs(m, pages, qdt, seed, cuda, qx):
@@ -730,10 +731,10 @@ def _full_inputs(m, pages, qdt, seed, cuda, qx):
 @pytest.mark.parametrize("pair,qx", Q8_RUNS, ids=Q8_IDS)
 def test_paged_cvt_design_at_the_card_shapes(cuda, pair, qx, shape):
     """K2's default mode at the card's shapes, every pair, int8 also under
-    q x12 and x40: one launch of the design ``cvt_design`` names (the
-    cluster at every length, the two passes only for rows TMA cannot
-    address), against the plain version under chip_smoke.hold_q8's bounds;
-    int8 rows without slack exactly."""
+    q x12 and x40: one launch of the cluster (``cvt_design``) at every
+    length, 8-bit rows of D 120 under an odd KV through the map over token
+    pairs (its " paired" instance), against the plain version under
+    chip_smoke.hold_q8's bounds; int8 rows without slack exactly."""
     from repro_torch.kernels.paged_attention.ref import weight_slack
     m = Q8_FULL[shape]
     pages, qdt = (getattr(torch, n) for n in pair)
@@ -741,10 +742,10 @@ def test_paged_cvt_design_at_the_card_shapes(cuda, pair, qx, shape):
                                                    1000 + list(Q8_FULL).index(shape), cuda, qx)
     design = paged_ops.cvt_design(tables.shape[1], m["G"], window, m["D"], m["KV"],
                                   kp.element_size())
-    # 8-bit rows of D 120 under one kv head; bf16 pages' rows are 240 bytes
-    two_pass = shape in TWO_PASS_SHAPES and kp.element_size() == 1
-    assert design == ("two_pass" if two_pass else "cluster")
-    inst = f"{pair[1]}/{pair[0]} {design}"
+    # 8-bit rows of D 120 under an odd KV; bf16 pages' rows are 240 bytes
+    paired = shape in PAIRED_SHAPES and kp.element_size() == 1
+    assert design == "cluster"
+    inst = f"{pair[1]}/{pair[0]} {design}" + (" paired" if paired else "")
     before = (paged_ops.CVT.by_instance[inst], paged_ops.CVT.launches)
     out = paged_ops.paged_attention(q, kp, vp, tables, lens, window=window)
     torch.cuda.synchronize()
@@ -763,13 +764,14 @@ def test_paged_cvt_design_at_the_card_shapes(cuda, pair, qx, shape):
 # The upcast mode (``decode_unroll``) over fp8 e4m3 and int8 pages under a
 # bf16 q runs one launch of a thread block cluster per (batch row, kv head)
 # (``csrc/paged_cluster_upcast.cuh``): at the card's four main shapes and at
-# reasoning lengths (Q8_FULL), and at the edges of its split into blocks:
-# single-page rows, rows shorter than a cluster's blocks beside one long row
-# (its span sets C), a window with rows shorter than it, all in shuffled
-# pages
+# reasoning lengths and h2o-danube's rows under one and three kv heads (the
+# map over token pairs) (Q8_FULL), and at the edges of its split into
+# blocks: single-page rows, rows shorter than a cluster's blocks beside one
+# long row (its span sets C), a window with rows shorter than it, all in
+# shuffled pages
 UPCAST_FULL = {
     **{k: Q8_FULL[k] for k in ("llama3.2-3b", "h2o-danube", "llama3-405b", "zamba2",
-                               "reasoning-G16", "reasoning-G8")},
+                               "reasoning-G16", "reasoning-G8", *PAIRED_SHAPES)},
     "single-page rows": dict(B=16, KV=8, G=16, D=128, min_ctx=1, max_ctx=16),
     "rows shorter than C pages": dict(B=16, KV=8, G=3, D=128, min_ctx=1, max_ctx=4096),
     "window, rows shorter than it": dict(B=8, KV=8, G=4, D=120, min_ctx=16, max_ctx=5000,
@@ -790,7 +792,7 @@ def test_paged_upcast_cluster_vs_plain(cuda, pages, shape):
                                                    1100 + list(UPCAST_FULL).index(shape), cuda,
                                                    1.0)
     assert paged_ops.upcast_design(q.dtype, pt, m["D"], m["KV"]) == "cluster"
-    inst = f"bfloat16/{pages} cluster"
+    inst = f"bfloat16/{pages} cluster" + (" paired" if shape in PAIRED_SHAPES else "")
     before = (paged_ops.UPCAST.by_instance[inst], paged_ops.UPCAST.launches,
               paged_ops.CVT.launches, paged_ops.KERNEL.launches)
     out = paged_ops.paged_attention(q, kp, vp, tables, lens, window=window, upcast=True)

@@ -371,6 +371,42 @@ def test_split_passes_over_shares_equal_decode_attention(pair, n_shares, window)
 _SPLIT_WANT = {}
 
 
+# h2o-danube's rows at tp 8, one kv head of 120 a rank, and three kv heads:
+# 8-bit rows whose token stride (KV x 120 bytes) is no multiple of 16, which
+# the card's cluster designs read through the map over token pairs. int8
+# under q x12 (``INT8_QX``), where its output is not zeros, in the modes
+# that round to it (the upcast mode truncates nothing: q x1 there, as in
+# the tests above)
+ODD_KV_PAIRS = [("fp8", "bf16", 1.0), ("fp8", "fp32", 1.0), ("int8", "bf16", 12.0)]
+
+
+@pytest.mark.parametrize("window", [0, 50])
+@pytest.mark.parametrize("mode", ["default", "upcast", "split"])
+@pytest.mark.parametrize("KV", [1, 3])
+@pytest.mark.parametrize("pages,qdt,qx", ODD_KV_PAIRS,
+                         ids=[f"{p}/{q}" for p, q, _ in ODD_KV_PAIRS])
+def test_plain_k2_under_an_odd_kv_is_the_reference_decode_attention(pages, qdt, qx, KV,
+                                                                    mode, window):
+    """D 120 under one and three kv heads, in the three modes the card runs
+    there (the default mode's one launch, the upcast mode, the sequence
+    split over two shares), against ``decode_attention`` on the gathered
+    cache (upcast: the cache upcast to q's dtype)."""
+    pages, qdt = DTYPES[pages], DTYPES[qdt]
+    q, kp, vp, tables, lens = _k2_inputs(31 + KV, pages, torch.float32, KV=KV, G=4, D=120)
+    upcast = mode == "upcast"
+    q = (q * (1.0 if upcast else qx)).to(qdt)
+    if mode == "split":
+        got = _split(q, kp, vp, tables, lens, window, 2)[0]
+    else:
+        got = ops.paged_attention(q, kp, vp, tables, lens, window=window, upcast=upcast)
+    assert got.dtype == qdt
+    want = _reference(q, kp, vp, tables, lens, window, upcast)
+    slack = weight_slack(q, kp, vp, tables, lens, window=window, upcast=upcast).numpy()
+    _hold(got.float().numpy(), want, q, slack, upcast, _fp32_scale(q, kp, vp),
+          float(vp.float().std()))
+    assert np.abs(want).max() > 0
+
+
 def test_one_pass_partials_refuse_rounded_pages():
     q, kp, vp, tables, lens = _k2_inputs(1, torch.float8_e4m3fn, torch.bfloat16)
     with pytest.raises(ValueError, match="paged_attention_stats"):

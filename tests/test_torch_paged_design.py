@@ -1,15 +1,16 @@
 """Which design runs K2's default mode over pages of another dtype than q
-(``kernels/paged_attention/ops.py`` ``cvt_design``), and its upcast mode
-(``upcast_design``), on the CPU. The default mode: the
-one-launch cluster design (``csrc/paged_cluster.cuh``) at every shape the
-card runs and at every length a table holds (a block's scores past its
-shared memory are recomputed from k in the same launch), and the two-pass
-kernels only where TMA cannot address the pages' rows (8-bit pages of head
-dim 120 under an odd number of kv heads). The upcast mode: the one-launch
-cluster design (``csrc/paged_cluster_upcast.cuh``) for fp8 e4m3 and int8
-pages under a bf16 q wherever TMA addresses their rows, the split kernel
-for every other pair. The kernels themselves run on the card
-(``tests/test_torch_kernels_gpu.py``)."""
+(``kernels/paged_attention/ops.py`` ``cvt_design``), its upcast mode
+(``upcast_design``) and its sequence split (``split_design``), and through
+which tensor map (``page_map``), on the CPU. The default mode and the
+split: the cluster designs (``csrc/paged_cluster.cuh``,
+``csrc/paged_split_cluster.cuh``) at every shape the card runs and at
+every length a table holds (a block's scores past its shared memory are
+recomputed from k in the same launch), 8-bit rows of head dim 120 under an
+odd number of kv heads too, through the map over token pairs. The upcast
+mode: the one-launch cluster design (``csrc/paged_cluster_upcast.cuh``)
+for fp8 e4m3 and int8 pages under a bf16 q at every head dim and kv head
+count, the split kernel for every other pair. The kernels themselves run
+on the card (``tests/test_torch_kernels_gpu.py``)."""
 import pytest
 import torch
 
@@ -69,15 +70,17 @@ def test_the_window_bounds_the_span():
     assert ops.cvt_design(100_000, 3, 65_536, 128, 8, 1) == "cluster"
 
 
-@pytest.mark.parametrize("KV,page_bytes,design", [(8, 1, "cluster"), (1, 1, "two_pass"),
-                                                  (3, 1, "two_pass"), (1, 2, "cluster")])
-def test_rows_tma_cannot_address_take_two_passes(KV, page_bytes, design):
+@pytest.mark.parametrize("KV,page_bytes,tmap", [(8, 1, "flat"), (1, 1, "paired"),
+                                                (3, 1, "paired"), (1, 2, "per_head")])
+def test_rows_of_d120_take_the_cluster_through_their_map(KV, page_bytes, tmap):
     """A kv head's 8-bit row of 120 elements is not a 16-byte stride; the
     cluster reads such rows through a map over all heads' rows, whose
-    stride (KV * 120 bytes) is one only for an even KV. The only rows the
-    two passes keep, at any length."""
-    assert ops.cvt_design(128, 3, 0, 120, KV, page_bytes) == design
-    assert ops.cvt_design(4096, 16, 0, 120, KV, page_bytes) == design
+    stride (KV * 120 bytes) is one for an even KV, or over token pairs
+    (2 * KV * 120 bytes, one for every KV); a bf16 row of 240 bytes takes
+    the per-head map. The cluster at any length."""
+    assert ops.page_map(120, KV, page_bytes) == tmap
+    assert ops.cvt_design(128, 3, 0, 120, KV, page_bytes) == "cluster"
+    assert ops.cvt_design(4096, 16, 0, 120, KV, page_bytes) == "cluster"
 
 
 def test_on_the_cpu_the_wrapper_runs_the_plain_version():
@@ -113,15 +116,16 @@ def test_the_upcast_design_routes_every_dtype_pair(pair):
         assert ops.upcast_design(q, pages, D, KV) == UPCAST_PAIRS[pair]
 
 
-@pytest.mark.parametrize("KV,design", [(8, "cluster"), (2, "cluster"), (1, "split"),
-                                       (3, "split")])
-def test_upcast_rows_tma_cannot_address_take_the_split(KV, design):
-    """8-bit rows of D 120 under an odd KV are no 16-byte stride, as in
-    ``cvt_design``: the split kernel reads them."""
+@pytest.mark.parametrize("KV,tmap", [(8, "flat"), (2, "flat"), (1, "paired"),
+                                     (3, "paired")])
+def test_upcast_rows_of_d120_take_the_cluster_under_any_kv(KV, tmap):
+    """8-bit rows of D 120 under an odd KV are no 16-byte stride, nor are
+    a token's KV rows: the upcast cluster reads them through the map over
+    token pairs, as ``cvt_design``'s cluster does."""
+    assert ops.page_map(120, KV, 1) == tmap
     for pages in (E4M3, INT8):
-        assert ops.upcast_design(BF16, pages, 120, KV) == design
-        assert ops.cvt_design(128, 3, 0, 120, KV, 1) == \
-            ("cluster" if design == "cluster" else "two_pass")
+        assert ops.upcast_design(BF16, pages, 120, KV) == "cluster"
+        assert ops.cvt_design(128, 3, 0, 120, KV, 1) == "cluster"
 
 
 # the sequence split's design (``split_design``) at the card's shapes and
@@ -140,46 +144,51 @@ def test_the_split_takes_its_cluster_design_where_tma_addresses_the_rows(shape):
 
 
 @pytest.mark.parametrize("KV", [1, 3, 5])
-def test_the_split_keeps_two_passes_for_rows_tma_cannot_address(KV):
-    """8-bit rows of D 120 under an odd KV: the partition passes (as the one
-    launch's ``cvt_design``); an even KV takes the all-heads map."""
-    assert ops.split_design(120, KV, 1) == "two_pass" == ops.cvt_design(128, 3, 0, 120, KV, 1)
+def test_the_split_takes_the_cluster_for_rows_of_an_odd_kv(KV):
+    """8-bit rows of D 120 under an odd KV: the split's cluster passes
+    through the map over token pairs (as the one launch's ``cvt_design``);
+    an even KV takes the all-heads map."""
+    assert ops.split_design(120, KV, 1) == "cluster" == ops.cvt_design(128, 3, 0, 120, KV, 1)
+    assert ops.page_map(120, KV, 1) == "paired"
     assert ops.split_design(120, KV + 1, 1) == "cluster"
+    assert ops.page_map(120, KV + 1, 1) == "flat"
 
 
 def test_the_split_passes_book_their_bytes_on_meta():
-    """On meta (the dry-run) nothing launches; pass 1 of the cluster design
-    books q.k and, beyond the partition design's pass 1, the fp32 scores it writes; its
-    pass 2 books p.v and the scores it reads with v, where the partition design's books
-    both products over k and v, and its merge."""
+    """On meta (the dry-run) nothing launches; pass 1 books q.k and the
+    fp32 scores it writes, pass 2 p.v and the scores it reads with v. The
+    eager bytes count each k or v row as its TMA box reads it: under the
+    map over token pairs (8-bit D 120, KV 1 and 3) 128 bytes a row of 120,
+    one 128-byte box row, where the per-head map reads a row's own bytes
+    (D 112 and 128); the strict bytes count the row's elements alike."""
     from repro_torch.analysis import scopes
     from repro_torch.analysis.counter import OpCounter
-    B, KV, G, D, nblk = 2, 8, 4, 128, 4     # one 16-page partition
-    q = torch.empty((B, KV, G, D), dtype=torch.bfloat16, device="meta")
-    pages = torch.empty((16, 16, KV, D), dtype=torch.float8_e4m3fn, device="meta")
-    tables = torch.zeros((B, nblk), dtype=torch.int32, device="meta")
-    lens = torch.zeros((B,), dtype=torch.int32, device="meta")
+    B, G, nblk = 2, 4, 4
     counts = [k.launches for k in ops.COUNTERS]
-    booked = {}
-    for design in ("cluster", "two_pass"):
+    for D, KV, tmap in ((120, 1, "paired"), (120, 3, "paired"), (112, 1, "per_head"),
+                        (128, 1, "per_head")):
+        assert ops.page_map(D, KV, 1) == tmap
+        q = torch.empty((B, KV, G, D), dtype=torch.bfloat16, device="meta")
+        pages = torch.empty((16, 16, KV, D), dtype=torch.float8_e4m3fn, device="meta")
+        tables = torch.zeros((B, nblk), dtype=torch.int32, device="meta")
+        lens = torch.zeros((B,), dtype=torch.int32, device="meta")
         with OpCounter() as c1:
-            ml, scores = ops.paged_attention_stats(q, pages, tables, lens, design=design)
+            ml, scores = ops.paged_attention_stats(q, pages, tables, lens)
+        gathered = torch.cat([ml, ml], dim=2)
         with OpCounter() as c2:
-            acc = ops.paged_attention_values(q, pages, pages, tables, lens,
-                                             torch.cat([ml, ml], dim=2), scores, design=design)
-        booked[design] = c1, c2
+            acc = ops.paged_attention_values(q, pages, pages, tables, lens, gathered, scores)
         assert ml.shape == (B, KV, 1, G, 2) and acc.shape == (B, KV, 1, G, D)
-        assert (scores is None) == (design == "two_pass")
+        assert scores.shape == (B, KV, nblk, G, 16)
+        keys = B * KV * nblk * 16
+        row = 128 if tmap == "paired" else D
+        assert c1.flops_by_op["paged_attention_stats"] == \
+            c2.flops_by_op["paged_attention_values"] == 2 * keys * G * D
+        small1 = sum(t.numel() * t.element_size() for t in (q, tables, lens, ml))
+        small2 = sum(t.numel() * t.element_size() for t in (q, tables, lens, gathered, acc))
+        # pass 1: k's box rows, the scores written; pass 2: v's, the scores read
+        assert c1.hbm_bytes_eager == keys * row + keys * G * 4 + small1
+        assert c2.hbm_bytes_eager == keys * row + keys * G * 4 + small2
+        strict = sum(scopes.strict_bytes(t) for t in (q, tables, lens, ml))
+        assert c1.hbm_bytes == keys * D * scopes.FLOAT_BYTES \
+            + keys * G * scopes.FLOAT_BYTES + strict
     assert [k.launches for k in ops.COUNTERS] == counts
-    keys = B * KV * nblk * 16
-    (s1, v1), (s0, v0) = booked["cluster"], booked["two_pass"]
-    assert s1.flops_by_op["paged_attention_stats"] == s0.flops_by_op["paged_attention_stats"] \
-        == 2 * keys * G * D
-    assert v1.flops_by_op["paged_attention_values"] * 2 == \
-        v0.flops_by_op["paged_attention_values"] == 4 * keys * G * D
-    assert s1.hbm_bytes - s0.hbm_bytes == keys * G * scopes.FLOAT_BYTES
-    # pass 2: the scores in place of k (the pages' bytes an element at
-    # FLOAT_BYTES strict), and no merge of partitions
-    merge = (B * KV * 2 * G * 2 + B * KV * G * 2) * scopes.FLOAT_BYTES   # ml read, (M, L)
-    assert v0.hbm_bytes - v1.hbm_bytes == \
-        keys * D * scopes.FLOAT_BYTES - keys * G * scopes.FLOAT_BYTES + merge

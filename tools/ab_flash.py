@@ -6,38 +6,47 @@ device time at the main paths' shapes.
     git archive <parent> | tar -x -C build/ab_parent
     python3 tools/ab_flash.py --tree parent=build/ab_parent --tree change=. \
         --order parent,change,change,parent,parent,change \
-        [--kernel flash|paged|cvt|upcast|split] [--sass-only]
+        [--kernel flash|paged|cvt|upcast|split|simt] [--sass-only]
 
 Each checkout builds its own library (``flash_attention``;
-``paged_attention`` with ``--kernel paged``; ``paged_attention_cvt``, K2
-over pages of another dtype than q, with ``--kernel cvt``;
-``paged_attention_upcast``, K2's upcast mode, with ``--kernel upcast``; in
-its ``src/repro_torch/build``); ``cuobjdump -sass`` lists its functions,
-and a line per instance (``flash_fwd_wgmma``; ``paged_split_mma``,
+``paged_attention`` with ``--kernel paged`` or ``simt``;
+``paged_attention_cvt``, K2 over pages of another dtype than q, with
+``--kernel cvt``; ``paged_attention_upcast``, K2's upcast mode, with
+``--kernel upcast``; in its ``src/repro_torch/build``); ``cuobjdump -sass``
+lists its functions, and a line per instance (``flash_fwd_wgmma``, or
+``flash_fwd_simt`` with ``--kernel simt``; ``paged_split_mma``,
 ``paged_split_simt`` and ``paged_merge``; ``paged_split_cvt``,
 ``stats_merge``, ``part_sum`` and ``paged_cluster_cvt``;
 ``paged_split_cvt``, ``cvt_merge`` and ``paged_cluster_upcast``) gives its
 instruction count and a hash of its instructions (addresses dropped), so
-two builds of the same device code hash alike. Then (unless
-``--sass-only``) one process per entry of ``--order`` times the kernel
-with ``chip_smoke.time_flash`` (the causal kernel),
-``chip_smoke.time_paged`` (bf16 and fp32 at llama3.2-3b's decode batch,
-bf16 at h2o-danube's and llama3-405b's) or ``chip_smoke.time_q8`` (the
-default mode over fp8 and int8 pages under a bf16 q at the four
-``chip_smoke.Q8_PAGED`` shapes and the long ones of ``chip_smoke.Q8_MORE``;
-the upcast mode over fp8 and int8 pages at ``chip_smoke.Q8_UPCAST`` and
-over fp32 pages at llama3.2-3b's batch, with SDPA's time on the
-pre-gathered upcast cache; each row naming the design that ran: a parent
-before a mode's cluster runs its two passes, or its split, there);
-``device_ms`` from a replayed CUDA graph. ``--kernel split``: the SASS of
-every library (K1's two, the same-dtype K2's, the cvt and upcast
-libraries', and ``paged_attention_split``'s ``paged_split_stats`` and
-``paged_split_values``, which a parent before it lacks), then ``chip_smoke.time_split_q8`` on each half
-of llama3.2-3b's and h2o-danube's decode batches and of the reasoning
-lengths at G 16 and G 8, fp8 and int8 pages: the sequence split's
-launches in both designs of the tree, in turns within the process (a
-tree without the split cluster design says so and times nothing). Lines
-also go to ``ab_flash.jsonl`` in the output directory (``OUT``).
+two builds of the same device code hash alike; a ``sass_summary`` line a
+library then says which of the first tree's instances hash alike in the
+second (the instances' names may differ where a template gained a
+parameter). Then (unless ``--sass-only``) one process per entry of
+``--order`` times the kernel with that checkout's own ``chip_smoke.py``:
+``time_flash`` (the causal kernel), ``time_paged`` (bf16 and fp32 at
+llama3.2-3b's decode batch, bf16 at h2o-danube's and llama3-405b's) or
+``time_q8`` (the default mode over fp8 and int8 pages under a bf16 q at the
+four ``Q8_PAGED`` shapes, the reasoning lengths of ``Q8_REASONING`` and
+h2o-danube's rows under one and three kv heads of ``ODD_KV``; the upcast
+mode over fp8 and int8 pages at the same shapes and over fp32 pages at
+llama3.2-3b's batch, with SDPA's time on the pre-gathered upcast cache;
+each row naming the design that ran: a tree before the map over token
+pairs runs its four-launch partition passes, or its upcast split, at
+``ODD_KV``); ``device_ms`` from
+a replayed CUDA graph. ``--kernel split``: the SASS of every library
+(K1's two, the same-dtype K2's, the cvt and upcast libraries', and
+``paged_attention_split``'s ``paged_split_stats`` and
+``paged_split_values``), then ``time_split_q8`` on each half of
+llama3.2-3b's and h2o-danube's decode batches, of the reasoning lengths at
+G 16 and G 8 and of ``ODD_KV``'s rows, fp8 and int8 pages: the sequence
+split's launches as the tree runs them (a tree before the map over token
+pairs: its partition passes at ``ODD_KV``). ``--kernel simt``: the fp32 SIMT instances, K1's causal
+``flash_fwd_simt`` at (1, 1000, 24, 8, 128) and K2's ``paged_split_simt``
+plus its merge at llama3.2-3b's decode batch (``time_flash``,
+``time_paged``: the bound at the fp32 rate, SDPA on the same fp32 tensors,
+K2's cache pre-gathered). Lines also go to ``ab_flash.jsonl`` in the
+output directory (``OUT``), which each call rewrites.
 """
 from __future__ import annotations
 
@@ -55,6 +64,10 @@ CUOBJDUMP = "/usr/local/cuda/bin/cuobjdump"
 # llama3.2-3b's longest prompt row, h2o-danube's windowed prompt, a ragged one
 CASES = [(1, 2048, 2048, 24, 8, 128, 0), (1, 5000, 5000, 32, 8, 120, 4096),
          (1, 1000, 1000, 24, 8, 128, 0)]
+# h2o-danube's rows at tp 8 (one kv head of 120 a rank, its window) and
+# under three kv heads: 8-bit rows whose token stride is no 16-byte multiple
+ODD_KV = [dict(B=16, KV=kv, G=4, D=120, min_ctx=4096, max_ctx=6400, window=4096)
+          for kv in (1, 3)]
 
 
 def emit(**kw):
@@ -77,6 +90,7 @@ KERNELS["split"] = [("flash_attention", ("flash_fwd",)),
                     *KERNELS["paged"],
                     *KERNELS["cvt"], *KERNELS["upcast"],
                     ("paged_attention_split", ("paged_split_stats", "paged_split_values"))]
+KERNELS["simt"] = [("flash_attention", ("flash_fwd_simt",)), *KERNELS["paged"]]
 
 
 def _import(tree: Path, kernel: str):
@@ -114,55 +128,64 @@ def sass(label: str, tree: Path, kernel: str):
                  sha1=hashlib.sha1("\n".join(ins).encode()).hexdigest()[:12])
 
 
+def sass_summary(labels):
+    """For each library, the first tree's instances whose instructions hash
+    alike among the second's, and those that do not."""
+    lines = [json.loads(ln) for ln in OUT.read_text().splitlines()]
+    rows = [r for r in lines if r.get("phase") == "sass"]
+    a, b = labels[:2]
+    for lib in sorted({r["library"] for r in rows}):
+        theirs = {r["sha1"] for r in rows if r["library"] == lib and r["tree"] == b}
+        mine = [r for r in rows if r["library"] == lib and r["tree"] == a]
+        emit(phase="sass_summary", library=lib, trees=[a, b], instances=len(mine),
+             same=sum(r["sha1"] in theirs for r in mine),
+             changed=[r["function"] for r in mine if r["sha1"] not in theirs])
+
+
+def _emit_q8(label, r):
+    emit(phase="timing", tree=label, **{k: r.get(k) for k in (
+        "shape", "window", "pages", "mode", "design", "ms", "device_ms", "bound_ms", "bound_by",
+        "plain_ms", "library_ms", "library_device_ms")})
+
+
 def timing(label: str, tree: Path, kernel: str):
     """The causal kernel's rows at ``CASES``, or K2's at ``chip_smoke``'s
-    shapes."""
-    sys.path.insert(0, str(ROOT))
+    shapes, by the tree's own ``chip_smoke``."""
+    sys.path.insert(0, str(tree.resolve()))
     import torch
 
     import chip_smoke as cs
     _import(tree, kernel)
     gen = torch.Generator(device="cuda").manual_seed(1)
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    if kernel == "simt":
+        r = cs.time_flash(flash_ops, (1, 1000, 1000, 24, 8, 128, 0), torch.float32, gen)
+        emit(phase="timing", tree=label, kernel="flash_attention", **r)
+        r = cs.time_paged(paged_ops, torch.float32, gen, cs.MAIN_PAGED)
+        emit(phase="timing", tree=label, kernel="paged_attention", **r)
+        return
     if kernel == "split":
-        from repro_torch.kernels.paged_attention import ops as paged_ops
-        if not hasattr(paged_ops, "split_design"):
-            emit(phase="timing", tree=label, note="no split cluster design in this tree")
-            return
-        for m in (cs.MAIN_PAGED, cs.DANUBE_PAGED, *cs.Q8_REASONING):
+        for m in (cs.MAIN_PAGED, cs.DANUBE_PAGED, *cs.Q8_REASONING, *ODD_KV):
             for pages in (torch.float8_e4m3fn, torch.int8):
                 for r in cs.time_split_q8(paged_ops, pages, gen, m):
                     emit(phase="timing", tree=label, **r)
         return
-    if kernel == "upcast":
-        from repro_torch.kernels.paged_attention import ops as paged_ops
-        for pages, m in [(p, m) for m in cs.Q8_UPCAST for p in (torch.float8_e4m3fn,
-                                                                torch.int8)] + [
-                (torch.float32, cs.MAIN_PAGED)]:
-            r = cs.time_q8(paged_ops, pages, True, gen, m)
-            emit(phase="timing", tree=label, shape=r["shape"], window=r["window"],
-                 pages=r["pages"], mode="upcast", design=r["design"], ms=r["ms"],
-                 device_ms=r["device_ms"], bound_ms=r["bound_ms"],
-                 plain_ms=r["plain_ms"], library_ms=r["library_ms"],
-                 library_device_ms=r["library_device_ms"])
-        return
-    if kernel == "cvt":
-        from repro_torch.kernels.paged_attention import ops as paged_ops
-        for m in cs.Q8_PAGED + [m for m, _ in cs.Q8_MORE]:
+    if kernel in ("cvt", "upcast"):
+        upcast = kernel == "upcast"
+        for m in (*cs.Q8_PAGED, *cs.Q8_REASONING, *ODD_KV):
             for pages in (torch.float8_e4m3fn, torch.int8):
-                r = cs.time_q8(paged_ops, pages, False, gen, m)
-                emit(phase="timing", tree=label, shape=r["shape"], window=r["window"],
-                     pages=r["pages"], design=r["design"], ms=r["ms"],
-                     device_ms=r["device_ms"], bound_ms=r["bound_ms"])
+                _emit_q8(label, cs.time_q8(paged_ops, pages, upcast, gen, m))
+        if upcast:
+            _emit_q8(label, cs.time_q8(paged_ops, torch.float32, True, gen, cs.MAIN_PAGED))
         return
     if kernel == "paged":
-        from repro_torch.kernels.paged_attention import ops as paged_ops
         for dtype, m in ((torch.bfloat16, cs.MAIN_PAGED), (torch.float32, cs.MAIN_PAGED),
                          (torch.bfloat16, cs.DANUBE_PAGED), (torch.bfloat16, cs.L405_PAGED)):
             r = cs.time_paged(paged_ops, dtype, gen, m)
             emit(phase="timing", tree=label, shape=r["shape"], window=r["window"],
                  dtype=r["dtype"], ms=r["ms"], device_ms=r["device_ms"])
         return
-    from repro_torch.kernels.flash_attention import ops as flash_ops
     for case in CASES:
         r = cs.time_flash(flash_ops, case, torch.bfloat16, gen)
         emit(phase="timing", tree=label, shape=r["shape"], window=r["window"],
@@ -184,12 +207,15 @@ def main():
         return
     trees = dict(t.split("=", 1) for t in args.tree)
     OUT.parent.mkdir(parents=True, exist_ok=True)
+    OUT.write_text("")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     emit(phase="device", nvidia_smi=smi.stdout.strip())
     for label, path in trees.items():
         subprocess.run([sys.executable, __file__, "--kernel", args.kernel, "--run",
                         "sass", label, path], check=True, cwd=ROOT)
+    if len(trees) > 1:
+        sass_summary(list(trees))
     for label in [] if args.sass_only else (args.order or ",".join(trees)).split(","):
         subprocess.run([sys.executable, __file__, "--kernel", args.kernel, "--run",
                         "timing", label, trees[label]], check=True, cwd=ROOT)
