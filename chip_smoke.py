@@ -7,7 +7,9 @@ Phases, each printed as one JSON line:
   1. the card (nvidia-smi name and power limit, torch and CUDA versions),
      then the build of the CUDA libraries from ``src/repro_torch/csrc``;
   2. each kernel against its plain PyTorch version on the card, fp32 and
-     bf16, on the kernel test cases, the edges of each kernel's tiling and
+     bf16, on the kernel test cases, the edges of each kernel's tiling (K1's
+     fp32 instance: 64-row q and 64-key tiles ragged, a window edge and lens
+     inside a tile, lens 0) and
      the main paths' shapes (llama3.2-3b's G=3, phi3.5-moe's G=4, qwen3's
      G=5, kimi-k2's D=112, h2o-danube's D=120 with its window of 4096,
      llama3-405b's G=16, zamba2's D=80 at G=1, musicgen's D=64 at G=1 over
@@ -49,7 +51,10 @@ Phases, each printed as one JSON line:
      and the upcast mode there (its yardstick SDPA on the upcast cache);
      the sequence split's launches on each half of the reasoning lengths
      at G 16 and of h2o-danube's one kv head a rank over fp8 pages, its
-     two cluster passes and the sum;
+     two cluster passes and the sum; K1's fp32 instance at llama3.2-3b's
+     heads (S 1000 and 2048, and S 1000 non-causal), zamba2's and the swa
+     equality run's 4200-token prompt under the window, SDPA's fp32 path
+     beside it;
   4. greedy tokens of a full-width 2-layer fp32 model served on the card
      equal those of the plain path on the CPU, with and without preemption;
   5. the main path: full-depth llama3.2-3b in bf16 serving 16 requests
@@ -243,7 +248,8 @@ Phases, each printed as one JSON line:
      decode; ``levers/<lever>`` the levers phase's; K2 over fp8 and over
      int8 pages with their upcast mode, each also through the map over
      token pairs (``danube_tp8``'s); K2's 8-bit sequence split, its two
-     passes and sum from ``split_reasoning``), then the card line,
+     passes and sum from ``split_reasoning``; K1's fp32 instance with its
+     launches on the fp32 paths and its timed rows), then the card line,
      then as the last line ``{"ok": true, "device": {...}}``.
 For the run's time, every main path but llama3.2-3b's serves
 half of its requests' output tokens, the sharded ones a quarter
@@ -299,6 +305,14 @@ FLASH_CASES = [
     (1, 300, 300, 4, 2, 120, 130),           # D 120, window
     (2, 300, 300, 4, 2, 80, 0),              # D 80, G 2, lens (300, 150)
     (1, 333, 333, 4, 4, 80, 100, [250]),     # D 80, MHA, window, lens < Skv
+    # edges of the fp32 instance (64-row q tiles, 64-key tiles; v rows of
+    # D rounded up to 16, a lane's columns in pieces of 4, 2 and 1)
+    (1, 65, 65, 4, 2, 128, 0),               # one row and one key past a tile
+    (2, 191, 191, 8, 2, 120, 0),             # ragged, D 120, lens (191, 95) mid-tile
+    (1, 250, 250, 4, 4, 112, 40, [201]),     # window edge inside a tile, D 112
+    (1, 129, 129, 6, 3, 80, 0, [0]),         # lens 0: zeros, D 80
+    (2, 64, 64, 4, 2, 32, 0, [64, 0]),       # one whole tile, lens 0, D 32
+    (1, 200, 200, 8, 2, 128, 63, [170]),     # window 63, lens mid-tile
 ]
 PAGED_CASES = [
     # B, KV, G, D, page, P, nblk[, tokens of each sequence]
@@ -376,10 +390,24 @@ NONCAUSAL_FLASH = [
     (1, 257, 400, 4, 2, 128, 100, [390], 0.1),
     (1, 1000, 1000, 24, 8, 128, 0, [1000], 128 ** -0.5),
     (1, 500, 2000, 24, 8, 128, 0, [2000], 128 ** -0.5),
+    # edges of the fp32 instance's 64-row and 64-key tiles
+    (1, 65, 129, 4, 2, 128, 0, [100], 0.1),          # ragged q, lens mid-tile
+    (2, 191, 200, 8, 2, 120, 40, [200, 77], 0.08),   # window edge inside a tile
+    (1, 64, 64, 4, 4, 112, 0, [0], 0.125),           # lens 0: zeros
+    (2, 130, 65, 4, 1, 80, 0, [65, 1], 0.2),         # one key past a tile, lens 1
 ]
 # its timing rows: llama3.2-3b's heads at S 1000, and queries of 500 over
 # 2,000 keys
 NONCAUSAL_TIMED = [(1, 1000, 1000, 24, 8, 128, 0), (1, 500, 2000, 24, 8, 128, 0)]
+# K1's fp32 instance (the fp32 equality runs' and levers' prefills):
+# llama3.2-3b's heads at S 1000 and 2048, zamba2's, the swa equality run's
+# 4200-token prompt under h2o-danube's window, and S 1000 non-causal;
+# (case, causal)
+FP32_FLASH_TIMED = [((1, 1000, 1000, 24, 8, 128, 0), True),
+                    ((1, 2048, 2048, 24, 8, 128, 0), True),
+                    ((1, 1000, 1000, 32, 32, 80, 0), True),
+                    ((1, 4200, 4200, 32, 8, 120, DANUBE_WINDOW), True),
+                    ((1, 1000, 1000, 24, 8, 128, 0), False)]
 TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 # limit on |out - ref|_2 / |ref|_2 over a whole output: bf16 roundings of
 # q*scale, P and out give about 3e-3, while a dropped key tile or sequence
@@ -647,6 +675,7 @@ def check_kernels(flash_ops, paged_ops):
     errs = {"flash_attention": [], "paged_attention": []}
     rels = {"flash_attention": [], "paged_attention": []}
     noncausal = []
+    fp32_flash = []   # K1's fp32 instance, causal and not
     for dtype in (torch.float32, torch.bfloat16):
         for case in (FLASH_CASES + MAIN_FLASH + RAGGED_FLASH + PHI_FLASH
                      + GQA_FLASH + ZAMBA_FLASH + VLM_AUDIO_FLASH + RANK_FLASH
@@ -657,6 +686,8 @@ def check_kernels(flash_ops, paged_ops):
                 (q, k, v, lens), {"window": window}, dtype)
             errs["flash_attention"].append(err)
             rels["flash_attention"].append(rel)
+            if dtype == torch.float32:
+                fp32_flash.append(err)
         for B, Sq, Skv, H, KV, D, window, lens, scale in NONCAUSAL_FLASH:
             q, k, v, lt, _ = flash_inputs((B, Sq, Skv, H, KV, D, window, lens), dtype, gen)
             count = flash_ops.NONCAUSAL.launches
@@ -670,6 +701,8 @@ def check_kernels(flash_ops, paged_ops):
             errs["flash_attention"].append(err)
             rels["flash_attention"].append(rel)
             noncausal.append(err)
+            if dtype == torch.float32:
+                fp32_flash.append(err)
         cases = [paged_case_inputs(c, dtype, gen) for c in PAGED_CASES]
         mains = [(*paged_main_inputs(dtype, gen, m), m.get("window", 0))
                  for m in (MAIN_PAGED, LONG_PAGED, PHI_PAGED, *GQA_PAGED,
@@ -694,8 +727,11 @@ def check_kernels(flash_ops, paged_ops):
              rel_rms=[float(f"{x:.3g}") for x in rels[name]])
     emit("check", kernel="flash_attention", mode="causal=False",
          cases=len(noncausal), max_abs_err=max(noncausal))
+    emit("check", kernel="flash_attention", dtype="float32", cases=len(fp32_flash),
+         max_abs_err=max(fp32_flash))
     return {name: max(e) for name, e in errs.items()} | {
-        "flash_attention causal=False": max(noncausal)}
+        "flash_attention causal=False": max(noncausal),
+        "flash_attention float32": max(fp32_flash)}
 
 
 def time_ms(fn, iters, warmup=3):
@@ -4477,6 +4513,11 @@ def main():
                       for c in NONCAUSAL_TIMED]
     for row in noncausal_rows:
         emit("timing", kernel="flash_attention", **row)
+    # K1's fp32 instance at the fp32 runs' prompts, SDPA's fp32 path beside
+    fp32_rows = [time_flash(flash_ops, c, torch.float32, gen, causal=causal)
+                 for c, causal in FP32_FLASH_TIMED]
+    for row in fp32_rows:
+        emit("timing", kernel="flash_attention", **row)
     # no phase after this one calls the non-causal mode (the main paths'
     # prefills are causal): its count here must stay 0 to the end
     flash_ops.NONCAUSAL.launches = 0
@@ -4654,6 +4695,21 @@ def main():
         **{k: row[k] for k in ("shape", "ms", "device_ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms", "library_device_ms")}}
         for row in noncausal_rows]
+    # K1's fp32 instance: its launches on the fp32 paths (the equality runs
+    # and levers), its rows at ``FP32_FLASH_TIMED`` (the first is the entry's)
+    fp32_keys = ("shape", "causal", "window", "ms", "device_ms", "host_ms", "plain_ms",
+                 "bound_ms", "bound_by", "library_ms", "library_device_ms")
+    fp32_by_path = {m: n["flash_attention"] for m, n in fp32_paths.items()
+                    if n.get("flash_attention")}
+    kernels.insert(1, {
+        "name": "flash_attention fp32 (flash_fwd_simt)", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cuh",
+        "library": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": replaces["flash_attention"],
+        "launches": sum(fp32_by_path.values()), "launches_by_path": fp32_by_path,
+        "max_abs_err": max_err["flash_attention float32"],
+        **{k: fp32_rows[0][k] for k in fp32_keys}, "kernel_ms": fp32_rows[0]["ms"],
+        "dtype": "float32", "shapes": [{k: r[k] for k in fp32_keys} for r in fp32_rows]})
     # K2 over pages of another dtype, the default mode's cluster (the main
     # paths' fp8 and int8 caches under bf16 weights, at every length), with
     # its rows at the four shapes and the long ones, and its instances of

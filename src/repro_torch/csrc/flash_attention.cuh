@@ -20,159 +20,291 @@ using namespace repro_torch;
 namespace hw = repro_torch::hopper;
 
 // ------------------------------------------------------------ fp32 (SIMT)
-constexpr int BQ = 64;        // q rows per block
-constexpr int BK = 64;        // keys per staged tile
-constexpr int THREADS = 256;  // 16 row groups x 16 lanes
+// One block of four warps per (64-row q tile, q head, batch row). Thread t
+// owns q rows rg + 8i (i < 8, row group rg = t / 16); in S = Q K^T it
+// computes keys kl + 16j (j < 4, lane kl = t % 16) of each 64-key tile, in
+// O += P V the columns of its lane (SimtTile::NC of them). A row group's 16
+// lanes are half a warp, so a row's max and sum are shuffles.
+constexpr int SM_BQ = 64;         // q rows per block
+constexpr int SM_BK = 64;         // keys per k/v tile
+constexpr int SM_THREADS = 128;   // 8 row groups x 16 lanes
+constexpr int SM_CE = 32;         // fp32 columns of one 128-byte swizzle row
 
+// Shared-memory geometry of one head dim. q and k are NCB column blocks of
+// 64 rows x 32 fp32, each row 128 bytes in TMA's 128-byte swizzle (16-byte
+// chunk c of row r at chunk c ^ (r % 8); columns past D zero-filled); v is
+// 64 dense rows of DP fp32, D rounded up to 16 (the pad zero-filled); P is
+// 64 keys x 64 rows, row rg + 8i at column 8 rg + i, chunk c of key r at
+// chunk c ^ 2 (r % 4).
 template <int D>
-constexpr size_t simt_smem_bytes() {
-  return sizeof(float) * (size_t)(BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1));
+struct SimtTile {
+  static constexpr int NCB = (D + SM_CE - 1) / SM_CE;
+  static constexpr int BLOCK = SM_BQ * SM_CE * 4;   // bytes of a q or k column block
+  static constexpr int QK_BYTES = NCB * BLOCK;      // a q or k tile
+  static constexpr int DP = (D + 15) / 16 * 16;
+  static constexpr int V_BYTES = SM_BK * DP * 4;
+  static constexpr int P_BYTES = SM_BK * SM_BQ * 4;
+  static constexpr int DATA = 2 * QK_BYTES + V_BYTES + P_BYTES;
+  // 1024 bytes of slack to align q and k to the swizzle pattern's period
+  // (115,712 bytes at D 128: two blocks an SM); the three mbarriers take
+  // 32 bytes of the slack, or follow the data where the slack is smaller
+  static constexpr size_t SMEM = DATA + 1024;
+  // a lane's output columns, in pieces of 4 (64 apart), then 2, then 1
+  static constexpr int NC = DP / 16;
+  static constexpr int N4 = NC / 4;
+  static constexpr int N2 = NC % 4 / 2;
+  static constexpr int N1 = NC % 2;
+};
+static_assert(SM_BQ == SM_BK, "q and k tiles share their column blocks' geometry");
+
+// S += Q K^T over one chunk of 4 columns: the thread's q rows at q + 1024 i,
+// its keys at k + 2048 j (each address already swizzled).
+__device__ __forceinline__ void qk_chunk(float (&s)[8][4], const uint8_t* q, const uint8_t* k) {
+  float4 kv[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) kv[j] = *reinterpret_cast<const float4*>(k + 2048 * j);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float4 qv = *reinterpret_cast<const float4*>(q + 1024 * i);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
+      s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
+      s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
+      s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
+    }
+  }
+}
+
+// Lane kl's columns of one v row.
+template <int D>
+__device__ __forceinline__ void load_v(float (&v)[SimtTile<D>::NC], const float* row, int kl) {
+  using T = SimtTile<D>;
+#pragma unroll
+  for (int p = 0; p < T::N4; ++p) {
+    const float4 x = *reinterpret_cast<const float4*>(row + 64 * p + 4 * kl);
+    v[4 * p] = x.x;
+    v[4 * p + 1] = x.y;
+    v[4 * p + 2] = x.z;
+    v[4 * p + 3] = x.w;
+  }
+  if constexpr (T::N2 != 0) {
+    const float2 x = *reinterpret_cast<const float2*>(row + 64 * T::N4 + 2 * kl);
+    v[4 * T::N4] = x.x;
+    v[4 * T::N4 + 1] = x.y;
+  }
+  if constexpr (T::N1 != 0) v[4 * T::N4 + 2 * T::N2] = row[64 * T::N4 + 32 * T::N2 + kl];
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const int* __restrict__ lens,
+__global__ void __launch_bounds__(SM_THREADS, 2)
+flash_fwd_simt(const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ lens,
                float* __restrict__ out, int Sq, int Skv, int H, int KV, int window,
                float scale) {
-  constexpr int LD = D + 1;   // padded row of the q/k/v tiles
-  constexpr int LP = BK + 1;  // padded row of the probability tile
-  constexpr int DC = (D + 15) / 16;  // output columns per thread (past D: none)
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* Ps = Vs + BK * LD;
+  using T = SimtTile<D>;
+  constexpr int NC = T::NC;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t slack = (1024 - (hw::smem_addr(smem_raw) & 1023)) & 1023;
+  uint8_t* Qs = smem_raw + slack;
+  uint8_t* Ks = Qs + T::QK_BYTES;
+  float* Vs = reinterpret_cast<float*>(Ks + T::QK_BYTES);
+  float* Ps = reinterpret_cast<float*>(Ks + T::QK_BYTES + T::V_BYTES);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(slack >= 32 ? smem_raw : Qs + T::DATA);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 2;
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;    // key and output-column lane
-  const int ty = tid >> 4;    // row group: rows 4*ty .. 4*ty+3
-  const int q_start = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int kl = tid & 15;
+  const int rg = tid >> 4;
+  const int h = blockIdx.x % H;
+  const int b = blockIdx.x / H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * SM_BQ;  // the heaviest q tiles first
   const int kvh = h / (H / KV);
-
   const int len_b = min(lens[b], Skv);
-  const int q_end = min(q_start + BQ, Sq);
 #if FLASH_CAUSAL
-  const int k_end = min(len_b, q_end);  // causal: no key past the last row
+  const int k_end = min(len_b, min(q0 + SM_BQ, Sq));  // causal: no key past the last row
 #else
   const int k_end = len_b;
 #endif
-  int k_begin = window > 0 ? max(0, q_start - window + 1) : 0;
-  k_begin = (k_begin / BK) * BK;
+  int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  k_begin = (k_begin / SM_BK) * SM_BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + SM_BK - 1) / SM_BK : 0;
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    const int qp = q_start + r;
-    Qs[r * LD + d] = qp < Sq ? q[(((size_t)b * Sq + qp) * H + h) * D + d] * scale : 0.f;
-  }
-
-  float m[4], l[4], acc[4][DC];
+  float acc[8][NC], m[8], l[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 8; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
 
-  for (int k_start = k_begin; k_start < k_end; k_start += BK) {
-    __syncthreads();  // the previous tile is consumed and the q tile written
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int c = i / D, d = i % D;
-      const int kp = k_start + c;
-      float kx = 0.f, vx = 0.f;
-      if (kp < Skv) {
-        const size_t off = (((size_t)b * Skv + kp) * KV + kvh) * D + d;
-        kx = k[off];
-        vx = v[off];
-      }
-      Ks[c * LD + d] = kx;
-      Vs[c * LD + d] = vx;
+  if (n_tiles > 0) {  // else every row writes 0
+    if (tid == 0) {
+      hw::mbar_init(q_full, 1);
+      hw::mbar_init(k_full, 1);
+      hw::mbar_init(v_full, 1);
+      hw::mbar_fence_init();
+      hw::mbar_arrive_expect_tx(q_full, T::QK_BYTES);
+      for (int c = 0; c < T::NCB; ++c)
+        hw::tma_load_4d(Qs + c * T::BLOCK, &tm_q, q_full, c * SM_CE, h, q0, b);
+      hw::mbar_arrive_expect_tx(k_full, T::QK_BYTES);
+      for (int c = 0; c < T::NCB; ++c)
+        hw::tma_load_4d(Ks + c * T::BLOCK, &tm_k, k_full, c * SM_CE, kvh, k_begin, b);
+      hw::mbar_arrive_expect_tx(v_full, T::V_BYTES);
+      hw::tma_load_4d(Vs, &tm_v, v_full, 0, kvh, k_begin, b);
+    }
+    __syncthreads();  // the barriers are initialised
+
+    // scale the q tile in place, once (an elementwise pass: layout-free)
+    hw::mbar_wait(q_full, 0);
+    for (int i = tid; i < T::QK_BYTES / 16; i += SM_THREADS) {
+      float4* x = reinterpret_cast<float4*>(Qs) + i;
+      const float4 y = *x;
+      *x = make_float4(y.x * scale, y.y * scale, y.z * scale, y.w * scale);
     }
     __syncthreads();
 
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(4 * ty + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
+    // row rg of a q column block and key row kl of a k column block, each
+    // with its swizzle phase in bits 4-6: chunk c is at off ^ (c << 4)
+    const int q_off = rg * 128 + (rg << 4);
+    const int k_off = kl * 128 + ((kl & 7) << 4);
+    // P: the thread's rows at chunks 2 rg, 2 rg + 1 of its keys' rows
+    float* p_write = Ps + ((2 * rg) ^ (2 * (kl & 3))) * 4 + kl * SM_BQ;
 
-    // online softmax; a row's 64 scores lie in the 16 lanes of one half-warp
+    for (int j = 0; j < n_tiles; ++j) {
+      const int k0 = k_begin + j * SM_BK;
+      const uint32_t parity = j & 1;
+      hw::mbar_wait(k_full, parity);
+
+      float s[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q_start + 4 * ty + i;
-      bool valid[4];
-      float mx = NEG_INF;
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k_start + tx + 16 * j;
+        for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
+#pragma unroll 1
+      for (int cb = 0; cb < D / SM_CE; ++cb) {
+        const uint8_t* qb = Qs + cb * T::BLOCK;
+        const uint8_t* kb = Ks + cb * T::BLOCK;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) qk_chunk(s, qb + (q_off ^ (c << 4)), kb + (k_off ^ (c << 4)));
+      }
+      if constexpr (D % SM_CE != 0) {  // the last column block's D % 32 columns
+        const uint8_t* qb = Qs + (D / SM_CE) * T::BLOCK;
+        const uint8_t* kb = Ks + (D / SM_CE) * T::BLOCK;
+#pragma unroll
+        for (int c = 0; c < D % SM_CE / 4; ++c)
+          qk_chunk(s, qb + (q_off ^ (c << 4)), kb + (k_off ^ (c << 4)));
+      }
+
+      // online softmax; s[i][jj]: row q0 + rg + 8i, key k0 + kl + 16jj
 #if FLASH_CAUSAL
-        valid[j] = kp < len_b && kp <= qp && (window <= 0 || kp > qp - window);
+      const bool need_mask = k0 + SM_BK - 1 > q0 || k0 + SM_BK > len_b ||
+                             (window > 0 && k0 <= q0 + SM_BQ - 1 - window);
 #else
-        valid[j] = kp < len_b && (window <= 0 || kp > qp - window);
+      const bool need_mask = k0 + SM_BK > len_b || (window > 0 && k0 <= q0 + SM_BQ - 1 - window);
 #endif
-        if (!valid[j]) s[i][j] = NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
+      if (need_mask) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int row = q0 + rg + 8 * i;
+            const int key = k0 + kl + 16 * jj;
+#if FLASH_CAUSAL
+            const bool valid = key < len_b && key <= row && (window <= 0 || key > row - window);
+#else
+            const bool valid = key < len_b && (window <= 0 || key > row - window);
+#endif
+            if (!valid) s[i][jj] = NEG_INF;
+          }
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
+      for (int i = 0; i < 8; ++i) {
+        float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = valid[j] ? expf(s[i][j] - m_new) : 0.f;
-        rs += p;
-        Ps[(4 * ty + i) * LP + tx + 16 * j] = p;
+        for (int off = 8; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m[i], mx);
+        const float alpha = expf(m[i] - m_new);
+        float rs = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float p = (need_mask && s[i][jj] == NEG_INF) ? 0.f : expf(s[i][jj] - m_new);
+          s[i][jj] = p;
+          rs += p;
+        }
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1)
+          rs += __shfl_xor_sync(0xffffffffu, rs, off);
+        l[i] = l[i] * alpha + rs;
+        m[i] = m_new;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DC; ++j) acc[i][j] *= alpha;
-    }
-    __syncwarp();  // a row group's probabilities were written by its own warp
+      for (int jj = 0; jj < 4; ++jj) {
+        float* pk = p_write + 16 * jj * SM_BQ;
+        *reinterpret_cast<float4*>(pk) = make_float4(s[0][jj], s[1][jj], s[2][jj], s[3][jj]);
+        *reinterpret_cast<float4*>(pk + 4) = make_float4(s[4][jj], s[5][jj], s[6][jj], s[7][jj]);
+      }
+      __syncthreads();  // P is written; every thread is done with the k tile
+      if (tid == 0 && j + 1 < n_tiles) {
+        hw::mbar_arrive_expect_tx(k_full, T::QK_BYTES);
+        for (int c = 0; c < T::NCB; ++c)
+          hw::tma_load_4d(Ks + c * T::BLOCK, &tm_k, k_full, c * SM_CE, kvh, k0 + SM_BK, b);
+      }
 
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float vv[DC];
+      // O += P V over the tile's keys, 8 at a time, up to the last that
+      // counts for any row of the block
+      hw::mbar_wait(v_full, parity);
+      const int n8 = min(SM_BK / 8, (k_end - k0 + 7) / 8);
+#pragma unroll 1
+      for (int g = 0; g < n8; ++g) {
 #pragma unroll
-      for (int j = 0; j < DC; ++j)
-        vv[j] = D % 16 == 0 || tx + 16 * j < D ? Vs[c * LD + tx + 16 * j] : 0.f;
+        for (int u = 0; u < 8; ++u) {
+          const int key = 8 * g + u;
+          const float* pk = Ps + key * SM_BQ + ((2 * rg) ^ (2 * (u & 3))) * 4;
+          const float4 pa = *reinterpret_cast<const float4*>(pk);
+          const float4 pb = *reinterpret_cast<const float4*>(pk + 4);
+          const float p[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+          float v[NC];
+          load_v<D>(v, Vs + key * T::DP, kl);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = Ps[(4 * ty + i) * LP + c];
+          for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
+            for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(p[i], v[c], acc[i][c]);
+        }
+      }
+      __syncthreads();  // every thread is done with P and the v tile
+      if (tid == 0 && j + 1 < n_tiles) {
+        hw::mbar_arrive_expect_tx(v_full, T::V_BYTES);
+        hw::tma_load_4d(Vs, &tm_v, v_full, 0, kvh, k0 + SM_BK, b);
       }
     }
   }
 
+  // the lane's columns of rows q0 + rg + 8i; those past D (D 120's pad) unstored
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q_start + 4 * ty + i;
-    if (qp >= Sq) continue;
-    float* o = out + (((size_t)b * Sq + qp) * H + h) * D;
+  for (int i = 0; i < 8; ++i) {
+    const int row = q0 + rg + 8 * i;
+    if (row >= Sq) continue;
+    float o[NC];
 #pragma unroll
-    for (int j = 0; j < DC; ++j)
-      if (D % 16 == 0 || tx + 16 * j < D) o[tx + 16 * j] = l[i] > 0.f ? acc[i][j] / l[i] : 0.f;
+    for (int c = 0; c < NC; ++c) o[c] = l[i] > 0.f ? acc[i][c] / l[i] : 0.f;
+    float* dst = out + (((size_t)b * Sq + row) * H + h) * D;
+#pragma unroll
+    for (int p = 0; p < T::N4; ++p)
+      if (64 * p + 4 * kl < D)
+        *reinterpret_cast<float4*>(dst + 64 * p + 4 * kl) =
+            make_float4(o[4 * p], o[4 * p + 1], o[4 * p + 2], o[4 * p + 3]);
+    if constexpr (T::N2 != 0)
+      *reinterpret_cast<float2*>(dst + 64 * T::N4 + 2 * kl) =
+          make_float2(o[4 * T::N4], o[4 * T::N4 + 1]);
+    if constexpr (T::N1 != 0) dst[64 * T::N4 + 32 * T::N2 + kl] = o[4 * T::N4 + 2 * T::N2];
   }
 }
 
@@ -180,19 +312,37 @@ template <int D>
 cudaError_t launch_simt(const void* q, const void* k, const void* v, const void* lens,
                         void* out, int B, int Sq, int Skv, int H, int KV, int window,
                         float scale, cudaStream_t stream) {
-  constexpr size_t smem = simt_smem_bytes<D>();
-  static bool attr_set = false;  // the opt-in above 48 KB, once per instance
+  using T = SimtTile<D>;
+  static bool attr_set = false;  // the opt-in above 48 KB and the carveout, once per instance
   if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_simt<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_simt<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_fwd_simt<D>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_simt<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(lens),
-      static_cast<float*>(out), Sq, Skv, H, KV, window, scale);
+  // fp32 rows of D x 4 bytes (128-512: multiples of 16); q and k in 32-column
+  // boxes of 64 rows under the 128-byte swizzle, v in one dense box of DP
+  const uint64_t dq[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)Sq, (uint64_t)B};
+  const uint64_t dk[4] = {(uint64_t)D, (uint64_t)KV, (uint64_t)Skv, (uint64_t)B};
+  const uint64_t sq[3] = {dq[0] * 4, dq[0] * dq[1] * 4, dq[0] * dq[1] * dq[2] * 4};
+  const uint64_t sk[3] = {dk[0] * 4, dk[0] * dk[1] * 4, dk[0] * dk[1] * dk[2] * 4};
+  const uint32_t box_qk[4] = {SM_CE, 1, SM_BQ, 1};
+  const uint32_t box_v[4] = {T::DP, 1, SM_BK, 1};
+  CUtensorMap tq, tk, tv;
+  cudaError_t e = hw::make_tmap_4d(&tq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, q, dq, sq, box_qk, 128);
+  if (e == cudaSuccess)
+    e = hw::make_tmap_4d(&tk, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, k, dk, sk, box_qk, 128);
+  if (e == cudaSuccess)
+    e = hw::make_tmap_4d(&tv, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, v, dk, sk, box_v, 0);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(H * B, (Sq + SM_BQ - 1) / SM_BQ);
+  flash_fwd_simt<D><<<grid, SM_THREADS, T::SMEM, stream>>>(
+      tq, tk, tv, static_cast<const int*>(lens), static_cast<float*>(out), Sq, Skv, H, KV,
+      window, scale);
   return cudaGetLastError();
 }
 
@@ -517,19 +667,18 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = fp32 (SIMT kernel), 1 = bf16 (wgmma kernel; q, k, v 16-byte
-// aligned). Returns cudaGetLastError() after the launch.
+// dtype: 0 = fp32 (SIMT kernel), 1 = bf16 (wgmma kernel); both read q, k
+// and v through TMA, so their bases are 16-byte aligned. Returns
+// cudaGetLastError() after the launch.
 extern "C" int FLASH_ENTRY(const void* q, const void* k, const void* v, const void* lens,
                            void* out, int B, int Sq, int Skv, int H, int KV, int D,
                            int window, float scale, int dtype, void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return 0;
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Skv == 0)  // no key: every row writes 0 (a tensor map needs a non-empty extent)
+    return cudaMemsetAsync(out, 0, (size_t)B * Sq * H * D * (dtype == 0 ? 4 : 2), s);
   if (dtype == 0)
     return dispatch_d<false>(D, q, k, v, lens, out, B, Sq, Skv, H, KV, window, scale, s);
-  if (dtype == 1) {
-    if (Skv == 0)  // no key: every row writes 0 (a tensor map needs a non-empty extent)
-      return cudaMemsetAsync(out, 0, (size_t)B * Sq * H * D * 2, s);
-    return dispatch_d<true>(D, q, k, v, lens, out, B, Sq, Skv, H, KV, window, scale, s);
-  }
-  return cudaErrorInvalidValue;
+  return dispatch_d<true>(D, q, k, v, lens, out, B, Sq, Skv, H, KV, window, scale, s);
 }

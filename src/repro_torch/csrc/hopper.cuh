@@ -151,7 +151,8 @@ inline cudaError_t make_tmap_bf16_4d(CUtensorMap* map, const void* base, uint64_
 
 // A tensor map of `type` over a 4-d array of dims (d0 innermost .. d3) and
 // byte strides of dims 1..3 (multiples of 16), read in boxes `box`, with
-// the given swizzle; elements outside the array read as zeros. The 8-bit
+// the given swizzle (128, 64 or 32 bytes; 0: none, the box's rows stored
+// densely); elements outside the array read as zeros. The 8-bit
 // pages of paged_cluster.cuh take CU_TENSOR_MAP_DATA_TYPE_UINT8. A box's
 // innermost start must lie on a 16-byte boundary: a copy from another
 // start faults (an illegal instruction on the card).
@@ -166,7 +167,8 @@ inline cudaError_t make_tmap_4d(CUtensorMap* map, CUtensorMapDataType type, cons
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle sw = swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                 : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
+                                : swizzle_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                      : CU_TENSOR_MAP_SWIZZLE_NONE;
   const CUresult r = encode(map, type, 4, const_cast<void*>(base), d, s, b, elem_strides,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

@@ -3,8 +3,10 @@
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. bf16 runs on the tensor-core (wgmma) instance, fp32 on the SIMT
-instance; the dtype alone chooses. Head dims 80, 112 and 120 run the
-bf16 instance on the 128 geometry, their pad columns zero-filled by TMA.
+instance (fp32 FMAs on the FP32 pipes); the dtype alone chooses. Both read
+q, k and v through TMA tensor maps, so their bases must be 16-byte
+aligned. Head dims 80, 112 and 120 run the bf16 instance on the 128
+geometry, their pad columns zero-filled by TMA.
 ``causal`` picks the causal kernels (``csrc/flash_attention.cu``) or the
 non-causal ones (``csrc/flash_attention_noncausal.cu``, the same source
 compiled with the other mask into a library of its own), ``scale`` the
@@ -116,8 +118,7 @@ def _check(q, k, v, lens):
             raise ValueError(f"flash_attention: {name} on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} is not contiguous")
-    if q.dtype == torch.bfloat16:
-        # the wgmma instance reads q, k and v through TMA tensor maps
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"flash_attention: bf16 {name} is not 16-byte aligned")
+    # both instances read q, k and v through TMA tensor maps
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} ({t.dtype}) is not 16-byte aligned")

@@ -57,6 +57,14 @@ FLASH_CASES = [
     (1, 456, 456, 64, 8, 128, 0, 0, 0),        # internvl2 prefix + text
     # one rank of zamba2-2.7b's shared block at tp 2: 16 q / 16 kv heads of 80
     (1, 1000, 1000, 16, 16, 80, 0, 0, 0),
+    # edges of the fp32 instance (64-row q tiles, 64-key tiles; v rows of
+    # D rounded up to 16, a lane's columns in pieces of 4, 2 and 1)
+    (1, 65, 65, 4, 2, 128, 0, 0, 0),           # one row and one key past a tile
+    (2, 191, 191, 8, 2, 120, 0, 0, 0),         # ragged, D 120, lens (191, 95) mid-tile
+    (1, 250, 250, 4, 4, 112, 40, 0, 0, [201]),  # window edge inside a tile, D 112
+    (1, 129, 129, 6, 3, 80, 0, 0, 0, [0]),     # lens 0: zeros, D 80
+    (2, 64, 64, 4, 2, 32, 0, 0, 0, [64, 0]),   # one whole tile, lens 0, D 32
+    (1, 200, 200, 8, 2, 128, 63, 0, 0, [170]),  # window 63, lens mid-tile
 ]
 PAGED_CASES = [
     # B, KV, G, D, page, P, nblk[, tokens of each sequence[, window]]
@@ -178,6 +186,11 @@ NONCAUSAL_CASES = [
     (1, 64, 1000, 24, 8, 128, 0, [1000], 128 ** -0.5),
     (1, 1000, 1000, 24, 8, 128, 0, [1000], 128 ** -0.5),
     (2, 130, 130, 2, 2, 64, 0, [0, 65], 0.125),    # no valid key: zeros
+    # edges of the fp32 instance's 64-row and 64-key tiles
+    (1, 65, 129, 4, 2, 128, 0, [100], 0.1),          # ragged q, lens mid-tile
+    (2, 191, 200, 8, 2, 120, 40, [200, 77], 0.08),   # window edge inside a tile
+    (1, 64, 64, 4, 4, 112, 0, [0], 0.125),           # lens 0: zeros
+    (2, 130, 65, 4, 1, 80, 0, [65, 1], 0.2),         # one key past a tile, lens 1
 ]
 
 
@@ -247,13 +260,16 @@ def test_flash_refuses_head_dims_without_an_instance(cuda, D):
 
 
 @pytest.mark.gpu
-def test_flash_bf16_misaligned_raises(cuda):
-    """The bf16 instance reads through TMA, which needs 16-byte aligned
-    bases: the wrapper refuses a q that starts 2 bytes into its storage."""
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_bf16_misaligned_raises(cuda, dtype):
+    """Both instances (bf16 and, since its TMA design, fp32) read through
+    TMA, which needs 16-byte aligned bases: the wrapper refuses a q that
+    starts one element (2 or 4 bytes) into its storage."""
+    tdt = DTYPES[dtype][0]
     shape = (1, 64, 2, 64)
     n = int(np.prod(shape))
-    q = torch.zeros(n + 1, dtype=torch.bfloat16, device=cuda)[1:].view(shape)
-    k = torch.zeros(shape, dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros(n + 1, dtype=tdt, device=cuda)[1:].view(shape)
+    k = torch.zeros(shape, dtype=tdt, device=cuda)
     before = flash_ops.KERNEL.launches
     with pytest.raises(ValueError, match="16-byte aligned"):
         flash_ops.flash_attention(q, k, k)

@@ -8,12 +8,13 @@ device time at the main paths' shapes.
         --order parent,change,change,parent,parent,change \
         [--kernel flash|paged|cvt|upcast|split|simt] [--sass-only]
 
-Each checkout builds its own library (``flash_attention``;
-``paged_attention`` with ``--kernel paged`` or ``simt``;
+Each checkout builds its own libraries (``flash_attention`` and
+``flash_attention_noncausal``; ``paged_attention`` with ``--kernel paged``,
+and the three with ``simt``;
 ``paged_attention_cvt``, K2 over pages of another dtype than q, with
 ``--kernel cvt``; ``paged_attention_upcast``, K2's upcast mode, with
 ``--kernel upcast``; in its ``src/repro_torch/build``); ``cuobjdump -sass``
-lists its functions, and a line per instance (``flash_fwd_wgmma``, or
+lists its functions, and a line per instance (``flash_fwd_wgmma``, and
 ``flash_fwd_simt`` with ``--kernel simt``; ``paged_split_mma``,
 ``paged_split_simt`` and ``paged_merge``; ``paged_split_cvt``,
 ``stats_merge``, ``part_sum`` and ``paged_cluster_cvt``;
@@ -41,12 +42,16 @@ a replayed CUDA graph. ``--kernel split``: the SASS of every library
 llama3.2-3b's and h2o-danube's decode batches, of the reasoning lengths at
 G 16 and G 8 and of ``ODD_KV``'s rows, fp8 and int8 pages: the sequence
 split's launches as the tree runs them (a tree before the map over token
-pairs: its partition passes at ``ODD_KV``). ``--kernel simt``: the fp32 SIMT instances, K1's causal
-``flash_fwd_simt`` at (1, 1000, 24, 8, 128) and K2's ``paged_split_simt``
-plus its merge at llama3.2-3b's decode batch (``time_flash``,
-``time_paged``: the bound at the fp32 rate, SDPA on the same fp32 tensors,
-K2's cache pre-gathered). Lines also go to ``ab_flash.jsonl`` in the
-output directory (``OUT``), which each call rewrites.
+pairs: its partition passes at ``ODD_KV``). ``--kernel simt``: the fp32
+SIMT instances, the SASS of both K1 libraries' ``flash_fwd_wgmma`` and
+``flash_fwd_simt`` (the bf16 instances must hash alike) and of the
+same-dtype K2's, then K1's ``flash_fwd_simt`` at ``SIMT_CASES`` and K2's
+``paged_split_simt`` plus its merge at llama3.2-3b's decode batch
+(``time_flash``, ``time_paged``: the bound at the fp32 rate, SDPA on the
+same fp32 tensors, K2's cache pre-gathered). ``--kernel flash`` compares
+both K1 libraries' ``flash_fwd_wgmma``. Lines also go to
+``ab_flash.jsonl`` in the output directory (``OUT``), which each call
+rewrites.
 """
 from __future__ import annotations
 
@@ -64,6 +69,14 @@ CUOBJDUMP = "/usr/local/cuda/bin/cuobjdump"
 # llama3.2-3b's longest prompt row, h2o-danube's windowed prompt, a ragged one
 CASES = [(1, 2048, 2048, 24, 8, 128, 0), (1, 5000, 5000, 32, 8, 120, 4096),
          (1, 1000, 1000, 24, 8, 128, 0)]
+# K1's fp32 rows (``chip_smoke.FP32_FLASH_TIMED``; (case, causal)), the
+# same for every tree: llama3.2-3b's heads at S 1000 and 2048, zamba2's,
+# the swa equality run's 4200-token prompt under the window, S 1000
+# non-causal
+SIMT_CASES = [((1, 1000, 1000, 24, 8, 128, 0), True), ((1, 2048, 2048, 24, 8, 128, 0), True),
+              ((1, 1000, 1000, 32, 32, 80, 0), True),
+              ((1, 4200, 4200, 32, 8, 120, 4096), True),
+              ((1, 1000, 1000, 24, 8, 128, 0), False)]
 # h2o-danube's rows at tp 8 (one kv head of 120 a rank, its window) and
 # under three kv heads: 8-bit rows whose token stride is no 16-byte multiple
 ODD_KV = [dict(B=16, KV=kv, G=4, D=120, min_ctx=4096, max_ctx=6400, window=4096)
@@ -78,7 +91,8 @@ def emit(**kw):
 
 
 # --kernel -> [(library, the functions whose SASS is compared)]
-KERNELS = {"flash": [("flash_attention", ("flash_fwd_wgmma",))],
+KERNELS = {"flash": [("flash_attention", ("flash_fwd_wgmma",)),
+                     ("flash_attention_noncausal", ("flash_fwd_wgmma",))],
            "paged": [("paged_attention", ("paged_split_mma", "paged_split_simt",
                                           "paged_merge"))],
            "cvt": [("paged_attention_cvt", ("paged_split_cvt", "stats_merge", "part_sum",
@@ -90,7 +104,9 @@ KERNELS["split"] = [("flash_attention", ("flash_fwd",)),
                     *KERNELS["paged"],
                     *KERNELS["cvt"], *KERNELS["upcast"],
                     ("paged_attention_split", ("paged_split_stats", "paged_split_values"))]
-KERNELS["simt"] = [("flash_attention", ("flash_fwd_simt",)), *KERNELS["paged"]]
+KERNELS["simt"] = [("flash_attention", ("flash_fwd_wgmma", "flash_fwd_simt")),
+                   ("flash_attention_noncausal", ("flash_fwd_wgmma", "flash_fwd_simt")),
+                   *KERNELS["paged"]]
 
 
 def _import(tree: Path, kernel: str):
@@ -160,8 +176,9 @@ def timing(label: str, tree: Path, kernel: str):
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.paged_attention import ops as paged_ops
     if kernel == "simt":
-        r = cs.time_flash(flash_ops, (1, 1000, 1000, 24, 8, 128, 0), torch.float32, gen)
-        emit(phase="timing", tree=label, kernel="flash_attention", **r)
+        for case, causal in SIMT_CASES:
+            r = cs.time_flash(flash_ops, case, torch.float32, gen, causal=causal)
+            emit(phase="timing", tree=label, kernel="flash_attention", **r)
         r = cs.time_paged(paged_ops, torch.float32, gen, cs.MAIN_PAGED)
         emit(phase="timing", tree=label, kernel="paged_attention", **r)
         return
